@@ -1,0 +1,4 @@
+from diff3d_tpu_torch.convert.from_jax import (convert_params,
+                                               load_flax_params, load_npz)
+
+__all__ = ["convert_params", "load_flax_params", "load_npz"]
