@@ -10,16 +10,18 @@ becomes a hand-written CUDA C++ kernel under ``ops/csrc/``, built with
 ``nvcc`` at first use.
 
 Entry points (:func:`diff3d_tpu_torch.models.build_model`,
-:class:`diff3d_tpu_torch.sampling.Sampler`, ``cli/sample_cli.py``) run on
-``cuda`` unless the caller passes ``device="cpu"``; without a card and
-without an explicit device they raise.
+:class:`diff3d_tpu_torch.sampling.Sampler`,
+:class:`diff3d_tpu_torch.train.Trainer`, ``cli/sample_cli.py``,
+``cli/train_cli.py``) run on ``cuda`` unless the caller passes
+``device="cpu"``; without a card and without an explicit device they
+raise.
 """
 
 __version__ = "0.1.0"
 
-from diff3d_tpu_torch.config import (Config, DiffusionConfig, ModelConfig,
-                                     srn64_config, srn128_config,
-                                     test_config)
+from diff3d_tpu_torch.config import (Config, DataConfig, DiffusionConfig,
+                                     ModelConfig, TrainConfig, srn64_config,
+                                     srn128_config, test_config)
 
-__all__ = ["Config", "DiffusionConfig", "ModelConfig", "srn64_config",
-           "srn128_config", "test_config"]
+__all__ = ["Config", "DataConfig", "DiffusionConfig", "ModelConfig",
+           "TrainConfig", "srn64_config", "srn128_config", "test_config"]

@@ -1,6 +1,6 @@
 """Carry the JAX package's Flax parameter tree into the port's
 ``state_dict`` (the inverse direction of ``diff3d_tpu/convert/
-torch_ckpt.py``).
+torch_ckpt.py``), and a whole JAX ``TrainState`` into the port's.
 
 The port's modules carry the Flax module names, so a Flax leaf path names
 its port parameter:
@@ -96,6 +96,34 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     model's device)."""
     model.load_state_dict(convert_params(params, model), strict=True)
     return model
+
+
+def load_flax_train_state(state, *, params: Mapping, ema_params: Mapping,
+                          mu: Mapping, nu: Mapping, adam_count: int,
+                          schedule_count: int, step: int):
+    """Carry a JAX ``TrainState`` into the port's
+    :class:`~diff3d_tpu_torch.train.TrainState` in place: the parameters,
+    the EMA, Adam's first / second moments (``ScaleByAdamState.mu`` /
+    ``nu``, the same tree as the parameters) and its count (torch's per
+    parameter ``step``), the warmup schedule's count
+    (``ScaleByScheduleState.count``) and ``TrainState.step``.  The trees
+    are numpy, as :func:`convert_params` takes them; the JAX side
+    extracts them."""
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    model = state.model
+    load_flax_params(model, params)
+    ema, m1, m2 = (convert_params(t, model) for t in (ema_params, mu, nu))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            state.ema[name].copy_(ema[name])
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(adam_count)),
+                "exp_avg": m1[name].to(p.device),
+                "exp_avg_sq": m2[name].to(p.device)}
+    set_schedule_step(state, int(schedule_count))
+    state.step = int(step)
+    return state
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:

@@ -1,12 +1,14 @@
-"""Continuous-time logSNR-parameterised VP diffusion, sampling side
-(counterpart: ``diff3d_tpu/diffusion/core.py``).
+"""Continuous-time logSNR-parameterised VP diffusion: the training loss
+and the sampling side (counterpart: ``diff3d_tpu/diffusion/core.py``).
 
 Images are ``[B, H, W, 3]`` as in the JAX package.  The reverse loop is a
 Python loop of eager steps (the JAX package's ``lax.scan``); each step is
 one 2B-batched cond + uncond model call.  Every random draw goes through
-a :class:`Draws` object, so a test can replay the JAX package's key
-stream: init noise, the stochastic-conditioning indices, the uncond
-frames and the step noise.  ``p_losses`` comes with the training slice.
+an injectable object, so a test can replay the JAX package's key stream:
+:class:`TrainDraws` for :func:`p_losses` (t, the noise, the CFG mask and
+the unconditional frames), :class:`Draws` for the sampler (init noise,
+the stochastic-conditioning indices, the uncond frames and the step
+noise).
 """
 
 from __future__ import annotations
@@ -64,6 +66,77 @@ def _cfg_x0(eps_cond, eps_uncond, z, alpha, sigma, w, clip_x0):
     if clip_x0:
         z_start = torch.clamp(z_start, -1.0, 1.0)
     return eps, z_start
+
+
+class TrainDraws:
+    """The random draws of one :func:`p_losses` call, taken from one
+    ``torch.Generator`` in this order: ``t``, ``noise``, ``cond_u``,
+    ``x_noise``; the same generator feeds the model's dropout.  A test
+    replays the JAX package's four ``jax.random.split(rng, 4)`` draws by
+    passing an object with the same methods (and ``generator``)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def t(self, n: int, device: torch.device) -> torch.Tensor:
+        """Diffusion times, uniform in ``[0, 1)``, ``[n]``."""
+        return torch.rand((n,), generator=self.generator, device=device)
+
+    def noise(self, shape: Sequence[int],
+              device: torch.device) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=device)
+
+    def cond_u(self, n: int, device: torch.device) -> torch.Tensor:
+        """Uniforms of the CFG mask, ``[n]``: conditional where
+        ``> cond_prob``."""
+        return torch.rand((n,), generator=self.generator, device=device)
+
+    def x_noise(self, shape: Sequence[int],
+                device: torch.device) -> torch.Tensor:
+        """The noise that replaces the conditioning frame where
+        unconditional."""
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=device)
+
+
+LOSS_TYPES = ("l1", "l2", "huber")
+
+
+def p_losses(denoise_fn: DenoiseFn, imgs: torch.Tensor, R: torch.Tensor,
+             T: torch.Tensor, K: torch.Tensor, draws, *,
+             cond_prob: float = 0.1, loss_type: str = "l2",
+             logsnr_min: float = -20.0, logsnr_max: float = 20.0
+             ) -> torch.Tensor:
+    """epsilon-prediction loss with classifier-free-guidance dropout
+    (``diff3d_tpu/diffusion/core.py:76-115``).  ``imgs`` is ``[B, 2, H, W,
+    3]`` f32: frame 0 is the source view ``x``, frame 1 the target ``z``.
+    With probability ``cond_prob`` an element is trained unconditionally:
+    its conditioning frame is replaced by N(0, 1) noise and its
+    ``cond_mask`` is False.  Returns the scalar mean loss (f32)."""
+    if loss_type not in LOSS_TYPES:
+        raise NotImplementedError(loss_type)
+    B = imgs.shape[0]
+    device = imgs.device
+    x, z = imgs[:, 0], imgs[:, 1]
+    logsnr = logsnr_schedule_cosine(draws.t(B, device),
+                                    logsnr_min=logsnr_min,
+                                    logsnr_max=logsnr_max)
+    noise = draws.noise(z.shape, device)
+    z_noisy = q_sample(z, logsnr, noise)
+    cond_mask = draws.cond_u(B, device) > cond_prob
+    x_cond = torch.where(cond_mask[:, None, None, None], x,
+                         draws.x_noise(x.shape, device))
+    batch = make_model_batch(x_cond, z_noisy, logsnr, R, T, K,
+                             logsnr_max=logsnr_max)
+    d = noise - denoise_fn(batch, cond_mask)
+    if loss_type == "l1":
+        return d.abs().mean()
+    if loss_type == "l2":
+        return (d * d).mean()
+    # torch smooth_l1 with beta = 1.
+    a = d.abs()
+    return torch.where(a < 1.0, 0.5 * a * a, a - 0.5).mean()
 
 
 def p_mean_variance(eps_cond: torch.Tensor, eps_uncond: torch.Tensor,

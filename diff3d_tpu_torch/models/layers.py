@@ -163,18 +163,37 @@ class FiLM(nn.Module):
         return e[..., :self.features], e[..., self.features:]
 
 
+def dropout(h: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``flax.linen.Dropout``: identity when not training or at rate 0,
+    zeros at rate 1, else ``h / (1 - rate)`` where a uniform draw from
+    ``generator`` is below ``1 - rate`` and 0 elsewhere.  The draw needs
+    an explicit generator (on ``h``'s device)."""
+    if not training or rate == 0.0:
+        return h
+    if rate == 1.0:
+        return torch.zeros_like(h)
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = torch.rand(h.shape, generator=generator, device=h.device) \
+        < 1.0 - rate
+    return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+
+
 class ResnetBlock(nn.Module):
     """BigGAN-style residual block over frames (reference
-    ``xunet.py:90-152``): GN -> SiLU -> conv3x3 -> GN -> FiLM ->
-    conv3x3(zero-init) -> (+ 1x1-projected skip) -> /sqrt(2) -> optional
-    up/down resample.  Dropout is off (inference)."""
+    ``xunet.py:90-152``): GN -> SiLU -> conv3x3 -> GN -> FiLM -> dropout
+    -> conv3x3(zero-init) -> (+ 1x1-projected skip) -> /sqrt(2) ->
+    optional up/down resample.  Dropout is active in ``train()`` mode
+    only, drawing from the generator passed to :meth:`forward`."""
 
     def __init__(self, in_ch: int, features: int, emb_ch: int, *,
-                 resample: Optional[str] = None,
+                 resample: Optional[str] = None, dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         dt = compute_dtype
         self.resample = resample
+        self.dropout_rate = dropout
         self.FrameGroupNorm_0 = FrameGroupNorm(in_ch, silu=True)
         self.conv1 = Conv(in_ch, features, 3, compute_dtype=dt)
         self.FiLM_0 = FiLM(emb_ch, features, dt)
@@ -184,11 +203,14 @@ class ResnetBlock(nn.Module):
         self.skip_proj = (Conv(in_ch, features, 1, compute_dtype=dt)
                           if in_ch != features else None)
 
-    def forward(self, h_in: torch.Tensor, emb: torch.Tensor
+    def forward(self, h_in: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         h = self.conv1(self.FrameGroupNorm_0(h_in))
         scale, shift = self.FiLM_0(emb)
-        h = self.conv2(self.FrameGroupNorm_1(h, scale, shift))
+        h = dropout(self.FrameGroupNorm_1(h, scale, shift),
+                    self.dropout_rate, self.training, generator)
+        h = self.conv2(h)
         if self.skip_proj is not None:
             h_in = self.skip_proj(h_in)
         out = (h + h_in) / _SQRT2
@@ -253,9 +275,11 @@ class XUNetBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, emb_ch: int, *,
                  use_attn: bool = False, num_heads: int = 4,
+                 dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resnetblock = ResnetBlock(in_ch, features, emb_ch,
+                                       dropout=dropout,
                                        compute_dtype=compute_dtype)
         self.use_attn = use_attn
         if use_attn:
@@ -264,9 +288,9 @@ class XUNetBlock(nn.Module):
             self.attnblock_cross = AttnBlock("cross", features, num_heads,
                                              compute_dtype)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                frames: int) -> torch.Tensor:
-        h = self.resnetblock(x, emb)
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, frames: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.resnetblock(x, emb, generator)
         if self.use_attn:
             h = self.attnblock_cross(self.attnblock_self(h, frames), frames)
         return h

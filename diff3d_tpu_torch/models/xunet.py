@@ -38,7 +38,7 @@ class XUNet(nn.Module):
         cfg.validate()
         self.cfg = cfg
         dt = cfg.torch_dtype
-        kw = dict(compute_dtype=dt)
+        kw = dict(compute_dtype=dt, dropout=cfg.dropout)
         num_res = cfg.num_resolutions
         dim_out = [cfg.ch * m for m in cfg.ch_mult]
         E = cfg.emb_ch
@@ -83,7 +83,11 @@ class XUNet(nn.Module):
                               zero_init=True)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                cond_mask: torch.Tensor) -> torch.Tensor:
+                cond_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``generator`` feeds dropout in ``train()`` mode (every
+        ResnetBlock draws from it in call order)."""
         cfg = self.cfg
         num_res = cfg.num_resolutions
         B, H, W, C = batch["x"].shape
@@ -105,19 +109,20 @@ class XUNet(nn.Module):
         for i in range(num_res):
             emb = level_emb(i)
             for b in range(cfg.num_res_blocks):
-                h = getattr(self, f"down_{i}_{b}")(h, emb, FRAMES)
+                h = getattr(self, f"down_{i}_{b}")(h, emb, FRAMES,
+                                                   generator)
                 hs.append(h)
             if i != num_res - 1:
-                h = getattr(self, f"down_{i}_downsample")(h, emb)
+                h = getattr(self, f"down_{i}_downsample")(h, emb, generator)
                 hs.append(h)
-        h = self.middle(h, level_emb(num_res - 1), FRAMES)
+        h = self.middle(h, level_emb(num_res - 1), FRAMES, generator)
         for i in reversed(range(num_res)):
             emb = level_emb(i)
             for b in range(cfg.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop()], dim=-1)
-                h = getattr(self, f"up_{i}_{b}")(h, emb, FRAMES)
+                h = getattr(self, f"up_{i}_{b}")(h, emb, FRAMES, generator)
             if i != 0:
-                h = getattr(self, f"up_{i}_upsample")(h, emb)
+                h = getattr(self, f"up_{i}_upsample")(h, emb, generator)
         assert not hs
 
         h = self.last_conv(self.last_gn(h))

@@ -1,7 +1,10 @@
-// Flash attention, forward, over q [B, Lq, H, D], k/v [B, Lk, H, D].
+// Flash attention over q [B, Lq, H, D], k/v [B, Lk, H, D]: forward (with
+// the per-row log-sum-exp when asked, save_lse) and backward (below the
+// forward).
 //
 // Replaces the TPU kernel diff3d_tpu/ops/pallas_attention.py::_fwd_kernel
-// (launched by _fwd_call, pallas_attention.py:185, with save_lse=False).
+// (launched by _fwd_call, pallas_attention.py:185, with save_lse=False and,
+// when the lse pointer is given, save_lse=True: lse = m + log(l)).
 // Same function: softmax(q k^T / sqrt(D)) v with an online softmax over
 // key tiles (running max, sum and accumulator in f32), padded key columns
 // masked to -1e30, and l == 0 -> 1 at the end (pallas_attention.py:157).
@@ -65,6 +68,7 @@ struct FlashArgs {
   long long svb, svl, svh;
   void* o;
   long long sob, sol, soh;
+  float* lse;                      // [B, H, Lq] f32, or null
   int B, H, Lq, Lk, D;
   float scale;
 };
@@ -208,6 +212,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
       if (d < a.D)
         ob[(int64_t)(q0 + i) * a.sol + d] = from_f32<T>(acc[r][c] / l_safe);
     }
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(int64_t)blockIdx.y * a.Lq + q0 + i] = m_s[i] + logf(l_safe);
   }
 }
 
@@ -238,18 +244,341 @@ cudaError_t launch_d(const FlashArgs& a, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward.  Replaces diff3d_tpu/ops/pallas_attention.py::_bwd_dkdv_kernel
+// (the `dkdv` call, :287) and ::_bwd_dq_kernel (the `dq` call, :306).  Same
+// function: with P = exp(q k^T * scale - lse) recomputed per tile,
+//   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta + glse) * scale,
+//   dK = dS^T Q,  dQ = dS K,
+// where delta = rowsum(dO * O) and glse is the lse cotangent (zero on the
+// training path).  Accumulation in f32; dq / dk / dv rounded once.
+//
+// What bounds it on an H100: operations (10 * L^2 * D per (b, h) against
+// ~8 * L * D elements of I/O), like the forward; this first version also
+// runs on the f32 CUDA cores.  Design:
+//   * delta is computed once, in a pre-pass (one warp per query row), as
+//     rowsum(dO * O) - glse into a [B, H, Lq] f32 scratch, so the two main
+//     kernels read one number per row instead of re-reducing dO * O;
+//   * the Pallas two-kernel split is kept so neither kernel needs atomics:
+//     dK/dV, one block per 32-key tile looping over 32-query tiles; dQ, one
+//     block per 32-query tile looping over 32-key tiles;
+//   * Q, dO, K, V tiles staged in shared memory as f32 with rows padded by
+//     one float (conflict-free key-major reads); the 32 x 32 P and dS tiles
+//     never leave shared memory.  At D = 256 a block holds 4 x 32 x 257 + 2 x
+//     32 x 33 floats = 140 KB, inside the 227 KB a block may use.
+
+constexpr int BB = 32;              // rows of a backward tile (keys or queries)
+
+struct FlashBwdArgs {
+  const void* q;
+  long long sqb, sql, sqh;
+  const void* k;
+  long long skb, skl, skh;
+  const void* v;
+  long long svb, svl, svh;
+  const void* o;
+  long long sob, sol, soh;
+  const void* dO;
+  long long sdb, sdl, sdh;
+  const float* lse;                // [B, H, Lq]
+  const float* glse;               // [B, H, Lq] or null (zero)
+  float* delta;                    // [B, H, Lq] scratch
+  void* dq;                        // contiguous [B, Lq, H, D]
+  void* dk;                        // contiguous [B, Lk, H, D]
+  void* dv;
+  int B, H, Lq, Lk, D;
+  float scale;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(FlashBwdArgs a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * (NT / 32) + warp;
+  if (i >= a.Lq) return;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const T* orow = static_cast<const T*>(a.o) + (int64_t)b * a.sob +
+                  (int64_t)h * a.soh + (int64_t)i * a.sol;
+  const T* drow = static_cast<const T*>(a.dO) + (int64_t)b * a.sdb +
+                  (int64_t)h * a.sdh + (int64_t)i * a.sdl;
+  float sum = 0.f;
+  for (int d = lane; d < a.D; d += 32)
+    sum += load_f32<T>(orow + d) * load_f32<T>(drow + d);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    const int64_t r = (int64_t)blockIdx.y * a.Lq + i;
+    a.delta[r] = sum - (a.glse != nullptr ? a.glse[r] : 0.f);
+  }
+}
+
+template <int DCH>
+constexpr size_t bwd_smem_floats() {
+  return (size_t)4 * BB * (DCH * 32 + 1) + 2 * BB * (BB + 1) + 2 * BB;
+}
+
+// Stage rows [r0, r0 + BB) of a strided [L, D] head view as f32 (zeros past
+// L and D).
+template <typename T, int DCH>
+__device__ __forceinline__ void stage(float* dst, const T* src, long long sl,
+                                      int r0, int L, int D) {
+  constexpr int DP = DCH * 32, LD = DP + 1;
+  for (int e = threadIdx.x; e < BB * DP; e += NT) {
+    const int i = e / DP, d = e % DP;
+    float val = 0.f;
+    if (r0 + i < L && d < D) val = load_f32<T>(src + (int64_t)(r0 + i) * sl + d);
+    dst[i * LD + d] = val;
+  }
+}
+
+// P and dS of one (query tile, key tile) pair into shared memory:
+// thread (lane j, warp w) computes rows w + 8r (r < 4) of key column j.
+template <int DCH>
+__device__ __forceinline__ void score_tile(const float* Qs, const float* dOs,
+                                           const float* Ks, const float* Vs,
+                                           const float* lse_s,
+                                           const float* dl_s, float* P,
+                                           float* dS, int nq, int nk,
+                                           float scale) {
+  constexpr int LD = DCH * 32 + 1;
+  const int j = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int d = 0; d < DCH * 32; ++d) {
+    const float kd = Ks[j * LD + d], vd = Vs[j * LD + d];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      s[r] += Qs[(w + 8 * r) * LD + d] * kd;
+      dp[r] += dOs[(w + 8 * r) * LD + d] * vd;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = w + 8 * r;
+    const float p = (i < nq && j < nk) ? expf(s[r] * scale - lse_s[i]) : 0.f;
+    P[i * (BB + 1) + j] = p;
+    dS[i * (BB + 1) + j] = p * (dp[r] - dl_s[i]) * scale;
+  }
+}
+
+template <typename T, int DCH>
+__global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(FlashBwdArgs a) {
+  constexpr int DP = DCH * 32, LD = DP + 1;
+  extern __shared__ float4 smem_f4[];
+  float* Ks = reinterpret_cast<float*>(smem_f4);    // [BB][LD]
+  float* Vs = Ks + BB * LD;
+  float* Qs = Vs + BB * LD;
+  float* dOs = Qs + BB * LD;
+  float* P = dOs + BB * LD;                          // [BB][BB + 1]
+  float* dS = P + BB * (BB + 1);
+  float* lse_s = dS + BB * (BB + 1);                 // [BB]
+  float* dl_s = lse_s + BB;                          // [BB]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * BB;
+  const T* qb = static_cast<const T*>(a.q) + (int64_t)b * a.sqb +
+                (int64_t)h * a.sqh;
+  const T* kb = static_cast<const T*>(a.k) + (int64_t)b * a.skb +
+                (int64_t)h * a.skh;
+  const T* vb = static_cast<const T*>(a.v) + (int64_t)b * a.svb +
+                (int64_t)h * a.svh;
+  const T* db = static_cast<const T*>(a.dO) + (int64_t)b * a.sdb +
+                (int64_t)h * a.sdh;
+  stage<T, DCH>(Ks, kb, a.skl, k0, a.Lk, a.D);
+  stage<T, DCH>(Vs, vb, a.svl, k0, a.Lk, a.D);
+
+  // Thread (lane, warp) accumulates key rows warp + 8r, head columns
+  // lane + 32c.
+  float dk[4][DCH], dv[4][DCH];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) dk[r][c] = dv[r][c] = 0.f;
+
+  for (int q0 = 0; q0 < a.Lq; q0 += BB) {
+    __syncthreads();  // the previous tile's Q / dO / P / dS are read
+    stage<T, DCH>(Qs, qb, a.sql, q0, a.Lq, a.D);
+    stage<T, DCH>(dOs, db, a.sdl, q0, a.Lq, a.D);
+    if (tid < BB) {
+      const bool ok = q0 + tid < a.Lq;
+      const int64_t r = (int64_t)bh * a.Lq + q0 + tid;
+      lse_s[tid] = ok ? a.lse[r] : 0.f;
+      dl_s[tid] = ok ? a.delta[r] : 0.f;
+    }
+    __syncthreads();
+    score_tile<DCH>(Qs, dOs, Ks, Vs, lse_s, dl_s, P, dS, a.Lq - q0,
+                    a.Lk - k0, a.scale);
+    __syncthreads();
+    for (int i = 0; i < BB; ++i) {
+      float qi[DCH], di[DCH];
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) {
+        qi[c] = Qs[i * LD + lane + 32 * c];
+        di[c] = dOs[i * LD + lane + 32 * c];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = P[i * (BB + 1) + warp + 8 * r];
+        const float ds = dS[i * (BB + 1) + warp + 8 * r];
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) {
+          dv[r][c] += p * di[c];
+          dk[r][c] += ds * qi[c];
+        }
+      }
+    }
+  }
+
+  T* dkb = static_cast<T*>(a.dk);
+  T* dvb = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = k0 + warp + 8 * r;
+    if (j >= a.Lk) continue;
+    const int64_t row = (((int64_t)b * a.Lk + j) * a.H + h) * a.D;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) {
+      const int d = lane + 32 * c;
+      if (d < a.D) {
+        dkb[row + d] = from_f32<T>(dk[r][c]);
+        dvb[row + d] = from_f32<T>(dv[r][c]);
+      }
+    }
+  }
+}
+
+template <typename T, int DCH>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
+  constexpr int DP = DCH * 32, LD = DP + 1;
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);    // [BB][LD]
+  float* dOs = Qs + BB * LD;
+  float* Ks = dOs + BB * LD;
+  float* Vs = Ks + BB * LD;
+  float* P = Vs + BB * LD;                           // [BB][BB + 1]
+  float* dS = P + BB * (BB + 1);
+  float* lse_s = dS + BB * (BB + 1);
+  float* dl_s = lse_s + BB;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * BB;
+  const T* qb = static_cast<const T*>(a.q) + (int64_t)b * a.sqb +
+                (int64_t)h * a.sqh;
+  const T* kb = static_cast<const T*>(a.k) + (int64_t)b * a.skb +
+                (int64_t)h * a.skh;
+  const T* vb = static_cast<const T*>(a.v) + (int64_t)b * a.svb +
+                (int64_t)h * a.svh;
+  const T* db = static_cast<const T*>(a.dO) + (int64_t)b * a.sdb +
+                (int64_t)h * a.sdh;
+  stage<T, DCH>(Qs, qb, a.sql, q0, a.Lq, a.D);
+  stage<T, DCH>(dOs, db, a.sdl, q0, a.Lq, a.D);
+  if (tid < BB) {
+    const bool ok = q0 + tid < a.Lq;
+    const int64_t r = (int64_t)bh * a.Lq + q0 + tid;
+    lse_s[tid] = ok ? a.lse[r] : 0.f;
+    dl_s[tid] = ok ? a.delta[r] : 0.f;
+  }
+
+  // Thread (lane, warp) accumulates query rows warp + 8r, columns
+  // lane + 32c.
+  float dq[4][DCH];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) dq[r][c] = 0.f;
+
+  for (int k0 = 0; k0 < a.Lk; k0 += BB) {
+    __syncthreads();  // the previous tile's K / V / dS are read
+    stage<T, DCH>(Ks, kb, a.skl, k0, a.Lk, a.D);
+    stage<T, DCH>(Vs, vb, a.svl, k0, a.Lk, a.D);
+    __syncthreads();
+    score_tile<DCH>(Qs, dOs, Ks, Vs, lse_s, dl_s, P, dS, a.Lq - q0,
+                    a.Lk - k0, a.scale);
+    __syncthreads();
+    for (int j = 0; j < BB; ++j) {
+      float kj[DCH];
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) kj[c] = Ks[j * LD + lane + 32 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float ds = dS[(warp + 8 * r) * (BB + 1) + j];
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) dq[r][c] += ds * kj[c];
+      }
+    }
+  }
+
+  T* dqb = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + warp + 8 * r;
+    if (i >= a.Lq) continue;
+    const int64_t row = (((int64_t)b * a.Lq + i) * a.H + h) * a.D;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) {
+      const int d = lane + 32 * c;
+      if (d < a.D) dqb[row + d] = from_f32<T>(dq[r][c]);
+    }
+  }
+}
+
+template <typename T, int DCH>
+cudaError_t launch_bwd(const FlashBwdArgs& a, int part, cudaStream_t stream) {
+  const size_t smem = bwd_smem_floats<DCH>() * sizeof(float);
+  if (part == 0) {
+    flash_bwd_delta_kernel<T>
+        <<<dim3((a.Lq + NT / 32 - 1) / (NT / 32), a.B * a.H), NT, 0,
+           stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DCH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_kernel<T, DCH>
+        <<<dim3((a.Lk + BB - 1) / BB, a.B * a.H), NT, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, DCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, DCH>
+      <<<dim3((a.Lq + BB - 1) / BB, a.B * a.H), NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_d(const FlashBwdArgs& a, int part,
+                         cudaStream_t stream) {
+  switch ((a.D + 31) / 32) {
+    case 1: return launch_bwd<T, 1>(a, part, stream);
+    case 2: return launch_bwd<T, 2>(a, part, stream);
+    case 3: return launch_bwd<T, 3>(a, part, stream);
+    case 4: return launch_bwd<T, 4>(a, part, stream);
+    case 5: return launch_bwd<T, 5>(a, part, stream);
+    case 6: return launch_bwd<T, 6>(a, part, stream);
+    case 7: return launch_bwd<T, 7>(a, part, stream);
+    case 8: return launch_bwd<T, 8>(a, part, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
-// Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  lse:
+// float [B, H, Lq], the per-row log-sum-exp, written when not null
+// (save_lse).  Returns a cudaError_t code.
 int flash_attention_forward(const void* q, long long sqb, long long sql,
                             long long sqh, const void* k, long long skb,
                             long long skl, long long skh, const void* v,
                             long long svb, long long svl, long long svh,
                             void* o, long long sob, long long sol,
-                            long long soh, int B, int H, int Lq, int Lk,
+                            long long soh, void* lse, int B, int H, int Lq,
+                            int Lk,
                             int D, float scale, int dtype, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > 256 ||
       (dtype != 0 && dtype != 1))
@@ -271,6 +600,7 @@ int flash_attention_forward(const void* q, long long sqb, long long sql,
   a.sob = sob;
   a.sol = sol;
   a.soh = soh;
+  a.lse = static_cast<float*>(lse);
   a.B = B;
   a.H = H;
   a.Lq = Lq;
@@ -280,6 +610,65 @@ int flash_attention_forward(const void* q, long long sqb, long long sql,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? launch_d<float>(a, st)
                                : launch_d<__nv_bfloat16>(a, st);
+  return (int)err;
+}
+
+// Backward of flash_attention_forward (saved with lse).  part 0 runs the
+// delta pre-pass (into `delta`, float [B, H, Lq]) and the dK/dV kernel;
+// part 1 the dQ kernel, which reads that delta.  glse may be null (zero).
+// dq / dk / dv are contiguous [B, L, H, D] of dtype.  Returns a
+// cudaError_t code.
+int flash_attention_backward(
+    const void* q, long long sqb, long long sql, long long sqh,
+    const void* k, long long skb, long long skl, long long skh,
+    const void* v, long long svb, long long svl, long long svh,
+    const void* o, long long sob, long long sol, long long soh,
+    const void* dO, long long sdb, long long sdl, long long sdh,
+    const void* lse, const void* glse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int Lq, int Lk, int D, float scale, int dtype,
+    int part, void* stream) {
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > 256 ||
+      (dtype != 0 && dtype != 1) || (part != 0 && part != 1) ||
+      lse == nullptr || delta == nullptr ||
+      (part == 0 && (dk == nullptr || dv == nullptr)) ||
+      (part == 1 && dq == nullptr))
+    return (int)cudaErrorInvalidValue;
+  FlashBwdArgs a;
+  a.q = q;
+  a.sqb = sqb;
+  a.sql = sql;
+  a.sqh = sqh;
+  a.k = k;
+  a.skb = skb;
+  a.skl = skl;
+  a.skh = skh;
+  a.v = v;
+  a.svb = svb;
+  a.svl = svl;
+  a.svh = svh;
+  a.o = o;
+  a.sob = sob;
+  a.sol = sol;
+  a.soh = soh;
+  a.dO = dO;
+  a.sdb = sdb;
+  a.sdl = sdl;
+  a.sdh = sdh;
+  a.lse = static_cast<const float*>(lse);
+  a.glse = static_cast<const float*>(glse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.B = B;
+  a.H = H;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.D = D;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 0 ? launch_bwd_d<float>(a, part, st)
+                               : launch_bwd_d<__nv_bfloat16>(a, part, st);
   return (int)err;
 }
 

@@ -1,18 +1,20 @@
-"""Fused GroupNorm -> (FiLM) -> (SiLU) epilogues, forward (counterpart:
-``diff3d_tpu/ops/pallas_film.py``).
+"""Fused GroupNorm -> (FiLM) -> (SiLU) epilogues, forward and backward
+(counterpart: ``diff3d_tpu/ops/pallas_film.py``).
 
-:func:`fused_groupnorm` is the wrapper of the hand-written CUDA kernel in
-``csrc/film.cu`` (it replaces the Pallas ``_fwd_kernel``,
-``pallas_film.py:174-288``); :func:`groupnorm_reference` beside it is the
-plain PyTorch version of the same function.  Both follow the Pallas
-kernel's semantics, which differ from the JAX package's ``xla`` path in
-bf16: statistics, affine, FiLM and SiLU all stay f32 and the result is
-rounded once at the output (``pallas_film.py:212-220``).
+:func:`fused_groupnorm` is the wrapper of the hand-written CUDA forward
+kernel in ``csrc/film.cu`` (it replaces the Pallas ``_fwd_kernel``,
+``pallas_film.py:174-288``, with ``save_stats`` when autograd records);
+:func:`groupnorm_backward` wraps the backward kernel beside it (it
+replaces ``_bwd_kernel``, ``pallas_film.py:296-433``).
+:func:`groupnorm_reference` and :func:`groupnorm_backward_reference` are
+the plain PyTorch versions.  Both follow the Pallas kernels' semantics,
+which differ from the JAX package's ``xla`` path in bf16: every
+intermediate stays f32 and each result is rounded once
+(``pallas_film.py:212-220, 359-368``).
 
-The wrapper runs the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.  Each launch adds one to
-``fused_groupnorm.launches``.  The backward kernel and ``save_stats``
-come with the training slice.
+The wrappers run the plain versions only for a tensor on the CPU; for a
+CUDA tensor they launch the kernel or raise.  Each launch adds one to
+``fused_groupnorm.launches`` or ``groupnorm_backward.launches``.
 """
 
 from __future__ import annotations
@@ -33,8 +35,11 @@ _c_ll = ctypes.c_longlong
 _c_p = ctypes.c_void_p
 _c_i = ctypes.c_int
 _ARGTYPES = [_c_p, _c_ll, _c_ll, _c_p, _c_p, _c_p, _c_ll, _c_ll, _c_p,
-             _c_ll, _c_ll, _c_p, _c_p, _c_i, _c_i, _c_i, _c_i, _c_i, _c_i,
-             _c_i, _c_i, _c_i, _c_i, ctypes.c_float, _c_p]
+             _c_ll, _c_ll, _c_p, _c_p, _c_p, _c_i, _c_i, _c_i, _c_i, _c_i,
+             _c_i, _c_i, _c_i, _c_i, _c_i, ctypes.c_float, _c_p]
+_BWD_ARGTYPES = ([_c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll, _c_p, _c_p,
+                  _c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll]
+                 + [_c_p] * 7 + [_c_i] * 10 + [_c_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,27 +54,89 @@ def supports(x: torch.Tensor, *args, num_groups: int = 32,
             and 0 < C <= MAX_C)
 
 
+def groupnorm_stats_reference(x: torch.Tensor,
+                              num_groups: int) -> torch.Tensor:
+    """Per-group f32 statistics ``[2, N, G]`` (mean, rstd) of ``x
+    [N, L, C]``: ``E[x^2] - mean^2`` clamped at 0 (``pallas_film.py:
+    509-531``), eps 1e-5 -- the forward's residual under ``save_stats``."""
+    N, L, C = x.shape
+    xf = x.float().reshape(N, L, num_groups, C // num_groups)
+    mean = xf.mean(dim=(1, 3))
+    mean2 = (xf * xf).mean(dim=(1, 3))
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    return torch.stack([mean, torch.rsqrt(var + EPS)])
+
+
+def _per_channel(stat: torch.Tensor, C: int) -> torch.Tensor:
+    """``[N, G]`` -> ``[N, 1, C]`` (each group's value on its channels)."""
+    N, G = stat.shape
+    return stat[:, None, :, None].expand(N, 1, G, C // G).reshape(N, 1, C)
+
+
 def groupnorm_reference(x: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, *, num_groups: int,
                         scale: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None,
-                        silu: bool = False) -> torch.Tensor:
-    """The plain version: f32 statistics as ``E[x^2] - mean^2`` clamped at
-    0 (``pallas_film.py:509-531``), eps 1e-5, then gamma/beta, FiLM
-    ``y * (1 + scale) + shift`` and SiLU in f32, rounded once to
-    ``x.dtype``."""
-    N, L, C = x.shape
-    xf = x.float().reshape(N, L, num_groups, C // num_groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    mean2 = (xf * xf).mean(dim=(1, 3), keepdim=True)
-    var = torch.clamp(mean2 - mean * mean, min=0.0)
-    y = ((xf - mean) * torch.rsqrt(var + EPS)).reshape(N, L, C)
+                        silu: bool = False,
+                        stats: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The plain version: f32 statistics (:func:`groupnorm_stats_reference`,
+    or the given ``stats``), then gamma/beta, FiLM ``y * (1 + scale) +
+    shift`` and SiLU in f32, rounded once to ``x.dtype``."""
+    C = x.shape[-1]
+    if stats is None:
+        stats = groupnorm_stats_reference(x, num_groups)
+    y = (x.float() - _per_channel(stats[0], C)) * _per_channel(stats[1], C)
     y = y * gamma.float() + beta.float()
     if scale is not None:
         y = y * (1.0 + scale.float()) + shift.float()
     if silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def groupnorm_backward_reference(
+        x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+        beta: torch.Tensor, scale: Optional[torch.Tensor],
+        shift: Optional[torch.Tensor], stats: torch.Tensor, *,
+        num_groups: int, silu: bool):
+    """The plain version of the backward, the explicit formula of the
+    Pallas ``_bwd_kernel`` (``pallas_film.py:296-368``): x_hat from the
+    saved ``stats``, SiLU's derivative recomputed from y,
+    ``dx = rstd (dxhat - mean_g(dxhat) - x_hat mean_g(dxhat x_hat))``,
+    ``dscale = dy_f y_gn``, ``dshift = dy_f``, dgamma / dbeta summed over
+    N and L.  All f32; returns ``(dx, dscale, dshift, dgamma, dbeta)`` with
+    dx in ``x.dtype``, dscale / dshift in ``scale.dtype`` (None without
+    FiLM) and dgamma / dbeta f32."""
+    N, L, C = x.shape
+    gs = C // num_groups
+    rstd = _per_channel(stats[1], C)
+    xhat = (x.float() - _per_channel(stats[0], C)) * rstd
+    y_gn = xhat * gamma.float() + beta.float()
+    film = scale is not None
+    if film:
+        sc1 = 1.0 + scale.float()
+        y = y_gn * sc1 + shift.float()
+    else:
+        y = y_gn
+    dy_f = g.float()
+    if silu:
+        sig = torch.sigmoid(y)
+        dy_f = dy_f * (sig * (1.0 + y * (1.0 - sig)))
+    dy_gn = dy_f * sc1 if film else dy_f
+    dxhat = dy_gn * gamma.float()
+
+    def group_mean(t):
+        return _per_channel(
+            t.reshape(N, L, num_groups, gs).mean(dim=(1, 3)), C)
+
+    dx = rstd * (dxhat - group_mean(dxhat) - xhat * group_mean(dxhat * xhat))
+    dgamma = (dy_gn * xhat).sum(dim=(0, 1))
+    dbeta = dy_gn.sum(dim=(0, 1))
+    if film:
+        return (dx.to(x.dtype), (dy_f * y_gn).to(scale.dtype),
+                dy_f.to(shift.dtype), dgamma, dbeta)
+    return dx.to(x.dtype), None, None, dgamma, dbeta
 
 
 def launch_shape(N: int, L: int) -> Tuple[int, int, int]:
@@ -84,12 +151,22 @@ def launch_shape(N: int, L: int) -> Tuple[int, int, int]:
     return splits, rows_per_split, rows_per_block
 
 
+def _raise(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        err = lib.gn_error_string
+        err.argtypes = [_c_i]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} failed: {err(rc).decode()} (code {rc})")
+
+
 def launch(lib, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
            scale: Optional[torch.Tensor], shift: Optional[torch.Tensor], *,
-           num_groups: int, silu: bool, stream: Optional[int]
-           ) -> torch.Tensor:
+           num_groups: int, silu: bool, stream: Optional[int],
+           save_stats: bool = False):
     """One call of ``gn_fused_forward`` in ``lib`` on checked operands;
-    allocates the output and the partial-sum scratch like ``x``."""
+    allocates the output and the partial-sum scratch like ``x``.  Returns
+    the output, and with ``save_stats`` also the ``[2, N, G]`` f32
+    statistics."""
     fn = lib.gn_fused_forward
     fn.argtypes = _ARGTYPES
     fn.restype = _c_i
@@ -98,22 +175,54 @@ def launch(lib, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     out = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
     partial = torch.empty((2, N, num_groups, splits), dtype=torch.float32,
                           device=x.device)
+    stats = (torch.empty((2, N, num_groups), dtype=torch.float32,
+                         device=x.device) if save_stats else None)
     film = scale is not None
     sc = scale if film else x
     sh = shift if film else x
     rc = fn(x.data_ptr(), x.stride(0), x.stride(1), gamma.data_ptr(),
             beta.data_ptr(), sc.data_ptr(), sc.stride(0), sc.stride(1),
             sh.data_ptr(), sh.stride(0), sh.stride(1), out.data_ptr(),
-            partial.data_ptr(), N, L, C, num_groups, splits,
-            rows_per_split, rows_per_block, _DTYPE_CODE[x.dtype],
-            int(film), int(silu), EPS, stream)
-    if rc != 0:
-        err = lib.gn_error_string
-        err.argtypes = [_c_i]
-        err.restype = ctypes.c_char_p
-        raise RuntimeError(
-            f"gn_fused_forward failed: {err(rc).decode()} (code {rc})")
-    return out
+            partial.data_ptr(), 0 if stats is None else stats.data_ptr(),
+            N, L, C, num_groups, splits, rows_per_split, rows_per_block,
+            _DTYPE_CODE[x.dtype], int(film), int(silu), EPS, stream)
+    _raise(lib, "gn_fused_forward", rc)
+    return (out, stats) if save_stats else out
+
+
+def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor,
+                    scale: Optional[torch.Tensor],
+                    shift: Optional[torch.Tensor], stats: torch.Tensor, *,
+                    num_groups: int, silu: bool, stream: Optional[int]):
+    """One call of ``gn_fused_backward`` in ``lib`` on checked operands;
+    allocates contiguous ``dx`` (and ``dscale`` / ``dshift``) like ``x``,
+    f32 ``dgamma`` / ``dbeta`` and the partial-sum scratch."""
+    fn = lib.gn_fused_backward
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = _c_i
+    N, L, C = x.shape
+    splits, rows_per_split, rows_per_block = launch_shape(N, L)
+    film = scale is not None
+    dx = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
+    dscale = torch.empty_like(dx) if film else None
+    dshift = torch.empty_like(dx) if film else None
+    dgb = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    partial = torch.empty(2 * N * splits * (num_groups + C),
+                          dtype=torch.float32, device=x.device)
+    sc = scale if film else x
+    sh = shift if film else x
+    rc = fn(x.data_ptr(), x.stride(0), x.stride(1), g.data_ptr(),
+            g.stride(0), g.stride(1), gamma.data_ptr(), beta.data_ptr(),
+            sc.data_ptr(), sc.stride(0), sc.stride(1), sh.data_ptr(),
+            sh.stride(0), sh.stride(1), stats.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr() if film else 0,
+            dshift.data_ptr() if film else 0, dgb[0].data_ptr(),
+            dgb[1].data_ptr(), partial.data_ptr(), N, L, C, num_groups,
+            splits, rows_per_split, rows_per_block, _DTYPE_CODE[x.dtype],
+            int(film), int(silu), stream)
+    _raise(lib, "gn_fused_backward", rc)
+    return dx, dscale, dshift, dgb[0], dgb[1]
 
 
 def _check(x, gamma, beta, scale, shift, num_groups):
@@ -137,6 +246,78 @@ def _check(x, gamma, beta, scale, shift, num_groups):
         raise ValueError("fused_groupnorm: x is not on the current device")
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+class _FusedGroupNormFn(torch.autograd.Function):
+    """The differentiable fused GroupNorm (``jax.custom_vjp`` of
+    ``pallas_film.py:441-473``): the forward saves x, gamma, beta,
+    scale, shift and the ``[2, N, G]`` statistics; the backward is
+    :func:`groupnorm_backward`.  On CPU tensors both passes are the plain
+    versions; on CUDA tensors both are the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, num_groups, silu):
+        if x.is_cuda:
+            out, stats = launch(build.library("film"), x, gamma, beta, scale,
+                                shift, num_groups=num_groups, silu=silu,
+                                stream=_stream(x), save_stats=True)
+            fused_groupnorm.launches += 1
+        else:
+            stats = groupnorm_stats_reference(x, num_groups)
+            out = groupnorm_reference(x, gamma, beta, num_groups=num_groups,
+                                      scale=scale, shift=shift, silu=silu,
+                                      stats=stats)
+        ctx.save_for_backward(x, gamma, beta, scale, shift, stats)
+        ctx.num_groups, ctx.silu = num_groups, silu
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, gamma, beta, scale, shift, stats = ctx.saved_tensors
+        dx, dscale, dshift, dgamma, dbeta = groupnorm_backward(
+            x, g, gamma, beta, scale, shift, stats,
+            num_groups=ctx.num_groups, silu=ctx.silu)
+        return dx, dgamma, dbeta, dscale, dshift, None, None
+
+
+def groupnorm_backward(x: torch.Tensor, g: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor,
+                       scale: Optional[torch.Tensor],
+                       shift: Optional[torch.Tensor], stats: torch.Tensor,
+                       *, num_groups: int, silu: bool):
+    """Backward of the fused GroupNorm given the upstream gradient ``g``
+    and the forward's ``[2, N, G]`` statistics: ``(dx, dscale, dshift,
+    dgamma, dbeta)``.  ``dscale`` / ``dshift`` are two contiguous tensors
+    (None without FiLM); autograd scatters them into the two halves of the
+    FiLM Dense output's gradient.  On a CPU tensor this is
+    :func:`groupnorm_backward_reference`; on a CUDA tensor the kernel runs
+    or the call raises.  Each launch adds one to
+    ``groupnorm_backward.launches``."""
+    if not x.is_cuda:
+        return groupnorm_backward_reference(
+            x, g, gamma, beta, scale, shift, stats, num_groups=num_groups,
+            silu=silu)
+    _check(x, gamma, beta, scale, shift, num_groups)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"groupnorm_backward: g {tuple(g.shape)} {g.dtype} "
+                         f"must match x {tuple(x.shape)} {x.dtype}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    N, C = x.shape[0], x.shape[-1]
+    if stats.shape != (2, N, num_groups) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous():
+        raise ValueError(f"groupnorm_backward: stats must be a contiguous "
+                         f"float32 [2, {N}, {num_groups}]")
+    out = launch_backward(build.library("film"), x, g, gamma, beta, scale,
+                          shift, stats, num_groups=num_groups, silu=silu,
+                          stream=_stream(x))
+    groupnorm_backward.launches += 1
+    return out
+
+
 def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
                     beta: torch.Tensor, *, num_groups: int,
                     scale: Optional[torch.Tensor] = None,
@@ -150,7 +331,11 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
     Dense output's two halves, row stride 2C).  Returns a contiguous
     ``[N, L, C]`` of ``x.dtype``.  On a CPU tensor this is
     :func:`groupnorm_reference`; on a CUDA tensor the kernel runs or the
-    call raises.
+    call raises.  When autograd records (an operand requires grad), the
+    call goes through :class:`_FusedGroupNormFn`, whose forward saves the
+    statistics (``save_stats``) and whose backward is
+    :func:`groupnorm_backward`; under ``no_grad`` / ``inference_mode``
+    nothing is saved, as in the Pallas primal (``pallas_film.py:441-448``).
     """
     film = scale is not None
     if film != (shift is not None):
@@ -159,18 +344,24 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"scale {tuple(scale.shape)} / shift "
                          f"{tuple(shift.shape)} must match x "
                          f"{tuple(x.shape)}")
+    if x.is_cuda:
+        _check(x, gamma, beta, scale, shift, num_groups)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, gamma, beta, scale, shift)):
+        return _FusedGroupNormFn.apply(x, gamma, beta, scale, shift,
+                                       num_groups, silu)
     if not x.is_cuda:
         return groupnorm_reference(x, gamma, beta, num_groups=num_groups,
                                    scale=scale, shift=shift, silu=silu)
-    _check(x, gamma, beta, scale, shift, num_groups)
     out = launch(build.library("film"), x, gamma, beta, scale, shift,
-                 num_groups=num_groups, silu=silu,
-                 stream=torch.cuda.current_stream(x.device).cuda_stream)
+                 num_groups=num_groups, silu=silu, stream=_stream(x))
     fused_groupnorm.launches += 1
     return out
 
 
 fused_groupnorm.launches = 0
+groupnorm_backward.launches = 0
 
 dispatch.register("groupnorm", "cuda", fused_groupnorm, supports=supports)
 dispatch.register("groupnorm", "torch", groupnorm_reference)

@@ -7,7 +7,9 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
 Tolerances, as in ``chip_smoke.py``: f32 1e-5 and bf16 one bf16 ulp
 (2^-7), each relative to 1 + the output's largest magnitude (the kernel
 and the plain version compute in f32 and round once, summing in other
-orders).
+orders).  Backward outputs that are sums over a whole axis (dgamma /
+dbeta over N*L, dq / dk / dv over L*D products with the cancelling
+``dP - delta`` factor) are held to 1e-4 in f32.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from diff3d_tpu_torch.ops import cuda_attention, cuda_film  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+SUM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
 @pytest.fixture
@@ -31,10 +34,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(out, ref, dtype):
+def _close(out, ref, dtype, tol=TOL):
     mag = float(ref.float().abs().max())
     err = float((out.float() - ref.float()).abs().max())
-    assert err <= TOL[dtype] * (1 + mag), (err, mag)
+    assert err <= tol[dtype] * (1 + mag), (err, mag)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -76,6 +79,89 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
     assert cuda_attention.flash_attention.launches == before + 1
     assert out.shape == (B, Lq, H, D)
     _close(out, cuda_attention.attention_reference(q, k, v), dtype)
+
+
+# srn64 training sites at a 2-example microbatch (N = 4) and odd shapes.
+GN_BWD_SHAPES = [(4, 4096, 128, 32), (4, 256, 512, 32), (4, 64, 1024, 32),
+                 (2, 1000, 144, 24), (3, 7, 96, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film,silu", [(False, False), (False, True),
+                                       (True, False), (True, True)])
+@pytest.mark.parametrize("shape", GN_BWD_SHAPES)
+def test_groupnorm_backward_matches_plain(cuda, shape, film, silu, dtype):
+    N, L, C, G = shape
+    rng = np.random.default_rng(3)
+
+    def t(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=cuda)
+
+    x = t(rng.standard_normal((N, L, C)))
+    gamma = t(1 + 0.2 * rng.standard_normal(C), torch.float32)
+    beta = t(0.2 * rng.standard_normal(C), torch.float32)
+    scale = shift = None
+    if film:           # the two halves of one Dense output: strided views
+        e = t(0.3 * rng.standard_normal((N, L, 2 * C)))
+        scale, shift = e[..., :C], e[..., C:]
+    g = t(rng.standard_normal((N, L, C)))
+    out, stats = cuda_film.launch(
+        cuda_film.build.library("film"), x, gamma, beta, scale, shift,
+        num_groups=G, silu=silu, stream=None, save_stats=True)
+    _close(stats, cuda_film.groupnorm_stats_reference(x, G), torch.float32)
+    before = cuda_film.groupnorm_backward.launches
+    got = cuda_film.groupnorm_backward(x, g, gamma, beta, scale, shift, stats,
+                                       num_groups=G, silu=silu)
+    assert cuda_film.groupnorm_backward.launches == before + 1
+    want = cuda_film.groupnorm_backward_reference(
+        x, g, gamma, beta, scale, shift, stats, num_groups=G, silu=silu)
+    for name, a, b in zip(("dx", "dscale", "dshift", "dgamma", "dbeta"),
+                          got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        _close(a, b, dtype if name not in ("dgamma", "dbeta")
+               else torch.float32, SUM_TOL if name in ("dgamma", "dbeta")
+               else TOL)
+
+
+# srn64 training sites (2-example microbatch: B = 4), srn128's, odd shapes.
+ATTN_BWD_SHAPES = [(4, 256, 256, 4, 64), (4, 64, 64, 4, 128),
+                   (2, 1024, 1024, 4, 128), (2, 256, 256, 4, 256),
+                   (2, 100, 70, 2, 64), (1, 33, 200, 1, 8),
+                   (2, 64, 64, 3, 160)]
+
+
+@pytest.mark.parametrize("glse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_BWD_SHAPES)
+def test_attention_lse_and_backward_match_plain(cuda, shape, dtype, glse):
+    B, Lq, Lk, H, D = shape
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(B, L, H * D, generator=g, device=cuda).to(dtype)
+               .view(B, L, H, D) for L in (Lq, Lk, Lk))
+    with torch.no_grad():
+        o, lse = cuda_attention.flash_attention_lse(q, k, v)
+    o_ref, lse_ref = cuda_attention.attention_lse_reference(q, k, v)
+    _close(o, o_ref, dtype)
+    assert lse.shape == (B, Lq, H) and lse.dtype == torch.float32
+    _close(lse, lse_ref.transpose(1, 2), torch.float32)
+    lse = lse.transpose(1, 2).contiguous()                  # [B, H, Lq]
+    do = torch.randn(B, Lq, H, D, generator=g, device=cuda).to(dtype)
+    gl = (torch.randn(B, H, Lq, generator=g, device=cuda) if glse
+          else None)
+    before = (cuda_attention.attention_backward_dkdv.launches,
+              cuda_attention.attention_backward_dq.launches)
+    got = cuda_attention.attention_backward(q, k, v, o, lse, do, gl)
+    assert (cuda_attention.attention_backward_dkdv.launches,
+            cuda_attention.attention_backward_dq.launches) == (
+                before[0] + 1, before[1] + 1)
+    want = cuda_attention.attention_backward_reference(q, k, v, o, lse, do,
+                                                       gl)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype and a.is_contiguous()
+        _close(a, b, dtype, SUM_TOL)
 
 
 def test_unsupported_operands_raise(cuda):
@@ -123,3 +209,118 @@ def test_model_kernel_path_matches_plain_path(cuda):
         ref = model(batch, mask)
     assert torch.isfinite(out).all()
     assert float((out - ref).norm() / ref.norm()) <= 3e-2
+
+
+def test_inference_takes_no_residuals(cuda):
+    """Under inference_mode the forwards take the Pallas primal's path:
+    no autograd node, no statistics / lse."""
+    x = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
+    one, zero = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    q = torch.randn(2, 64, 2, 32, device=cuda, requires_grad=True)
+    with torch.inference_mode():
+        assert cuda_film.fused_groupnorm(x, one, zero,
+                                         num_groups=32).grad_fn is None
+        assert cuda_attention.flash_attention(q, q, q).grad_fn is None
+    assert cuda_film.fused_groupnorm(x, one, zero,
+                                     num_groups=32).grad_fn is not None
+    assert cuda_attention.flash_attention(q, q, q).grad_fn is not None
+
+
+def _tiny_training_inputs(cuda):
+    """The tiny X-UNet's config and one seeded batch, cond mask and
+    regression target at 16^2, on the card."""
+    cfg = port_tiny_config(imgsize=16, ch=32).model
+    rng = np.random.default_rng(4)
+    B = 4
+    batch = {
+        "x": rng.uniform(-1, 1, (B, 16, 16, 3)),
+        "z": rng.standard_normal((B, 16, 16, 3)),
+        "logsnr": np.stack([np.full(B, 20.0), rng.uniform(-20, 20, B)], 1),
+        "R": np.broadcast_to(np.eye(3), (B, 2, 3, 3)),
+        "t": rng.normal(0, 1.3, (B, 2, 3)),
+        "K": np.broadcast_to(np.array([[19.0, 0, 8], [0, 19.0, 8],
+                                       [0, 0, 1]]), (B, 3, 3)),
+    }
+    batch = {k: torch.tensor(np.array(v), dtype=torch.float32, device=cuda)
+             for k, v in batch.items()}
+    mask = torch.tensor([True, True, False, True], device=cuda)
+    target = torch.tensor(rng.standard_normal((B, 16, 16, 3)),
+                          dtype=torch.float32, device=cuda)
+    return cfg, batch, mask, target
+
+
+def _loss_and_grads(model, batch, mask, target):
+    """The l2 loss of one forward and every parameter's gradient (f32
+    copies), with cuDNN's TF32 off so f32 convolutions are f32."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model.zero_grad(set_to_none=True)
+        loss = ((model(batch, mask).float() - target) ** 2).mean()
+        loss.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return float(loss), [None if p.grad is None else p.grad.float().clone()
+                         for p in model.parameters()]
+
+
+def _rel_l2(got, want):
+    """Relative L2 distance over all parameter gradients together."""
+    num = sum(float((a - b).norm() ** 2) for a, b in zip(got, want))
+    return (num / sum(float(b.norm() ** 2) for b in want)) ** 0.5
+
+
+def _backward_launches():
+    return (cuda_film.groupnorm_backward.launches,
+            cuda_attention.attention_backward_dkdv.launches,
+            cuda_attention.attention_backward_dq.launches)
+
+
+def test_model_gradients_kernel_path_match_plain_path(cuda):
+    """The gradients of the tiny X-UNet through the kernels (every
+    GroupNorm and attention site's backward a kernel) against the plain
+    path.  In f32 with TF32 off, so the two paths differ only in summation
+    order: relative L2 over all parameter gradients <= 1e-4, loss 1e-5.  A
+    kernel output cut from the graph would leave the parameters upstream
+    of it without gradient, an O(1) error.  (bf16: the next test.)"""
+    cfg, batch, mask, target = _tiny_training_inputs(cuda)
+    model = build_model(cfg, cuda, seed=0, randomize_zero_init=True).train()
+    before = _backward_launches()
+    loss, got = _loss_and_grads(model, batch, mask, target)
+    assert all(a > b for a, b in zip(_backward_launches(), before))
+    set_kernels(model, "torch")
+    loss_ref, want = _loss_and_grads(model, batch, mask, target)
+    assert all(g is not None for g in got)
+    assert _rel_l2(got, want) <= 1e-4, _rel_l2(got, want)
+    assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref)
+
+
+def test_model_gradients_bf16_kernel_path_within_bf16_noise(cuda):
+    """The same tiny X-UNet in bf16: kernel path, plain path, and the f32
+    plain path from the same weights.  At this width bf16 rounding alone
+    moves the gradients by ~14% (the bf16 plain path's own distance from
+    f32, ``noise``: 0.138 on an H100), so the kernel path is held to 0.1
+    relative L2 from the plain path (read: 0.068) and to no farther from
+    f32 than 1.25 x noise (read: 1.0 x).  Prints the three distances."""
+    import dataclasses
+    import json
+
+    cfg, batch, mask, target = _tiny_training_inputs(cuda)
+    m32 = build_model(cfg, cuda, seed=0, randomize_zero_init=True).train()
+    m16 = build_model(dataclasses.replace(cfg, dtype="bfloat16"), cuda,
+                      seed=0, randomize_zero_init=True).train()
+    m16.load_state_dict(m32.state_dict())
+    set_kernels(m32, "torch")
+    _, g32 = _loss_and_grads(m32, batch, mask, target)
+    before = _backward_launches()
+    loss_k, gk = _loss_and_grads(m16, batch, mask, target)
+    assert all(a > b for a, b in zip(_backward_launches(), before))
+    set_kernels(m16, "torch")
+    loss_p, gp = _loss_and_grads(m16, batch, mask, target)
+    dist = {"kernel_vs_plain": _rel_l2(gk, gp), "noise": _rel_l2(gp, g32),
+            "kernel_vs_f32": _rel_l2(gk, g32),
+            "loss_rel": abs(loss_k - loss_p) / abs(loss_p)}
+    print(json.dumps({"bf16_tiny_grad_distances": dist}))
+    assert dist["kernel_vs_plain"] <= 0.1, dist
+    assert dist["kernel_vs_f32"] <= 1.25 * dist["noise"], dist
+    assert dist["loss_rel"] <= 1e-2, dist

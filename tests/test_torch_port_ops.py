@@ -11,7 +11,11 @@ Tolerances: f32 1e-5 (the same f32 arithmetic, summed in another order);
 bf16 against the Pallas kernel one bf16 ulp at the output's magnitude
 (both round once at the output, from f32 results that agree to ~1e-6);
 bf16 against ``xla_groupnorm``, which rounds to bf16 after the affine, the
-Pallas tests' own 2e-2 of the output scale.
+Pallas tests' own 2e-2 of the output scale.  Backward outputs, each
+relative to 1 + its largest magnitude: f32 1e-5 (dgamma / dbeta, sums
+over N*L, 1e-4); bf16 two bf16 ulps (both round once, but from f32 values
+whose inputs -- the bf16 forward output o of attention, the statistics --
+may already differ by one rounding).
 """
 
 import ast
@@ -25,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from diff3d_tpu.ops.pallas_attention import flash_attention as j_flash  # noqa: E402
+from diff3d_tpu.ops.pallas_attention import flash_attention_lse as j_flash_lse  # noqa: E402
 from diff3d_tpu.ops.pallas_film import fused_groupnorm as j_fused  # noqa: E402
 from diff3d_tpu.ops.pallas_film import xla_groupnorm  # noqa: E402
 from diff3d_tpu_torch.ops import attention as t_attention  # noqa: E402
@@ -225,6 +230,195 @@ def test_dispatch_resolves_by_request_and_device():
         dispatch.resolve("groupnorm", "pallas", x, num_groups=32)
     with pytest.raises(KeyError):
         dispatch.resolve("nope", "cuda", x)
+
+
+def _rel_close(port, ref, tol):
+    port, ref = np.asarray(port, np.float32), np.asarray(ref, np.float32)
+    assert port.shape == ref.shape
+    err = float(np.abs(port - ref).max())
+    assert err <= tol * (1 + float(np.abs(ref).max())), err
+
+
+def _gn_vjp(shape, mode, dtype, seed=1):
+    """``(port, pallas)`` backward outputs ``(dx, dgamma, dbeta, dscale,
+    dshift)`` for one upstream gradient: the port's plain backward from
+    its own statistics, and ``jax.vjp`` of the Pallas kernel (interpret
+    mode)."""
+    film, silu = "film" in mode, "silu" in mode
+    x, gamma, beta, ss = _gn_inputs(shape, film, seed)
+    G = shape[3]
+    g = np.random.RandomState(seed + 7).randn(*shape[:3]).astype(np.float32)
+    jd = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    jx, jg = jnp.asarray(x, jd), jnp.asarray(g, jd)
+    jss = ([jnp.asarray(ss[0], jd), jnp.asarray(ss[1], jd)] if film
+           else [])
+
+    def f(x, gamma, beta, *scale_shift):
+        kw = dict(scale=scale_shift[0], shift=scale_shift[1]) if film else {}
+        return j_fused(x, gamma, beta, num_groups=G, silu=silu,
+                       interpret=True, **kw)
+
+    _, vjp = jax.vjp(f, jx, jnp.asarray(gamma), jnp.asarray(beta), *jss)
+    pallas = vjp(jg)
+    tx = torch.from_numpy(x).to(td)
+    tss = ([torch.from_numpy(ss[0]).to(td), torch.from_numpy(ss[1]).to(td)]
+           if film else [None, None])
+    dx, dscale, dshift, dgamma, dbeta = cuda_film.groupnorm_backward_reference(
+        tx, torch.from_numpy(g).to(td), torch.from_numpy(gamma),
+        torch.from_numpy(beta), *tss,
+        cuda_film.groupnorm_stats_reference(tx, G), num_groups=G, silu=silu)
+    port = [dx, dgamma, dbeta] + ([dscale, dshift] if film else [])
+    assert dx.dtype == td and dgamma.dtype == torch.float32
+    return ([t.float().numpy() for t in port],
+            [np.asarray(t.astype(jnp.float32)) for t in pallas])
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES, ids=["C96", "C144G24"])
+@pytest.mark.parametrize("mode", MODES)
+def test_groupnorm_backward_plain_matches_pallas_vjp_f32(shape, mode):
+    port, pallas = _gn_vjp(shape, mode, "f32")
+    for i, (a, b) in enumerate(zip(port, pallas)):
+        _rel_close(a, b, 1e-4 if i in (1, 2) else 1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_groupnorm_backward_plain_matches_pallas_vjp_bf16(mode):
+    port, pallas = _gn_vjp(GN_SHAPES[0], mode, "bf16")
+    for i, (a, b) in enumerate(zip(port, pallas)):
+        _rel_close(a, b, 1e-4 if i in (1, 2) else 2.0 ** -6)
+
+
+@pytest.mark.parametrize("film,silu", [(False, False), (True, True)])
+def test_groupnorm_autograd_fn_on_cpu_matches_plain_autograd(film, silu):
+    """The autograd Function on CPU tensors (plain forward, explicit plain
+    backward) against torch autograd of the plain forward."""
+    N, L, C, G = 2, 30, 64, 8
+    x, gamma, beta, ss = _gn_inputs((N, L, C, G), film, seed=4)
+    e = torch.from_numpy(np.concatenate([ss[0], ss[1]], -1)) if film \
+        else None
+
+    def run(fn):
+        ins = [torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta)]
+        if film:
+            ins.append(e.clone().requires_grad_())
+        kw = dict(scale=ins[3][..., :C], shift=ins[3][..., C:]) if film \
+            else {}
+        out = fn(*ins[:3], num_groups=G, silu=silu, **kw)
+        g = torch.from_numpy(np.random.RandomState(5).randn(N, L, C)
+                             .astype(np.float32))
+        return out, torch.autograd.grad(out, ins, g)
+
+    out, grads = run(cuda_film.fused_groupnorm)
+    assert out.grad_fn is not None \
+        and "FusedGroupNorm" in type(out.grad_fn).__name__
+    ref, ref_grads = run(cuda_film.groupnorm_reference)
+    assert torch.equal(out, ref)
+    for a, b in zip(grads, ref_grads):
+        _rel_close(a.numpy(), b.numpy(), 1e-5)
+
+
+def _attn_vjp(shape, dtype, glse_on, seed=2):
+    q, k, v = _qkv(shape, seed)
+    B, Lq, Lk, H, D = shape
+    rng = np.random.RandomState(seed + 9)
+    do = rng.randn(B, Lq, H, D).astype(np.float32)
+    gl = (rng.randn(B, Lq, H).astype(np.float32) if glse_on
+          else np.zeros((B, Lq, H), np.float32))
+    jd = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    (jo, jlse), vjp = jax.vjp(
+        lambda q, k, v: j_flash_lse(q, k, v, interpret=True),
+        *(jnp.asarray(a, jd) for a in (q, k, v)))
+    pallas = vjp((jnp.asarray(do, jd), jnp.asarray(gl)))
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    o, lse = cuda_attention.attention_lse_reference(tq, tk, tv)
+    grads = cuda_attention.attention_backward_reference(
+        tq, tk, tv, o, lse, torch.from_numpy(do).to(td),
+        torch.from_numpy(gl).transpose(1, 2).contiguous() if glse_on
+        else None)
+    port = [o, lse.transpose(1, 2)] + list(grads)
+    ref = [jo, jlse] + list(pallas)
+    return ([t.float().numpy() for t in port],
+            [np.asarray(t.astype(jnp.float32)) for t in ref])
+
+
+@pytest.mark.parametrize("glse_on", [False, True], ids=["o", "o+lse"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES,
+                         ids=["square", "cross", "D160"])
+def test_attention_lse_and_backward_plain_match_pallas_f32(shape, glse_on):
+    """The forward's (o, lse) and (dq, dk, dv) against ``jax.vjp`` of the
+    Pallas ``flash_attention_lse`` (interpret mode), with and without a
+    non-zero lse cotangent (``tests/test_pallas_attention.py:77``)."""
+    port, pallas = _attn_vjp(shape, "f32", glse_on)
+    for a, b in zip(port, pallas):
+        _rel_close(a, b, 1e-5)
+
+
+def test_attention_backward_plain_matches_pallas_bf16():
+    port, pallas = _attn_vjp(ATTN_SHAPES[1], "bf16", True)
+    for i, (a, b) in enumerate(zip(port, pallas)):
+        _rel_close(a, b, 1e-5 if i == 1 else 2.0 ** -6)
+
+
+def test_attention_autograd_fn_on_cpu_matches_plain_autograd():
+    """``flash_attention`` / ``flash_attention_lse`` on CPU tensors under
+    autograd (plain forward, explicit plain backward) against torch
+    autograd of the plain forward, both cotangents flowing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(ATTN_SHAPES[1], seed=6))
+    rng = np.random.RandomState(8)
+    do = torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+    gl = torch.from_numpy(rng.randn(*q.shape[:3]).astype(np.float32))
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        outs, cots = fn(*ins)
+        return outs, torch.autograd.grad(outs, ins, cots)
+
+    def lse_ref(q, k, v):
+        o, lse = cuda_attention.attention_lse_reference(q, k, v)
+        return (o, lse.transpose(1, 2)), (do, gl)
+
+    for fn, ref in (
+            (lambda q, k, v: (cuda_attention.flash_attention_lse(q, k, v),
+                              (do, gl)), lse_ref),
+            (lambda q, k, v: ((cuda_attention.flash_attention(q, k, v),),
+                              (do,)),
+             lambda q, k, v: ((cuda_attention.attention_reference(q, k, v),),
+                              (do,)))):
+        outs, got = grads(fn)
+        assert outs[0].grad_fn is not None \
+            and "FlashAttention" in type(outs[0].grad_fn).__name__
+        _, want = grads(ref)
+        for a, b in zip(got, want):
+            _rel_close(a.numpy(), b.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("glse_on", [False, True], ids=["o", "o+lse"])
+def test_attention_backward_parts_on_cpu_are_the_plain_version(glse_on):
+    """On CPU tensors the dK/dV wrapper (with its delta) and the dQ wrapper
+    are the plain backward, exactly, and launch nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(ATTN_SHAPES[1], seed=3))
+    rng = np.random.RandomState(5)
+    do = torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+    gl = (torch.from_numpy(rng.randn(q.shape[0], q.shape[2], q.shape[1])
+                           .astype(np.float32)) if glse_on else None)
+    o, lse = cuda_attention.attention_lse_reference(q, k, v)
+    before = (cuda_attention.attention_backward_dkdv.launches,
+              cuda_attention.attention_backward_dq.launches)
+    dk, dv, delta = cuda_attention.attention_backward_dkdv(q, k, v, o, lse,
+                                                           do, gl)
+    dq = cuda_attention.attention_backward_dq(q, k, v, o, lse, do, delta)
+    assert (cuda_attention.attention_backward_dkdv.launches,
+            cuda_attention.attention_backward_dq.launches) == before
+    want_delta = (do * o).sum(-1).transpose(1, 2)
+    if glse_on:
+        want_delta = want_delta - gl
+    assert torch.equal(delta, want_delta)
+    want = cuda_attention.attention_backward_reference(q, k, v, o, lse, do,
+                                                       gl)
+    for a, b in zip((dq, dk, dv), want):
+        assert torch.equal(a, b)
 
 
 def _imports(path):
