@@ -57,6 +57,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -138,16 +139,80 @@ def phase_device():
     return card
 
 
+def ptxas_kernels(log: str):
+    """``{kernel: (registers, spill store bytes, spill load bytes)}`` from
+    ``nvcc -Xptxas -v`` output, names demangled by ``c++filt`` where the
+    machine has it."""
+    kernels, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            kernels[name] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            kernels[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            kernels[name][0] = int(m.group(1))
+    if kernels and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(kernels),
+                               capture_output=True, text=True).stdout
+        kernels = {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", d): v
+                   for d, v in zip(names.splitlines(), kernels.values())}
+    return kernels
+
+
 def phase_build():
     from diff3d_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     logs = build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln][:12]
-             for name, log in logs.items()}
-    emit({"phase": "build", "seconds": round(seconds, 3), "ptxas": ptxas})
+    ptxas = {src: {k: f"{r} registers, {ss}/{sl} bytes spill stores/loads"
+                   for k, (r, ss, sl) in ptxas_kernels(log).items()}
+             for src, log in logs.items()}
+    # The tensor-core kernels at a padded head dim <= 128 must not spill
+    # (null when attention.cu was already built and nvcc did not run).
+    mma = {k: v for k, v in ptxas_kernels(logs.get("attention", "")).items()
+           if "mma" in k}
+    small = [v for k, v in mma.items()
+             if int((re.findall(r"\d+", k.split("<")[-1]) or ["0"])[0])
+             <= 128]
+    emit({"phase": "build", "seconds": round(seconds, 3),
+          "mma_kernels_d_le_128_spill_free": (
+              all(v[1] == v[2] == 0 for v in small) if small else None),
+          "ptxas": ptxas})
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def fastest_sdpa(make, iters: int = 20):
+    """``(ms, backend)``: the fastest ``torch.nn.attention.sdpa_kernel``
+    backend for one ``F.scaled_dot_product_attention`` call.  ``make()``,
+    run under each backend, returns the callable to time; a backend that
+    does not take the shape raises and is skipped."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best = (math.inf, None)
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel([getattr(SDPBackend, name)]), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                fn = make()
+                ms = cuda_ms(fn, iters)
+            except RuntimeError:
+                continue
+        best = min(best, (ms, name))
+    if best[1] is None:
+        raise RuntimeError("no SDPA backend takes this call")
+    return best
 
 
 def _tol(ref, dtype):
@@ -310,7 +375,8 @@ def phase_attention(attn_sites):
 
     extra = [(32, 1024, 1024, 4, 128), (32, 256, 256, 4, 256),  # srn128
              (1, 200, 200, 2, 32), (1, 96, 160, 2, 64),
-             (1, 64, 64, 2, 160)]
+             (1, 64, 64, 2, 160), (1, 63, 65, 2, 64), (1, 129, 127, 2, 128),
+             (1, 65, 63, 3, 36)]
     shapes = sorted(attn_sites) + extra
     worst = 0.0
     for si, shape in enumerate(shapes):
@@ -340,7 +406,8 @@ def phase_attention(attn_sites):
         ms = cuda_ms(lambda: flash_attention(q, k, v))
         plain = cuda_ms(lambda: attention_reference(q, k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        lib, backend = fastest_sdpa(
+            lambda: lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * B * H * Lq * Lk * D
         nbytes = 2.0 * B * H * D * (2 * Lq + 2 * Lk)
         bound_s = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
@@ -348,6 +415,7 @@ def phase_attention(attn_sites):
                       "per_forward": count, "us": round(ms * 1e3, 2),
                       "plain_us": round(plain * 1e3, 2),
                       "library_us": round(lib * 1e3, 2),
+                      "library_backend": backend,
                       "bound_us": round(bound_s * 1e6, 3),
                       "bound_by": ("operations" if flops / BF16_FLOPS
                                    > nbytes / HBM_BYTES_PER_S
@@ -636,12 +704,15 @@ def phase_attention_backward(attn_sites, accum):
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         with torch.no_grad():
-            lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt))
-        y = F.scaled_dot_product_attention(qt, kt, vt)
-        lib_b = cuda_ms(lambda: torch.autograd.grad(
-            y, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-        del y
+            lib_f, backend_f = fastest_sdpa(
+                lambda: lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+        def sdpa_backward():     # the forward records under the backend
+            y = F.scaled_dot_product_attention(qt, kt, vt)
+            return lambda: torch.autograd.grad(
+                y, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+
+        lib_b, backend_b = fastest_sdpa(sdpa_backward)
         fl = B * H * Lq * Lk * D
         qb, kb = 2 * B * Lq * H * D, 2 * B * Lk * H * D   # bf16 bytes
         lse_b = 4 * B * H * Lq
@@ -675,6 +746,8 @@ def phase_attention_backward(attn_sites, accum):
                       "dq_bound_us": round(b_dq * 1e3, 3),
                       "bwd_plain_us": round(plain_b * 1e3, 2),
                       "bwd_library_us": round(lib_b * 1e3, 2),
+                      "fwd_library_backend": backend_f,
+                      "bwd_library_backend": backend_b,
                       "bf16_errs": errs})
     rows = {k: _finish(v) for k, v in rows.items()}
     emit({"phase": "attention_backward", "checked": checked,
@@ -1062,6 +1135,8 @@ def main() -> None:
     sample_per = "one denoise step (2B=16) at srn64, summed over sites"
     train_per = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                  f"{TRAIN_ACCUM}) at srn64, summed over sites")
+    tensor_cores = ("flash_attention", "flash_attention[save_lse]",
+                    "attention_backward_dkdv")
     kernels = []
     for name, source, replaces, n, stats, per in (
             ("fused_groupnorm", film, "diff3d_tpu/ops/pallas_film.py:277",
@@ -1090,7 +1165,9 @@ def main() -> None:
             "max_abs_err": stats["max_abs_err"],
             "ms": stats["ms"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
-            "library_ms": stats["library_ms"], "per": per})
+            "library_ms": stats["library_ms"], "per": per,
+            "design": ("mma.sync bf16" if name in tensor_cores
+                       else "cuda cores")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,25 +126,37 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     return tuple(_rounded(q, t) for t in grads)
 
 
+def _function(lib, name: str, argtypes):
+    """``lib.<name>`` with its ctypes signature, set on first use."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = _c_i
+    return fn
+
+
+def _views(*tensors) -> list:
+    """``[ptr, stride 0, stride 1, stride 2]`` of each ``[B, L, H, D]``."""
+    args = []
+    for t in tensors:
+        s = t.stride()
+        args += (t.data_ptr(), s[0], s[1], s[2])
+    return args
+
+
 def launch(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            scale: float, stream: Optional[int], save_lse: bool = False):
     """One call of ``flash_attention_forward`` in ``lib`` on checked
     operands; allocates the contiguous ``[B, Lq, H, D]`` output and, with
     ``save_lse``, the f32 ``[B, H, Lq]`` log-sum-exp (returned as a pair
     then)."""
-    fn = lib.flash_attention_forward
-    fn.argtypes = _ARGTYPES
-    fn.restype = _c_i
+    fn = _function(lib, "flash_attention_forward", _ARGTYPES)
     B, Lq, H, D = q.shape
-    Lk = k.shape[1]
     o = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
            if save_lse else None)
-    args = []
-    for t in (q, k, v, o):
-        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
-    rc = fn(*args, 0 if lse is None else lse.data_ptr(), B, H, Lq, Lk, D,
-            scale, _DTYPE_CODE[q.dtype], stream)
+    rc = fn(*_views(q, k, v, o), 0 if lse is None else lse.data_ptr(), B, H,
+            Lq, k.shape[1], D, scale, _DTYPE_CODE[q.dtype], stream)
     _raise(lib, "flash_attention_forward", rc)
     return (o, lse) if save_lse else o
 
@@ -155,14 +167,10 @@ def launch_backward(lib, q, k, v, o, do, lse, glse, *, scale: float,
     """One call of ``flash_attention_backward`` in ``lib``: ``part`` 0 the
     delta pre-pass and the dK/dV kernel into ``grads[1:]``, 1 the dQ kernel
     into ``grads[0]``."""
-    fn = lib.flash_attention_backward
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = _c_i
+    fn = _function(lib, "flash_attention_backward", _BWD_ARGTYPES)
     B, Lq, H, D = q.shape
-    args = []
-    for t in (q, k, v, o, do):
-        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
-    rc = fn(*args, lse.data_ptr(), 0 if glse is None else glse.data_ptr(),
+    rc = fn(*_views(q, k, v, o, do), lse.data_ptr(),
+            0 if glse is None else glse.data_ptr(),
             delta.data_ptr(),
             *(0 if t is None else t.data_ptr() for t in grads), B, H, Lq,
             k.shape[1], D, scale, _DTYPE_CODE[q.dtype], part, stream)
@@ -184,13 +192,15 @@ def _check(q, k, v) -> None:
             f"k {tuple(k.shape)} v {tuple(v.shape)} {q.dtype} (D <= "
             f"{MAX_D}, unit head-dim stride)")
     if not (k.is_cuda and v.is_cuda) \
-            or q.device.index != torch.cuda.current_device():
+            or q.get_device() != torch.cuda.current_device():
         raise ValueError("flash_attention: q/k/v must be on the current "
                          "CUDA device")
 
 
 def _stream(q: torch.Tensor) -> int:
-    return torch.cuda.current_stream(q.device).cuda_stream
+    """PyTorch's current stream on q's device, as the raw handle (without
+    building a ``torch.cuda.Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(q.get_device())
 
 
 def _forward(q, k, v, scale: float, save_lse: bool):

@@ -68,7 +68,11 @@ def test_fused_groupnorm_matches_plain(cuda, shape, film, silu, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 100, 70, 4, 64), (1, 256, 256, 2, 256),
-                                   (2, 64, 64, 3, 160), (1, 33, 200, 1, 8)])
+                                   (2, 64, 64, 3, 160), (1, 33, 200, 1, 8),
+                                   # tile edges (64 rows, 64 / 32 keys),
+                                   # Lq != Lk, rows of 72 bytes (D = 36)
+                                   (2, 63, 65, 2, 64), (1, 129, 127, 2, 128),
+                                   (2, 65, 63, 3, 36), (1, 127, 129, 1, 256)])
 def test_flash_attention_matches_plain(cuda, shape, dtype):
     B, Lq, Lk, H, D = shape
     g = torch.Generator(cuda).manual_seed(1)
@@ -130,7 +134,9 @@ def test_groupnorm_backward_matches_plain(cuda, shape, film, silu, dtype):
 ATTN_BWD_SHAPES = [(4, 256, 256, 4, 64), (4, 64, 64, 4, 128),
                    (2, 1024, 1024, 4, 128), (2, 256, 256, 4, 256),
                    (2, 100, 70, 2, 64), (1, 33, 200, 1, 8),
-                   (2, 64, 64, 3, 160)]
+                   (2, 64, 64, 3, 160), (2, 63, 65, 2, 64),
+                   (1, 129, 127, 2, 128), (2, 65, 63, 3, 36),
+                   (1, 127, 129, 1, 256)]
 
 
 @pytest.mark.parametrize("glse", [False, True])
@@ -162,6 +168,49 @@ def test_attention_lse_and_backward_match_plain(cuda, shape, dtype, glse):
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == dtype and a.is_contiguous()
         _close(a, b, dtype, SUM_TOL)
+
+
+def _bf16_attention_inputs(cuda, shape, pad=0):
+    """bf16 q, k, v, dO as [B, L, H, D] views of [B, L, H*D + pad]
+    buffers starting ``pad`` elements in (``pad`` 4: 8-byte aligned)."""
+    B, Lq, Lk, H, D = shape
+    g = torch.Generator(cuda).manual_seed(5)
+    return [torch.randn(B, L, H * D + pad, generator=g, device=cuda)
+            .to(torch.bfloat16)[..., pad:].unflatten(-1, (H, D))
+            for L in (Lq, Lk, Lk, Lq)]
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 256, 4, 64), (2, 64, 64, 4, 128),
+                                   (1, 100, 70, 2, 256)])
+def test_bf16_attention_kernels_are_bit_identical_run_to_run(cuda, shape):
+    """The tensor-core forward (with lse) and dK/dV kernels use no float
+    atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, do = _bf16_attention_inputs(cuda, shape)
+    with torch.no_grad():
+        runs = [cuda_attention.flash_attention_lse(q, k, v) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    lse = runs[0][1].transpose(1, 2).contiguous()
+    grads = [cuda_attention.attention_backward_dkdv(q, k, v, runs[0][0], lse,
+                                                    do) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 70, 2, 64), (1, 65, 129, 2, 128)])
+def test_bf16_attention_kernels_take_unaligned_views(cuda, shape):
+    """Views whose base is 8-byte but not 16-byte aligned take the kernels'
+    element-by-element loads (no 16-byte cp.async) and still match."""
+    q, k, v, do = _bf16_attention_inputs(cuda, shape, pad=4)
+    assert q.data_ptr() % 16 != 0
+    with torch.no_grad():
+        o, lse = cuda_attention.flash_attention_lse(q, k, v)
+    o_ref, lse_ref = cuda_attention.attention_lse_reference(q, k, v)
+    _close(o, o_ref, torch.bfloat16)
+    _close(lse, lse_ref.transpose(1, 2), torch.float32)
+    lse = lse.transpose(1, 2).contiguous()
+    dk, dv, _ = cuda_attention.attention_backward_dkdv(q, k, v, o, lse, do)
+    want = cuda_attention.attention_backward_reference(q, k, v, o, lse, do)
+    _close(dk, want[1], torch.bfloat16, SUM_TOL)
+    _close(dv, want[2], torch.bfloat16, SUM_TOL)
 
 
 def test_unsupported_operands_raise(cuda):
