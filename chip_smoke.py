@@ -4,15 +4,19 @@
 Phases, one JSON line each; any failure raises and the run exits nonzero:
 
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile both CUDA sources with nvcc (in parallel).
+  2. build   — compile both CUDA sources with nvcc (in parallel); the
+     tensor-core kernels (forward, dK/dV, dQ) at a padded head dim <= 128
+     must not spill.
   3. groupnorm — the fused GroupNorm kernel against its plain version on
      every GroupNorm site shape of the srn64 sampler and the odd shapes of
-     ``tests/test_pallas_film.py``, all four variants, bf16 and f32; times
-     of kernel, plain version and ``F.group_norm`` + elementwise ops.
+     ``tests/test_pallas_film.py`` (and G up to C = 4096), all four
+     variants, bf16 and f32; times of kernel, plain version and
+     ``F.group_norm`` + elementwise ops.
   4. attention — the flash kernel against its plain version at the srn64
      and srn128 attention sites plus padded / non-square shapes, bf16 and
      f32; times of kernel, plain version and
-     ``F.scaled_dot_product_attention``.
+     ``F.scaled_dot_product_attention``.  D = 320 and 512 are checked,
+     untimed.
   5. model   — the srn64 full-width X-UNet, bf16, batch 2B=16, seeded
      random weights: kernel path against plain path, ms per forward and
      launches per forward.
@@ -26,12 +30,15 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      ``save_stats``) and ``.backward`` through it, against the plain
      versions; times of the wrappers, the plain version,
      the autograd backward of ``F.group_norm`` + FiLM/SiLU ops, and the
-     bound, per site and per train step.
+     bound, per site (with the backward's share of its bound and its
+     cluster plan) and per train step; the cluster kernel's edge shapes
+     checked untimed.
   8. attention_backward — the same at the srn64 training attention sites
      and srn128's two shapes: ``flash_attention_lse`` as autograd records
      it and ``backward`` through it, with and without an lse cotangent,
      against the plain versions; the dK/dV and dQ wrappers timed beside the
-     autograd backward of ``F.scaled_dot_product_attention``.
+     autograd backward of ``F.scaled_dot_product_attention``.  D = 320 and
+     512 are checked, untimed.
   9. train_step — one srn64 train step (seeded random weights, batch 16)
      through the kernels and through the plain versions
      (``set_kernels(model, "torch")``) from the same state with the same
@@ -173,18 +180,32 @@ def phase_build():
     ptxas = {src: {k: f"{r} registers, {ss}/{sl} bytes spill stores/loads"
                    for k, (r, ss, sl) in ptxas_kernels(log).items()}
              for src, log in logs.items()}
-    # The tensor-core kernels at a padded head dim <= 128 must not spill
-    # (null when attention.cu was already built and nvcc did not run).
+    # The tensor-core kernels (forward, dK/dV, dQ) at a padded head dim
+    # <= 128 must not spill (null when attention.cu was already built and
+    # nvcc did not run).
     mma = {k: v for k, v in ptxas_kernels(logs.get("attention", "")).items()
            if "mma" in k}
-    small = [v for k, v in mma.items()
+    small = {k: v for k, v in mma.items()
              if int((re.findall(r"\d+", k.split("<")[-1]) or ["0"])[0])
-             <= 128]
+             <= 128}
+    dq = {k: v for k, v in small.items() if "dq_mma" in k}
+    if mma and len(dq) != 3:
+        raise AssertionError(f"build: dQ mma kernels at D <= 128: {dq}")
+    spill_free = all(v[1] == v[2] == 0 for v in small.values())
     emit({"phase": "build", "seconds": round(seconds, 3),
-          "mma_kernels_d_le_128_spill_free": (
-              all(v[1] == v[2] == 0 for v in small) if small else None),
+          "mma_kernels_d_le_128_spill_free": spill_free if small else None,
+          "dq_mma_kernels": {k: f"{v[0]} registers, {v[1]}/{v[2]} bytes "
+                                f"spill stores/loads" for k, v in dq.items()},
           "ptxas": ptxas})
+    if small and not spill_free:
+        raise AssertionError("build: a tensor-core kernel at D <= 128 "
+                             "spills")
 
+
+# Head dims above the tensor-core kernels' 256, inside the Pallas kernel's
+# 512: checked against the plain versions, not timed (no configuration
+# runs them).
+WIDE_ATTN = [(2, 40, 33, 2, 320), (1, 33, 70, 2, 512)]
 
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
                  "MATH")
@@ -281,7 +302,8 @@ def phase_groupnorm(gn_sites):
                                                 groupnorm_reference)
 
     odd = [(2, 256, 128, 32), (2, 256, 256, 32), (1, 256, 512, 32),
-           (1, 64, 1024, 32), (2, 64, 96, 32), (1, 1000, 144, 24)]
+           (1, 64, 1024, 32), (2, 64, 96, 32), (1, 1000, 144, 24),
+           (2, 64, 2048, 2048), (1, 16, 4096, 4096)]    # G up to C <= 4096
     shapes = sorted({k[:4] for k in gn_sites}) + odd
     worst = 0.0
     checked = 0
@@ -379,7 +401,7 @@ def phase_attention(attn_sites):
              (1, 65, 63, 3, 36)]
     shapes = sorted(attn_sites) + extra
     worst = 0.0
-    for si, shape in enumerate(shapes):
+    for si, shape in enumerate(shapes + WIDE_ATTN):     # WIDE_ATTN untimed
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attn_inputs(shape, dtype, si)
             out = flash_attention(q, k, v)
@@ -430,7 +452,7 @@ def phase_attention(attn_sites):
             flop_ms += count * flops / BF16_FLOPS * 1e3
             byte_ms += count * nbytes / HBM_BYTES_PER_S * 1e3
     per_step["bound_by"] = "operations" if flop_ms > byte_ms else "bytes"
-    emit({"phase": "attention", "checked": 2 * len(shapes),
+    emit({"phase": "attention", "checked": 2 * len(shapes + WIDE_ATTN),
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|)",
           "sites": sites, "per_step": per_step})
@@ -473,6 +495,10 @@ def _leaf(t):
     return t.detach().clone().requires_grad_()
 
 
+GN_BWD_EDGES = [(2, 4095, 128, 32), (1, 4096, 128, 32), (2, 40, 4096, 32),
+                (1, 9, 4096, 2048)]
+
+
 def phase_groupnorm_backward(gn_sites, accum):
     """The save_stats forward and the backward kernel at the training
     GroupNorm sites, both through the wrappers the model calls: the
@@ -483,11 +509,36 @@ def phase_groupnorm_backward(gn_sites, accum):
     import torch
     import torch.nn.functional as F
 
+    from diff3d_tpu_torch.ops import cuda_film
     from diff3d_tpu_torch.ops.cuda_film import (
         fused_groupnorm, groupnorm_backward, groupnorm_backward_reference,
         groupnorm_reference, groupnorm_stats_reference)
 
     worst, checked = 0.0, 0
+    # The cluster kernel's edges, untimed: L not a multiple of the cluster,
+    # N = 1, C = 4096 at G = 32 and G = 2048.
+    for si, (N, L, C, G) in enumerate(GN_BWD_EDGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gamma, beta, kw = gn_inputs((N, L, C, G), dtype, True, 50 + si)
+            gen = torch.Generator("cuda").manual_seed(60 + si)
+            g = torch.randn(N, L, C, generator=gen, device="cuda").to(dtype)
+            stats = groupnorm_stats_reference(x, G).contiguous()
+            args = (x, g, gamma, beta, kw["scale"], kw["shift"], stats)
+            got = groupnorm_backward(*args, num_groups=G, silu=True)
+            want = groupnorm_backward_reference(*args, num_groups=G,
+                                                silu=True)
+            torch.cuda.synchronize()
+            for n, a, b in zip(("dx", "dscale", "dshift", "dgamma", "dbeta"),
+                               got, want):
+                t = (SUM_TOL if n in ("dgamma", "dbeta") else
+                     F32_TOL if dtype == torch.float32 else BF16_TOL)
+                err, ratio = _err_over_tol(a, b, t)
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"groupnorm_backward {(N, L, C, G)} {dtype}: {n} max "
+                        f"abs err {err} over tolerance")
+                worst = max(worst, ratio)
+                checked += 1
     fwd = {"max_abs_err": 0.0}
     bwd = {"max_abs_err": 0.0}
     sites = []
@@ -582,8 +633,10 @@ def phase_groupnorm_backward(gn_sites, accum):
         io = 2 * elems * (1 + (2 if film else 0))       # x (scale, shift)
         bound_f = _bound(fwd, count, 10.0 * elems, F32_FLOPS,
                          io + 2 * elems + 8 * C + 8 * N * G)
+        # The backward reads x, g, scale and, only under SiLU (the one use
+        # of y), shift; it writes dx, dscale, dshift.
         bound_b = _bound(bwd, count, 30.0 * elems, F32_FLOPS,
-                         io + 2 * elems                 # + g
+                         2 * elems * (2 + film + (film and silu))
                          + 2 * elems * (1 + (2 if film else 0))
                          + 16 * C + 8 * N * G)
         for acc, ms, plain, lb, err in (
@@ -596,6 +649,8 @@ def phase_groupnorm_backward(gn_sites, accum):
             acc["max_abs_err"] = max(acc["max_abs_err"], err)
         sites.append({"N": N, "L": L, "C": C, "G": G, "film": film,
                       "silu": silu, "per_train_step": count,
+                      "plan": cuda_film.backward_plan(N, L, C, G, 2),
+                      "bwd_pct_of_bound": round(100.0 * bound_b / ms_b, 1),
                       "bwd_us": round(ms_b * 1e3, 2),
                       "bwd_plain_us": round(plain_b * 1e3, 2),
                       "bwd_library_us": round(lib_b * 1e3, 2),
@@ -641,7 +696,7 @@ def phase_attention_backward(attn_sites, accum):
         return (flash_attention.launches, attention_backward_dkdv.launches,
                 attention_backward_dq.launches)
 
-    for si, shape in enumerate(shapes):
+    for si, shape in enumerate(shapes + WIDE_ATTN):
         B, Lq, Lk, H, D = shape
         count = attn_sites.get(shape, 0) * accum
         for dtype in (torch.float32, torch.bfloat16):
@@ -688,6 +743,8 @@ def phase_attention_backward(attn_sites, accum):
                     worst = max(worst, ratio)
                     errs[n] = err
                     checked += 1
+        if shape in WIDE_ATTN:
+            continue
         # Times in bf16 through the wrappers, no lse cotangent (the
         # training path).
         o = o.detach()
@@ -1135,8 +1192,12 @@ def main() -> None:
     sample_per = "one denoise step (2B=16) at srn64, summed over sites"
     train_per = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                  f"{TRAIN_ACCUM}) at srn64, summed over sites")
-    tensor_cores = ("flash_attention", "flash_attention[save_lse]",
-                    "attention_backward_dkdv")
+    design = {"flash_attention": "mma.sync bf16",
+              "flash_attention[save_lse]": "mma.sync bf16",
+              "attention_backward_dkdv": "mma.sync bf16",
+              "attention_backward_dq": "mma.sync bf16",
+              "groupnorm_backward": "one thread-block cluster per sample, "
+                                    "DSMEM exchange"}
     kernels = []
     for name, source, replaces, n, stats, per in (
             ("fused_groupnorm", film, "diff3d_tpu/ops/pallas_film.py:277",
@@ -1166,8 +1227,7 @@ def main() -> None:
             "ms": stats["ms"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": stats["library_ms"], "per": per,
-            "design": ("mma.sync bf16" if name in tensor_cores
-                       else "cuda cores")})
+            "design": design.get(name, "cuda cores")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,8 +38,13 @@
 //     tile), 256 threads; q and 64-key k/v tiles staged in shared memory as
 //     f32 (rows padded by one float); the [Lq, Lk] scores never leave
 //     shared memory.  Head dim padded to DCH * 32 (DCH = 1..8).
-// Both read q/k/v as strided views of the projection outputs (head stride
-// D, row stride C), with no permute copies, and take D <= 256.
+//   * 256 < D <= 512, both dtypes: the same CUDA-core kernel with the head
+//     dim padded to 384 or 512 (DCH = 12, 16) and 32-key tiles, so q and
+//     the k/v tiles (201 KB at D = 512) fit a block.  No configuration of
+//     the repo uses these head dims; they are the Pallas kernel's domain
+//     (pallas_attention.py:52), taken by the simplest kernel that is right.
+// All read q/k/v as strided views of the projection outputs (head stride
+// D, row stride C), with no permute copies, and take D <= 512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,9 +53,17 @@
 namespace {
 
 constexpr int BQ = 32;              // query rows per block
-constexpr int BK = 64;              // keys per tile
 constexpr int NT = 256;             // threads per block
+constexpr int MAX_D = 512;          // the Pallas kernel's head-dim cap
 constexpr float NEG_INF = -1e30f;
+
+// Keys per tile of the CUDA-core forward: 64 up to D = 256, 32 above
+// (DCH > 8), so q and two k/v tiles of 512 f32 columns fit the 227 KB a
+// block may use.
+template <int DCH>
+__host__ __device__ constexpr int fwd_bk() {
+  return DCH <= 8 ? 64 : 32;
+}
 
 template <typename T>
 __device__ __forceinline__ float load_f32(const T* p);
@@ -92,14 +105,17 @@ struct FlashArgs {
 
 template <int DCH>
 constexpr size_t smem_floats() {
+  constexpr int BK = fwd_bk<DCH>();
   return (size_t)(BQ + 2 * BK) * (DCH * 32 + 1) + BQ * BK + 3 * BQ;
 }
 
-template <int DCH>
+// The CUDA-core forward: f32 in both dtypes at D > 256, f32 at any D.
+template <typename T, int DCH>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
-  using T = float;                  // bf16 runs flash_fwd_mma_kernel
+  constexpr int BK = fwd_bk<DCH>();
   constexpr int DP = DCH * 32;      // padded head dim
   constexpr int LD = DP + 1;        // shared row stride
+  constexpr int RS = NT / BK;       // score rows a thread steps by
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);    // [BQ][LD]
   float* Ks = Qs + BQ * LD;                          // [BK][LD]
@@ -132,7 +148,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
     l_s[tid] = 0.f;
   }
 
-  // Scores: thread (sj, si0) computes rows si0 + 4r (r < 8) of key sj.
+  // Scores: thread (sj, si0) computes rows si0 + RS r (r < BQ / RS) of
+  // key sj.
   const int sj = tid % BK, si0 = tid / BK;
   // Output: thread (lane, warp) holds rows warp + 8r (r < 4) and head
   // columns lane + 32c (c < DCH).
@@ -156,35 +173,45 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
     }
     __syncthreads();
 
-    float sacc[8];
+    float sacc[BQ / RS];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) sacc[r] = 0.f;
+    for (int r = 0; r < BQ / RS; ++r) sacc[r] = 0.f;
     for (int d = 0; d < DP; ++d) {
       const float kd = Ks[sj * LD + d];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) sacc[r] += Qs[(si0 + 4 * r) * LD + d] * kd;
+      for (int r = 0; r < BQ / RS; ++r)
+        sacc[r] += Qs[(si0 + RS * r) * LD + d] * kd;
     }
     const bool valid = k0 + sj < a.Lk;
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      S[(si0 + 4 * r) * BK + sj] = valid ? sacc[r] * a.scale : NEG_INF;
+    for (int r = 0; r < BQ / RS; ++r)
+      S[(si0 + RS * r) * BK + sj] = valid ? sacc[r] * a.scale : NEG_INF;
     __syncthreads();
 
-    // Online softmax: warp w owns rows 4w .. 4w + 3.
+    // Online softmax: warp w owns rows 4w .. 4w + 3; lane reads keys
+    // lane + 32u.
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr) {
       const int i = warp * 4 + rr;
-      const float s0 = S[i * BK + lane], s1 = S[i * BK + lane + 32];
-      float mx = fmaxf(s0, s1);
+      float sv[BK / 32];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        sv[u] = S[i * BK + lane + 32 * u];
+        mx = fmaxf(mx, sv[u]);
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_prev = m_s[i];
       const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      S[i * BK + lane] = p0;
-      S[i * BK + lane + 32] = p1;
-      float sum = p0 + p1;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        const float p = expf(sv[u] - m_new);
+        S[i * BK + lane + 32 * u] = p;
+        sum += p;
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -251,28 +278,37 @@ cudaError_t allow_smem(K kernel, size_t bytes, unsigned long long* done) {
   return err;
 }
 
-template <int DCH>
+template <typename T, int DCH>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = smem_floats<DCH>() * sizeof(float);
   static unsigned long long done = 0;
-  cudaError_t err = allow_smem(flash_fwd_kernel<DCH>, smem, &done);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, DCH>, smem, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  flash_fwd_kernel<DCH><<<grid, NT, smem, stream>>>(a);
+  flash_fwd_kernel<T, DCH><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Above D = 256 both dtypes take the CUDA-core kernels with the head dim
+// padded to 384 or 512: two instantiations instead of eight.
+template <typename T>
+cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
+  if (a.D <= 384) return launch<T, 12>(a, stream);
+  if (a.D <= 512) return launch<T, 16>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
   switch ((a.D + 31) / 32) {
-    case 1: return launch<1>(a, stream);
-    case 2: return launch<2>(a, stream);
-    case 3: return launch<3>(a, stream);
-    case 4: return launch<4>(a, stream);
-    case 5: return launch<5>(a, stream);
-    case 6: return launch<6>(a, stream);
-    case 7: return launch<7>(a, stream);
-    case 8: return launch<8>(a, stream);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch<float, 1>(a, stream);
+    case 2: return launch<float, 2>(a, stream);
+    case 3: return launch<float, 3>(a, stream);
+    case 4: return launch<float, 4>(a, stream);
+    case 5: return launch<float, 5>(a, stream);
+    case 6: return launch<float, 6>(a, stream);
+    case 7: return launch<float, 7>(a, stream);
+    case 8: return launch<float, 8>(a, stream);
+    default: return launch_wide<float>(a, stream);
   }
 }
 
@@ -634,7 +670,7 @@ cudaError_t launch_bf16(const FlashArgs& a, cudaStream_t stream) {
   if (a.D <= 64) return launch_mma<64>(a, stream);
   if (a.D <= 128) return launch_mma<128>(a, stream);
   if (a.D <= 256) return launch_mma<256>(a, stream);
-  return cudaErrorInvalidValue;
+  return launch_wide<bf16>(a, stream);
 }
 
 // 16-byte access is possible for a bf16 [B, L, H, D] view when its base and
@@ -664,15 +700,23 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 //     kernels read one number per row instead of re-reducing dO * O;
 //   * the Pallas two-kernel split is kept so neither kernel needs atomics:
 //     dK/dV, one block per key tile looping over query tiles; dQ, one block
-//     per 32-query tile looping over 32-key tiles;
-//   * bf16 dK/dV: tensor cores (flash_bwd_dkdv_mma_kernel, below);
-//   * f32 dK/dV and dQ in both dtypes: the f32 CUDA cores.  Q, dO, K, V
-//     tiles staged in shared memory as f32 with rows padded by one float
-//     (conflict-free key-major reads); the 32 x 32 P and dS tiles never
-//     leave shared memory.  At D = 256 a block holds 4 x 32 x 257 + 2 x 32
-//     x 33 floats = 140 KB, inside the 227 KB a block may use.
+//     per query tile looping over key tiles;
+//   * bf16 at D <= 256: tensor cores (flash_bwd_dkdv_mma_kernel and
+//     flash_bwd_dq_mma_kernel, below);
+//   * f32, and bf16 above D = 256: the f32 CUDA cores.  Q, dO, K, V tiles
+//     staged in shared memory as f32 with rows padded by one float
+//     (conflict-free key-major reads); the BB x BB P and dS tiles never
+//     leave shared memory.  BB = 32 rows up to D = 256 (4 x 32 x 257 + 2 x
+//     32 x 33 floats = 140 KB at D = 256) and 16 above (4 x 16 x 513 + 2 x
+//     16 x 17 floats = 134 KB at D = 512), inside the 227 KB a block may
+//     use.
 
-constexpr int BB = 32;              // rows of a backward tile (keys or queries)
+// Rows of a CUDA-core backward tile (keys or queries): 32 up to D = 256,
+// 16 above (DCH > 8), so four tiles of 512 f32 columns fit a block.
+template <int DCH>
+__host__ __device__ constexpr int bwd_bb() {
+  return DCH <= 8 ? 32 : 16;
+}
 
 struct FlashBwdArgs {
   const void* q;
@@ -693,7 +737,7 @@ struct FlashBwdArgs {
   void* dv;
   int B, H, Lq, Lk, D;
   float scale;
-  int vec_in, vec_out;             // 16-byte paths (bf16 dK/dV kernel only)
+  int vec_in, vec_out;             // 16-byte paths (tensor-core kernels only)
 };
 
 template <typename T>
@@ -720,6 +764,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(FlashBwdArgs a) {
 
 template <int DCH>
 constexpr size_t bwd_smem_floats() {
+  constexpr int BB = bwd_bb<DCH>();
   return (size_t)4 * BB * (DCH * 32 + 1) + 2 * BB * (BB + 1) + 2 * BB;
 }
 
@@ -728,7 +773,7 @@ constexpr size_t bwd_smem_floats() {
 template <typename T, int DCH>
 __device__ __forceinline__ void stage(float* dst, const T* src, long long sl,
                                       int r0, int L, int D) {
-  constexpr int DP = DCH * 32, LD = DP + 1;
+  constexpr int BB = bwd_bb<DCH>(), DP = DCH * 32, LD = DP + 1;
   for (int e = threadIdx.x; e < BB * DP; e += NT) {
     const int i = e / DP, d = e % DP;
     float val = 0.f;
@@ -737,8 +782,9 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long sl,
   }
 }
 
-// P and dS of one (query tile, key tile) pair into shared memory:
-// thread (lane j, warp w) computes rows w + 8r (r < 4) of key column j.
+// P and dS of one (query tile, key tile) pair into shared memory: thread
+// (j, w) = (tid % BB, tid / BB) computes rows w + (NT / BB) r of key
+// column j (4 rows at BB = 32, 1 at BB = 16).
 template <int DCH>
 __device__ __forceinline__ void score_tile(const float* Qs, const float* dOs,
                                            const float* Ks, const float* Vs,
@@ -746,30 +792,34 @@ __device__ __forceinline__ void score_tile(const float* Qs, const float* dOs,
                                            const float* dl_s, float* P,
                                            float* dS, int nq, int nk,
                                            float scale) {
-  constexpr int LD = DCH * 32 + 1;
-  const int j = threadIdx.x & 31, w = threadIdx.x >> 5;
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int BB = bwd_bb<DCH>(), LD = DCH * 32 + 1;
+  constexpr int RS = NT / BB, NR = BB / RS;
+  const int j = threadIdx.x % BB, w = threadIdx.x / BB;
+  float s[NR], dp[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) s[r] = dp[r] = 0.f;
   for (int d = 0; d < DCH * 32; ++d) {
     const float kd = Ks[j * LD + d], vd = Vs[j * LD + d];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      s[r] += Qs[(w + 8 * r) * LD + d] * kd;
-      dp[r] += dOs[(w + 8 * r) * LD + d] * vd;
+    for (int r = 0; r < NR; ++r) {
+      s[r] += Qs[(w + RS * r) * LD + d] * kd;
+      dp[r] += dOs[(w + RS * r) * LD + d] * vd;
     }
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = w + 8 * r;
+  for (int r = 0; r < NR; ++r) {
+    const int i = w + RS * r;
     const float p = (i < nq && j < nk) ? expf(s[r] * scale - lse_s[i]) : 0.f;
     P[i * (BB + 1) + j] = p;
     dS[i * (BB + 1) + j] = p * (dp[r] - dl_s[i]) * scale;
   }
 }
 
-template <int DCH>
+// The CUDA-core dK/dV: f32 at any D, bf16 at D > 256.
+template <typename T, int DCH>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(FlashBwdArgs a) {
-  using T = float;                  // bf16 runs flash_bwd_dkdv_mma_kernel
-  constexpr int DP = DCH * 32, LD = DP + 1;
+  constexpr int BB = bwd_bb<DCH>(), DP = DCH * 32, LD = DP + 1;
+  constexpr int NR = BB / 8;        // key rows a thread accumulates
   extern __shared__ float4 smem_f4[];
   float* Ks = reinterpret_cast<float*>(smem_f4);    // [BB][LD]
   float* Vs = Ks + BB * LD;
@@ -796,9 +846,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(FlashBwdArgs a) {
 
   // Thread (lane, warp) accumulates key rows warp + 8r, head columns
   // lane + 32c.
-  float dk[4][DCH], dv[4][DCH];
+  float dk[NR][DCH], dv[NR][DCH];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < NR; ++r)
 #pragma unroll
     for (int c = 0; c < DCH; ++c) dk[r][c] = dv[r][c] = 0.f;
 
@@ -824,7 +874,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(FlashBwdArgs a) {
         di[c] = dOs[i * LD + lane + 32 * c];
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < NR; ++r) {
         const float p = P[i * (BB + 1) + warp + 8 * r];
         const float ds = dS[i * (BB + 1) + warp + 8 * r];
 #pragma unroll
@@ -839,7 +889,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(FlashBwdArgs a) {
   T* dkb = static_cast<T*>(a.dk);
   T* dvb = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < NR; ++r) {
     const int j = k0 + warp + 8 * r;
     if (j >= a.Lk) continue;
     const int64_t row = (((int64_t)b * a.Lk + j) * a.H + h) * a.D;
@@ -854,9 +904,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(FlashBwdArgs a) {
   }
 }
 
+// The CUDA-core dQ: f32 at any D, bf16 at D > 256.
 template <typename T, int DCH>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
-  constexpr int DP = DCH * 32, LD = DP + 1;
+  constexpr int BB = bwd_bb<DCH>(), DP = DCH * 32, LD = DP + 1;
+  constexpr int NR = BB / 8;        // query rows a thread accumulates
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);    // [BB][LD]
   float* dOs = Qs + BB * LD;
@@ -889,9 +941,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
 
   // Thread (lane, warp) accumulates query rows warp + 8r, columns
   // lane + 32c.
-  float dq[4][DCH];
+  float dq[NR][DCH];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < NR; ++r)
 #pragma unroll
     for (int c = 0; c < DCH; ++c) dq[r][c] = 0.f;
 
@@ -908,7 +960,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
 #pragma unroll
       for (int c = 0; c < DCH; ++c) kj[c] = Ks[j * LD + lane + 32 * c];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < NR; ++r) {
         const float ds = dS[(warp + 8 * r) * (BB + 1) + j];
 #pragma unroll
         for (int c = 0; c < DCH; ++c) dq[r][c] += ds * kj[c];
@@ -918,7 +970,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
 
   T* dqb = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < NR; ++r) {
     const int i = q0 + warp + 8 * r;
     if (i >= a.Lq) continue;
     const int64_t row = (((int64_t)b * a.Lq + i) * a.H + h) * a.D;
@@ -932,7 +984,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashBwdArgs a) {
 
 // The bf16 dK/dV.  Replaces diff3d_tpu/ops/pallas_attention.py::
 // _bwd_dkdv_kernel (pallas_attention.py:204-244, the `dkdv` call at :287)
-// for bf16 operands; the f32 path keeps flash_bwd_dkdv_kernel above.
+// for bf16 operands at D <= 256; f32, and bf16 above D = 256, keep
+// flash_bwd_dkdv_kernel above.
 // Bound: per (b, h) 8 * L^2 * D flops against ~14 * L * D bytes (q, o, dO,
 // k, v in with the delta pre-pass, dk, dv out, bf16) -- by bytes at srn64's
 // L <= 256, by operations from L ~ 520.  Design: one CTA of 4 warps per
@@ -1184,20 +1237,240 @@ cudaError_t launch_dkdv_bf16(const FlashBwdArgs& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// The bf16 dQ.  Replaces diff3d_tpu/ops/pallas_attention.py::_bwd_dq_kernel
+// (pallas_attention.py:247-275, the `dq` call at :306) for bf16 operands
+// at D <= 256; the f32 path, and bf16 above D = 256, keep
+// flash_bwd_dq_kernel above.  Bound: per (b, h) 6 * L^2 * D flops against
+// ~10 * L * D bytes (q, dO, k, v in, dq out, bf16, with the lse and delta
+// rows) -- by bytes at srn64's L <= 256, by operations from L ~ 600.
+// Design, the mirror image of flash_bwd_dkdv_mma_kernel: one CTA of 4
+// warps per (b * h, 64-query tile), each warp 16 query rows; the loop runs
+// over key tiles of BK (64 at D <= 64, else 32), K and V double-buffered
+// through 16-byte cp.async into bf16 shared memory with 16-byte row
+// padding.  Per tile, in registers:
+//   S = Q K^T and dP = dO V^T (K, V as stored are B's [n][k]);
+//   P = exp(S * scale - lse), keys past Lk giving 0 (exp2 with a log2(e)
+//   prescale), dS = P (dP - delta) * scale, packed to bf16 A fragments;
+//   dQ += dS K, K read transposed by ldmatrix.
+// Numerics: dS is rounded to bf16 before dS K, as FlashAttention-2 does
+// and as the dK/dV kernel does for dS^T; sums stay f32.  The warp's Q and
+// dO fragments, its two rows' lse and delta stay in registers for the key
+// loop (Q and dO only at D <= 64; above they are re-read by ldmatrix).  At
+// D = 256 grid.z splits the dQ columns in two halves (S and dP are
+// computed by both), which keeps the accumulators in registers.
+template <int DP>
+__global__ void __launch_bounds__(MMA_NT)
+    flash_bwd_dq_mma_kernel(FlashBwdArgs a) {
+  constexpr int BK = DP <= 64 ? 64 : 32;    // keys per tile
+  constexpr int DW = DP > 128 ? DP / 2 : DP;  // dQ columns per CTA
+  constexpr int LDS = DP + 8;
+  constexpr int KC = DP / 16;               // k-chunks of S, dP
+  constexpr int KU = DP >= 128 ? 2 : KC;    // their unroll (no spills)
+  constexpr int NS = BK / 8;                // n-tiles of S, dP
+  constexpr int NW = DW / 8;                // n-tiles of dQ
+  constexpr bool QD_REGS = DP <= 64;
+  extern __shared__ float4 smem_f4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_f4);  // [BM][LDS]
+  bf16* dOs = Qs + BM * LDS;                     // [BM][LDS]
+  bf16* Ks = dOs + BM * LDS;                     // [2][BK][LDS]
+  bf16* Vs = Ks + 2 * BK * LDS;                  // [2][BK][LDS]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * BM, d0 = blockIdx.z * DW;
+  const bf16* qb = static_cast<const bf16*>(a.q) + (int64_t)b * a.sqb +
+                   (int64_t)h * a.sqh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (int64_t)b * a.skb +
+                   (int64_t)h * a.skh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + (int64_t)b * a.svb +
+                   (int64_t)h * a.svh;
+  const bf16* db = static_cast<const bf16*>(a.dO) + (int64_t)b * a.sdb +
+                   (int64_t)h * a.sdh;
+  const bool vec = a.vec_in != 0;
+  const int nk = (a.Lk + BK - 1) / BK;
+
+  load_tile<BM, DP>(Qs, qb, a.sql, q0, a.Lq, a.D, vec);
+  load_tile<BM, DP>(dOs, db, a.sdl, q0, a.Lq, a.D, vec);
+  load_tile<BK, DP>(Ks, kb, a.skl, 0, a.Lk, a.D, vec);
+  load_tile<BK, DP>(Vs, vb, a.svl, 0, a.Lk, a.D, vec);
+  cp_async_commit();
+
+  // This lane's rows g and g + 8 of the warp: lse in log2 units and delta
+  // (zeros past Lq: those rows are not stored).
+  const int r0 = q0 + warp * 16;
+  const float* lse = a.lse + (int64_t)bh * a.Lq;
+  const float* delta = a.delta + (int64_t)bh * a.Lq;
+  const float lt0 = r0 + g < a.Lq ? lse[r0 + g] * LOG2E : 0.f;
+  const float lt1 = r0 + g + 8 < a.Lq ? lse[r0 + g + 8] * LOG2E : 0.f;
+  const float dl0 = r0 + g < a.Lq ? delta[r0 + g] : 0.f;
+  const float dl1 = r0 + g + 8 < a.Lq ? delta[r0 + g + 8] : 0.f;
+
+  // Shared byte addresses of this lane's ldmatrix rows: the warp's 16
+  // query rows of Q and dO (A), stage 0 of K and V as stored (B) and of K
+  // transposed (B, from column d0).
+  const uint32_t qA = smem_u32(Qs) + warp * 16 * LDS * 2 + a_off<LDS>(lane);
+  const uint32_t dA = smem_u32(dOs) + warp * 16 * LDS * 2 + a_off<LDS>(lane);
+  const uint32_t kB = smem_u32(Ks) + b_off<LDS>(lane);
+  const uint32_t vB = smem_u32(Vs) + b_off<LDS>(lane);
+  const uint32_t kT = smem_u32(Ks) + a_off<LDS>(lane) + d0 * 2;
+  uint32_t qf[QD_REGS ? KC : 1][4], df[QD_REGS ? KC : 1][4];
+  float dq[NW][4];
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  const float sl2 = a.scale * LOG2E;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {      // stage st ^ 1 was last read before the barrier
+      load_tile<BK, DP>(Ks + (st ^ 1) * BK * LDS, kb, a.skl, (kt + 1) * BK,
+                        a.Lk, a.D, vec);
+      load_tile<BK, DP>(Vs + (st ^ 1) * BK * LDS, vb, a.svl, (kt + 1) * BK,
+                        a.Lk, a.D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t so = st * BK * LDS * 2;  // byte offset of stage st
+    if (QD_REGS && kt == 0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        ldsm_x4(qf[QD_REGS ? kc : 0], qA + kc * 32);
+        ldsm_x4(df[QD_REGS ? kc : 0], dA + kc * 32);
+      }
+    }
+
+    // S = Q K^T, then dP = dO V^T: [16 queries][BK keys] per warp.
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll (KU)
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4];
+      if (QD_REGS) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[r] = qf[QD_REGS ? kc : 0][r];
+      } else {
+        ldsm_x4(qa, qA + kc * 32);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t f[4];
+        ldsm_x4(f, kB + so + (np * 16 * LDS + kc * 16) * 2);
+        mma_bf16(s[2 * np], qa, f[0], f[1]);
+        mma_bf16(s[2 * np + 1], qa, f[2], f[3]);
+      }
+    }
+#pragma unroll (KU)
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t da[4];
+      if (QD_REGS) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) da[r] = df[QD_REGS ? kc : 0][r];
+      } else {
+        ldsm_x4(da, dA + kc * 32);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t f[4];
+        ldsm_x4(f, vB + so + (np * 16 * LDS + kc * 16) * 2);
+        mma_bf16(dp[2 * np], da, f[0], f[1]);
+        mma_bf16(dp[2 * np + 1], da, f[2], f[3]);
+      }
+    }
+
+    // dS, key column 8n + 2t + (e & 1), row g (e < 2) or g + 8, packed to
+    // bf16 A fragments: 16 keys (two n-tiles) per fragment.
+    const int kbase = kt * BK;
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = kbase + n * 8 + 2 * t + (e & 1) < a.Lk;
+        const float p = ok ? exp2f(s[n][e] * sl2 - (e < 2 ? lt0 : lt1)) : 0.f;
+        ds[e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * a.scale;
+      }
+      sa[n / 2][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      sa[n / 2][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K over columns [d0, d0 + DW).
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < DW / 16; ++np) {
+        uint32_t f[4];
+        ldsm_x4_t(f, kT + so + (kc * 16 * LDS + np * 16) * 2);
+        mma_bf16(dq[2 * np], sa[kc], f[0], f[1]);
+        mma_bf16(dq[2 * np + 1], sa[kc], f[2], f[3]);
+      }
+    }
+    __syncthreads();        // stage st is refilled in the next iteration
+  }
+
+  // Epilogue: the warp's dQ rows through its own rows of the Q tile
+  // (columns [d0, d0 + DW)) to 16-byte stores.
+  bf16* dQw = Qs + warp * 16 * LDS;
+#pragma unroll
+  for (int n = 0; n < NW; ++n) {
+    const int c = d0 + n * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(dQw + g * LDS + c) =
+        __floats2bfloat162_rn(dq[n][0], dq[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dQw + (g + 8) * LDS + c) =
+        __floats2bfloat162_rn(dq[n][2], dq[n][3]);
+  }
+  __syncwarp();
+  // dq is contiguous [B, Lq, H, D]: row stride H * D, offset by d0.
+  const long long sl = (long long)a.H * a.D;
+  const int64_t off = ((int64_t)b * a.Lq * a.H + h) * a.D + d0;
+  store_rows<DW>(static_cast<bf16*>(a.dq) + off, sl, dQw + d0, r0, a.Lq,
+                 a.D - d0, a.vec_out != 0, LDS);
+}
+
+template <int DP>
+constexpr size_t dq_mma_smem() {
+  constexpr int BK = DP <= 64 ? 64 : 32;
+  return (size_t)(2 * BM + 4 * BK) * (DP + 8) * sizeof(bf16);
+}
+
+template <int DP>
+cudaError_t launch_dq_mma(const FlashBwdArgs& a, cudaStream_t stream) {
+  const size_t smem = dq_mma_smem<DP>();
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<DP>, smem, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + BM - 1) / BM, a.B * a.H, DP > 128 ? 2 : 1);
+  flash_bwd_dq_mma_kernel<DP><<<grid, MMA_NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_bf16(const FlashBwdArgs& a, cudaStream_t stream) {
+  if (a.D <= 32) return launch_dq_mma<32>(a, stream);
+  if (a.D <= 64) return launch_dq_mma<64>(a, stream);
+  if (a.D <= 128) return launch_dq_mma<128>(a, stream);
+  if (a.D <= 256) return launch_dq_mma<256>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The CUDA-core dK/dV (part 0) or dQ (part 1).
 template <typename T, int DCH>
 cudaError_t launch_bwd(const FlashBwdArgs& a, int part, cudaStream_t stream) {
+  constexpr int BB = bwd_bb<DCH>();
   const size_t smem = bwd_smem_floats<DCH>() * sizeof(float);
   if (part == 0) {
-    flash_bwd_delta_kernel<T>
-        <<<dim3((a.Lq + NT / 32 - 1) / (NT / 32), a.B * a.H), NT, 0,
-           stream>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    if constexpr (sizeof(T) == 2) return launch_dkdv_bf16(a, stream);
     static unsigned long long done_dkdv = 0;
-    err = allow_smem(flash_bwd_dkdv_kernel<DCH>, smem, &done_dkdv);
+    cudaError_t err =
+        allow_smem(flash_bwd_dkdv_kernel<T, DCH>, smem, &done_dkdv);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_kernel<DCH>
+    flash_bwd_dkdv_kernel<T, DCH>
         <<<dim3((a.Lk + BB - 1) / BB, a.B * a.H), NT, smem, stream>>>(a);
     return cudaGetLastError();
   }
@@ -1209,19 +1482,34 @@ cudaError_t launch_bwd(const FlashBwdArgs& a, int part, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Part 0: the delta pre-pass, then dK/dV; part 1: dQ.  bf16 at D <= 256
+// takes the tensor-core kernels; f32, and bf16 above D = 256 (head dim
+// padded to 384 or 512), the CUDA-core ones.
 template <typename T>
 cudaError_t launch_bwd_d(const FlashBwdArgs& a, int part,
                          cudaStream_t stream) {
-  switch ((a.D + 31) / 32) {
-    case 1: return launch_bwd<T, 1>(a, part, stream);
-    case 2: return launch_bwd<T, 2>(a, part, stream);
-    case 3: return launch_bwd<T, 3>(a, part, stream);
-    case 4: return launch_bwd<T, 4>(a, part, stream);
-    case 5: return launch_bwd<T, 5>(a, part, stream);
-    case 6: return launch_bwd<T, 6>(a, part, stream);
-    case 7: return launch_bwd<T, 7>(a, part, stream);
-    case 8: return launch_bwd<T, 8>(a, part, stream);
-    default: return cudaErrorInvalidValue;
+  if (part == 0) {
+    flash_bwd_delta_kernel<T>
+        <<<dim3((a.Lq + NT / 32 - 1) / (NT / 32), a.B * a.H), NT, 0,
+           stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (a.D > 384) return launch_bwd<T, 16>(a, part, stream);
+  if (a.D > 256) return launch_bwd<T, 12>(a, part, stream);
+  if constexpr (sizeof(T) == 2) {
+    return part == 0 ? launch_dkdv_bf16(a, stream) : launch_dq_bf16(a, stream);
+  } else {
+    switch ((a.D + 31) / 32) {
+      case 1: return launch_bwd<T, 1>(a, part, stream);
+      case 2: return launch_bwd<T, 2>(a, part, stream);
+      case 3: return launch_bwd<T, 3>(a, part, stream);
+      case 4: return launch_bwd<T, 4>(a, part, stream);
+      case 5: return launch_bwd<T, 5>(a, part, stream);
+      case 6: return launch_bwd<T, 6>(a, part, stream);
+      case 7: return launch_bwd<T, 7>(a, part, stream);
+      default: return launch_bwd<T, 8>(a, part, stream);
+    }
   }
 }
 
@@ -1240,7 +1528,7 @@ int flash_attention_forward(const void* q, long long sqb, long long sql,
                             long long soh, void* lse, int B, int H, int Lq,
                             int Lk,
                             int D, float scale, int dtype, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > 256 ||
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > MAX_D ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   FlashArgs a;
@@ -1289,7 +1577,7 @@ int flash_attention_backward(
     const void* lse, const void* glse, void* delta, void* dq, void* dk,
     void* dv, int B, int H, int Lq, int Lk, int D, float scale, int dtype,
     int part, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > 256 ||
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > MAX_D ||
       (dtype != 0 && dtype != 1) || (part != 0 && part != 1) ||
       lse == nullptr || delta == nullptr ||
       (part == 0 && (dk == nullptr || dv == nullptr)) ||
@@ -1332,7 +1620,9 @@ int flash_attention_backward(
   a.vec_in = aligned16(q, sqb, sql, sqh, D) &&
              aligned16(k, skb, skl, skh, D) &&
              aligned16(v, svb, svl, svh, D) && aligned16(dO, sdb, sdl, sdh, D);
-  a.vec_out = aligned16(dk, 0, 0, 0, D) && aligned16(dv, 0, 0, 0, D);
+  a.vec_out = part == 0
+                  ? aligned16(dk, 0, 0, 0, D) && aligned16(dv, 0, 0, 0, D)
+                  : aligned16(dq, 0, 0, 0, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? launch_bwd_d<float>(a, part, st)
                                : launch_bwd_d<__nv_bfloat16>(a, part, st);

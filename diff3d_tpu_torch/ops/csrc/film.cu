@@ -26,6 +26,7 @@
 // Launch errors are returned to the caller (cudaGetLastError after each
 // launch); nothing here synchronises or allocates.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,11 +198,37 @@ __global__ void __launch_bounds__(THREADS) gn_apply_kernel(GnArgs a) {
   }
 }
 
+// Raise a kernel's dynamic shared-memory limit to `bytes` (and, with
+// `cluster`, allow non-portable cluster sizes) once per device: the
+// attributes persist, and setting them costs a runtime call otherwise.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, unsigned long long* done,
+                       bool cluster = false) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (*done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && cluster)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}
+
 template <typename T, bool FILM, bool SILU>
 cudaError_t launch_apply(const GnArgs& a, cudaStream_t stream) {
   const dim3 block(TX, TY);
   const dim3 grid((a.L + a.rows_per_block - 1) / a.rows_per_block, a.N);
+  // Above 48 KB (G + C > 6144) only after raising the kernel's limit.
   const size_t smem = (size_t)(2 * a.G + 2 * a.C) * sizeof(float);
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(gn_apply_kernel<T, FILM, SILU>,
+                               (size_t)(2 * 4096 + 2 * 4096) * sizeof(float),
+                               &done);
+  if (err != cudaSuccess) return err;
   gn_apply_kernel<T, FILM, SILU><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -232,18 +259,44 @@ cudaError_t launch_all(const GnArgs& a, int film, int silu,
 // every intermediate in f32; dx / dscale / dshift rounded once to the
 // input dtype, dgamma / dbeta kept f32 (the parameters are f32).
 //
-// What bounds it on an H100: bytes, as the forward -- ~30 flops per element
-// against reading x, g, scale, shift and writing dx, dscale, dshift.
-// Design, the forward's shape:
-//   * reduce pass, block (split s, sample n): per-channel sums of dxhat and
-//     dxhat * x_hat folded to groups and written as f32 partials
-//     [N, G, splits]; per-channel dgamma / dbeta partials [N, splits, C];
-//   * apply pass, block (row tile, sample n): folds its sample's group
-//     partials in a fixed order, recomputes the element chain and writes
-//     dx, dscale, dshift once;
-//   * param pass: one thread per channel folds the [N * splits] dgamma /
-//     dbeta partials in a fixed order.
-// No float atomics anywhere: a train step is bit-identical run to run.
+// What bounds it on an H100: bytes -- ~30 flops per element against
+// reading x, g, scale and (under SiLU, the one use of y) shift once and
+// writing dx, dscale, dshift once.  At
+// the srn64 train step's 64^2 level one bf16 tensor is N * L * C * 2 = 268
+// MB, so nothing stays in the 50 MB L2 between two passes over the data.
+// Design: one thread-block cluster of CS CTAs per sample n
+// (gn_bwd_cluster_kernel), so the whole backward of a sample is one pass:
+//   * phase 1: CTA `rank` of the cluster streams its rows [rank * R, ...)
+//     of x, g, scale and shift with 16-byte loads (8 bf16 channels a lane,
+//     two rows in flight; element loads when a view is not 16-byte
+//     aligned), x and g ahead of use by cp.async when they stay on chip,
+//     each lane holding its channels' gamma, beta, mean and rstd in
+//     registers.  It writes dscale and dshift (they need no group
+//     statistics), keeps its rows of x and g in shared memory when the
+//     plan says they fit (`onchip`), and sums per channel dxhat, dxhat *
+//     x_hat, dy_gn * x_hat and dy_gn;
+//   * exchange: per-channel sums fold to groups in shared memory; after
+//     cluster.sync() every CTA reads the CS partials of all CTAs through
+//     distributed shared memory in rank order, so every CTA gets the same
+//     mean_g(dxhat) and mean_g(dxhat * x_hat) (no float atomics: a train
+//     step is bit-identical run to run).  The CTAs also fold the per-
+//     channel dgamma / dbeta partials over the cluster into [N, C];
+//   * phase 2: each CTA writes dx for its rows from the x and g it kept
+//     (or re-reads, when they did not fit), re-reading scale (and shift
+//     under SiLU).
+// Then gn_bwd_param_kernel folds the [N, C] partials over N in a fixed
+// order, 32 channels by 16 row groups a block.  When the rows stay on
+// chip, HBM traffic is the bound's plus scale (and shift) once more from
+// L2.  The host plan (cuda_film.backward_plan) picks CS (1..16), R and
+// `onchip` per call from N, L, C and the dtype: on chip only where two
+// CTAs still share an SM.  At the 64^2 level the rows fit only at one CTA
+// per SM, and clusters of 8 re-reading x and g measured faster.
+
+namespace cg = cooperative_groups;
+
+constexpr int BWD_NT = 256;        // threads of a cluster CTA
+constexpr int MAX_CLUSTER = 16;    // non-portable cluster size limit
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use
 
 struct GnBwdArgs {
   const void* x;
@@ -263,36 +316,94 @@ struct GnBwdArgs {
   void* dshift;
   float* dgamma;                   // [C]
   float* dbeta;                    // [C]
-  float* ps1;                      // [N, G, splits] sum dxhat
-  float* ps2;                      // [N, G, splits] sum dxhat * x_hat
-  float* pdg;                      // [N, splits, C]
-  float* pdb;                      // [N, splits, C]
-  int N, L, C, G, splits, rows_per_split, rows_per_block;
+  float* pdg;                      // [N, C] per-sample dgamma partials
+  float* pdb;                      // [N, C] per-sample dbeta partials
+  int N, L, C, G, rows_per_cta, onchip;
 };
 
+// W consecutive elements of T as f32: one 16-byte access when
+// W * sizeof(T) == 16, else W == 1.
+template <typename T, int W>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[W]) {
+  if constexpr (W == 1) {
+    v[0] = load_f32<T>(p);
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[W]) {
+  if constexpr (W == 1) {
+    *p = from_f32<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// One lane's W channels [c0, c0 + W): gamma, beta and its sample's group
+// mean / rstd on each.
+template <int W>
+struct ChanParams {
+  float gam[W], bet[W], mu[W], rs[W];
+  __device__ __forceinline__ void load(const GnBwdArgs& a, int n, int c0) {
+    const int gs = a.C / a.G;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int c = c0 + w;
+      const int64_t grp = (int64_t)n * a.G + c / gs;
+      gam[w] = a.gamma[c];
+      bet[w] = a.beta[c];
+      mu[w] = a.mean[grp];
+      rs[w] = a.rstd[grp];
+    }
+  }
+};
+
+// The element chain of one (row, channel): returns x_hat, y_gn, dy_f,
+// dy_gn and dxhat from x, g, scale and shift (scale / shift unused without
+// FiLM, shift unused without SiLU).
 struct GnGrad {
   float xhat, y_gn, dy_f, dy_gn, dxhat;
 };
 
-// The element chain of one (row, channel): x, g, scale and shift are the
-// row pointers, c the channel.
-template <typename T, bool FILM, bool SILU>
-__device__ __forceinline__ GnGrad gn_grad(const GnBwdArgs& a, const T* xr,
-                                          const T* gr, const T* scr,
-                                          const T* shr, int c, float mean,
-                                          float rstd) {
+// SiLU's sigmoid takes the hardware exp2 and a fast divide (~2 ulp, far
+// inside the f32 tolerance): both phases recompute it for every element,
+// and with x and g on chip they are bound by these instructions.
+template <bool FILM, bool SILU>
+__device__ __forceinline__ GnGrad gn_grad(float x, float g, float sc,
+                                          float sh, float gam, float bet,
+                                          float mu, float rs) {
   GnGrad o;
-  const float gam = a.gamma[c];
-  o.xhat = (load_f32<T>(xr + c) - mean) * rstd;
-  o.y_gn = o.xhat * gam + a.beta[c];
+  o.xhat = (x - mu) * rs;
+  o.y_gn = o.xhat * gam + bet;
   float sc1 = 1.f, y = o.y_gn;
   if (FILM) {
-    sc1 = 1.f + load_f32<T>(scr + c);
-    y = o.y_gn * sc1 + load_f32<T>(shr + c);
+    sc1 = 1.f + sc;
+    y = o.y_gn * sc1 + sh;
   }
-  const float g = load_f32<T>(gr + c);
   if (SILU) {
-    const float sig = 1.f / (1.f + expf(-y));
+    const float sig = __fdividef(1.f, 1.f + __expf(-y));
     o.dy_f = g * (sig * (1.f + y * (1.f - sig)));
   } else {
     o.dy_f = g;
@@ -302,162 +413,387 @@ __device__ __forceinline__ GnGrad gn_grad(const GnBwdArgs& a, const T* xr,
   return o;
 }
 
-template <typename T, bool FILM, bool SILU>
-__global__ void __launch_bounds__(THREADS) gn_bwd_reduce_kernel(GnBwdArgs a) {
-  extern __shared__ float4 smem_f4[];
-  float* c1 = reinterpret_cast<float*>(smem_f4);    // [C] sum dxhat
-  float* c2 = c1 + a.C;                              // [C] sum dxhat*xhat
-  __shared__ float red[4][TY][TX + 1];
+// One row's W channels of every input, as f32.
+template <int W>
+struct RowIn {
+  float x[W], g[W], sc[W], sh[W];
+};
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int s = blockIdx.x, n = blockIdx.y;
-  const int r0 = s * a.rows_per_split;
-  const int r1 = min(a.L, r0 + a.rows_per_split);
-  const int gs = a.C / a.G;
+// 16 bytes global -> shared, asynchronously (the caller commits and waits).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows of x and g a CTA keeps on chip arrive in NCHUNK commit groups, so
+// phase 1 starts on the first rows while the rest stream in.
+constexpr int NCHUNK = 4;
+
+template <typename T, int W, bool FILM, bool SILU>
+__global__ void __launch_bounds__(BWD_NT, 2)
+    gn_bwd_cluster_kernel(GnBwdArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = blockIdx.y, tid = threadIdx.x;
+  const int C = a.C, G = a.G, gs = C / G;
+  extern __shared__ float4 smem_f4[];
+  float* c1 = reinterpret_cast<float*>(smem_f4);   // [C] sum dxhat; then
+                                                    // [G] mean_g(dxhat)
+  float* c2 = c1 + C;              // [C] sum dxhat * x_hat; then its mean_g
+  float* cdg = c2 + C;             // [C] sum dy_gn * x_hat  (read by peers)
+  float* cdb = cdg + C;            // [C] sum dy_gn          (read by peers)
+  float* s1 = cdb + C;             // [G] group sums of c1   (read by peers)
+  float* s2 = s1 + G;              // [G] group sums of c2   (read by peers)
+  float* red = s2 + G;             // [BWD_NT][W] fold scratch
+  // x then g of this CTA's rows, [R][C] each (16-byte aligned).
+  T* xs = reinterpret_cast<T*>(
+      reinterpret_cast<float*>(smem_f4) +
+      ((4 * C + 2 * G + BWD_NT * W + 3) & ~3));
+  T* gsm = xs + (size_t)a.rows_per_cta * C;
+
+  const int r0 = min(a.L, rank * a.rows_per_cta);
+  const int r1 = min(a.L, r0 + a.rows_per_cta);
+  const bool onchip = a.onchip != 0;
+  // Lane layout: SP channel slots of W channels per pass, RY rows in
+  // flight; passes over slots [cv0, cv0 + SP) when C / W > BWD_NT.
+  const int NV = C / W;
+  const int SP = min(NV, BWD_NT), RY = BWD_NT / SP;
+  const int sv = tid % SP, ry = tid / SP;
   const T* xn = static_cast<const T*>(a.x) + (int64_t)n * a.sxn;
   const T* gn = static_cast<const T*>(a.g) + (int64_t)n * a.sgn;
   const T* scn = static_cast<const T*>(a.scale) + (int64_t)n * a.ssn;
   const T* shn = static_cast<const T*>(a.shift) + (int64_t)n * a.shn;
+  const int64_t on = (int64_t)n * a.L * C;
+  const int rc = (r1 - r0 + NCHUNK - 1) / NCHUNK;   // rows per chunk
 
-  for (int c0 = 0; c0 < a.C; c0 += TX) {
-    const int c = c0 + tx;
-    float s1 = 0.f, s2 = 0.f, sdg = 0.f, sdb = 0.f;
-    if (c < a.C) {
-      const float mean = a.mean[(int64_t)n * a.G + c / gs];
-      const float rstd = a.rstd[(int64_t)n * a.G + c / gs];
-      for (int r = r0 + ty; r < r1; r += TY) {
-        const GnGrad o = gn_grad<T, FILM, SILU>(
-            a, xn + (int64_t)r * a.sxl, gn + (int64_t)r * a.sgl,
-            scn + (int64_t)r * a.ssl, shn + (int64_t)r * a.shl, c, mean,
-            rstd);
-        s1 += o.dxhat;
-        s2 += o.dxhat * o.xhat;
-        sdg += o.dy_gn * o.xhat;
-        sdb += o.dy_gn;
+  // On chip: every row of x and g into shared memory, chunk by chunk (one
+  // commit group each), 16 bytes a copy; element by element when the
+  // views are not 16-byte aligned.
+  if (onchip) {
+    if constexpr (W > 1) {
+      const uint32_t sx = (uint32_t)__cvta_generic_to_shared(xs);
+      const uint32_t sg = (uint32_t)__cvta_generic_to_shared(gsm);
+      for (int q = 0; q < NCHUNK; ++q) {
+        const int i0 = q * rc, i1 = min(r1 - r0, i0 + rc);
+        for (int e = i0 * NV + tid; e < i1 * NV; e += BWD_NT) {
+          const int i = e / NV, c0 = (e % NV) * W;
+          const uint32_t off = (uint32_t)(((size_t)i * C + c0) * sizeof(T));
+          cp_async16(sx + off, xn + (int64_t)(r0 + i) * a.sxl + c0);
+          cp_async16(sg + off, gn + (int64_t)(r0 + i) * a.sgl + c0);
+        }
+        cp_async_commit();
+      }
+    } else {
+      for (int e = tid; e < (r1 - r0) * C; e += BWD_NT) {
+        const int i = e / C, c = e % C;
+        xs[(size_t)i * C + c] = xn[(int64_t)(r0 + i) * a.sxl + c];
+        gsm[(size_t)i * C + c] = gn[(int64_t)(r0 + i) * a.sgl + c];
+      }
+      __syncthreads();
+    }
+  }
+
+  // The inputs of row r at channels [c0, c0 + W) that come from global
+  // memory (shift only when `need_sh`: y, and so shift, matters only
+  // under SiLU), and x, g from shared memory when they are on chip.
+  auto load_global = [&](int r, int c0, RowIn<W>& in, bool need_sh) {
+    if (!onchip) {
+      load_vec<T, W>(xn + (int64_t)r * a.sxl + c0, in.x);
+      load_vec<T, W>(gn + (int64_t)r * a.sgl + c0, in.g);
+    }
+    if (FILM) {
+      load_vec<T, W>(scn + (int64_t)r * a.ssl + c0, in.sc);
+      if (need_sh) load_vec<T, W>(shn + (int64_t)r * a.shl + c0, in.sh);
+    }
+  };
+  auto load_onchip = [&](int r, int c0, RowIn<W>& in) {
+    if (onchip) {
+      const size_t srow = (size_t)(r - r0) * C + c0;
+      load_vec<T, W>(xs + srow, in.x);
+      load_vec<T, W>(gsm + srow, in.g);
+    }
+  };
+  // Rows rs + ry, rs + ry + RY, ... below re, two at a time: the global
+  // loads of both rows are issued before either is used.
+  auto for_rows = [&](int rs, int re, int c0, bool need_sh, auto&& body) {
+    constexpr int NB = 2;
+    int r = rs + ry;
+    for (; r + (NB - 1) * RY < re; r += NB * RY) {
+      RowIn<W> in[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) load_global(r + b * RY, c0, in[b], need_sh);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        load_onchip(r + b * RY, c0, in[b]);
+        body(r + b * RY, in[b]);
       }
     }
-    red[0][ty][tx] = s1;
-    red[1][ty][tx] = s2;
-    red[2][ty][tx] = sdg;
-    red[3][ty][tx] = sdb;
-    __syncthreads();
-    if (ty == 0 && c < a.C) {
-      float t[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < TY; ++k)
+    for (; r < re; r += RY) {
+      RowIn<W> in;
+      load_global(r, c0, in, need_sh);
+      load_onchip(r, c0, in);
+      body(r, in);
+    }
+  };
+
+  // Phase 1.
+  for (int cv0 = 0; cv0 < NV; cv0 += SP) {
+    const int cv = cv0 + sv;
+    const bool act = ry < RY && cv < NV;
+    const int c0 = cv * W;
+    float acc[4][W];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) t[q] += red[q][k][tx];
-      c1[c] = t[0];
-      c2[c] = t[1];
-      const int64_t o = ((int64_t)n * a.splits + s) * a.C + c;
-      a.pdg[o] = t[2];
-      a.pdb[o] = t[3];
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[q][w] = 0.f;
+    ChanParams<W> cp;
+    if (act) cp.load(a, n, c0);
+    auto chain = [&](int r, const RowIn<W>& in) {
+      float dsc[W], dsh[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const GnGrad o = gn_grad<FILM, SILU>(in.x[w], in.g[w], in.sc[w],
+                                             in.sh[w], cp.gam[w], cp.bet[w],
+                                             cp.mu[w], cp.rs[w]);
+        acc[0][w] += o.dxhat;
+        acc[1][w] += o.dxhat * o.xhat;
+        acc[2][w] += o.dy_gn * o.xhat;
+        acc[3][w] += o.dy_gn;
+        dsc[w] = o.dy_f * o.y_gn;
+        dsh[w] = o.dy_f;
+      }
+      if (FILM) {
+        const int64_t orow = on + (int64_t)r * C + c0;
+        store_vec<T, W>(static_cast<T*>(a.dscale) + orow, dsc);
+        store_vec<T, W>(static_cast<T*>(a.dshift) + orow, dsh);
+      }
+    };
+    if (onchip) {
+      for (int q = 0; q < NCHUNK; ++q) {
+        if (W > 1 && cv0 == 0) {   // chunk q of the copies has landed
+          if (q == 0) cp_async_wait<NCHUNK - 1>();
+          else if (q == 1) cp_async_wait<NCHUNK - 2>();
+          else if (q == 2) cp_async_wait<NCHUNK - 3>();
+          else cp_async_wait<0>();
+          __syncthreads();
+        }
+        const int rs = r0 + q * rc, re = min(r1, rs + rc);
+        if (act) for_rows(rs, re, c0, SILU, chain);
+      }
+    } else if (act) {
+      for_rows(r0, r1, c0, SILU, chain);
     }
-    __syncthreads();
-  }
-
-  for (int g = ty * TX + tx; g < a.G; g += THREADS) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int k = 0; k < gs; ++k) {
-      t1 += c1[g * gs + k];
-      t2 += c2[g * gs + k];
+    // Fold the RY row groups of each channel in order into c1, c2, cdg,
+    // cdb: channel j of the pass is summed by thread j.
+    float* dst[4] = {c1, c2, cdg, cdb};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < W; ++w) red[tid * W + w] = acc[q][w];
+      __syncthreads();
+      for (int j = tid; j < SP * W; j += BWD_NT) {
+        if (cv0 * W + j >= C) continue;
+        float t = 0.f;
+        for (int k = 0; k < RY; ++k) t += red[j + k * SP * W];
+        dst[q][cv0 * W + j] = t;
+      }
     }
-    const int64_t o = ((int64_t)n * a.G + g) * a.splits + s;
-    a.ps1[o] = t1;
-    a.ps2[o] = t2;
-  }
-}
-
-template <typename T, bool FILM, bool SILU>
-__global__ void __launch_bounds__(THREADS) gn_bwd_apply_kernel(GnBwdArgs a) {
-  extern __shared__ float4 smem_f4[];
-  float* gm1 = reinterpret_cast<float*>(smem_f4);   // [G] mean_g(dxhat)
-  float* gm2 = gm1 + a.G;                            // [G] mean_g(dxhat*xhat)
-  float* gmean = gm2 + a.G;                          // [G]
-  float* grstd = gmean + a.G;                        // [G]
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  const int n = blockIdx.y;
-  const int gs = a.C / a.G;
-  const float count = (float)a.L * (float)gs;
-
-  for (int g = tid; g < a.G; g += THREADS) {
-    const int64_t base = ((int64_t)n * a.G + g) * a.splits;
-    float t1 = 0.f, t2 = 0.f;
-    for (int k = 0; k < a.splits; ++k) {
-      t1 += a.ps1[base + k];
-      t2 += a.ps2[base + k];
-    }
-    gm1[g] = t1 / count;
-    gm2[g] = t2 / count;
-    gmean[g] = a.mean[(int64_t)n * a.G + g];
-    grstd[g] = a.rstd[(int64_t)n * a.G + g];
   }
   __syncthreads();
+  for (int gi = tid; gi < G; gi += BWD_NT) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int k = 0; k < gs; ++k) {
+      t1 += c1[gi * gs + k];
+      t2 += c2[gi * gs + k];
+    }
+    s1[gi] = t1;
+    s2[gi] = t2;
+  }
+  cluster.sync();
 
-  const T* xn = static_cast<const T*>(a.x) + (int64_t)n * a.sxn;
-  const T* gn = static_cast<const T*>(a.g) + (int64_t)n * a.sgn;
-  const T* scn = static_cast<const T*>(a.scale) + (int64_t)n * a.ssn;
-  const T* shn = static_cast<const T*>(a.shift) + (int64_t)n * a.shn;
-  const int64_t on = (int64_t)n * a.L * a.C;
-  const int r0 = blockIdx.x * a.rows_per_block;
-  const int r1 = min(a.L, r0 + a.rows_per_block);
-  for (int r = r0 + ty; r < r1; r += TY) {
-    const int64_t orow = on + (int64_t)r * a.C;
-    for (int c = tx; c < a.C; c += TX) {
-      const int grp = c / gs;
-      const GnGrad o = gn_grad<T, FILM, SILU>(
-          a, xn + (int64_t)r * a.sxl, gn + (int64_t)r * a.sgl,
-          scn + (int64_t)r * a.ssl, shn + (int64_t)r * a.shl, c,
-          gmean[grp], grstd[grp]);
-      const float dx = grstd[grp] * (o.dxhat - gm1[grp] - o.xhat * gm2[grp]);
-      static_cast<T*>(a.dx)[orow + c] = from_f32<T>(dx);
-      if (FILM) {
-        static_cast<T*>(a.dscale)[orow + c] = from_f32<T>(o.dy_f * o.y_gn);
-        static_cast<T*>(a.dshift)[orow + c] = from_f32<T>(o.dy_f);
+  // Exchange, in rank order: every CTA of the cluster sums the same
+  // partials in the same order.  All of a thread's remote loads are issued
+  // before the sums.
+  const float count = (float)a.L * (float)gs;
+  for (int gi = tid; gi < G; gi += BWD_NT) {
+    float v1[MAX_CLUSTER], v2[MAX_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < cs) {
+        v1[k] = cluster.map_shared_rank(s1, k)[gi];
+        v2[k] = cluster.map_shared_rank(s2, k)[gi];
       }
     }
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < cs) {
+        t1 += v1[k];
+        t2 += v2[k];
+      }
+    }
+    c1[gi] = t1 / count;
+    c2[gi] = t2 / count;
+  }
+  for (int c = rank * BWD_NT + tid; c < C; c += cs * BWD_NT) {
+    float vg[MAX_CLUSTER], vb[MAX_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < cs) {
+        vg[k] = cluster.map_shared_rank(cdg, k)[c];
+        vb[k] = cluster.map_shared_rank(cdb, k)[c];
+      }
+    }
+    float dg = 0.f, db = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < cs) {
+        dg += vg[k];
+        db += vb[k];
+      }
+    }
+    a.pdg[(int64_t)n * C + c] = dg;
+    a.pdb[(int64_t)n * C + c] = db;
+  }
+  // No CTA leaves (or reuses s1 .. cdb) while a peer still reads them;
+  // the group means in c1 / c2 are visible to the whole CTA.
+  cluster.sync();
+
+  // Phase 2: dx.
+  for (int cv0 = 0; cv0 < NV; cv0 += SP) {
+    const int cv = cv0 + sv;
+    if (!(ry < RY && cv < NV)) continue;
+    const int c0 = cv * W;
+    ChanParams<W> cp;
+    cp.load(a, n, c0);
+    float m1[W], m2[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      m1[w] = c1[(c0 + w) / gs];
+      m2[w] = c2[(c0 + w) / gs];
+    }
+    auto dx_row = [&](int r, const RowIn<W>& in) {
+      float dx[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const GnGrad o = gn_grad<FILM, SILU>(
+            in.x[w], in.g[w], in.sc[w], (FILM && SILU) ? in.sh[w] : 0.f,
+            cp.gam[w], cp.bet[w], cp.mu[w], cp.rs[w]);
+        dx[w] = cp.rs[w] * (o.dxhat - m1[w] - o.xhat * m2[w]);
+      }
+      store_vec<T, W>(static_cast<T*>(a.dx) + on + (int64_t)r * C + c0, dx);
+    };
+    for_rows(r0, r1, c0, SILU, dx_row);
   }
 }
 
-__global__ void gn_bwd_param_kernel(GnBwdArgs a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.C) return;
+// dgamma / dbeta: block (32 channels, 16 row groups); row group k sums
+// samples k, k + 16, ... in order, then the 16 partials fold in order.
+__global__ void __launch_bounds__(512) gn_bwd_param_kernel(GnBwdArgs a) {
+  __shared__ float rg[16][33], rb[16][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
   float dg = 0.f, db = 0.f;
-  const int rows = a.N * a.splits;
-  for (int k = 0; k < rows; ++k) {
-    dg += a.pdg[(int64_t)k * a.C + c];
-    db += a.pdb[(int64_t)k * a.C + c];
+  if (c < a.C) {
+    for (int k = ty; k < a.N; k += 16) {
+      dg += a.pdg[(int64_t)k * a.C + c];
+      db += a.pdb[(int64_t)k * a.C + c];
+    }
   }
-  a.dgamma[c] = dg;
-  a.dbeta[c] = db;
+  rg[ty][tx] = dg;
+  rb[ty][tx] = db;
+  __syncthreads();
+  if (ty == 0 && c < a.C) {
+    float tg = 0.f, tb = 0.f;
+    for (int k = 0; k < 16; ++k) {
+      tg += rg[k][tx];
+      tb += rb[k][tx];
+    }
+    a.dgamma[c] = tg;
+    a.dbeta[c] = tb;
+  }
 }
 
-template <typename T, bool FILM, bool SILU>
-cudaError_t launch_bwd(const GnBwdArgs& a, cudaStream_t stream) {
-  const dim3 block(TX, TY);
-  gn_bwd_reduce_kernel<T, FILM, SILU>
-      <<<dim3(a.splits, a.N), block, (size_t)(2 * a.C) * sizeof(float),
-         stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+// Shared memory of one cluster CTA: the fold buffers, then x and g of its
+// rows when they stay on chip.
+template <typename T, int W>
+size_t bwd_smem(const GnBwdArgs& a) {
+  const size_t aux = (size_t)((4 * a.C + 2 * a.G + BWD_NT * W + 3) & ~3);
+  return aux * sizeof(float) +
+         (a.onchip ? 2 * (size_t)a.rows_per_cta * a.C * sizeof(T) : 0);
+}
+
+template <typename T, int W, bool FILM, bool SILU>
+cudaError_t launch_bwd(const GnBwdArgs& a, int cs, cudaStream_t stream) {
+  auto kernel = gn_bwd_cluster_kernel<T, W, FILM, SILU>;
+  const size_t smem = bwd_smem<T, W>(a);
+  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(kernel, SMEM_MAX, &done, true);
   if (err != cudaSuccess) return err;
-  gn_bwd_apply_kernel<T, FILM, SILU>
-      <<<dim3((a.L + a.rows_per_block - 1) / a.rows_per_block, a.N), block,
-         (size_t)(4 * a.G) * sizeof(float), stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, a.N);
+  cfg.blockDim = dim3(BWD_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gn_bwd_param_kernel<<<(a.C + THREADS - 1) / THREADS, THREADS, 0,
-                        stream>>>(a);
+  gn_bwd_param_kernel<<<(a.C + 31) / 32, 512, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int W>
+cudaError_t launch_bwd_w(const GnBwdArgs& a, int cs, int film, int silu,
+                         cudaStream_t stream) {
+  if (film && silu) return launch_bwd<T, W, true, true>(a, cs, stream);
+  if (film) return launch_bwd<T, W, true, false>(a, cs, stream);
+  if (silu) return launch_bwd<T, W, false, true>(a, cs, stream);
+  return launch_bwd<T, W, false, false>(a, cs, stream);
+}
+
+// 16-byte access to a [N, L, C] view: base, strides (in elements) and C
+// are multiples of W = 16 / sizeof(T) elements.
+bool aligned16(const void* p, long long sn, long long sl, int C, int W) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sn % W == 0 &&
+         sl % W == 0 && C % W == 0;
+}
+
 template <typename T>
-cudaError_t launch_bwd_all(const GnBwdArgs& a, int film, int silu,
+cudaError_t launch_bwd_all(const GnBwdArgs& a, int cs, int film, int silu,
                            cudaStream_t stream) {
-  if (film && silu) return launch_bwd<T, true, true>(a, stream);
-  if (film) return launch_bwd<T, true, false>(a, stream);
-  if (silu) return launch_bwd<T, false, true>(a, stream);
-  return launch_bwd<T, false, false>(a, stream);
+  constexpr int W = 16 / sizeof(T);
+  const bool vec = aligned16(a.x, a.sxn, a.sxl, a.C, W) &&
+                   aligned16(a.g, a.sgn, a.sgl, a.C, W) &&
+                   aligned16(a.scale, a.ssn, a.ssl, a.C, W) &&
+                   aligned16(a.shift, a.shn, a.shl, a.C, W) &&
+                   aligned16(a.dx, 0, 0, a.C, W) &&
+                   (!film || (aligned16(a.dscale, 0, 0, a.C, W) &&
+                              aligned16(a.dshift, 0, 0, a.C, W)));
+  if (vec) return launch_bwd_w<T, W>(a, cs, film, silu, stream);
+  return launch_bwd_w<T, 1>(a, cs, film, silu, stream);
 }
 
 }  // namespace
@@ -514,7 +850,9 @@ int gn_fused_forward(const void* x, long long sxn, long long sxl,
 // Backward of gn_fused_forward.  stats: the forward's float [2, N, G]
 // (mean, rstd).  dx (and dscale / dshift with FiLM) are contiguous
 // [N, L, C] of dtype; dgamma / dbeta float [C].  partial: float scratch of
-// 2 * N * G * splits + 2 * N * splits * C.  Returns a cudaError_t code.
+// 2 * N * C.  cluster: CTAs per sample (1..16), each taking rows_per_cta
+// rows (cluster * rows_per_cta >= L); onchip: they keep those rows of x
+// and g in shared memory.  Returns a cudaError_t code.
 int gn_fused_backward(const void* x, long long sxn, long long sxl,
                       const void* g, long long sgn, long long sgl,
                       const void* gamma, const void* beta,
@@ -522,12 +860,13 @@ int gn_fused_backward(const void* x, long long sxn, long long sxl,
                       const void* shift, long long shn, long long shl,
                       const void* stats, void* dx, void* dscale,
                       void* dshift, void* dgamma, void* dbeta,
-                      void* partial, int N, int L, int C, int G, int splits,
-                      int rows_per_split, int rows_per_block, int dtype,
-                      int film, int silu, void* stream) {
-  if (N < 1 || L < 1 || C < 1 || G < 1 || C % G != 0 || splits < 1 ||
-      rows_per_split < 1 || rows_per_block < 1 || (dtype != 0 && dtype != 1)
-      || stats == nullptr || (film && (dscale == nullptr || dshift == nullptr)))
+                      void* partial, int N, int L, int C, int G, int cluster,
+                      int rows_per_cta, int onchip, int dtype, int film,
+                      int silu, void* stream) {
+  if (N < 1 || L < 1 || C < 1 || G < 1 || C % G != 0 || cluster < 1 ||
+      cluster > MAX_CLUSTER || rows_per_cta < 1 ||
+      (long long)cluster * rows_per_cta < L || (dtype != 0 && dtype != 1) ||
+      stats == nullptr || (film && (dscale == nullptr || dshift == nullptr)))
     return (int)cudaErrorInvalidValue;
   GnBwdArgs a;
   a.x = x;
@@ -547,25 +886,22 @@ int gn_fused_backward(const void* x, long long sxn, long long sxl,
   a.mean = static_cast<const float*>(stats);
   a.rstd = a.mean + (size_t)N * G;
   a.dx = dx;
-  a.dscale = dscale;
-  a.dshift = dshift;
+  a.dscale = film ? dscale : dx;
+  a.dshift = film ? dshift : dx;
   a.dgamma = static_cast<float*>(dgamma);
   a.dbeta = static_cast<float*>(dbeta);
-  a.ps1 = static_cast<float*>(partial);
-  a.ps2 = a.ps1 + (size_t)N * G * splits;
-  a.pdg = a.ps2 + (size_t)N * G * splits;
-  a.pdb = a.pdg + (size_t)N * splits * C;
+  a.pdg = static_cast<float*>(partial);
+  a.pdb = a.pdg + (size_t)N * C;
   a.N = N;
   a.L = L;
   a.C = C;
   a.G = G;
-  a.splits = splits;
-  a.rows_per_split = rows_per_split;
-  a.rows_per_block = rows_per_block;
+  a.rows_per_cta = rows_per_cta;
+  a.onchip = onchip != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0
-                        ? launch_bwd_all<float>(a, film, silu, st)
-                        : launch_bwd_all<__nv_bfloat16>(a, film, silu, st);
+  cudaError_t err =
+      dtype == 0 ? launch_bwd_all<float>(a, cluster, film, silu, st)
+                 : launch_bwd_all<__nv_bfloat16>(a, cluster, film, silu, st);
   return (int)err;
 }
 

@@ -7,7 +7,9 @@ Pallas ``_fwd_kernel``, ``pallas_attention.py:119-197``: ``save_lse=False``
 for inference, ``save_lse=True`` when autograd records or the caller asks
 for the log-sum-exp); :func:`attention_backward` wraps the backward
 kernels beside it (they replace ``_bwd_dkdv_kernel`` and
-``_bwd_dq_kernel``, ``pallas_attention.py:204-317``).
+``_bwd_dq_kernel``, ``pallas_attention.py:204-317``).  bf16 at D <= 256
+runs on the tensor cores; f32, and bf16 at 256 < D <= 512, on the CUDA
+cores.
 :func:`attention_reference`, :func:`attention_lse_reference` and
 :func:`attention_backward_reference` are the plain PyTorch versions with
 explicit f32 matmuls.
@@ -32,7 +34,7 @@ import torch
 
 from diff3d_tpu_torch.ops import build
 
-MAX_D = 256         # head-dim cap (srn128's deep levels use D = 256)
+MAX_D = 512         # head-dim cap, the Pallas kernel's (pallas_attention.py:52)
 
 _c_ll = ctypes.c_longlong
 _c_p = ctypes.c_void_p
@@ -46,8 +48,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Operands the kernel takes: ``[B, L, H, D]`` f32/bf16, one dtype,
-    D <= 256, unit head-dim stride, matching batch/heads and k/v
-    shapes."""
+    D <= 512 (the Pallas kernel's domain), unit head-dim stride, matching
+    batch/heads and k/v shapes."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         return False
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \

@@ -5,7 +5,9 @@
 kernel in ``csrc/film.cu`` (it replaces the Pallas ``_fwd_kernel``,
 ``pallas_film.py:174-288``, with ``save_stats`` when autograd records);
 :func:`groupnorm_backward` wraps the backward kernel beside it (it
-replaces ``_bwd_kernel``, ``pallas_film.py:296-433``).
+replaces ``_bwd_kernel``, ``pallas_film.py:296-433``): one thread-block
+cluster per sample, with the cluster size and whether x and g stay in
+shared memory chosen per call by :func:`backward_plan`.
 :func:`groupnorm_reference` and :func:`groupnorm_backward_reference` are
 the plain PyTorch versions.  Both follow the Pallas kernels' semantics,
 which differ from the JAX package's ``xla`` path in bf16: every
@@ -20,6 +22,7 @@ CUDA tensor they launch the kernel or raise.  Each launch adds one to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,8 +31,16 @@ from diff3d_tpu_torch.ops import build, dispatch
 
 EPS = 1e-5          # torch / Flax-parity GroupNorm epsilon
 MAX_C = 4096        # channel cap (srn128's widest up-path concat is 2048)
-MAX_GROUPS = 1024   # group cap (shared-memory sizing of the apply pass)
+MAX_GROUPS = MAX_C  # any G dividing C, as the Pallas kernel takes
 _SMS = 132          # streaming multiprocessors of an H100 SXM
+# The backward's cluster kernel (``film.cu``): threads of a CTA, the
+# largest cluster, the most shared memory a CTA takes when two should
+# share an SM (2 x (113 KB + 1 KB reserved)), and the cluster that
+# re-reads x and g where they do not fit that.
+BWD_THREADS = 256
+MAX_CLUSTER = 16
+SMEM_TWO_PER_SM = 113 * 1024
+OFFCHIP_CLUSTER = 8
 
 _c_ll = ctypes.c_longlong
 _c_p = ctypes.c_void_p
@@ -151,6 +162,38 @@ def launch_shape(N: int, L: int) -> Tuple[int, int, int]:
     return splits, rows_per_split, rows_per_block
 
 
+@functools.lru_cache(maxsize=None)
+def backward_plan(N: int, L: int, C: int, G: int,
+                  itemsize: int) -> Tuple[int, int, bool]:
+    """``(cluster, rows_per_cta, onchip)`` of the backward's cluster
+    kernel: each sample's L rows split over ``cluster`` CTAs (1..16) of
+    ``rows_per_cta`` rows.  The smallest cluster whose CTAs keep their
+    rows of x and g on chip in at most 113 KB, so that two CTAs share an
+    SM; else a cluster of 8 that re-reads x and g (measured faster than
+    16-CTA clusters keeping them on chip at one CTA per SM, PERF.md);
+    then doubled while there are fewer than two CTAs per SM and a CTA
+    would take more than 64 rows."""
+    aux = 4 * ((4 * C + 2 * G + BWD_THREADS * (16 // itemsize) + 3) // 4 * 4)
+    stash = 2 * C * itemsize                  # x and g, one row
+    cs, onchip = OFFCHIP_CLUSTER, False
+    for c in (1, 2, 4, 8, 16):
+        if aux + -(-L // c) * stash <= SMEM_TWO_PER_SM:
+            cs, onchip = c, True
+            break
+    while cs < MAX_CLUSTER and N * cs < 2 * _SMS and -(-L // cs) > 64:
+        cs *= 2
+    return cs, -(-L // cs), onchip
+
+
+def _function(lib, name: str, argtypes):
+    """``lib.<name>`` with its ctypes signature, set on first use."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = _c_i
+    return fn
+
+
 def _raise(lib, name: str, rc: int) -> None:
     if rc != 0:
         err = lib.gn_error_string
@@ -167,9 +210,7 @@ def launch(lib, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     allocates the output and the partial-sum scratch like ``x``.  Returns
     the output, and with ``save_stats`` also the ``[2, N, G]`` f32
     statistics."""
-    fn = lib.gn_fused_forward
-    fn.argtypes = _ARGTYPES
-    fn.restype = _c_i
+    fn = _function(lib, "gn_fused_forward", _ARGTYPES)
     N, L, C = x.shape
     splits, rows_per_split, rows_per_block = launch_shape(N, L)
     out = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
@@ -194,22 +235,22 @@ def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
                     gamma: torch.Tensor, beta: torch.Tensor,
                     scale: Optional[torch.Tensor],
                     shift: Optional[torch.Tensor], stats: torch.Tensor, *,
-                    num_groups: int, silu: bool, stream: Optional[int]):
+                    num_groups: int, silu: bool, stream: Optional[int],
+                    plan: Optional[Tuple[int, int, bool]] = None):
     """One call of ``gn_fused_backward`` in ``lib`` on checked operands;
     allocates contiguous ``dx`` (and ``dscale`` / ``dshift``) like ``x``,
-    f32 ``dgamma`` / ``dbeta`` and the partial-sum scratch."""
-    fn = lib.gn_fused_backward
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = _c_i
+    f32 ``dgamma`` / ``dbeta`` and the ``[2, N, C]`` partial-sum scratch.
+    ``plan`` overrides :func:`backward_plan`."""
+    fn = _function(lib, "gn_fused_backward", _BWD_ARGTYPES)
     N, L, C = x.shape
-    splits, rows_per_split, rows_per_block = launch_shape(N, L)
+    cluster, rows_per_cta, onchip = plan or backward_plan(
+        N, L, C, num_groups, x.element_size())
     film = scale is not None
     dx = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
     dscale = torch.empty_like(dx) if film else None
     dshift = torch.empty_like(dx) if film else None
     dgb = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    partial = torch.empty(2 * N * splits * (num_groups + C),
-                          dtype=torch.float32, device=x.device)
+    partial = torch.empty(2 * N * C, dtype=torch.float32, device=x.device)
     sc = scale if film else x
     sh = shift if film else x
     rc = fn(x.data_ptr(), x.stride(0), x.stride(1), g.data_ptr(),
@@ -219,7 +260,7 @@ def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
             dscale.data_ptr() if film else 0,
             dshift.data_ptr() if film else 0, dgb[0].data_ptr(),
             dgb[1].data_ptr(), partial.data_ptr(), N, L, C, num_groups,
-            splits, rows_per_split, rows_per_block, _DTYPE_CODE[x.dtype],
+            cluster, rows_per_cta, int(onchip), _DTYPE_CODE[x.dtype],
             int(film), int(silu), stream)
     _raise(lib, "gn_fused_backward", rc)
     return dx, dscale, dshift, dgb[0], dgb[1]

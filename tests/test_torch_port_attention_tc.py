@@ -1,17 +1,19 @@
 """The tolerance budget of the bf16 tensor-core attention kernels, on the CPU.
 
 ``diff3d_tpu_torch/ops/csrc/attention.cu`` computes the bf16 forward
-(``flash_fwd_mma_kernel``) and dK/dV (``flash_bwd_dkdv_mma_kernel``) with
-``mma.sync`` bf16 products.  The forward keeps the Pallas kernel's f32 P
-(``pallas_attention.py:144-148``) by feeding ``P V`` three bf16 parts of
-P whose sum is the f32 P; the dK/dV kernel rounds P^T and dS^T to bf16
-before ``dV = P^T dO`` and ``dK = dS^T Q``, as FlashAttention-2 does.  The
-models below repeat those numerics in plain PyTorch -- an online softmax
-over the kernel's key tiles in f32, the row sum over the f32 P, f32 sums
--- and hold them against the plain versions with exactly
-``chip_smoke.py``'s bf16 tolerances: o, dk and dv within 2^-7 * (1 +
-max|ref|), lse within 1e-5 * (1 + max|ref|).  So the card checks can hold
-the kernels to those limits unloosened.
+(``flash_fwd_mma_kernel``), dK/dV (``flash_bwd_dkdv_mma_kernel``) and dQ
+(``flash_bwd_dq_mma_kernel``) with ``mma.sync`` bf16 products.  The
+forward keeps the Pallas kernel's f32 P (``pallas_attention.py:144-148``)
+by feeding ``P V`` three bf16 parts of P whose sum is the f32 P; the
+dK/dV kernel rounds P^T and dS^T to bf16 before ``dV = P^T dO`` and ``dK
+= dS^T Q``, and the dQ kernel rounds dS to bf16 before ``dQ = dS K``, as
+FlashAttention-2 does.  The models below repeat those numerics in plain
+PyTorch -- an online softmax over the kernel's key tiles in f32, the row
+sum over the f32 P, f32 sums over the key tiles -- and hold them against
+the plain versions with exactly ``chip_smoke.py``'s bf16 tolerances: o,
+dq, dk and dv within 2^-7 * (1 + max|ref|), lse within 1e-5 * (1 +
+max|ref|).  So the card checks can hold the kernels to those limits
+unloosened.
 """
 
 import numpy as np
@@ -87,6 +89,23 @@ def dkdv_model(q, k, v, o, lse, do, glse, scale):
     return tuple(t.transpose(1, 2).to(q.dtype) for t in (dk, dv))
 
 
+def dq_model(q, k, v, o, lse, do, glse, scale):
+    """The tensor-core dQ's numerics: over key tiles of 64 (32 at D > 64),
+    P = exp(S * scale - lse) and dS = P (dP - delta) * scale in f32, dS
+    rounded to bf16 before ``dS K``, the tiles' products summed in f32.
+    delta is the pre-pass's (from dK/dV's call)."""
+    delta = cuda_attention.attention_delta_reference(o, do, glse)
+    qf, kf, vf, dof = _heads(q, k, v, do)
+    bk = 64 if q.shape[-1] <= 64 else 32
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, k.shape[1], bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        p = torch.exp(qf @ kt.transpose(-1, -2) * scale - lse[..., None])
+        ds = p * (dof @ vt.transpose(-1, -2) - delta[..., None]) * scale
+        dq = dq + _bf16(ds) @ kt
+    return dq.transpose(1, 2).to(q.dtype)
+
+
 def _ratio(got, want, tol):
     """max |got - want| over tol * (1 + max|want|)."""
     err = float((got.float() - want.float()).abs().max())
@@ -121,6 +140,31 @@ def test_tensor_core_numerics_fit_the_card_tolerances(shape, glse_on):
         q, k, v, o, lse, do, glse, scale)
     assert _ratio(dk, dk_ref, BF16_TOL) <= 1.0
     assert _ratio(dv, dv_ref, BF16_TOL) <= 1.0
+
+
+@pytest.mark.parametrize("glse_on", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tensor_core_dq_numerics_fit_the_card_tolerances(shape, glse_on):
+    """The dQ kernel's bf16 dS, from the kernel forward's own o / lse as
+    on the card, against ``attention_backward_reference``'s dq."""
+    B, Lq, Lk, H, D = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+
+    def bf16(*dims):
+        return torch.tensor(rng.standard_normal(dims),
+                            dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = bf16(B, Lq, H, D), bf16(B, Lk, H, D), bf16(B, Lk, H, D)
+    do = bf16(B, Lq, H, D)
+    glse = (torch.tensor(rng.standard_normal((B, H, Lq)),
+                         dtype=torch.float32) if glse_on else None)
+    scale = D ** -0.5
+    o, lse = forward_model(q, k, v, scale)
+    dq = dq_model(q, k, v, o, lse, do, glse, scale)
+    dq_ref = cuda_attention.attention_backward_reference(
+        q, k, v, o, lse, do, glse, scale)[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == dq_ref.shape
+    assert _ratio(dq, dq_ref, BF16_TOL) <= 1.0
 
 
 def test_three_bf16_parts_carry_f32_precision():

@@ -44,7 +44,9 @@ def _close(out, ref, dtype, tol=TOL):
 @pytest.mark.parametrize("film,silu", [(False, False), (False, True),
                                        (True, False), (True, True)])
 @pytest.mark.parametrize("shape", [(4, 300, 256, 32), (2, 1000, 144, 24),
-                                   (32, 64, 1024, 32)])
+                                   (32, 64, 1024, 32),
+                                   # group counts above 1024 (G <= C)
+                                   (2, 64, 2048, 2048), (1, 16, 4096, 4096)])
 def test_fused_groupnorm_matches_plain(cuda, shape, film, silu, dtype):
     N, L, C, G = shape
     rng = np.random.default_rng(0)
@@ -72,7 +74,9 @@ def test_fused_groupnorm_matches_plain(cuda, shape, film, silu, dtype):
                                    # tile edges (64 rows, 64 / 32 keys),
                                    # Lq != Lk, rows of 72 bytes (D = 36)
                                    (2, 63, 65, 2, 64), (1, 129, 127, 2, 128),
-                                   (2, 65, 63, 3, 36), (1, 127, 129, 1, 256)])
+                                   (2, 65, 63, 3, 36), (1, 127, 129, 1, 256),
+                                   # 256 < D <= 512: the CUDA-core kernels
+                                   (2, 40, 33, 2, 320), (1, 33, 70, 2, 512)])
 def test_flash_attention_matches_plain(cuda, shape, dtype):
     B, Lq, Lk, H, D = shape
     g = torch.Generator(cuda).manual_seed(1)
@@ -85,9 +89,12 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
     _close(out, cuda_attention.attention_reference(q, k, v), dtype)
 
 
-# srn64 training sites at a 2-example microbatch (N = 4) and odd shapes.
+# srn64 training sites at a 2-example microbatch (N = 4), odd shapes, and
+# the cluster kernel's edges: L not a multiple of the cluster (4095 rows
+# over 16 CTAs), N = 1, C = 4096 at G = 32 and G = 2048.
 GN_BWD_SHAPES = [(4, 4096, 128, 32), (4, 256, 512, 32), (4, 64, 1024, 32),
-                 (2, 1000, 144, 24), (3, 7, 96, 32)]
+                 (2, 1000, 144, 24), (3, 7, 96, 32), (2, 4095, 128, 32),
+                 (1, 4096, 128, 32), (2, 40, 4096, 32), (1, 9, 4096, 2048)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -130,13 +137,90 @@ def test_groupnorm_backward_matches_plain(cuda, shape, film, silu, dtype):
                else TOL)
 
 
+def _gn_backward_inputs(cuda, N, L, C, G, dtype, pad=0):
+    """x, g, gamma, beta, scale, shift and the forward's statistics; x, g
+    and the FiLM halves are views ``pad`` elements into their buffers
+    (``pad`` 2: 4-byte aligned in bf16, 8-byte in f32, so not for the
+    kernel's 16-byte loads: element loads)."""
+    gen = torch.Generator(cuda).manual_seed(9)
+
+    def buf(*s):
+        return torch.randn(*s[:-1], s[-1] + pad, generator=gen,
+                           device=cuda).to(dtype)[..., pad:]
+
+    x, g = buf(N, L, C), buf(N, L, C)
+    e = buf(N, L, 2 * C).mul_(0.3)                # in place: keeps the view
+    gamma = 1 + 0.2 * torch.randn(C, generator=gen, device=cuda)
+    beta = 0.2 * torch.randn(C, generator=gen, device=cuda)
+    stats = cuda_film.groupnorm_stats_reference(x, G).contiguous()
+    return x, g, gamma, beta, e[..., :C], e[..., C:], stats
+
+
+def _check_gn_backward(got, want, dtype):
+    for name, a, b in zip(("dx", "dscale", "dshift", "dgamma", "dbeta"),
+                          got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name in ("dgamma", "dbeta"):
+            _close(a, b, torch.float32, SUM_TOL)
+        else:
+            _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", [(1, 300, False), (4, 75, True),
+                                  (4, 75, False), (16, 19, True),
+                                  (16, 19, False), (8, 64, True)])
+def test_groupnorm_backward_plans_agree(cuda, plan, dtype):
+    """Every cluster size and both ways of taking x and g (kept in shared
+    memory or re-read) give the plain version's result; (8, 64) leaves
+    three of the eight CTAs without rows.  (One CTA cannot keep all 300
+    rows: 300 x 256 x 2 tensors do not fit its shared memory.)"""
+    x, g, gamma, beta, sc, sh, stats = _gn_backward_inputs(
+        cuda, 3, 300, 256, 32, dtype)
+    got = cuda_film.launch_backward(
+        cuda_film.build.library("film"), x, g, gamma, beta, sc, sh, stats,
+        num_groups=32, silu=True, stream=None, plan=plan)
+    want = cuda_film.groupnorm_backward_reference(
+        x, g, gamma, beta, sc, sh, stats, num_groups=32, silu=True)
+    _check_gn_backward(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_backward_takes_unaligned_views(cuda, dtype):
+    """x, g and the FiLM halves 2 elements into their buffers: not 16-byte
+    aligned, so the kernel takes element loads."""
+    x, g, gamma, beta, sc, sh, stats = _gn_backward_inputs(
+        cuda, 2, 1000, 128, 32, dtype, pad=2)
+    assert x.data_ptr() % 16 != 0
+    got = cuda_film.groupnorm_backward(x, g, gamma, beta, sc, sh, stats,
+                                       num_groups=32, silu=True)
+    want = cuda_film.groupnorm_backward_reference(
+        x, g, gamma, beta, sc, sh, stats, num_groups=32, silu=True)
+    _check_gn_backward(got, want, dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 4096, 128, 32), (8, 64, 512, 32)])
+def test_groupnorm_backward_is_bit_identical_run_to_run(cuda, shape):
+    """The cluster kernel's rank-ordered exchange and the fixed-order
+    dgamma / dbeta fold use no float atomics: two launches agree bit for
+    bit."""
+    x, g, gamma, beta, sc, sh, stats = _gn_backward_inputs(
+        cuda, *shape, torch.bfloat16)
+    runs = [cuda_film.groupnorm_backward(x, g, gamma, beta, sc, sh, stats,
+                                         num_groups=shape[3], silu=True)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 # srn64 training sites (2-example microbatch: B = 4), srn128's, odd shapes.
 ATTN_BWD_SHAPES = [(4, 256, 256, 4, 64), (4, 64, 64, 4, 128),
                    (2, 1024, 1024, 4, 128), (2, 256, 256, 4, 256),
                    (2, 100, 70, 2, 64), (1, 33, 200, 1, 8),
                    (2, 64, 64, 3, 160), (2, 63, 65, 2, 64),
                    (1, 129, 127, 2, 128), (2, 65, 63, 3, 36),
-                   (1, 127, 129, 1, 256)]
+                   (1, 127, 129, 1, 256),
+                   # 256 < D <= 512: the CUDA-core kernels in both dtypes
+                   (1, 40, 33, 2, 320), (1, 33, 70, 1, 512)]
 
 
 @pytest.mark.parametrize("glse", [False, True])
@@ -183,8 +267,8 @@ def _bf16_attention_inputs(cuda, shape, pad=0):
 @pytest.mark.parametrize("shape", [(2, 256, 256, 4, 64), (2, 64, 64, 4, 128),
                                    (1, 100, 70, 2, 256)])
 def test_bf16_attention_kernels_are_bit_identical_run_to_run(cuda, shape):
-    """The tensor-core forward (with lse) and dK/dV kernels use no float
-    atomics: two launches on the same inputs agree bit for bit."""
+    """The tensor-core forward (with lse), dK/dV and dQ kernels use no
+    float atomics: two launches on the same inputs agree bit for bit."""
     q, k, v, do = _bf16_attention_inputs(cuda, shape)
     with torch.no_grad():
         runs = [cuda_attention.flash_attention_lse(q, k, v) for _ in range(2)]
@@ -193,6 +277,10 @@ def test_bf16_attention_kernels_are_bit_identical_run_to_run(cuda, shape):
     grads = [cuda_attention.attention_backward_dkdv(q, k, v, runs[0][0], lse,
                                                     do) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+    dqs = [cuda_attention.attention_backward_dq(q, k, v, runs[0][0], lse, do,
+                                                grads[0][2])
+           for _ in range(2)]
+    assert torch.equal(*dqs)
 
 
 @pytest.mark.parametrize("shape", [(2, 100, 70, 2, 64), (1, 65, 129, 2, 128)])
@@ -207,8 +295,11 @@ def test_bf16_attention_kernels_take_unaligned_views(cuda, shape):
     _close(o, o_ref, torch.bfloat16)
     _close(lse, lse_ref.transpose(1, 2), torch.float32)
     lse = lse.transpose(1, 2).contiguous()
-    dk, dv, _ = cuda_attention.attention_backward_dkdv(q, k, v, o, lse, do)
+    dk, dv, delta = cuda_attention.attention_backward_dkdv(q, k, v, o, lse,
+                                                           do)
+    dq = cuda_attention.attention_backward_dq(q, k, v, o, lse, do, delta)
     want = cuda_attention.attention_backward_reference(q, k, v, o, lse, do)
+    _close(dq, want[0], torch.bfloat16, SUM_TOL)
     _close(dk, want[1], torch.bfloat16, SUM_TOL)
     _close(dv, want[2], torch.bfloat16, SUM_TOL)
 
@@ -220,7 +311,7 @@ def test_unsupported_operands_raise(cuda):
         cuda_film.fused_groupnorm(x, one, zero, num_groups=24)
     with pytest.raises(ValueError):
         cuda_film.fused_groupnorm(x.half(), one, zero, num_groups=32)
-    q = torch.zeros(1, 8, 1, 320, device=cuda)
+    q = torch.zeros(1, 8, 1, 640, device=cuda)       # D > 512
     with pytest.raises(ValueError):
         cuda_attention.flash_attention(q, q, q)
 

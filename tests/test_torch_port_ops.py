@@ -30,6 +30,8 @@ torch = pytest.importorskip("torch")
 
 from diff3d_tpu.ops.pallas_attention import flash_attention as j_flash  # noqa: E402
 from diff3d_tpu.ops.pallas_attention import flash_attention_lse as j_flash_lse  # noqa: E402
+from diff3d_tpu.ops import pallas_attention as j_pallas_attention  # noqa: E402
+from diff3d_tpu.ops import pallas_film as j_pallas_film  # noqa: E402
 from diff3d_tpu.ops.pallas_film import fused_groupnorm as j_fused  # noqa: E402
 from diff3d_tpu.ops.pallas_film import xla_groupnorm  # noqa: E402
 from diff3d_tpu_torch.ops import attention as t_attention  # noqa: E402
@@ -150,6 +152,11 @@ def test_groupnorm_supports():
     assert not cuda_film.supports(ok.transpose(1, 2), num_groups=16)
     assert cuda_film.supports(torch.zeros(2, 16, 128)[..., :64],
                               num_groups=32)                  # row stride
+    # Any group count that divides C <= 4096, as pallas_film.supports.
+    wide = torch.zeros(1, 4, 2048)
+    assert cuda_film.supports(wide, num_groups=2048)
+    assert j_pallas_film.supports(jnp.zeros((1, 4, 2048)), num_groups=2048)
+    assert cuda_film.supports(torch.zeros(1, 4, 4096), num_groups=4096)
 
 
 ATTN_SHAPES = [(1, 64, 64, 2, 64), (1, 96, 160, 2, 64), (1, 64, 64, 1, 160)]
@@ -205,11 +212,17 @@ def test_attention_wrapper_and_heads_on_cpu():
 
 
 def test_attention_supports():
+    """The kernels take the Pallas kernel's head dims: D <= 512
+    (``pallas_attention.MAX_D``)."""
     q = torch.zeros(1, 8, 2, 64)
     assert cuda_attention.supports(q, q, q)
     assert not cuda_attention.supports(q, q.half(), q)
-    big = torch.zeros(1, 8, 1, 320)
-    assert not cuda_attention.supports(big, big, big)          # D > 256
+    assert cuda_attention.MAX_D == j_pallas_attention.MAX_D == 512
+    for D in (320, 512):
+        wide = torch.zeros(1, 8, 1, D)
+        assert cuda_attention.supports(wide, wide, wide)
+    big = torch.zeros(1, 8, 1, 640)
+    assert not cuda_attention.supports(big, big, big)          # D > 512
     assert not cuda_attention.supports(q, torch.zeros(1, 8, 4, 32),
                                        torch.zeros(1, 8, 4, 32))
 
@@ -351,6 +364,16 @@ def test_attention_lse_and_backward_plain_match_pallas_f32(shape, glse_on):
     Pallas ``flash_attention_lse`` (interpret mode), with and without a
     non-zero lse cotangent (``tests/test_pallas_attention.py:77``)."""
     port, pallas = _attn_vjp(shape, "f32", glse_on)
+    for a, b in zip(port, pallas):
+        _rel_close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("glse_on", [False, True], ids=["o", "o+lse"])
+def test_attention_plain_matches_pallas_at_wide_head_dim(glse_on):
+    """D = 384, inside the Pallas domain (D <= 512) and above the
+    tensor-core kernels' 256: the plain forward's (o, lse) and the plain
+    backward against ``jax.vjp`` of the Pallas kernel in interpret mode."""
+    port, pallas = _attn_vjp((1, 24, 40, 2, 384), "f32", glse_on)
     for a, b in zip(port, pallas):
         _rel_close(a, b, 1e-5)
 
