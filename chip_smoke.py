@@ -9,9 +9,13 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      must not spill.
   3. groupnorm — the fused GroupNorm kernel against its plain version on
      every GroupNorm site shape of the srn64 sampler and the odd shapes of
-     ``tests/test_pallas_film.py`` (and G up to C = 4096), all four
-     variants, bf16 and f32; times of kernel, plain version and
-     ``F.group_norm`` + elementwise ops.
+     ``tests/test_pallas_film.py`` (and G up to C = 4096, L = 1), all four
+     variants, bf16 and f32; every sampler site's cluster plan (it must
+     fit the card: ``cudaOccupancyMaxActiveClusters`` > 0), output and
+     statistics bit-identical over two runs; per site the wrapper's time
+     back to back, its device time, its host time and its share of the
+     bound; times of the plain version and ``F.group_norm`` + elementwise
+     ops.
   4. attention — the flash kernel against its plain version at the srn64
      and srn128 attention sites plus padded / non-square shapes, bf16 and
      f32; times of kernel, plain version and
@@ -30,9 +34,9 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      ``save_stats``) and ``.backward`` through it, against the plain
      versions; times of the wrappers, the plain version,
      the autograd backward of ``F.group_norm`` + FiLM/SiLU ops, and the
-     bound, per site (with the backward's share of its bound and its
-     cluster plan) and per train step; the cluster kernel's edge shapes
-     checked untimed.
+     bound, per site (with the forward's and the backward's share of
+     their bounds and cluster plans) and per train step; the backward
+     cluster kernel's edge shapes checked untimed.
   8. attention_backward — the same at the srn64 training attention sites
      and srn128's two shapes: ``flash_attention_lse`` as autograd records
      it and ``backward`` through it, with and without an lse cotangent,
@@ -124,6 +128,62 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Host time of one ``fn()`` call in µs: ``perf_counter`` over
+    ``iters`` calls that are not synchronised (fewer than the launch queue
+    holds), GC off."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` in ms with the host taken out: the
+    stream first spins (``torch.cuda._sleep``) for longer than the host
+    takes to enqueue ``iters`` calls, so the CUDA events bracket the
+    kernels back to back."""
+    import torch
+
+    per_call = host_us(fn, 10) * 1e-6
+    cycles = int(4e9 * (per_call * iters + 2e-4))   # 2x margin at ~2 GHz
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    finally:
+        gc.enable()
+    return start.elapsed_time(end) / iters
+
+
+def gn_forward_work(N, L, C, G, film, save_stats, itemsize=2):
+    """``(f32 flops, bytes)`` of one fused GroupNorm forward, for its
+    bound: ~10 flops per element; x (and scale and shift at a FiLM site)
+    read once, the output written once, gamma and beta (f32), and the
+    ``[2, N, G]`` f32 statistics under ``save_stats``."""
+    elems = N * L * C
+    return 10.0 * elems, (itemsize * elems * (2 + (2 if film else 0))
+                          + 8 * C + (8 * N * G if save_stats else 0))
+
+
 def phase_device():
     import torch
 
@@ -192,8 +252,13 @@ def phase_build():
     if mma and len(dq) != 3:
         raise AssertionError(f"build: dQ mma kernels at D <= 128: {dq}")
     spill_free = all(v[1] == v[2] == 0 for v in small.values())
+    gn_fwd = {k: v for k, v in ptxas_kernels(logs.get("film", "")).items()
+              if "gn_fwd" in k}
     emit({"phase": "build", "seconds": round(seconds, 3),
           "mma_kernels_d_le_128_spill_free": spill_free if small else None,
+          "gn_fwd_kernels_spill_free": (
+              all(v[1] == v[2] == 0 for v in gn_fwd.values())
+              if gn_fwd else None),
           "dq_mma_kernels": {k: f"{v[0]} registers, {v[1]}/{v[2]} bytes "
                                 f"spill stores/loads" for k, v in dq.items()},
           "ptxas": ptxas})
@@ -298,11 +363,13 @@ def phase_groupnorm(gn_sites):
     import torch
     import torch.nn.functional as F
 
+    from diff3d_tpu_torch.ops import build, cuda_film
     from diff3d_tpu_torch.ops.cuda_film import (fused_groupnorm,
                                                 groupnorm_reference)
 
     odd = [(2, 256, 128, 32), (2, 256, 256, 32), (1, 256, 512, 32),
            (1, 64, 1024, 32), (2, 64, 96, 32), (1, 1000, 144, 24),
+           (3, 1, 128, 32),                             # L = 1
            (2, 64, 2048, 2048), (1, 16, 4096, 4096)]    # G up to C <= 4096
     shapes = sorted({k[:4] for k in gn_sites}) + odd
     worst = 0.0
@@ -326,17 +393,36 @@ def phase_groupnorm(gn_sites):
                     checked += 1
 
     # Times at the sampler's sites, in the model's dtype (bf16).
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "bound_ms": 0.0, "bound_by": "bytes", "max_abs_err": 0.0}
+    lib = build.library("film")
+    per_step = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "max_abs_err": 0.0}
     sites = []
     for (N, L, C, G, film, silu), count in sorted(gn_sites.items()):
         x, gamma, beta, kw = gn_inputs((N, L, C, G), torch.bfloat16, film,
                                        7)
+        plan = cuda_film.forward_plan(N, L, C, G, 2, film)
+        clusters = cuda_film.max_active_clusters(lib, L, C, G, plan,
+                                                 x.dtype, film, silu)
+        if clusters < 1:
+            raise AssertionError(f"groupnorm: plan {plan} at {(N, L, C, G)}"
+                                 " does not fit the card")
+        runs = [cuda_film.launch(lib, x, gamma, beta, kw.get("scale"),
+                                 kw.get("shift"), num_groups=G, silu=silu,
+                                 stream=_stream(), save_stats=True)
+                for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"groupnorm {(N, L, C, G)}: two runs "
+                                 "differ")
         out = fused_groupnorm(x, gamma, beta, silu=silu, **kw)
         ref = groupnorm_reference(x, gamma, beta, silu=silu, **kw)
         err = float((out.float() - ref.float()).abs().max())
-        ms = cuda_ms(lambda: fused_groupnorm(x, gamma, beta, silu=silu,
-                                             **kw))
+
+        def call():
+            return fused_groupnorm(x, gamma, beta, silu=silu, **kw)
+
+        ms = cuda_ms(call)
+        dev = device_ms(call)
+        host = host_us(call)
         plain = cuda_ms(lambda: groupnorm_reference(x, gamma, beta,
                                                     silu=silu, **kw))
         H = int(math.isqrt(L))
@@ -352,25 +438,31 @@ def phase_groupnorm(gn_sites):
                 y = y * (1.0 + sc4) + sh4
             return F.silu(y) if silu else y
 
-        lib = cuda_ms(library)
-        nbytes = 2 * N * L * C * (2 if film else 1) + 2 * N * L * C + 8 * C
-        bound = max(nbytes / HBM_BYTES_PER_S,
-                    10.0 * N * L * C / F32_FLOPS) * 1e3
+        lib_ms = cuda_ms(library)
+        flops, nbytes = gn_forward_work(N, L, C, G, film, False)
+        bound = _bound(per_step, count, flops, F32_FLOPS, nbytes)
         sites.append({"N": N, "L": L, "C": C, "G": G, "film": film,
-                      "silu": silu, "per_forward": count,
+                      "silu": silu, "per_forward": count, "plan": plan,
+                      "max_active_clusters": clusters,
                       "us": round(ms * 1e3, 2),
+                      "device_us": round(dev * 1e3, 2),
+                      "host_us": round(host, 2),
+                      "set_by": "host" if host > dev * 1e3 else "device",
+                      "device_pct_of_bound": round(100.0 * bound / dev, 1),
                       "plain_us": round(plain * 1e3, 2),
-                      "library_us": round(lib * 1e3, 2),
+                      "library_us": round(lib_ms * 1e3, 2),
                       "bound_us": round(bound * 1e3, 3),
                       "max_abs_err": err})
         per_step["ms"] += count * ms
+        per_step["device_ms"] += count * dev
         per_step["plain_ms"] += count * plain
-        per_step["library_ms"] += count * lib
-        per_step["bound_ms"] += count * bound
+        per_step["library_ms"] += count * lib_ms
         per_step["max_abs_err"] = max(per_step["max_abs_err"], err)
+    per_step = _finish(per_step)
     emit({"phase": "groupnorm", "checked": checked,
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|)",
+          "bit_identical_run_to_run": True,
           "sites": sites, "per_step": per_step})
     return per_step
 
@@ -630,9 +722,8 @@ def phase_groupnorm_backward(gn_sites, accum):
                                                     retain_graph=True))
         del y
         elems = N * L * C
-        io = 2 * elems * (1 + (2 if film else 0))       # x (scale, shift)
-        bound_f = _bound(fwd, count, 10.0 * elems, F32_FLOPS,
-                         io + 2 * elems + 8 * C + 8 * N * G)
+        flops, nbytes = gn_forward_work(N, L, C, G, film, True)
+        bound_f = _bound(fwd, count, flops, F32_FLOPS, nbytes)
         # The backward reads x, g, scale and, only under SiLU (the one use
         # of y), shift; it writes dx, dscale, dshift.
         bound_b = _bound(bwd, count, 30.0 * elems, F32_FLOPS,
@@ -650,6 +741,8 @@ def phase_groupnorm_backward(gn_sites, accum):
         sites.append({"N": N, "L": L, "C": C, "G": G, "film": film,
                       "silu": silu, "per_train_step": count,
                       "plan": cuda_film.backward_plan(N, L, C, G, 2),
+                      "fwd_plan": cuda_film.forward_plan(N, L, C, G, 2, film),
+                      "fwd_pct_of_bound": round(100.0 * bound_f / ms_f, 1),
                       "bwd_pct_of_bound": round(100.0 * bound_b / ms_b, 1),
                       "bwd_us": round(ms_b * 1e3, 2),
                       "bwd_plain_us": round(plain_b * 1e3, 2),
@@ -1192,12 +1285,14 @@ def main() -> None:
     sample_per = "one denoise step (2B=16) at srn64, summed over sites"
     train_per = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                  f"{TRAIN_ACCUM}) at srn64, summed over sites")
-    design = {"flash_attention": "mma.sync bf16",
+    cluster = "one thread-block cluster per sample, DSMEM exchange"
+    design = {"fused_groupnorm": cluster,
+              "fused_groupnorm[save_stats]": cluster,
+              "flash_attention": "mma.sync bf16",
               "flash_attention[save_lse]": "mma.sync bf16",
               "attention_backward_dkdv": "mma.sync bf16",
               "attention_backward_dq": "mma.sync bf16",
-              "groupnorm_backward": "one thread-block cluster per sample, "
-                                    "DSMEM exchange"}
+              "groupnorm_backward": cluster}
     kernels = []
     for name, source, replaces, n, stats, per in (
             ("fused_groupnorm", film, "diff3d_tpu/ops/pallas_film.py:277",

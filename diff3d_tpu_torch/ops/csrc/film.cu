@@ -2,27 +2,47 @@
 // per-group mean / rstd residual when asked, save_stats) and backward
 // (below the forward).
 //
-// Replaces the TPU kernel diff3d_tpu/ops/pallas_film.py::_fwd_kernel
-// (launched by _fwd_call, pallas_film.py:277).  Same function: f32
-// per-group statistics as E[x^2] - mean^2 clamped at 0, eps 1e-5, the
+// Forward.  Replaces the TPU kernel diff3d_tpu/ops/pallas_film.py::
+// _fwd_kernel (launched by _fwd_call, pallas_film.py:277).  Same function:
+// f32 per-group statistics as E[x^2] - mean^2 clamped at 0, eps 1e-5, the
 // gamma/beta affine, the optional per-pixel FiLM y * (1 + scale) + shift,
 // the optional SiLU, all in f32 and rounded once at the output.
 //
-// What bounds it on an H100: bytes.  It does ~10 flops per element and
-// must read x (and scale/shift) once for the statistics and once more for
-// the output; at the sampler's shapes every call is a few MB, far below
-// the 295 flop/byte ridge.  Design:
-//   * two passes, because a block cannot see the whole [L, C] slab of one
-//     sample.  The stats pass splits L across blocks (the sampler's N is
-//     only 32, one block per sample would leave most of the 132 SMs idle)
-//     and writes f32 partial sums to a [2, N, G, splits] buffer; summing
-//     them in a fixed order in the apply pass keeps results identical run
-//     to run (no float atomics).
-//   * a warp reads 32 consecutive channels of one row, so every load is
-//     coalesced for any row stride; scale/shift are strided views (the two
-//     halves of the FiLM Dense output, row stride 2C), never copies.
-//   * the apply pass re-reads x (it is still in the 50 MB L2 at these
-//     sizes) and writes the output once.
+// What bounds it on an H100: bytes.  It does ~10 flops per element against
+// reading x (and scale, shift) once and writing the output once, far below
+// the 295 flop/byte ridge.  At the srn64 train step's 64^2 level one bf16
+// tensor is 256 * 4096 * 128 * 2 = 268 MB, so x does not stay in the 50 MB
+// L2 between two passes over the whole tensor.  Design: one thread-block
+// cluster of CS CTAs per sample n (gn_fwd_cluster_kernel), so the
+// statistics and the apply of a sample share one kernel and one read of x:
+//   * phase 1: CTA `rank` of the cluster takes rows [rank * R, ...).  Each
+//     lane owns 16 bytes of channels (8 bf16 or 4 f32; element loads when
+//     a view is not 16-byte aligned) and sums x and x^2 over its rows in
+//     f64, eight rows in flight.  Where the plan keeps x on chip (`onchip`), the CTA's
+//     rows arrive in shared memory by cp.async in NCHUNK commit groups and
+//     the sums read them from there; else x is read with an L2 evict_last
+//     hint so that phase 2's re-read of the sample's slab (<= 3 MB at
+//     srn64) finds it in L2.  Lane sums fold to channels, then to groups,
+//     in shared memory, in a fixed order;
+//   * exchange: after cluster.sync() every CTA reads the CS group partials
+//     of all CTAs through distributed shared memory in rank order, so
+//     every CTA computes the same mean / rstd and a call is bit-identical
+//     run to run (no float atomics); rank 0 writes the [2, N, G] stats.  A
+//     second cluster.sync() keeps every CTA's partials alive while a peer
+//     reads them;
+//   * phase 2: each CTA normalises its rows from the x it kept (or
+//     re-reads them), reads scale and shift once (the two strided halves
+//     of the FiLM Dense output, row stride 2C), and writes the output with
+//     16-byte stores; scale, shift, the re-read x and the output stream
+//     through L2 with an evict_first hint.  The element chain repeats the
+//     plain version's operations one by one, each rounded to f32 (no fused
+//     multiply-adds; SiLU's sigmoid the precise 1 / (1 + expf(-y))), so
+//     that the bf16 output matches it bit for bit wherever the statistics
+//     do: with fused multiply-adds and the hardware exp2, a few outputs in
+//     10^4 rounded the other way and moved the tiny bf16 model's gradients
+//     0.107 from the plain path, past the card test's 0.1.
+// The host plan (cuda_film.forward_plan) picks CS (1..16), R and `onchip`
+// per call from N, L, C and the dtype.  One launch, no scratch buffer.
 // Launch errors are returned to the caller (cudaGetLastError after each
 // launch); nothing here synchronises or allocates.
 
@@ -31,11 +51,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int TX = 32;             // lanes along channels
-constexpr int TY = 8;              // rows in flight per block
-constexpr int THREADS = TX * TY;
+namespace cg = cooperative_groups;
+
+constexpr int MAX_CLUSTER = 16;    // non-portable cluster size limit
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use
+// Rows a CTA keeps on chip arrive in NCHUNK commit groups, so phase 1
+// starts on the first rows while the rest stream in.
+constexpr int NCHUNK = 4;
 
 template <typename T>
 __device__ __forceinline__ float load_f32(const T* p);
@@ -60,141 +86,127 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-struct GnArgs {
-  const void* x;
-  long long sxn, sxl;              // element strides of x (channel stride 1)
-  const float* gamma;
-  const float* beta;
-  const void* scale;
-  long long ssn, ssl;
-  const void* shift;
-  long long shn, shl;
-  void* out;                       // contiguous [N, L, C]
-  float* psum;                     // [N, G, splits]
-  float* psq;                      // [N, G, splits]
-  float* stats;                    // [2, N, G] mean, rstd, or null
-  int N, L, C, G, splits, rows_per_split, rows_per_block;
-  float eps;
-};
+// W consecutive elements of T as stored: one 16-byte word when
+// W * sizeof(T) == 16, else W == 1 and one element.
+template <typename T, int W>
+using Raw = typename std::conditional<(W > 1), uint4, T>::type;
 
-// Stats pass: block (split s, sample n) sums x and x^2 over the rows
-// [s * rows_per_split, ...) of every channel, folds channels to groups and
-// writes the partial sums for (n, g, s).
-template <typename T>
-__global__ void __launch_bounds__(THREADS) gn_stats_kernel(GnArgs a) {
-  extern __shared__ float4 smem_f4[];
-  float* csum = reinterpret_cast<float*>(smem_f4);   // [C]
-  float* csq = csum + a.C;                            // [C]
-  __shared__ float red_s[TY][TX + 1];
-  __shared__ float red_q[TY][TX + 1];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int s = blockIdx.x, n = blockIdx.y;
-  const int r0 = s * a.rows_per_split;
-  const int r1 = min(a.L, r0 + a.rows_per_split);
-  const T* xn = static_cast<const T*>(a.x) + (int64_t)n * a.sxn;
-
-  for (int c0 = 0; c0 < a.C; c0 += TX) {
-    const int c = c0 + tx;
-    float sum = 0.f, sq = 0.f;
-    if (c < a.C) {
-      for (int r = r0 + ty; r < r1; r += TY) {
-        const float v = load_f32<T>(xn + (int64_t)r * a.sxl + c);
-        sum += v;
-        sq += v * v;
-      }
+template <typename T, int W>
+__device__ __forceinline__ void unpack(const Raw<T, W>& u, float (&v)[W]) {
+  if constexpr (W == 1) {
+    v[0] = load_f32<T>(&u);
+  } else if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z);
+    v[3] = __uint_as_float(u.w);
+  } else {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
-    red_s[ty][tx] = sum;
-    red_q[ty][tx] = sq;
-    __syncthreads();
-    if (ty == 0 && c < a.C) {
-      float ts = 0.f, tq = 0.f;
-      for (int k = 0; k < TY; ++k) {
-        ts += red_s[k][tx];
-        tq += red_q[k][tx];
-      }
-      csum[c] = ts;
-      csq[c] = tq;
-    }
-    __syncthreads();
-  }
-
-  const int gs = a.C / a.G;
-  for (int g = ty * TX + tx; g < a.G; g += THREADS) {
-    float ts = 0.f, tq = 0.f;
-    for (int k = 0; k < gs; ++k) {
-      ts += csum[g * gs + k];
-      tq += csq[g * gs + k];
-    }
-    const int64_t o = ((int64_t)n * a.G + g) * a.splits + s;
-    a.psum[o] = ts;
-    a.psq[o] = tq;
   }
 }
 
-// Apply pass: block (row tile, sample n) folds the partial sums of sample n
-// into per-group mean / rstd (fixed order), spreads them to channels, then
-// normalises, applies gamma/beta, FiLM and SiLU in f32 and writes once.
-template <typename T, bool FILM, bool SILU>
-__global__ void __launch_bounds__(THREADS) gn_apply_kernel(GnArgs a) {
-  extern __shared__ float4 smem_f4[];
-  float* gmean = reinterpret_cast<float*>(smem_f4);  // [G]
-  float* grstd = gmean + a.G;                         // [G]
-  float* cmean = grstd + a.G;                         // [C]
-  float* crstd = cmean + a.C;                         // [C]
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  const int n = blockIdx.y;
-  const int gs = a.C / a.G;
-  const float count = (float)a.L * (float)gs;
-
-  for (int g = tid; g < a.G; g += THREADS) {
-    const int64_t base = ((int64_t)n * a.G + g) * a.splits;
-    float ts = 0.f, tq = 0.f;
-    for (int k = 0; k < a.splits; ++k) {
-      ts += a.psum[base + k];
-      tq += a.psq[base + k];
+template <typename T, int W>
+__device__ __forceinline__ Raw<T, W> pack(const float (&v)[W]) {
+  if constexpr (W == 1) {
+    return from_f32<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
     }
-    const float mean = ts / count;
-    const float var = fmaxf(tq / count - mean * mean, 0.f);
-    const float rstd = rsqrtf(var + a.eps);
-    gmean[g] = mean;
-    grstd[g] = rstd;
-    if (a.stats != nullptr && blockIdx.x == 0) {
-      a.stats[(int64_t)n * a.G + g] = mean;
-      a.stats[((int64_t)a.N + n) * a.G + g] = rstd;
-    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
-  __syncthreads();
-  for (int c = tid; c < a.C; c += THREADS) {
-    cmean[c] = gmean[c / gs];
-    crstd[c] = grstd[c / gs];
-  }
-  __syncthreads();
+}
 
-  const T* xn = static_cast<const T*>(a.x) + (int64_t)n * a.sxn;
-  const T* scn = static_cast<const T*>(a.scale) + (int64_t)n * a.ssn;
-  const T* shn = static_cast<const T*>(a.shift) + (int64_t)n * a.shn;
-  T* on = static_cast<T*>(a.out) + (int64_t)n * a.L * a.C;
-  const int r0 = blockIdx.x * a.rows_per_block;
-  const int r1 = min(a.L, r0 + a.rows_per_block);
-  for (int r = r0 + ty; r < r1; r += TY) {
-    const T* xr = xn + (int64_t)r * a.sxl;
-    T* orow = on + (int64_t)r * a.C;
-    for (int c = tx; c < a.C; c += TX) {
-      float y = (load_f32<T>(xr + c) - cmean[c]) * crstd[c];
-      y = y * a.gamma[c] + a.beta[c];
-      if (FILM) {
-        const float sc = load_f32<T>(scn + (int64_t)r * a.ssl + c);
-        const float sh = load_f32<T>(shn + (int64_t)r * a.shl + c);
-        y = y * (1.f + sc) + sh;
-      }
-      if (SILU) {
-        y = y * (1.f / (1.f + expf(-y)));
-      }
-      orow[c] = from_f32<T>(y);
-    }
+// W consecutive elements of T as f32, and back: one 16-byte access when
+// W * sizeof(T) == 16, else W == 1.
+template <typename T, int W>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[W]) {
+  unpack<T, W>(*reinterpret_cast<const Raw<T, W>*>(p), v);
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[W]) {
+  *reinterpret_cast<Raw<T, W>*>(p) = pack<T, W>(v);
+}
+
+// 16 bytes global -> shared, asynchronously (the caller commits and waits).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// L2 eviction policies for ld_l2 / st_l2: evict_last for data read again
+// soon, evict_first for data read or written once.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// 16 bytes from / to global memory under an L2 eviction policy.  The
+// inputs are never written by the kernel that loads them.
+__device__ __forceinline__ uint4 ld_l2(const void* p, uint64_t policy) {
+  uint4 u;
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+      : "l"(p), "l"(policy));
+  return u;
+}
+
+__device__ __forceinline__ void st_l2(void* p, uint4 u, uint64_t policy) {
+  asm volatile(
+      "st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;\n"
+      :
+      : "l"(p), "r"(u.x), "r"(u.y), "r"(u.z), "r"(u.w), "l"(policy)
+      : "memory");
+}
+
+// The hinted accesses for W elements (plain ones when W == 1).
+template <typename T, int W>
+__device__ __forceinline__ Raw<T, W> ld_hint(const T* p, uint64_t policy) {
+  if constexpr (W == 1) {
+    return *p;
+  } else {
+    return ld_l2(p, policy);
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void st_hint(T* p, const Raw<T, W>& v,
+                                        uint64_t policy) {
+  if constexpr (W == 1) {
+    *p = v;
+  } else {
+    st_l2(p, v, policy);
   }
 }
 
@@ -218,34 +230,376 @@ cudaError_t allow_smem(K kernel, size_t bytes, unsigned long long* done,
   return err;
 }
 
-template <typename T, bool FILM, bool SILU>
-cudaError_t launch_apply(const GnArgs& a, cudaStream_t stream) {
-  const dim3 block(TX, TY);
-  const dim3 grid((a.L + a.rows_per_block - 1) / a.rows_per_block, a.N);
-  // Above 48 KB (G + C > 6144) only after raising the kernel's limit.
-  const size_t smem = (size_t)(2 * a.G + 2 * a.C) * sizeof(float);
+// A cluster launch configuration: grid (cs, N), one cluster per sample.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int cs, int N, int threads, size_t smem,
+                cudaStream_t stream) {
+    cfg.gridDim = dim3(cs, N);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// 16-byte access to a [N, L, C] view: base, strides (in elements) and C
+// are multiples of W = 16 / sizeof(T) elements.
+bool aligned16(const void* p, long long sn, long long sl, int C, int W) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sn % W == 0 &&
+         sl % W == 0 && C % W == 0;
+}
+
+// ---------------------------------------------------------------------------
+// Forward.
+
+constexpr int FWD_NT = 256;        // threads of a forward cluster CTA
+
+struct GnFwdArgs {
+  const void* x;
+  long long sxn, sxl;              // element strides of x (channel stride 1)
+  const float* gamma;
+  const float* beta;
+  const void* scale;
+  long long ssn, ssl;
+  const void* shift;
+  long long shn, shl;
+  void* out;                       // contiguous [N, L, C]
+  float* stats;                    // [2, N, G] mean, rstd, or null
+  int N, L, C, G, rows_per_cta, onchip;
+  int film, silu;                  // read by the element kernel (W == 1)
+  float eps;
+};
+
+// Doubles of a forward CTA's fold buffers (csum, csq [C]; s1, s2 [G];
+// red [FWD_NT][W]), rounded up to 16 bytes; x of its rows follows them.
+__host__ __device__ constexpr int fwd_aux_doubles(int C, int G, int W) {
+  return (2 * C + 2 * G + FWD_NT * W + 1) & ~1;
+}
+
+template <typename T, int W, bool FILM, bool SILU>
+__global__ void __launch_bounds__(FWD_NT, 2)
+    gn_fwd_cluster_kernel(GnFwdArgs a) {
+  using R = Raw<T, W>;
+  // The 16-byte-lane kernels are built per mode; the element kernel, for
+  // views that are not 16-byte aligned, reads the mode at run time.
+  const bool film = W > 1 ? FILM : a.film != 0;
+  const bool silu = W > 1 ? SILU : a.silu != 0;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = blockIdx.y, tid = threadIdx.x;
+  const int C = a.C, G = a.G, gs = C / G;
+  extern __shared__ float4 smem_f4[];
+  double* csum = reinterpret_cast<double*>(smem_f4);  // [C] sum of x
+  double* csq = csum + C;          // [C] sum of x^2
+  double* s1 = csq + C;            // [G] group sums of csum (read by peers)
+  double* s2 = s1 + G;             // [G] group sums of csq  (read by peers)
+  double* red = s2 + G;            // [FWD_NT][W] fold scratch
+  // After the exchange: each group's mean and rstd, over csum.
+  float* gmean = reinterpret_cast<float*>(csum);
+  float* grstd = gmean + G;
+  T* xs = reinterpret_cast<T*>(reinterpret_cast<double*>(smem_f4) +
+                               fwd_aux_doubles(C, G, W));   // [R][C]
+
+  const int r0 = min(a.L, rank * a.rows_per_cta);
+  const int r1 = min(a.L, r0 + a.rows_per_cta);
+  const bool onchip = a.onchip != 0;
+  // Lane layout: SP channel slots of W channels per pass, RY rows in
+  // flight; passes over slots [cv0, cv0 + SP) when C / W > FWD_NT.  Lane
+  // row group ry takes rows r0 + ry, r0 + ry + RY, ...
+  const int NV = C / W;
+  const int SP = min(NV, FWD_NT), RY = FWD_NT / SP;
+  const int sv = tid % SP, ry = tid / SP;
+  const T* xn = static_cast<const T*>(a.x) + (int64_t)n * a.sxn;
+  const T* scn = static_cast<const T*>(a.scale) + (int64_t)n * a.ssn;
+  const T* shn = static_cast<const T*>(a.shift) + (int64_t)n * a.shn;
+  T* on = static_cast<T*>(a.out) + (int64_t)n * a.L * C;
+  // Rows per chunk, a multiple of RY: a lane's rows do not depend on the
+  // chunking.
+  const int rc = ((r1 - r0 + NCHUNK - 1) / NCHUNK + RY - 1) / RY * RY;
+  const uint64_t keep = l2_evict_last();
+  const uint64_t once = l2_evict_first();
+
+  // On chip: every row of x into shared memory, chunk by chunk (one commit
+  // group each), 16 bytes a copy; element by element when the view is not
+  // 16-byte aligned.
+  if (onchip) {
+    if constexpr (W > 1) {
+      const uint32_t sx = (uint32_t)__cvta_generic_to_shared(xs);
+      for (int q = 0; q < NCHUNK; ++q) {
+        const int i0 = min(r1 - r0, q * rc), i1 = min(r1 - r0, i0 + rc);
+        for (int e = i0 * NV + tid; e < i1 * NV; e += FWD_NT) {
+          const int i = e / NV, c0 = (e % NV) * W;
+          cp_async16(sx + (uint32_t)(((size_t)i * C + c0) * sizeof(T)),
+                     xn + (int64_t)(r0 + i) * a.sxl + c0);
+        }
+        cp_async_commit();
+      }
+    } else {
+      for (int e = tid; e < (r1 - r0) * C; e += FWD_NT) {
+        const int i = e / C, c = e % C;
+        xs[(size_t)i * C + c] = xn[(int64_t)(r0 + i) * a.sxl + c];
+      }
+      __syncthreads();
+    }
+  }
+
+  // Phase 1: per-lane sums of x and x^2 in f64 (x^2 of an f32 is exact
+  // there, and the sums lose nothing that the f32 statistics keep),
+  // folded to channels.
+  for (int cv0 = 0; cv0 < NV; cv0 += SP) {
+    const int cv = cv0 + sv;
+    const bool act = ry < RY && cv < NV;
+    const int c0 = cv * W;
+    double s[W], q[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) s[w] = q[w] = 0.0;
+    // Rows rs + ry, rs + ry + RY, ... below re, NB at a time: the loads of
+    // all NB rows are issued before the adds.
+    auto sum_rows = [&](int rs, int re, auto&& ld) {
+      constexpr int NB = 8;
+      auto add = [&](const R& u) {
+        float v[W];
+        unpack<T, W>(u, v);
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const double d = v[w];
+          s[w] += d;
+          q[w] += d * d;
+        }
+      };
+      int r = rs + ry;
+      for (; r + (NB - 1) * RY < re; r += NB * RY) {
+        R in[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) in[b] = ld(r + b * RY);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) add(in[b]);
+      }
+      for (; r < re; r += RY) add(ld(r));
+    };
+    if (onchip) {
+      auto ld = [&](int r) {
+        return *reinterpret_cast<const R*>(xs + (size_t)(r - r0) * C + c0);
+      };
+      for (int k = 0; k < NCHUNK; ++k) {
+        if (W > 1 && cv0 == 0) {   // chunk k of the copies has landed
+          if (k == 0) cp_async_wait<NCHUNK - 1>();
+          else if (k == 1) cp_async_wait<NCHUNK - 2>();
+          else if (k == 2) cp_async_wait<NCHUNK - 3>();
+          else cp_async_wait<0>();
+          __syncthreads();
+        }
+        const int rs = min(r1, r0 + k * rc), re = min(r1, rs + rc);
+        if (act) sum_rows(rs, re, ld);
+      }
+    } else if (act) {
+      sum_rows(r0, r1, [&](int r) {
+        return ld_hint<T, W>(xn + (int64_t)r * a.sxl + c0, keep);
+      });
+    }
+    // Fold the RY row groups of each channel in order into csum, csq:
+    // channel j of the pass is summed by thread j.
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < W; ++w) red[tid * W + w] = p == 0 ? s[w] : q[w];
+      __syncthreads();
+      double* dst = p == 0 ? csum : csq;
+      for (int j = tid; j < SP * W; j += FWD_NT) {
+        if (cv0 * W + j >= C) continue;
+        double t = 0.0;
+        for (int k = 0; k < RY; ++k) t += red[j + k * SP * W];
+        dst[cv0 * W + j] = t;
+      }
+    }
+  }
+  __syncthreads();
+  // Channels to groups, in channel order.
+  for (int gi = tid; gi < G; gi += FWD_NT) {
+    double t1 = 0.0, t2 = 0.0;
+    for (int k = 0; k < gs; ++k) {
+      t1 += csum[gi * gs + k];
+      t2 += csq[gi * gs + k];
+    }
+    s1[gi] = t1;
+    s2[gi] = t2;
+  }
+  cluster.sync();
+
+  // Exchange, in rank order: every CTA of the cluster sums the same
+  // partials in the same order, four ranks' remote loads issued before
+  // their sums.  The group mean / rstd overwrite csum, which no peer
+  // reads.  From the sums on, the plain version's f32 operations, each
+  // rounded: mean = sum * (1 / count), as torch's mean; var = E[x^2] -
+  // mean^2 clamped at 0; rstd = rsqrt(var + eps).
+  const float inv_count = 1.f / ((float)a.L * (float)gs);
+  for (int gi = tid; gi < G; gi += FWD_NT) {
+    double t1 = 0.0, t2 = 0.0;
+    for (int k0 = 0; k0 < cs; k0 += 4) {   // 4 ranks' loads in flight
+      double v1[4], v2[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k0 + k < cs) {
+          v1[k] = cluster.map_shared_rank(s1, k0 + k)[gi];
+          v2[k] = cluster.map_shared_rank(s2, k0 + k)[gi];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k0 + k < cs) {
+          t1 += v1[k];
+          t2 += v2[k];
+        }
+      }
+    }
+    const float mean = __fmul_rn((float)t1, inv_count);
+    const float mean2 = __fmul_rn((float)t2, inv_count);
+    const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
+    const float rstd = rsqrtf(__fadd_rn(var, a.eps));
+    gmean[gi] = mean;
+    grstd[gi] = rstd;
+    if (a.stats != nullptr && rank == 0) {
+      a.stats[(int64_t)n * G + gi] = mean;
+      a.stats[((int64_t)a.N + n) * G + gi] = rstd;
+    }
+  }
+  // No CTA leaves while a peer still reads its s1 / s2; the group mean /
+  // rstd are visible to the whole CTA.
+  cluster.sync();
+
+  // Phase 2: the output of this CTA's rows.
+  for (int cv0 = 0; cv0 < NV; cv0 += SP) {
+    const int cv = cv0 + sv;
+    if (!(ry < RY && cv < NV)) continue;
+    const int c0 = cv * W;
+    float gam[W], bet[W], mu[W], rs[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int c = c0 + w;
+      gam[w] = a.gamma[c];
+      bet[w] = a.beta[c];
+      mu[w] = gmean[c / gs];
+      rs[w] = grstd[c / gs];
+    }
+    auto ld_x = [&](int r) -> R {
+      if (onchip)
+        return *reinterpret_cast<const R*>(xs + (size_t)(r - r0) * C + c0);
+      return ld_hint<T, W>(xn + (int64_t)r * a.sxl + c0, once);
+    };
+    auto emit = [&](int r, const R& ux, const R& usc, const R& ush) {
+      float xv[W], sc[W], sh[W], y[W];
+      unpack<T, W>(ux, xv);
+      if (film) {
+        unpack<T, W>(usc, sc);
+        unpack<T, W>(ush, sh);
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        // The plain version's operations, each rounded to f32 (no fused
+        // multiply-adds), so that the output rounds to the same bf16.
+        float v = __fmul_rn(__fsub_rn(xv[w], mu[w]), rs[w]);
+        v = __fadd_rn(__fmul_rn(v, gam[w]), bet[w]);
+        if (film) v = __fadd_rn(__fmul_rn(v, __fadd_rn(1.f, sc[w])), sh[w]);
+        if (silu) v = __fmul_rn(v, 1.f / (1.f + expf(-v)));
+        y[w] = v;
+      }
+      st_hint<T, W>(on + (int64_t)r * C + c0, pack<T, W>(y), once);
+    };
+    // NB rows at a time, every load issued before the first store (fewer
+    // with FiLM's three loads a row; fewer still with SiLU, where more
+    // would spill at 128 registers).
+    constexpr int NB = FILM ? (SILU ? 2 : 4) : 8;
+    int r = r0 + ry;
+    for (; r + (NB - 1) * RY < r1; r += NB * RY) {
+      R ux[NB], usc[NB], ush[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        ux[b] = ld_x(r + b * RY);
+        usc[b] = ush[b] = ux[b];
+        if (film) {
+          usc[b] = ld_hint<T, W>(scn + (int64_t)(r + b * RY) * a.ssl + c0,
+                                 once);
+          ush[b] = ld_hint<T, W>(shn + (int64_t)(r + b * RY) * a.shl + c0,
+                                 once);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) emit(r + b * RY, ux[b], usc[b], ush[b]);
+    }
+    for (; r < r1; r += RY) {
+      const R ux = ld_x(r);
+      R usc = ux, ush = ux;
+      if (film) {
+        usc = ld_hint<T, W>(scn + (int64_t)r * a.ssl + c0, once);
+        ush = ld_hint<T, W>(shn + (int64_t)r * a.shl + c0, once);
+      }
+      emit(r, ux, usc, ush);
+    }
+  }
+}
+
+// Shared memory of one forward CTA: the fold buffers, then x of its rows
+// when they stay on chip.
+template <typename T, int W>
+size_t fwd_smem(const GnFwdArgs& a) {
+  return (size_t)fwd_aux_doubles(a.C, a.G, W) * sizeof(double) +
+         (a.onchip ? (size_t)a.rows_per_cta * a.C * sizeof(T) : 0);
+}
+
+// Launch the forward, or, with `max_clusters`, only ask how many of its
+// clusters the card can hold at once (cudaOccupancyMaxActiveClusters).
+template <typename T, int W, bool FILM, bool SILU>
+cudaError_t launch_fwd(const GnFwdArgs& a, int cs, cudaStream_t stream,
+                       int* max_clusters) {
+  auto kernel = gn_fwd_cluster_kernel<T, W, FILM, SILU>;
+  const size_t smem = fwd_smem<T, W>(a);
+  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
   static unsigned long long done = 0;
-  cudaError_t err = allow_smem(gn_apply_kernel<T, FILM, SILU>,
-                               (size_t)(2 * 4096 + 2 * 4096) * sizeof(float),
-                               &done);
+  cudaError_t err = allow_smem(kernel, SMEM_MAX, &done, true);
   if (err != cudaSuccess) return err;
-  gn_apply_kernel<T, FILM, SILU><<<grid, block, smem, stream>>>(a);
+  ClusterLaunch l(cs, a.N, FWD_NT, smem, stream);
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &l.cfg);
+  err = cudaLaunchKernelEx(&l.cfg, kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <typename T, int W>
+cudaError_t launch_fwd_w(const GnFwdArgs& a, int cs, int film, int silu,
+                         cudaStream_t stream, int* max_clusters) {
+  if constexpr (W == 1) {   // one element kernel for all four modes
+    return launch_fwd<T, 1, false, false>(a, cs, stream, max_clusters);
+  } else {
+    if (film && silu)
+      return launch_fwd<T, W, true, true>(a, cs, stream, max_clusters);
+    if (film)
+      return launch_fwd<T, W, true, false>(a, cs, stream, max_clusters);
+    if (silu)
+      return launch_fwd<T, W, false, true>(a, cs, stream, max_clusters);
+    return launch_fwd<T, W, false, false>(a, cs, stream, max_clusters);
+  }
+}
+
 template <typename T>
-cudaError_t launch_all(const GnArgs& a, int film, int silu,
-                       cudaStream_t stream) {
-  const dim3 block(TX, TY);
-  const dim3 grid(a.splits, a.N);
-  const size_t smem = (size_t)(2 * a.C) * sizeof(float);
-  gn_stats_kernel<T><<<grid, block, smem, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (film && silu) return launch_apply<T, true, true>(a, stream);
-  if (film) return launch_apply<T, true, false>(a, stream);
-  if (silu) return launch_apply<T, false, true>(a, stream);
-  return launch_apply<T, false, false>(a, stream);
+cudaError_t launch_fwd_all(const GnFwdArgs& a, int cs, int film, int silu,
+                           cudaStream_t stream, int* max_clusters) {
+  constexpr int W = 16 / sizeof(T);
+  const bool vec = aligned16(a.x, a.sxn, a.sxl, a.C, W) &&
+                   aligned16(a.scale, a.ssn, a.ssl, a.C, W) &&
+                   aligned16(a.shift, a.shn, a.shl, a.C, W) &&
+                   aligned16(a.out, 0, 0, a.C, W);
+  if (vec) return launch_fwd_w<T, W>(a, cs, film, silu, stream, max_clusters);
+  return launch_fwd_w<T, 1>(a, cs, film, silu, stream, max_clusters);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,11 +646,7 @@ cudaError_t launch_all(const GnArgs& a, int film, int silu,
 // CTAs still share an SM.  At the 64^2 level the rows fit only at one CTA
 // per SM, and clusters of 8 re-reading x and g measured faster.
 
-namespace cg = cooperative_groups;
-
-constexpr int BWD_NT = 256;        // threads of a cluster CTA
-constexpr int MAX_CLUSTER = 16;    // non-portable cluster size limit
-constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use
+constexpr int BWD_NT = 256;        // threads of a backward cluster CTA
 
 struct GnBwdArgs {
   const void* x;
@@ -320,46 +670,6 @@ struct GnBwdArgs {
   float* pdb;                      // [N, C] per-sample dbeta partials
   int N, L, C, G, rows_per_cta, onchip;
 };
-
-// W consecutive elements of T as f32: one 16-byte access when
-// W * sizeof(T) == 16, else W == 1.
-template <typename T, int W>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[W]) {
-  if constexpr (W == 1) {
-    v[0] = load_f32<T>(p);
-  } else if constexpr (sizeof(T) == 4) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    v[0] = u.x;
-    v[1] = u.y;
-    v[2] = u.z;
-    v[3] = u.w;
-  } else {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
-
-template <typename T, int W>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[W]) {
-  if constexpr (W == 1) {
-    *p = from_f32<T>(v[0]);
-  } else if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
 
 // One lane's W channels [c0, c0 + W): gamma, beta and its sample's group
 // mean / rstd on each.
@@ -418,28 +728,6 @@ template <int W>
 struct RowIn {
   float x[W], g[W], sc[W], sh[W];
 };
-
-// 16 bytes global -> shared, asynchronously (the caller commits and waits).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :
-               : "r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows of x and g a CTA keeps on chip arrive in NCHUNK commit groups, so
-// phase 1 starts on the first rows while the rest stream in.
-constexpr int NCHUNK = 4;
 
 template <typename T, int W, bool FILM, bool SILU>
 __global__ void __launch_bounds__(BWD_NT, 2)
@@ -745,19 +1033,8 @@ cudaError_t launch_bwd(const GnBwdArgs& a, int cs, cudaStream_t stream) {
   static unsigned long long done = 0;
   cudaError_t err = allow_smem(kernel, SMEM_MAX, &done, true);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, a.N);
-  cfg.blockDim = dim3(BWD_NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  ClusterLaunch l(cs, a.N, BWD_NT, smem, stream);
+  err = cudaLaunchKernelEx(&l.cfg, kernel, a);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -772,13 +1049,6 @@ cudaError_t launch_bwd_w(const GnBwdArgs& a, int cs, int film, int silu,
   if (film) return launch_bwd<T, W, true, false>(a, cs, stream);
   if (silu) return launch_bwd<T, W, false, true>(a, cs, stream);
   return launch_bwd<T, W, false, false>(a, cs, stream);
-}
-
-// 16-byte access to a [N, L, C] view: base, strides (in elements) and C
-// are multiples of W = 16 / sizeof(T) elements.
-bool aligned16(const void* p, long long sn, long long sl, int C, int W) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sn % W == 0 &&
-         sl % W == 0 && C % W == 0;
 }
 
 template <typename T>
@@ -801,49 +1071,81 @@ cudaError_t launch_bwd_all(const GnBwdArgs& a, int cs, int film, int silu,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, scale, shift and out share it).
-// partial: float [2, N, G, splits] scratch.  stats: float [2, N, G]
-// (per-group mean, then rstd) written when not null -- the residual of
-// the backward (save_stats).  Returns a cudaError_t code.
+// out: contiguous [N, L, C].  stats: float [2, N, G] (per-group mean, then
+// rstd) written when not null -- the residual of the backward
+// (save_stats).  cluster: CTAs per sample (1..16), each taking
+// rows_per_cta rows (cluster * rows_per_cta >= L); onchip: they keep those
+// rows of x in shared memory.  Returns a cudaError_t code.
 int gn_fused_forward(const void* x, long long sxn, long long sxl,
                      const void* gamma, const void* beta,
                      const void* scale, long long ssn, long long ssl,
                      const void* shift, long long shn, long long shl,
-                     void* out, void* partial, void* stats, int N, int L,
-                     int C, int G,
-                     int splits, int rows_per_split, int rows_per_block,
-                     int dtype, int film, int silu, float eps,
-                     void* stream) {
-  if (N < 1 || L < 1 || C < 1 || G < 1 || C % G != 0 || splits < 1 ||
-      rows_per_split < 1 || rows_per_block < 1 || (dtype != 0 && dtype != 1))
+                     void* out, void* stats, int N, int L, int C, int G,
+                     int cluster, int rows_per_cta, int onchip, int dtype,
+                     int film, int silu, float eps, void* stream) {
+  if (N < 1 || L < 1 || C < 1 || G < 1 || C % G != 0 || cluster < 1 ||
+      cluster > MAX_CLUSTER || rows_per_cta < 1 ||
+      (long long)cluster * rows_per_cta < L || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  GnArgs a;
+  GnFwdArgs a;
   a.x = x;
   a.sxn = sxn;
   a.sxl = sxl;
   a.gamma = static_cast<const float*>(gamma);
   a.beta = static_cast<const float*>(beta);
   a.scale = film ? scale : x;
-  a.ssn = ssn;
-  a.ssl = ssl;
+  a.ssn = film ? ssn : sxn;
+  a.ssl = film ? ssl : sxl;
   a.shift = film ? shift : x;
-  a.shn = shn;
-  a.shl = shl;
+  a.shn = film ? shn : sxn;
+  a.shl = film ? shl : sxl;
   a.out = out;
-  a.psum = static_cast<float*>(partial);
-  a.psq = a.psum + (size_t)N * G * splits;
   a.stats = static_cast<float*>(stats);
   a.N = N;
   a.L = L;
   a.C = C;
   a.G = G;
-  a.splits = splits;
-  a.rows_per_split = rows_per_split;
-  a.rows_per_block = rows_per_block;
+  a.rows_per_cta = rows_per_cta;
+  a.onchip = onchip != 0;
+  a.film = film != 0;
+  a.silu = silu != 0;
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0
-                        ? launch_all<float>(a, film, silu, st)
-                        : launch_all<__nv_bfloat16>(a, film, silu, st);
+  cudaError_t err =
+      dtype == 0
+          ? launch_fwd_all<float>(a, cluster, film, silu, st, nullptr)
+          : launch_fwd_all<__nv_bfloat16>(a, cluster, film, silu, st,
+                                          nullptr);
+  return (int)err;
+}
+
+// How many clusters of gn_fused_forward's kernel for this plan the card
+// holds at once (cudaOccupancyMaxActiveClusters; 0: it cannot launch),
+// into *out.  vec: the 16-byte-lane kernel (else the element one).
+int gn_forward_max_clusters(int L, int C, int G, int cluster,
+                            int rows_per_cta, int onchip, int dtype,
+                            int film, int silu, int vec, int* out) {
+  if (L < 1 || C < 1 || G < 1 || C % G != 0 || cluster < 1 ||
+      cluster > MAX_CLUSTER || rows_per_cta < 1 || out == nullptr ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  GnFwdArgs a = {};
+  a.N = 1;
+  a.L = L;
+  a.C = C;
+  a.G = G;
+  a.rows_per_cta = rows_per_cta;
+  a.onchip = onchip != 0;
+  a.film = film != 0;
+  a.silu = silu != 0;
+  cudaError_t err;
+  if (dtype == 0)
+    err = vec ? launch_fwd_w<float, 4>(a, cluster, film, silu, 0, out)
+              : launch_fwd_w<float, 1>(a, cluster, film, silu, 0, out);
+  else
+    err = vec ? launch_fwd_w<__nv_bfloat16, 8>(a, cluster, film, silu, 0, out)
+              : launch_fwd_w<__nv_bfloat16, 1>(a, cluster, film, silu, 0,
+                                               out);
   return (int)err;
 }
 

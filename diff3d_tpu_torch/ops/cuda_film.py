@@ -5,9 +5,10 @@
 kernel in ``csrc/film.cu`` (it replaces the Pallas ``_fwd_kernel``,
 ``pallas_film.py:174-288``, with ``save_stats`` when autograd records);
 :func:`groupnorm_backward` wraps the backward kernel beside it (it
-replaces ``_bwd_kernel``, ``pallas_film.py:296-433``): one thread-block
-cluster per sample, with the cluster size and whether x and g stay in
-shared memory chosen per call by :func:`backward_plan`.
+replaces ``_bwd_kernel``, ``pallas_film.py:296-433``).  Both run one
+thread-block cluster per sample, with the cluster size and whether the
+CTAs keep their rows in shared memory chosen per call by
+:func:`forward_plan` and :func:`backward_plan`.
 :func:`groupnorm_reference` and :func:`groupnorm_backward_reference` are
 the plain PyTorch versions.  Both follow the Pallas kernels' semantics,
 which differ from the JAX package's ``xla`` path in bf16: every
@@ -33,24 +34,33 @@ EPS = 1e-5          # torch / Flax-parity GroupNorm epsilon
 MAX_C = 4096        # channel cap (srn128's widest up-path concat is 2048)
 MAX_GROUPS = MAX_C  # any G dividing C, as the Pallas kernel takes
 _SMS = 132          # streaming multiprocessors of an H100 SXM
-# The backward's cluster kernel (``film.cu``): threads of a CTA, the
-# largest cluster, the most shared memory a CTA takes when two should
-# share an SM (2 x (113 KB + 1 KB reserved)), and the cluster that
-# re-reads x and g where they do not fit that.
+# The cluster kernels (``film.cu``): threads of a CTA, the largest
+# cluster, the most shared memory a CTA takes when two should share an SM
+# (2 x (113 KB + 1 KB reserved)) and when one does, and the cluster that
+# re-reads its rows where they do not fit.
+FWD_THREADS = 256
 BWD_THREADS = 256
 MAX_CLUSTER = 16
 SMEM_TWO_PER_SM = 113 * 1024
+SMEM_MAX = 232448
 OFFCHIP_CLUSTER = 8
+# The forward's plan (measured, PERF.md): about one CTA per SM, and the
+# bytes of x above which a CTA of so small a grid is split further.
+FWD_MIN_CTAS = 128
+FWD_SLAB = 128 * 1024
 
 _c_ll = ctypes.c_longlong
 _c_p = ctypes.c_void_p
 _c_i = ctypes.c_int
-_ARGTYPES = [_c_p, _c_ll, _c_ll, _c_p, _c_p, _c_p, _c_ll, _c_ll, _c_p,
-             _c_ll, _c_ll, _c_p, _c_p, _c_p, _c_i, _c_i, _c_i, _c_i, _c_i,
-             _c_i, _c_i, _c_i, _c_i, _c_i, ctypes.c_float, _c_p]
-_BWD_ARGTYPES = ([_c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll, _c_p, _c_p,
-                  _c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll]
-                 + [_c_p] * 7 + [_c_i] * 10 + [_c_p])
+_SIGNATURES = {    # ctypes argument types of film.cu's C entry points
+    "gn_fused_forward": ((_c_p, _c_ll, _c_ll, _c_p, _c_p, _c_p, _c_ll,
+                          _c_ll, _c_p, _c_ll, _c_ll, _c_p, _c_p)
+                         + (_c_i,) * 10 + (ctypes.c_float, _c_p)),
+    "gn_forward_max_clusters": (_c_i,) * 10 + (ctypes.POINTER(_c_i),),
+    "gn_fused_backward": ((_c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll, _c_p,
+                           _c_p, _c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll)
+                          + (_c_p,) * 7 + (_c_i,) * 10 + (_c_p,)),
+}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -150,16 +160,40 @@ def groupnorm_backward_reference(
     return dx.to(x.dtype), None, None, dgamma, dbeta
 
 
-def launch_shape(N: int, L: int) -> Tuple[int, int, int]:
-    """``(splits, rows_per_split, rows_per_block)``: the stats pass splits
-    L until there are ~4 blocks per SM (at least 32 rows a split); the
-    apply pass takes 32-row tiles, or 8-row ones when that leaves fewer
-    than two blocks per SM."""
-    splits = max(1, min(-(-L // 32), -(-4 * _SMS // N)))
-    rows_per_split = -(-L // splits)
-    splits = -(-L // rows_per_split)
-    rows_per_block = 32 if N * -(-L // 32) >= 2 * _SMS else 8
-    return splits, rows_per_split, rows_per_block
+def _fwd_aux_bytes(C: int, G: int, itemsize: int) -> int:
+    """Shared memory of a forward CTA's f64 fold buffers (``film.cu``
+    ``fwd_aux_doubles`` at 16-byte lanes)."""
+    return 8 * ((2 * C + 2 * G + FWD_THREADS * (16 // itemsize) + 1)
+                // 2 * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(N: int, L: int, C: int, G: int, itemsize: int,
+                 film: bool) -> Tuple[int, int, bool]:
+    """``(cluster, rows_per_cta, onchip)`` of the forward's cluster kernel:
+    each sample's L rows split over ``cluster`` CTAs (1..16) of
+    ``rows_per_cta`` rows.  The smallest cluster that gives the grid
+    about one CTA per SM (``FWD_MIN_CTAS``); where the grid is no larger
+    and a CTA would still stream more than ``FWD_SLAB`` bytes of x,
+    16-CTA clusters.  A FiLM site, which streams scale and shift beside
+    x, takes clusters at least large enough that a CTA's x is at most
+    ``FWD_SLAB`` bytes and so is re-read from L2.  Rows stay on chip only
+    in 16-CTA clusters that still fit two CTAs on an SM.  Measured
+    against every plan at every srn64 site
+    (``tools/bench_gn_forward.py``, ``PERF.md``)."""
+    def slab(cs):
+        return -(-L // cs) * C * itemsize
+
+    cs = 1
+    while cs < MAX_CLUSTER and N * cs < FWD_MIN_CTAS:
+        cs *= 2
+    if N * cs <= FWD_MIN_CTAS and slab(cs) > FWD_SLAB:
+        cs = MAX_CLUSTER
+    while film and cs < MAX_CLUSTER and slab(cs) > FWD_SLAB:
+        cs *= 2
+    onchip = (cs == MAX_CLUSTER and _fwd_aux_bytes(C, G, itemsize)
+              + slab(cs) <= SMEM_TWO_PER_SM)
+    return cs, -(-L // cs), onchip
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,12 +219,12 @@ def backward_plan(N: int, L: int, C: int, G: int,
     return cs, -(-L // cs), onchip
 
 
-def _function(lib, name: str, argtypes):
+@functools.lru_cache(maxsize=None)
+def _function(lib, name: str):
     """``lib.<name>`` with its ctypes signature, set on first use."""
     fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = _c_i
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = _c_i
     return fn
 
 
@@ -205,30 +239,47 @@ def _raise(lib, name: str, rc: int) -> None:
 def launch(lib, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
            scale: Optional[torch.Tensor], shift: Optional[torch.Tensor], *,
            num_groups: int, silu: bool, stream: Optional[int],
-           save_stats: bool = False):
+           save_stats: bool = False,
+           plan: Optional[Tuple[int, int, bool]] = None):
     """One call of ``gn_fused_forward`` in ``lib`` on checked operands;
-    allocates the output and the partial-sum scratch like ``x``.  Returns
-    the output, and with ``save_stats`` also the ``[2, N, G]`` f32
-    statistics."""
-    fn = _function(lib, "gn_fused_forward", _ARGTYPES)
+    allocates the contiguous output like ``x`` and, with ``save_stats``,
+    the ``[2, N, G]`` f32 statistics (returned as a pair then), and nothing
+    else.  ``plan`` overrides :func:`forward_plan`."""
+    fn = _function(lib, "gn_fused_forward")
     N, L, C = x.shape
-    splits, rows_per_split, rows_per_block = launch_shape(N, L)
+    film = scale is not None
+    cluster, rows_per_cta, onchip = plan or forward_plan(
+        N, L, C, num_groups, x.element_size(), film)
     out = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
-    partial = torch.empty((2, N, num_groups, splits), dtype=torch.float32,
-                          device=x.device)
     stats = (torch.empty((2, N, num_groups), dtype=torch.float32,
                          device=x.device) if save_stats else None)
-    film = scale is not None
     sc = scale if film else x
     sh = shift if film else x
-    rc = fn(x.data_ptr(), x.stride(0), x.stride(1), gamma.data_ptr(),
-            beta.data_ptr(), sc.data_ptr(), sc.stride(0), sc.stride(1),
-            sh.data_ptr(), sh.stride(0), sh.stride(1), out.data_ptr(),
-            partial.data_ptr(), 0 if stats is None else stats.data_ptr(),
-            N, L, C, num_groups, splits, rows_per_split, rows_per_block,
+    sxn, sxl, _ = x.stride()
+    ssn, ssl, _ = sc.stride()
+    shn, shl, _ = sh.stride()
+    rc = fn(x.data_ptr(), sxn, sxl, gamma.data_ptr(), beta.data_ptr(),
+            sc.data_ptr(), ssn, ssl, sh.data_ptr(), shn, shl,
+            out.data_ptr(), 0 if stats is None else stats.data_ptr(),
+            N, L, C, num_groups, cluster, rows_per_cta, int(onchip),
             _DTYPE_CODE[x.dtype], int(film), int(silu), EPS, stream)
     _raise(lib, "gn_fused_forward", rc)
     return (out, stats) if save_stats else out
+
+
+def max_active_clusters(lib, L: int, C: int, G: int,
+                        plan: Tuple[int, int, bool], dtype: torch.dtype,
+                        film: bool, silu: bool, vec: bool = True) -> int:
+    """How many clusters of the forward kernel under ``plan`` the current
+    card holds at once (``cudaOccupancyMaxActiveClusters``); 0 means the
+    plan cannot launch there."""
+    fn = _function(lib, "gn_forward_max_clusters")
+    out = _c_i(0)
+    cluster, rows_per_cta, onchip = plan
+    rc = fn(L, C, G, cluster, rows_per_cta, int(onchip), _DTYPE_CODE[dtype],
+            int(film), int(silu), int(vec), ctypes.byref(out))
+    _raise(lib, "gn_forward_max_clusters", rc)
+    return out.value
 
 
 def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
@@ -241,7 +292,7 @@ def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
     allocates contiguous ``dx`` (and ``dscale`` / ``dshift``) like ``x``,
     f32 ``dgamma`` / ``dbeta`` and the ``[2, N, C]`` partial-sum scratch.
     ``plan`` overrides :func:`backward_plan`."""
-    fn = _function(lib, "gn_fused_backward", _BWD_ARGTYPES)
+    fn = _function(lib, "gn_fused_backward")
     N, L, C = x.shape
     cluster, rows_per_cta, onchip = plan or backward_plan(
         N, L, C, num_groups, x.element_size())
@@ -267,28 +318,34 @@ def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
 
 
 def _check(x, gamma, beta, scale, shift, num_groups):
+    """Raise unless the kernels take these operands, on the current
+    device (integer device checks, as the attention wrappers do: a
+    ``torch.device`` per comparison costs host time on every call)."""
     if not supports(x, num_groups=num_groups):
         raise ValueError(
             f"fused_groupnorm: the kernel does not take x "
             f"{tuple(x.shape)} {x.dtype} stride {x.stride()} with "
             f"num_groups={num_groups}")
+    dev = x.get_device()
     C = x.shape[-1]
     for name, p in (("gamma", gamma), ("beta", beta)):
         if p.shape != (C,) or p.dtype != torch.float32 \
-                or not p.is_contiguous() or p.device != x.device:
+                or not p.is_contiguous() or p.get_device() != dev:
             raise ValueError(f"fused_groupnorm: {name} must be a "
                              f"contiguous float32 [{C}] on {x.device}")
     for name, t in (("scale", scale), ("shift", shift)):
-        if t is not None and (t.dtype != x.dtype or t.device != x.device
+        if t is not None and (t.dtype != x.dtype or t.get_device() != dev
                               or t.stride(-1) != 1):
             raise ValueError(f"fused_groupnorm: {name} must share x's "
                              "dtype and device, with unit channel stride")
-    if x.device.index != torch.cuda.current_device():
+    if dev != torch.cuda.current_device():
         raise ValueError("fused_groupnorm: x is not on the current device")
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """PyTorch's current stream on x's device, as the raw handle (without
+    building a ``torch.cuda.Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 class _FusedGroupNormFn(torch.autograd.Function):

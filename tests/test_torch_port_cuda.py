@@ -68,6 +68,106 @@ def test_fused_groupnorm_matches_plain(cuda, shape, film, silu, dtype):
     _close(out, cuda_film.groupnorm_reference(x, gamma, beta, **kw), dtype)
 
 
+def _gn_forward_inputs(cuda, N, L, C, dtype, pad=0):
+    """x, gamma, beta and the FiLM halves; x and the halves are views
+    ``pad`` elements into their buffers (``pad`` 2: not 16-byte aligned,
+    so the kernel takes element loads)."""
+    gen = torch.Generator(cuda).manual_seed(5)
+
+    def buf(*s):
+        return torch.randn(*s[:-1], s[-1] + pad, generator=gen,
+                           device=cuda).to(dtype)[..., pad:]
+
+    x = buf(N, L, C).add_(0.5)                    # in place: keeps the view
+    e = buf(N, L, 2 * C).mul_(0.3)
+    gamma = 1 + 0.2 * torch.randn(C, generator=gen, device=cuda)
+    beta = 0.2 * torch.randn(C, generator=gen, device=cuda)
+    return x, gamma, beta, e[..., :C], e[..., C:]
+
+
+def _check_gn_forward(got, x, gamma, beta, scale, shift, G, silu, dtype,
+                      save_stats):
+    out, stats = got if save_stats else (got, None)
+    kw = dict(scale=scale, shift=shift) if scale is not None else {}
+    assert out.dtype == dtype and out.is_contiguous()
+    _close(out, cuda_film.groupnorm_reference(x, gamma, beta, num_groups=G,
+                                              silu=silu, **kw), dtype)
+    if save_stats:
+        assert stats.shape == (2, x.shape[0], G)
+        _close(stats, cuda_film.groupnorm_stats_reference(x, G),
+               torch.float32)
+
+
+@pytest.mark.parametrize("save_stats", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film,silu", [(False, False), (False, True),
+                                       (True, False), (True, True)])
+@pytest.mark.parametrize("plan", [(1, 300, False), (2, 150, True),
+                                  (4, 75, True), (4, 75, False),
+                                  (8, 38, True), (8, 64, True),
+                                  (16, 19, True), (16, 19, False)])
+def test_groupnorm_forward_plans_agree(cuda, plan, film, silu, dtype,
+                                       save_stats):
+    """Every cluster size and both ways of taking x (kept in shared memory
+    or re-read from L2) give the plain version's output and statistics;
+    (8, 64) leaves three of the eight CTAs without rows, (8, 38) gives the
+    last CTA fewer rows than the others."""
+    x, gamma, beta, sc, sh = _gn_forward_inputs(cuda, 3, 300, 256, dtype)
+    sc, sh = (sc, sh) if film else (None, None)
+    got = cuda_film.launch(cuda_film.build.library("film"), x, gamma, beta,
+                           sc, sh, num_groups=32, silu=silu, stream=None,
+                           save_stats=save_stats, plan=plan)
+    _check_gn_forward(got, x, gamma, beta, sc, sh, 32, silu, dtype,
+                      save_stats)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_forward_takes_unaligned_views(cuda, dtype):
+    """x and the FiLM halves 2 elements into their buffers: not 16-byte
+    aligned, so the kernel takes element loads; one launch per call."""
+    x, gamma, beta, sc, sh = _gn_forward_inputs(cuda, 2, 1000, 128, dtype,
+                                                pad=2)
+    assert x.data_ptr() % 16 != 0 and sc.data_ptr() % 16 != 0
+    for silu in (False, True):
+        before = cuda_film.fused_groupnorm.launches
+        out = cuda_film.fused_groupnorm(x, gamma, beta, num_groups=32,
+                                        scale=sc, shift=sh, silu=silu)
+        assert cuda_film.fused_groupnorm.launches == before + 1
+        _check_gn_forward(out, x, gamma, beta, sc, sh, 32, silu, dtype,
+                          False)
+
+
+@pytest.mark.parametrize("shape", [(8, 4096, 128, 32), (8, 64, 512, 32),
+                                   (1, 16, 4096, 4096)])
+def test_groupnorm_forward_is_bit_identical_run_to_run(cuda, shape):
+    """The cluster kernel's rank-ordered exchange uses no float atomics:
+    two launches give the same output and statistics bit for bit."""
+    N, L, C, G = shape
+    x, gamma, beta, sc, sh = _gn_forward_inputs(cuda, N, L, C,
+                                                torch.bfloat16)
+    runs = [cuda_film.launch(cuda_film.build.library("film"), x, gamma,
+                             beta, sc, sh, num_groups=G, silu=True,
+                             stream=None, save_stats=True)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("N", [32, 256])
+def test_groupnorm_forward_plans_fit_the_card(cuda, N, film):
+    """``forward_plan`` at the srn64 sites (N = 32 sampler frames, 256
+    train frames) picks plans whose clusters the card can hold
+    (``cudaOccupancyMaxActiveClusters`` > 0), in both dtypes."""
+    lib = cuda_film.build.library("film")
+    for L, C in [(4096, 128), (4096, 256), (4096, 384), (1024, 256),
+                 (1024, 512), (256, 256), (256, 768), (64, 512),
+                 (64, 1024)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = cuda_film.forward_plan(N, L, C, 32, dtype.itemsize, film)
+            assert cuda_film.max_active_clusters(
+                lib, L, C, 32, plan, dtype, film, True) > 0, (L, C, plan)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 100, 70, 4, 64), (1, 256, 256, 2, 256),
                                    (2, 64, 64, 3, 160), (1, 33, 200, 1, 8),

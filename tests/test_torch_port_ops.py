@@ -133,16 +133,6 @@ def test_groupnorm_wrapper_on_cpu_is_the_plain_version():
         cuda_film.fused_groupnorm(*args, num_groups=32, scale=kw["scale"])
 
 
-@pytest.mark.parametrize("N,L", [(32, 4096), (32, 64), (2, 1000), (1, 7),
-                                 (64, 256)])
-def test_groupnorm_launch_shape_covers_every_row(N, L):
-    splits, rows_per_split, rows_per_block = cuda_film.launch_shape(N, L)
-    assert splits >= 1 and rows_per_split >= 1
-    assert (splits - 1) * rows_per_split < L <= splits * rows_per_split
-    assert rows_per_block in (8, 32)
-    assert N * splits >= min(4 * 132, N * -(-L // 32))
-
-
 def test_groupnorm_supports():
     ok = torch.zeros(2, 16, 64)
     assert cuda_film.supports(ok, num_groups=32)

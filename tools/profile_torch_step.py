@@ -23,7 +23,7 @@ import sys
 import time
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
-    ("groupnorm kernel", ("gn_stats", "gn_apply")),
+    ("groupnorm kernel", ("gn_fwd",)),
     ("attention kernel", ("flash_fwd",)),
     ("convolution", ("conv", "implicit", "dgrad", "wgrad", "nhwc", "fprop")),
     ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma", "sm90")),

@@ -30,7 +30,7 @@ import time
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("groupnorm backward kernel", ("gn_bwd",)),
-    ("groupnorm kernel", ("gn_stats", "gn_apply")),
+    ("groupnorm kernel", ("gn_fwd",)),
     ("attention backward kernels", ("flash_bwd",)),
     ("attention kernel", ("flash_fwd",)),
     ("convolution", ("conv", "implicit", "dgrad", "wgrad", "nhwc", "fprop")),
