@@ -26,8 +26,20 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      launches per forward.
   6. sampler — ``Sampler.synthesize`` on one seeded synthetic object (three
      views, orbit poses, SRN-like K): two views on the 256-step ancestral
-     schedule with guidance weights 0..7.  This is the sampling path: the
-     kernels' launch counts are set to 0 just before it and read after.
+     schedule with guidance weights 0..7, the reverse step replayed as a
+     CUDA graph.  This is the sampling path: the kernels' launch counts
+     are set to 0 just before it and read after; what ran is the eager
+     launches (the first step, before the capture) plus each graph's
+     captured launches x its replays.
+  6b. sampler_graph — one srn64 view through the graph path and through
+     the eager path (``cuda_graphs=False``) from the same generator seed,
+     in the order eager, graph, graph, eager: bit-identical views; wall
+     ms per step of each, the capture's seconds, launches (captured x
+     replays) and peak memory.
+  6c. sampler_many — ``step_many`` over N = 4 objects at record lengths
+     1-4: on an f32 copy of the model at 16 steps against ``step`` per
+     object (rel. L2 1e-3); ``synthesize_many`` of one view of 4 objects
+     at 256 steps in bf16 timed, with finite outputs.
   7. groupnorm_backward — at every GroupNorm site shape of one srn64
      training microbatch (recorded with hooks), bf16 and f32, random
      upstream gradients: ``fused_groupnorm`` as autograd records it (with
@@ -48,12 +60,19 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      (``set_kernels(model, "torch")``) from the same state with the same
      draws, in f32 and in bf16: loss and gradients compared with fixed
      limits; the bf16 plain step's distance from f32 is reported beside.
+ 9b. train_graph — 3 srn64 steps at global batch 128 as CUDA graphs
+     (the first eager, then captured micro and update graphs replayed)
+     and 3 eager steps (``--eager``), each from a ``Trainer`` built by
+     ``cli/train_cli.py`` from the same seeds: losses, gradient norms,
+     parameters, Adam's state and the EMA bit-identical; s/step of each.
  10. train — the ``Trainer`` through ``cli/train_cli.py``'s code path on
-     the synthetic dataset at srn64, global batch 128: the training path,
-     with the launch counts set to 0 just before it and read after;
+     the synthetic dataset at srn64, global batch 128, the step as CUDA
+     graphs: the training path, with the launch counts set to 0 just
+     before it and read after (eager launches plus captured x replays);
      s/step, examples/s, peak memory, loss and grad_norm per step; then a
-     checkpoint restored into a fresh trainer takes one step, which must
-     equal the first trainer's next step bit for bit.
+     checkpoint restored into a fresh trainer (whose step runs eagerly and
+     recaptures) takes one step, which must equal the first trainer's
+     next, replayed, step bit for bit.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  The
 library calls are timing yardsticks only; the port never calls them.
@@ -1015,21 +1034,28 @@ def phase_model(cfg, model, batch, cond_mask):
 def phase_sampler(cfg, model):
     import torch
 
-    from diff3d_tpu_torch.ops.cuda_attention import flash_attention
-    from diff3d_tpu_torch.ops.cuda_film import fused_groupnorm
     from diff3d_tpu_torch.sampling import Sampler
 
     views = orbit_views(3, cfg.model.H, seed=3)
     sampler = Sampler(model, cfg, device="cuda")
+    if not sampler.cuda_graphs:
+        raise AssertionError("sampler: the card's path is not the graph")
     gen = torch.Generator("cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_groupnorm.launches = flash_attention.launches = 0
+    _launch_counts(reset=True)
     t0 = time.perf_counter()
     outs = sampler.synthesize(views, gen)        # ends in a device fetch
     seconds = time.perf_counter() - t0
-    launches = {"fused_groupnorm": fused_groupnorm.launches,
-                "flash_attention": flash_attention.launches}
+    eager = {k: v for k, v in _launch_counts().items()
+             if k in ("fused_groupnorm", "flash_attention")}
+    ran = _launch_counts(graphs=sampler.graphs.values())
+    launches = {k: ran[k] for k in eager}
+    graphs = list(sampler.graphs.values())
+    if not graphs or any(g.captured.get(k, 0) == 0 or g.replays == 0
+                         for g in graphs for k in launches):
+        raise AssertionError(f"sampler: the graph path did not run both "
+                             f"kernels: {_graph_summary(graphs)}")
     n_gen = views["imgs"].shape[0] - 1
     B = len(cfg.diffusion.guidance_weights)
     if outs.shape != (n_gen, B, cfg.model.H, cfg.model.W, 3):
@@ -1047,28 +1073,176 @@ def phase_sampler(cfg, model):
           "ms_per_denoise_step": round(1e3 * seconds / steps, 3),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "out_abs_max": float(np.abs(outs).max()),
-          "launches": launches})
+          "launches": launches, "eager_launches": eager,
+          "graphs": _graph_summary(graphs)})
     return launches, steps
 
 
-def _launch_counts(reset: bool = False):
-    """The launch count of every kernel wrapper (set to 0 first when
-    ``reset``)."""
-    from diff3d_tpu_torch.ops.cuda_attention import (attention_backward_dkdv,
-                                                     attention_backward_dq,
-                                                     flash_attention)
-    from diff3d_tpu_torch.ops.cuda_film import (fused_groupnorm,
-                                                groupnorm_backward)
 
-    counters = {"fused_groupnorm": fused_groupnorm,
-                "groupnorm_backward": groupnorm_backward,
-                "flash_attention": flash_attention,
-                "attention_backward_dkdv": attention_backward_dkdv,
-                "attention_backward_dq": attention_backward_dq}
+def _rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_sampler_graph(cfg, model):
+    """One srn64 view (256 ancestral steps, w = 0..7) through the graph
+    path and the eager path from the same generator seed, in the order
+    eager, graph (its first view: one eager step, the capture, 255
+    replays), graph (256 replays), eager.  The views must be
+    bit-identical."""
+    import torch
+
+    from diff3d_tpu_torch.sampling import Sampler
+
+    views = orbit_views(2, cfg.model.H, seed=4)
+    runs, outs = [], {}
+    samplers = {g: Sampler(model, cfg, device="cuda", cuda_graphs=g)
+                for g in (False, True)}
+    for graphs in (False, True, True, False):
+        sampler = samplers[graphs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _launch_counts(reset=True)
+        replays0 = {k: g.replays for k, g in sampler.graphs.items()}
+        t0 = time.perf_counter()
+        out = sampler.synthesize(views,
+                                 torch.Generator("cuda").manual_seed(0))
+        seconds = time.perf_counter() - t0
+        eager = _launch_counts()
+        ran = dict(eager)
+        for k, g in sampler.graphs.items():
+            for name, n in g.captured.items():
+                ran[name] += n * (g.replays - replays0.get(k, 0))
+        outs.setdefault(graphs, []).append(out)
+        runs.append({"cuda_graphs": graphs, "seconds": round(seconds, 4),
+                     "ms_per_step": round(
+                         1e3 * seconds / sampler.model_calls_per_view, 3),
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(),
+                     "launches": {k: ran[k] for k in
+                                  ("fused_groupnorm", "flash_attention")},
+                     "eager_launches": {k: eager[k] for k in
+                                        ("fused_groupnorm",
+                                         "flash_attention")}})
+    graphs = list(samplers[True].graphs.values())
+    ref = outs[False][0]
+    identical = all(np.array_equal(o, ref) for o in outs[False] + outs[True])
+    rel = max(_rel_l2(o, ref) for o in outs[True])
+    eager_ms = [r["ms_per_step"] for r in runs if not r["cuda_graphs"]]
+    graph_ms = [r["ms_per_step"] for r in runs if r["cuda_graphs"]]
+    out = {"config": "srn64", "steps_per_view": 256, "guidance_weights":
+           len(cfg.diffusion.guidance_weights), "runs": runs,
+           "eager_ms_per_step": eager_ms,
+           "graph_ms_per_step_first_view": graph_ms[0],
+           "graph_ms_per_step": graph_ms[1],
+           "capture_s": [round(g.capture_s, 3) for g in graphs],
+           "graphs": _graph_summary(graphs),
+           "bit_identical": identical, "rel_l2_graph_vs_eager": rel,
+           "tolerance": "bit-identical"}
+    emit(dict(phase="sampler_graph", **out))
+    if not np.isfinite(ref).all():
+        raise AssertionError("sampler_graph: non-finite view")
+    if not identical:
+        raise AssertionError(f"sampler_graph: graph and eager views differ "
+                             f"(rel. L2 {rel})")
+    return out
+
+
+def phase_sampler_many(cfg, model):
+    """``step_many`` over N = 4 objects at record lengths 1-4 against
+    ``step`` per object on an f32 copy of the model at 16 steps (rel. L2
+    1e-3: the batched convolutions and matmuls may take other algorithms);
+    then ``synthesize_many`` of one view of 4 objects at 256 steps in
+    bf16, timed."""
+    import torch
+
+    from diff3d_tpu_torch.diffusion import Draws
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.sampling import Sampler
+
+    N, cap = 4, 8                       # record lengths 1-4 < capacity
+    B = len(cfg.diffusion.guidance_weights)
+    H = cfg.model.H
+    objs = [orbit_views(cap, H, seed=10 + n) for n in range(N)]
+    lens = [1, 2, 3, 4]
+    rec = np.zeros((N, cap, B, H, H, 3), np.float32)
+    rng = np.random.default_rng(11)
+    for n, valid in enumerate(lens):
+        rec[n, :valid] = rng.uniform(-1, 1, (valid, B, H, H, 3))
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device="cuda")
+
+    R, T, K = (t([o[k] for o in objs]) for k in ("R", "T", "K"))
+    m32 = XUNet(dataclasses.replace(cfg.model, dtype="float32")).cuda()
+    m32.load_state_dict(model.state_dict())
+    sampler = Sampler(m32, cfg, device="cuda", steps=16)
+
+    def draws():
+        return [Draws(torch.Generator("cuda").manual_seed(20 + n))
+                for n in range(N)]
+
+    many_rec = t(rec)
+    out_many, _, _ = sampler.step_many(many_rec, R, T, lens, K, draws())
+    seq = []
+    for n, d in enumerate(draws()):
+        one_rec = t(rec[n])
+        o, _, _ = sampler.step(one_rec, R[n], T[n], lens[n], K[n], d)
+        seq.append(o)
+    seq = torch.stack(seq)
+    rel = float((out_many - seq).norm() / seq.norm())
+    del sampler, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bf16 = Sampler(model, cfg, device="cuda")
+    views = [orbit_views(2, H, seed=30 + n) for n in range(N)]
+    gens = [torch.Generator("cuda").manual_seed(40 + n) for n in range(N)]
+    bf16.synthesize_many(views, gens)          # warm-up: the capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = bf16.synthesize_many(views, gens)
+    seconds = time.perf_counter() - t0
+    out = {"objects": N, "record_lens": lens, "record_capacity": cap,
+           "f32_steps": 16, "rel_l2_many_vs_step": rel,
+           "tolerance": "rel L2 1e-3 (f32, TF32 off)",
+           "bf16_steps": 256, "bf16_seconds": round(seconds, 4),
+           "bf16_ms_per_step": round(1e3 * seconds / 256, 3),
+           "bf16_ms_per_object_step": round(1e3 * seconds / 256 / N, 3),
+           "bf16_max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "bf16_out_abs_max": float(np.abs(outs).max()),
+           "graphs": _graph_summary(bf16.graphs.values())}
+    emit(dict(phase="sampler_many", **out))
+    if outs.shape != (N, 1, B, H, H, 3) or not np.isfinite(outs).all():
+        raise AssertionError(f"sampler_many: output {outs.shape}, finite "
+                             f"{np.isfinite(outs).all()}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"sampler_many: step_many vs step rel. L2 "
+                             f"{rel} > 1e-3")
+    return out
+
+
+def _launch_counts(reset: bool = False, graphs=()):
+    """The launch count of every kernel wrapper (set to 0 first when
+    ``reset``), plus the launches that the replays of ``graphs`` ran
+    (each graph's captured launches x its replays)."""
+    from diff3d_tpu_torch.graphs import graph_launches
+    from diff3d_tpu_torch.ops import launch_counts, set_launch_counts
+
     if reset:
-        for fn in counters.values():
-            fn.launches = 0
-    return {name: fn.launches for name, fn in counters.items()}
+        set_launch_counts({k: 0 for k in launch_counts()})
+    counts = launch_counts()
+    for k, n in graph_launches(graphs).items():
+        counts[k] += n
+    return counts
+
+
+def _graph_summary(graphs):
+    """Per captured graph: its launches per kernel, its replays and its
+    capture's seconds."""
+    return [{"captured": g.captured, "replays": g.replays,
+             "capture_s": round(g.capture_s, 3)} for g in graphs]
 
 
 def train_batch(cfg, B: int, step: int):
@@ -1160,6 +1334,75 @@ def phase_train_step(cfg, model):
     return out
 
 
+TRAIN_GRAPH_STEPS = 3
+
+
+def phase_train_graph(accum):
+    """3 srn64 steps at global batch 128 as CUDA graphs and 3 eager steps
+    (``--eager``), each from a ``Trainer`` that ``cli/train_cli.py``
+    builds from the same seeds (weights, data, draws): every step's loss
+    and gradient norm, and the parameters, Adam's state and the EMA after
+    the third, bit-identical."""
+    import torch
+
+    from diff3d_tpu_torch.cli import train_cli
+
+    workdir = WORKDIR + "_graph"
+    argv = ["--synthetic", "--config", "srn64", "--batch", str(TRAIN_BATCH),
+            "--accum", str(accum), "--steps", str(TRAIN_GRAPH_STEPS),
+            "--warmup_examples", str(10 * TRAIN_BATCH), "--ckpt_every", "0",
+            "--num_workers", "8", "--workdir", workdir]
+    runs = {}
+    for eager in (False, True):
+        shutil.rmtree(workdir, ignore_errors=True)
+        trainer = train_cli.build_trainer(train_cli.build_parser().parse_args(
+            argv + (["--eager"] if eager else [])))
+        step = trainer.step_fn
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times = [], []
+        for _ in range(TRAIN_GRAPH_STEPS):
+            t0 = time.perf_counter()
+            m = step(trainer.state, next(trainer.loader))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            times.append(time.perf_counter() - t0)
+        tensors = {k: v.cpu() for k, v in
+                   _state_tensors(trainer.state).items()}
+        runs[eager] = {"metrics": metrics, "step_s": times,
+                       "tensors": tensors,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated(),
+                       "graphs": (None if eager
+                                  else _graph_summary(step.graphs))}
+        trainer.loader.close()
+        step.release()
+        del trainer, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    g, e = runs[False], runs[True]
+    differ = [k for k in e["tensors"]
+              if not torch.equal(g["tensors"][k], e["tensors"][k])]
+    same = g["metrics"] == e["metrics"] and not differ
+    out = {"config": "srn64", "global_batch": TRAIN_BATCH,
+           "accum_steps": accum, "steps": TRAIN_GRAPH_STEPS,
+           "graph_step_s": g["step_s"], "eager_step_s": e["step_s"],
+           "graph_s_per_step": float(np.mean(g["step_s"][1:])),
+           "eager_s_per_step": float(np.mean(e["step_s"][1:])),
+           "loss_grad_norm": g["metrics"],
+           "graph_max_memory_allocated": g["max_memory_allocated"],
+           "eager_max_memory_allocated": e["max_memory_allocated"],
+           "graphs": g["graphs"], "bit_identical": same,
+           "tensors_compared": len(e["tensors"]),
+           "tensors_differing": len(differ)}
+    emit(dict(phase="train_graph", **out))
+    if not same:
+        raise AssertionError(f"train_graph: graph and eager differ "
+                             f"(metrics {g['metrics']} vs {e['metrics']}, "
+                             f"{len(differ)} tensors, e.g. {differ[:3]})")
+    return out
+
+
 def _state_tensors(state):
     tensors = dict(state.model.state_dict())
     tensors.update({f"ema.{k}": v for k, v in state.ema.items()})
@@ -1187,6 +1430,8 @@ def phase_train(accum):
             train_cli.build_parser().parse_args(argv + extra))
         record = []
         inner = trainer.step_fn
+        if not inner.cuda_graphs:
+            raise AssertionError("train: the card's path is not the graph")
 
         def timed(state, batch, draws=None):     # one sync per step
             m = inner(state, batch, draws)
@@ -1196,15 +1441,17 @@ def phase_train(accum):
             return m
 
         trainer.step_fn = timed
-        return trainer, record
+        return trainer, record, inner
 
-    first, rec = trainer_of([])
+    first, rec, first_step = trainer_of([])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _launch_counts(reset=True)
     t0 = time.perf_counter()
     first.train()
-    launches = _launch_counts()
+    eager = _launch_counts()
+    launches = _launch_counts(graphs=first_step.graphs)
+    graphs = _graph_summary(first_step.graphs)
     peak = torch.cuda.max_memory_allocated()
     times = np.diff([t0] + [r["t"] for r in rec])
     s_per_step = float(np.mean(times[1:]))
@@ -1215,17 +1462,26 @@ def phase_train(accum):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"train: {name} never launched")
+    micro, update = first_step.graphs
+    if micro.replays == 0 or update.replays == 0 or any(
+            micro.captured.get(k, 0) == 0 for k in launches):
+        raise AssertionError(f"train: the graph path did not run every "
+                             f"kernel: {graphs}")
 
     # Resume: a fresh trainer restores the step-6 checkpoint; both take
-    # step 7, which must agree bit for bit.
-    second, rec2 = trainer_of(["--transfer", "--steps",
-                               str(TRAIN_STEPS + 1)])
+    # step 7 (the first trainer's a replay, the second's eager before its
+    # capture), which must agree bit for bit.
+    second, rec2, _ = trainer_of(["--transfer", "--steps",
+                                  str(TRAIN_STEPS + 1)])
     if second.state.step != TRAIN_STEPS:
         raise AssertionError(f"train: restored step {second.state.step}")
     first.train(max_steps=TRAIN_STEPS + 1)
     want = {k: v.clone() for k, v in _state_tensors(first.state).items()}
     first.loader.close()
-    del first
+    first_step.release()
+    del first, first_step, micro, update
+    gc.collect()
+    torch.cuda.empty_cache()
     second.train()
     got = _state_tensors(second.state)
     second.loader.close()
@@ -1241,7 +1497,8 @@ def phase_train(accum):
            "loss": [r["loss"] for r in rec[:TRAIN_STEPS]],
            "grad_norm": [r["grad_norm"] for r in rec[:TRAIN_STEPS]],
            "lr": [r["lr"] for r in rec[:TRAIN_STEPS]],
-           "launches": launches,
+           "launches": launches, "eager_launches": eager,
+           "graphs": graphs,
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in launches.items()},
            "resume_step_loss": [rec[-1]["loss"], rec2[-1]["loss"]],
@@ -1268,6 +1525,10 @@ def main() -> None:
     attn = phase_attention(attn_sites)
     phase_model(cfg, model, batch, cond_mask)
     launches, steps = phase_sampler(cfg, model)
+    phase_sampler_graph(cfg, model)
+    phase_sampler_many(cfg, model)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # The training sites: one microbatch of the train phase.
     mb = TRAIN_BATCH // TRAIN_ACCUM
@@ -1276,7 +1537,9 @@ def main() -> None:
     attn_rows = phase_attention_backward(attn_train, TRAIN_ACCUM)
     phase_train_step(cfg, model)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
+    phase_train_graph(TRAIN_ACCUM)
     train = phase_train(TRAIN_ACCUM)
     tl = train["launches"]
 
@@ -1322,6 +1585,8 @@ def main() -> None:
             "ms": stats["ms"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": stats["library_ms"], "per": per,
+            "launches_counted": "eager launches + captured x replays of "
+                                "the path's CUDA graphs",
             "design": design.get(name, "cuda cores")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

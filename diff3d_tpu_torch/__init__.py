@@ -14,7 +14,9 @@ Entry points (:func:`diff3d_tpu_torch.models.build_model`,
 :class:`diff3d_tpu_torch.train.Trainer`, ``cli/sample_cli.py``,
 ``cli/train_cli.py``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without an explicit device they
-raise.
+raise.  On the card the sampler's reverse step and the train step run as
+CUDA graphs (:mod:`diff3d_tpu_torch.graphs`), the counterpart of the
+reference's compiled programs.
 """
 
 __version__ = "0.1.0"

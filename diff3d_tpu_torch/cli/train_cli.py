@@ -5,7 +5,10 @@ The flags this slice of the port acts on: ``--config``, ``--batch``,
 latest checkpoint, the data stream seeked to its step), ``--train_data``
 / ``--picklefile`` (SRN) or ``--synthetic`` (the procedural dataset),
 ``--num_workers``, ``--warmup_examples``, ``--ema_halflife_examples``,
-``--ckpt_every`` and ``--device`` (the card unless another is named).
+``--ckpt_every``, the model widths (``--ch``, ``--emb_ch``,
+``--num_res_blocks``, ``--imgsize``, as ``sample_cli`` takes them),
+``--device`` (the card unless another is named) and ``--eager`` (the
+train step eagerly instead of as CUDA graphs, for comparison).
 The JAX package's other flags wait for later slices of the port; the
 parser rejects them as unknown (exit code 2).
 
@@ -22,16 +25,20 @@ import argparse
 import dataclasses
 import logging
 
+from diff3d_tpu_torch.cli._common import (add_model_width_args,
+                                          apply_model_width_overrides)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not in this slice of the port (see ROADMAP.md): --val_data, "
                "--param_sharding, --model_parallel, --context_parallel, "
-               "--remat, --remat_policy, --ch, --emb_ch, --num_res_blocks, "
-               "--imgsize, --attn_impl, --pallas, --synthetic_scenes, "
-               "--scene_objects, --eval_every, --init_from, --init_res, "
-               "--ckpt_mode, --ckpt_async, --elastic, --elastic_max_remesh.")
+               "--remat, --remat_policy, --attn_impl, --pallas, "
+               "--synthetic_scenes, --scene_objects, --eval_every, "
+               "--init_from, --init_res, --ckpt_mode, --ckpt_async, "
+               "--elastic, --elastic_max_remesh.")
     p.add_argument("--transfer", action="store_true",
                    help="resume from the latest checkpoint in --workdir")
     p.add_argument("--train_data", default="./data/SRN/cars_train")
@@ -60,6 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only when "
                         "named)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the train step eagerly instead of as CUDA "
+                        "graphs (the comparison path)")
+    add_model_width_args(p)
     return p
 
 
@@ -78,7 +89,7 @@ def config_from_args(args):
     if over:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **over))
-    return cfg
+    return apply_model_width_overrides(cfg, args)
 
 
 def build_trainer(args):
@@ -106,7 +117,8 @@ def build_trainer(args):
                         imgsize=cfg.model.H, split_seed=cfg.data.split_seed,
                         train_fraction=cfg.data.train_fraction)
     trainer = Trainer(cfg, workdir=args.workdir, transfer=args.transfer,
-                      device=device)
+                      device=device,
+                      cuda_graphs=False if args.eager else None)
     loader = InfiniteLoader(ds, cfg.train.global_batch, seed=cfg.train.seed,
                             num_workers=args.num_workers,
                             start_step=trainer.state.step)

@@ -1,10 +1,12 @@
 """Continuous-time logSNR-parameterised VP diffusion: the training loss
 and the sampling side (counterpart: ``diff3d_tpu/diffusion/core.py``).
 
-Images are ``[B, H, W, 3]`` as in the JAX package.  The reverse loop is a
-Python loop of eager steps (the JAX package's ``lax.scan``); each step is
-one 2B-batched cond + uncond model call.  Every random draw goes through
-an injectable object, so a test can replay the JAX package's key stream:
+Images are ``[B, H, W, 3]`` as in the JAX package.  The reverse loop (the
+JAX package's ``lax.scan``) is :class:`ReverseLoop`: static buffers and
+one step body, which the sampler runs eagerly or captures as a CUDA graph;
+each step is one 2B-batched cond + uncond model call per object.  Every
+random draw goes through an injectable object, so a test can replay the
+JAX package's key stream:
 :class:`TrainDraws` for :func:`p_losses` (t, the noise, the CFG mask and
 the unconditional frames), :class:`Draws` for the sampler (init noise,
 the stochastic-conditioning indices, the uncond frames and the step
@@ -275,6 +277,142 @@ def sample_loop_prepare(*, record_len: int, draws, timesteps: int, shape,
     return init_img, (logsnrs, logsnr_nexts, cond_idx)
 
 
+def draw_steps(draws, n_steps: int, shape: Sequence[int],
+               device: torch.device, deterministic: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The per-step draws of a view's reverse loop, taken before the loop
+    in the order an eager loop takes them: for each step its
+    unconditional frame, then (ancestral only) its step noise.  Returns
+    ``(x_uncond, step_noise)`` stacked into ``[n_steps, *shape]``;
+    ``step_noise`` is None for DDIM, which draws none."""
+    xs, noise = [], []
+    for _ in range(n_steps):
+        xs.append(draws.x_uncond(shape, device))
+        if not deterministic:
+            noise.append(draws.step_noise(shape, device))
+    return torch.stack(xs), (torch.stack(noise) if noise else None)
+
+
+class ReverseLoop:
+    """The reverse steps of N objects' views as static buffers and one
+    step body: the JAX package's ``lax.scan`` body, batched over objects
+    as its ``vmap`` is.
+
+    :meth:`load` fills the buffers for one view of every object (each at
+    its own record depth, with its own draws and target pose);
+    :meth:`step` runs one reverse step: it reads the step index ``i`` (a
+    device scalar), takes the step's schedule entries, conditioning
+    indices and draws with ``index_select``, makes one model call of
+    ``N * 2B`` examples (per object its B conditional then its B
+    unconditional rows), writes the new image into :attr:`img` in place
+    and increments ``i``.  It reads no host value and allocates its
+    outputs anew each call, so the sampler captures it as a CUDA graph
+    and replays it; on the CPU it runs as it is.
+    """
+
+    def __init__(self, denoise_fn: DenoiseFn, *, n_objects: int,
+                 capacity: int, n_steps: int, w: torch.Tensor, H: int,
+                 W: int, record_dtype: torch.dtype, logsnr_max: float,
+                 clip_x0: bool, deterministic: bool):
+        device = w.device
+        N, B = n_objects, int(w.shape[0])
+        self.denoise_fn = denoise_fn
+        self.shape = (N, B, H, W, 3)
+        self.logsnr_max, self.clip_x0 = logsnr_max, clip_x0
+        self.deterministic = deterministic
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.img = zeros(N, B, H, W, 3)
+        self.i = zeros(1, dtype=torch.long)
+        self.logsnrs = zeros(n_steps)
+        self.logsnr_nexts = zeros(n_steps)
+        self.cond_idx = zeros(N, n_steps, dtype=torch.long)
+        self.x_uncond = zeros(N, n_steps, B, H, W, 3)
+        self.noise = None if deterministic else zeros(N, n_steps, B, H, W, 3)
+        self.record_imgs = zeros(N, capacity, B, H, W, 3, dtype=record_dtype)
+        self.record_R = zeros(N, capacity, 3, 3)
+        self.record_T = zeros(N, capacity, 3)
+        self.target_R = zeros(N, 3, 3)
+        self.target_T = zeros(N, 3)
+        self.K2 = zeros(N * 2 * B, 3, 3)
+        self.cam_dirs = zeros(N * 2 * B, 1, H, W, 3)
+        self.w = w.to(torch.float32)
+        self.base = torch.arange(N, device=device) * capacity
+        self.w_mask = torch.cat([torch.ones(B, dtype=torch.bool),
+                                 torch.zeros(B, dtype=torch.bool)]
+                                ).repeat(N).to(device)
+
+    def load(self, img, logsnrs, logsnr_nexts, cond_idx, x_uncond, noise,
+             record_imgs, record_R, record_T, target_R, target_T,
+             K) -> None:
+        """Fill the buffers for one view and set ``i`` to 0: ``img [N, B,
+        H, W, 3]``, the schedule ``[n]``, ``cond_idx [N, n]``, the draws
+        ``[N, n, B, H, W, 3]`` (``noise`` None for DDIM), the records, the
+        target poses ``[N, 3, 3]`` / ``[N, 3]`` and the intrinsics
+        ``K [N, 3, 3]``.  The intrinsics-only ray stage is computed here,
+        once per view, and handed to the model as ``batch['cam_dirs']``."""
+        N, B, H, W, _ = self.shape
+        for dst, src in ((self.img, img), (self.logsnrs, logsnrs),
+                         (self.logsnr_nexts, logsnr_nexts),
+                         (self.cond_idx, cond_idx),
+                         (self.x_uncond, x_uncond),
+                         (self.record_imgs, record_imgs),
+                         (self.record_R, record_R), (self.record_T, record_T),
+                         (self.target_R, target_R), (self.target_T, target_T)):
+            dst.copy_(src)
+        if self.noise is not None:
+            self.noise.copy_(noise)
+        K2 = K.to(self.K2)[:, None].expand(N, 2 * B, 3, 3).reshape(
+            N * 2 * B, 3, 3)
+        self.K2.copy_(K2)
+        self.cam_dirs.copy_(pinhole_rays_cam(K2[:, None].float(), H, W))
+        self.i.zero_()
+
+    def step(self) -> None:
+        """One reverse step of every object (see the class docstring)."""
+        N, B, H, W, _ = self.shape
+        i = self.i
+        logsnr = self.logsnrs.index_select(0, i)
+        logsnr_next = self.logsnr_nexts.index_select(0, i)
+        idx = self.cond_idx.index_select(1, i)[:, 0] + self.base
+        cond_img = self.record_imgs.flatten(0, 1).index_select(0, idx)
+
+        def pair(cond, target):      # [N, 2, ...] -> [N * 2B, 2, ...]
+            both = torch.stack([cond, target], 1)[:, None]
+            return both.expand(N, 2 * B, *both.shape[2:]).reshape(
+                N * 2 * B, *both.shape[2:])
+
+        R = pair(self.record_R.flatten(0, 1).index_select(0, idx),
+                 self.target_R)
+        T = pair(self.record_T.flatten(0, 1).index_select(0, idx),
+                 self.target_T)
+        # Fold the CFG cond + uncond passes into one model call.
+        x = torch.stack([cond_img, self.x_uncond.index_select(1, i)[:, 0]],
+                        1).reshape(N * 2 * B, H, W, 3)
+        z = self.img[:, None].expand(N, 2, B, H, W, 3).reshape(
+            N * 2 * B, H, W, 3)
+        batch = make_model_batch(x, z, logsnr.expand(N * 2 * B), R, T,
+                                 self.K2, logsnr_max=self.logsnr_max)
+        batch["cam_dirs"] = self.cam_dirs
+        eps = self.denoise_fn(batch, self.w_mask).reshape(N, 2, B, H, W, 3)
+        img, w = self.img, self.w.to(self.img.dtype)
+        if self.deterministic:
+            new = ddim_step(eps[:, 0], eps[:, 1], img, logsnr, logsnr_next,
+                            w, clip_x0=self.clip_x0)
+        else:
+            mean, var = p_mean_variance(eps[:, 0], eps[:, 1], img, logsnr,
+                                        logsnr_next, w, clip_x0=self.clip_x0)
+            noise = self.noise.index_select(1, i)[:, 0]
+            # Reference guard `if logsnr_next == 0: return mean`
+            # (train.py:125-126), kept for parity.
+            new = torch.where(logsnr_next == 0.0, mean,
+                              mean + torch.sqrt(var) * noise)
+        self.img.copy_(new)
+        self.i.add_(1)
+
+
 def sample_loop_scan(denoise_fn: DenoiseFn, img: torch.Tensor, xs, *,
                      draws, record_imgs: torch.Tensor,
                      record_R: torch.Tensor, record_T: torch.Tensor,
@@ -282,51 +420,28 @@ def sample_loop_scan(denoise_fn: DenoiseFn, img: torch.Tensor, xs, *,
                      K: torch.Tensor, w: torch.Tensor, logsnr_max: float,
                      clip_x0: bool, deterministic: bool = False
                      ) -> torch.Tensor:
-    """Run the reverse steps in ``xs`` from ``img``, one eager step each
-    (the JAX package's ``lax.scan`` body).  ``deterministic`` selects the
-    DDIM update.  The intrinsics-only ray stage is computed once, before
-    the loop, and handed to the model as ``batch['cam_dirs']``.  Nothing
-    here waits for the device."""
+    """Run the reverse steps in ``xs`` from ``img`` for one object (the
+    JAX package's ``lax.scan``): the steps' draws are taken first
+    (:func:`draw_steps`), then :class:`ReverseLoop`'s step body runs once
+    per step, eagerly.  ``deterministic`` selects the DDIM update.
+    Nothing here waits for the device."""
     logsnrs, logsnr_nexts, cond_idx = xs
-    B = w.shape[0]
-    device = img.device
-    Kb = K[None].expand(B, 3, 3)
-    K2 = torch.cat([Kb, Kb])
-    w_mask_2b = torch.cat([torch.ones(B, dtype=torch.bool, device=device),
-                           torch.zeros(B, dtype=torch.bool, device=device)])
+    n = logsnrs.shape[0]
+    x_uncond, noise = draw_steps(draws, n, img.shape, img.device,
+                                 deterministic)
     H, W = record_imgs.shape[-3:-1]
-    cam_dirs = pinhole_rays_cam(K2[:, None].float(), H, W)  # [2B,1,H,W,3]
-    w = w.to(img.dtype)
-
-    for i in range(logsnrs.shape[0]):
-        logsnr, logsnr_next = logsnrs[i], logsnr_nexts[i]
-        idx = cond_idx[i:i + 1]
-        cond_img = record_imgs.index_select(0, idx)[0]      # [B, H, W, 3]
-        R = torch.cat([record_R.index_select(0, idx), target_R[None]])
-        T = torch.cat([record_T.index_select(0, idx), target_T[None]])
-        Rb = R[None].expand(B, 2, 3, 3)
-        Tb = T[None].expand(B, 2, 3)
-        # Fold the CFG cond + uncond passes into one 2B model call.
-        x_uncond = draws.x_uncond(cond_img.shape, device)
-        batch = make_model_batch(
-            torch.cat([cond_img, x_uncond]), torch.cat([img, img]),
-            logsnr.expand(2 * B), torch.cat([Rb, Rb]), torch.cat([Tb, Tb]),
-            K2, logsnr_max=logsnr_max)
-        batch["cam_dirs"] = cam_dirs
-        eps = denoise_fn(batch, w_mask_2b)
-        eps_cond, eps_uncond = eps[:B], eps[B:]
-        if deterministic:
-            img = ddim_step(eps_cond, eps_uncond, img, logsnr, logsnr_next,
-                            w, clip_x0=clip_x0)
-        else:
-            mean, var = p_mean_variance(eps_cond, eps_uncond, img, logsnr,
-                                        logsnr_next, w, clip_x0=clip_x0)
-            noise = draws.step_noise(img.shape, device)
-            # Reference guard `if logsnr_next == 0: return mean`
-            # (train.py:125-126), kept for parity.
-            img = torch.where(logsnr_next == 0.0, mean,
-                              mean + torch.sqrt(var) * noise)
-    return img
+    loop = ReverseLoop(denoise_fn, n_objects=1,
+                       capacity=record_imgs.shape[0], n_steps=n, w=w, H=H,
+                       W=W, record_dtype=record_imgs.dtype,
+                       logsnr_max=logsnr_max, clip_x0=clip_x0,
+                       deterministic=deterministic)
+    loop.load(img[None], logsnrs, logsnr_nexts, cond_idx[None],
+              x_uncond[None], None if noise is None else noise[None],
+              record_imgs[None], record_R[None], record_T[None],
+              target_R[None], target_T[None], K[None])
+    for _ in range(n):
+        loop.step()
+    return loop.img[0]
 
 
 def sample_loop(denoise_fn: DenoiseFn, *, record_imgs: torch.Tensor,

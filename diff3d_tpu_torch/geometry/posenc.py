@@ -3,13 +3,25 @@
 Both run in float32 whatever the model's compute dtype: their sinusoid
 arguments reach ~2e4 (``posenc_ddpm``'s x1000 scaling) and 2^14 (NeRF
 degree 15), far past bf16's mantissa.  Callers compute them outside any
-autocast region.
+autocast region.  Their constant tables are made once per device and
+kept there: a captured CUDA graph may not copy from the host.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _table(values: tuple, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once (a plain tensor even
+    when first asked for under ``inference_mode``)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def posenc_ddpm(timesteps: torch.Tensor, emb_ch: int,
@@ -20,8 +32,8 @@ def posenc_ddpm(timesteps: torch.Tensor, emb_ch: int,
     timesteps = timesteps.to(torch.float32) * (1000.0 / max_time)
     half_dim = emb_ch // 2
     freq = np.exp(np.arange(half_dim) * -(np.log(10000.0) / (half_dim - 1)))
-    emb = timesteps[..., None] * torch.as_tensor(
-        freq, dtype=torch.float32, device=timesteps.device)
+    emb = timesteps[..., None] * _table(tuple(freq.tolist()), torch.float32,
+                                        timesteps.device)
     return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
@@ -33,8 +45,8 @@ def posenc_nerf(x: torch.Tensor, min_deg: int = 0,
     Output channels: ``C + 2*C*(max_deg - min_deg)``."""
     if min_deg == max_deg:
         return x
-    scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)],
-                          dtype=x.dtype, device=x.device)
+    scales = _table(tuple(2.0 ** i for i in range(min_deg, max_deg)),
+                    x.dtype, x.device)
     xb = x[..., None, :] * scales[:, None]
     xb = xb.reshape(*x.shape[:-1], -1)
     emb = torch.sin(torch.cat([xb, xb + np.pi / 2.0], dim=-1))

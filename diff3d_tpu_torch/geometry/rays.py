@@ -26,7 +26,9 @@ def pinhole_rays_cam(K: torch.Tensor, H: int, W: int,
     v = torch.arange(H, dtype=dtype, device=K.device) + 0.5
     vv, uu = torch.meshgrid(v, u, indexing="ij")          # each [H, W]
     px = torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)  # [H, W, 3]
-    K_inv = torch.linalg.inv(K.to(dtype))
+    # inv_ex: the same inverse without inv's singularity check, which
+    # waits for the device (not allowed inside a captured CUDA graph).
+    K_inv = torch.linalg.inv_ex(K.to(dtype))[0]
     return torch.einsum("...ij,hwj->...hwi", K_inv, px)
 
 

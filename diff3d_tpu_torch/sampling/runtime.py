@@ -8,21 +8,34 @@ each generated view is appended to the record, so later views condition
 on earlier generations.  The record buffers live on the device for the
 whole object; the only device-to-host copy is one fetch at the end.
 
-``step_many`` / ``synthesize_many`` (object-batched), ``scan_chunks`` and
-``start_t`` (truncated refinement) come with the serving slice.
+A view runs as prepare (its draws, taken up front, and the loop's static
+buffers) -> ``scan_chunks`` segments of reverse steps -> commit (the view
+written into the record), the JAX package's ``prepare_view`` /
+``chunk_view`` / ``sample_view_commit``.  The reverse step is
+:class:`~diff3d_tpu_torch.diffusion.ReverseLoop`'s body: on a CUDA device
+it is captured once per shape as a CUDA graph
+(:class:`~diff3d_tpu_torch.graphs.StepGraph`, the counterpart of the
+compiled ``lax.scan``) and replayed; elsewhere, or with
+``cuda_graphs=False``, it runs eagerly.  :meth:`Sampler.step_many` and
+:meth:`Sampler.synthesize_many` batch N objects into every model call.
+The mesh (``mesh`` / ``lane_multiple``), ``lower_step_many`` and the
+per-call ``params=`` swap wait for later slices of the port.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.device import resolve_device
-from diff3d_tpu_torch.diffusion import SAMPLER_KINDS, Draws, sample_view
+from diff3d_tpu_torch.diffusion import (SAMPLER_KINDS, Draws, ReverseLoop,
+                                       draw_steps, sample_loop_prepare,
+                                       schedule_start_index)
+from diff3d_tpu_torch.graphs import StepGraph, use_cuda_graphs
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -50,7 +63,8 @@ def record_capacity(n_views: int) -> int:
 
 
 class Sampler:
-    """Runs the autoregressive view loop for one object.
+    """Runs the autoregressive view loop for one object, or for N objects
+    batched into every model call.
 
     Args:
       model: the X-UNet (:func:`diff3d_tpu_torch.models.build_model`),
@@ -61,14 +75,31 @@ class Sampler:
       sampler_kind: ``"ancestral"`` (the paper's stochastic sampler) or
         ``"ddim"`` (deterministic, eta = 0).
       steps: reverse steps per view; must divide ``timesteps``.
+      scan_chunks: run each view's reverse steps as this many segments
+        (must divide ``steps``); the result is bit-identical to 1.
+      start_t: truncated refinement (cascade): a grid point of the
+        ``steps``-step schedule.  Every view step then takes a ``[B, H,
+        W, 3]`` draft, renoised to ``start_t``, and runs only the
+        remaining steps; ``start_t=1.0`` ignores the draft and reproduces
+        the untruncated sampler bit for bit.  Requires ``scan_chunks ==
+        1``; the ``synthesize*`` loops have no draft source and refuse a
+        truncated sampler.
+      cuda_graphs: None (the default) captures the reverse step as a CUDA
+        graph on a CUDA device and runs it eagerly elsewhere; False runs
+        it eagerly (the comparison path); True off a CUDA device raises.
+        The first view of a shape runs its first step eagerly, then
+        captures the step; a failed capture raises.
     """
 
     def __init__(self, model: torch.nn.Module, cfg: Config, *,
                  device: Optional[Union[str, torch.device]] = None,
                  sampler_kind: str = "ancestral",
-                 steps: Optional[int] = None):
+                 steps: Optional[int] = None, scan_chunks: int = 1,
+                 start_t: Optional[float] = None,
+                 cuda_graphs: Optional[bool] = None):
         cfg.validate()
         self.device = resolve_device(device)
+        self.cuda_graphs = use_cuda_graphs(cuda_graphs, self.device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.w = torch.tensor(cfg.diffusion.guidance_weights,
@@ -84,35 +115,185 @@ class Sampler:
                 f"steps={steps} must be a positive divisor of "
                 f"timesteps={d.timesteps}")
         self.steps = steps
+        if scan_chunks < 1 or steps % scan_chunks:
+            raise ValueError(
+                f"scan_chunks={scan_chunks} must divide the effective "
+                f"step count steps={steps}")
+        self.scan_chunks = scan_chunks
+        self.start_t = None if start_t is None else float(start_t)
+        self.start_index = 0
+        if self.start_t is not None:
+            # Raises ScheduleError for an off-grid start_t.
+            self.start_index = schedule_start_index(
+                steps, self.start_t, timesteps=d.timesteps)
+            if scan_chunks != 1:
+                raise ValueError(
+                    f"start_t={self.start_t} (truncated refinement) "
+                    f"requires scan_chunks=1, got {scan_chunks} — the "
+                    "chunk split assumes the full step count")
+        # One loop (static buffers) and, on the graph path, one captured
+        # step per (objects, capacity, H, W, record dtype).
+        self._loops: Dict[tuple, ReverseLoop] = {}
+        self.graphs: Dict[tuple, StepGraph] = {}
 
     @property
     def model_calls_per_view(self) -> int:
-        """Denoiser calls per view: one 2B-batched CFG call per step."""
-        return self.steps
+        """Denoiser calls per view: one 2B-batched CFG call per step; a
+        truncated (``start_t``) sampler runs only the grid's tail."""
+        return self.steps - self.start_index
+
+    def _check_draft(self, draft, batched: bool) -> None:
+        """The draft is exactly as optional as ``start_t``."""
+        if self.start_t is not None and draft is None:
+            raise ValueError(
+                f"this sampler was built with start_t={self.start_t}: "
+                "every view step needs the "
+                + ("[N, B, H, W, 3] drafts" if batched
+                   else "[B, H, W, 3] draft")
+                + " operand to renoise from")
+        if self.start_t is None and draft is not None:
+            raise ValueError(
+                "draft passed to an untruncated sampler — build the "
+                "Sampler with start_t to enable cascade refinement")
+
+    def _check_no_truncation(self, entry: str) -> None:
+        if self.start_t is not None:
+            raise ValueError(
+                f"{entry}: this sampler was built with start_t="
+                f"{self.start_t} (truncated refinement) and needs a draft "
+                "per view; the offline loops have no draft source — use "
+                "the step API")
 
     @torch.inference_mode()
     def step(self, record_imgs: torch.Tensor, record_R: torch.Tensor,
-             record_T: torch.Tensor, step: int, K: torch.Tensor,
-             draws) -> tuple:
+             record_T: torch.Tensor, step: int, K: torch.Tensor, draws, *,
+             draft: Optional[torch.Tensor] = None) -> tuple:
         """One view's reverse diffusion for one object.
 
         ``record_imgs [capacity, B, H, W, 3]`` and the pose buffers
         ``[capacity, 3, 3]`` / ``[capacity, 3]`` are device tensors; the
         pose buffers hold every view's pose (entry ``step`` is the target).
-        ``draws`` supplies the view's random draws (:class:`Draws`).
-        Returns ``(out [B, H, W, 3], record_imgs, step + 1)``; the record
-        is updated in place.
+        ``draws`` supplies the view's random draws (:class:`Draws`);
+        ``draft`` (``[B, H, W, 3]``) is required exactly when the sampler
+        was built with ``start_t``.  Returns ``(out [B, H, W, 3],
+        record_imgs, step + 1)``; the record is updated in place.
         """
+        self._check_draft(draft, batched=False)
+        out, _, _ = self._view(
+            record_imgs[None], record_R[None], record_T[None], [int(step)],
+            K[None], [draws], None if draft is None else draft[None])
+        return out[0], record_imgs, int(step) + 1
+
+    @torch.inference_mode()
+    def step_many(self, record_imgs: torch.Tensor, record_R: torch.Tensor,
+                  record_T: torch.Tensor, steps: Sequence[int],
+                  K: torch.Tensor, draws: Sequence, *,
+                  drafts: Optional[torch.Tensor] = None) -> tuple:
+        """One view step for N objects in one batched loop: every model
+        call holds ``N * 2B`` examples.
+
+        Everything gains a leading object axis: ``record_imgs [N,
+        capacity, B, H, W, 3]``, ``record_R [N, capacity, 3, 3]``,
+        ``record_T [N, capacity, 3]``, ``K [N, 3, 3]``.  ``steps`` holds
+        the N record lengths (host ints), so objects may sit at different
+        autoregressive depths; each object's conditioning draw reads its
+        own first ``steps[n]`` entries and its target pose is its entry
+        ``steps[n]``.  ``draws`` holds one draw source per object.
+        Returns ``(out [N, B, H, W, 3], record_imgs, steps + 1)`` with the
+        records updated in place.
+        """
+        self._check_draft(drafts, batched=True)
+        lens = [int(s) for s in steps]
+        n = int(record_imgs.shape[0])
+        if len(lens) != n or len(draws) != n:
+            raise ValueError(f"step_many: {n} objects need {n} steps and "
+                             f"{n} draw sources, got {len(lens)} and "
+                             f"{len(draws)}")
+        return self._view(record_imgs, record_R, record_T, lens, K, draws,
+                          drafts)
+
+    def _loop(self, N: int, capacity: int, H: int, W: int,
+              dtype: torch.dtype) -> tuple:
+        key = (N, capacity, H, W, dtype)
+        if key not in self._loops:
+            d = self.cfg.diffusion
+            model = self.model
+
+            def denoise(batch, cond_mask):
+                return model(batch, cond_mask)
+
+            self._loops[key] = ReverseLoop(
+                denoise, n_objects=N, capacity=capacity,
+                n_steps=self.model_calls_per_view, w=self.w, H=H, W=W,
+                record_dtype=dtype, logsnr_max=d.logsnr_max,
+                clip_x0=d.clip_x0,
+                deterministic=(self.sampler_kind == "ddim"))
+        return key, self._loops[key]
+
+    def _prepare(self, loop: ReverseLoop, record_imgs, record_R, record_T,
+                 lens: List[int], K, draws, drafts) -> None:
+        """Take every object's draws for one view (init noise, conditioning
+        indices, then the steps' draws, as an eager loop takes them) and
+        load the loop's buffers."""
         d = self.cfg.diffusion
-        return sample_view(
-            self.model, record_imgs=record_imgs, record_R=record_R,
-            record_T=record_T, record_len=int(step), K=K, w=self.w,
-            draws=draws, timesteps=d.timesteps, logsnr_min=d.logsnr_min,
-            logsnr_max=d.logsnr_max, clip_x0=d.clip_x0, steps=self.steps,
-            sampler_kind=self.sampler_kind)
+        N = len(lens)
+        shape = tuple(loop.shape[1:])
+        inits, idxs, xus, noises = [], [], [], []
+        for n in range(N):
+            init, (logsnrs, logsnr_nexts, idx) = sample_loop_prepare(
+                record_len=lens[n], draws=draws[n], timesteps=d.timesteps,
+                shape=shape, logsnr_min=d.logsnr_min,
+                logsnr_max=d.logsnr_max, device=self.device,
+                steps=self.steps, start_t=self.start_t,
+                draft=None if drafts is None else drafts[n])
+            xu, noise = draw_steps(draws[n], self.model_calls_per_view,
+                                   shape, self.device, loop.deterministic)
+            inits.append(init)
+            idxs.append(idx)
+            xus.append(xu)
+            noises.append(noise)
+        at = torch.arange(N, device=self.device)
+        lens_d = torch.tensor(lens, device=self.device)
+        loop.load(torch.stack(inits), logsnrs, logsnr_nexts,
+                  torch.stack(idxs), torch.stack(xus),
+                  None if loop.deterministic else torch.stack(noises),
+                  record_imgs, record_R, record_T, record_R[at, lens_d],
+                  record_T[at, lens_d], K)
+
+    def _segment(self, key: tuple, loop: ReverseLoop, n: int) -> None:
+        """``n`` reverse steps: eager, or replays of the captured step
+        (captured after one eager step the first time)."""
+        if not self.cuda_graphs:
+            for _ in range(n):
+                loop.step()
+            return
+        graph = self.graphs.get(key)
+        if graph is None:
+            loop.step()
+            n -= 1
+            graph = self.graphs[key] = StepGraph(loop.step)
+        for _ in range(n):
+            graph.replay()
+
+    def _view(self, record_imgs, record_R, record_T, lens: List[int], K,
+              draws, drafts) -> tuple:
+        """prepare -> ``scan_chunks`` segments -> commit, for N objects."""
+        N, capacity = record_imgs.shape[:2]
+        H, W = record_imgs.shape[-3:-1]
+        key, loop = self._loop(N, capacity, H, W, record_imgs.dtype)
+        self._prepare(loop, record_imgs, record_R, record_T, lens, K, draws,
+                      drafts)
+        per = self.model_calls_per_view // self.scan_chunks
+        for _ in range(self.scan_chunks):
+            self._segment(key, loop, per)
+        out = loop.img.clone()
+        at = torch.arange(N, device=record_imgs.device)
+        record_imgs[at, torch.tensor(lens, device=record_imgs.device)] = \
+            out.to(record_imgs.dtype)
+        return out, record_imgs, [s + 1 for s in lens]
 
     def _record_init(self, imgs0, R, T, n_views):
-        """Record buffers on the device: view 0 seeded, all poses
+        """Record buffers on the host: view 0 seeded, all poses
         pre-filled."""
         B = int(self.w.shape[0])
         H, W = imgs0.shape[-3:-1]
@@ -123,8 +304,19 @@ class Sampler:
         record_imgs[0] = imgs0[None]
         record_R[:n_views] = R[:n_views]
         record_T[:n_views] = T[:n_views]
-        return tuple(torch.from_numpy(a).to(self.device)
-                     for a in (record_imgs, record_R, record_T))
+        return record_imgs, record_R, record_T
+
+    def _view_draws(self, n_gen: int, generator, draws, what: str):
+        """One draw source per generated view: ``draws`` as given, or
+        :class:`Draws` on ``generator`` (seed 0 when omitted)."""
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            return [Draws(generator)] * n_gen
+        if len(draws) != n_gen:
+            raise ValueError(f"{what}: need {n_gen} (one per generated "
+                             f"view), got {len(draws)}")
+        return list(draws)
 
     def synthesize(self, views: Dict[str, np.ndarray],
                    generator: Optional[torch.Generator] = None,
@@ -141,32 +333,18 @@ class Sampler:
         ``[n_views-1, B, H, W, 3]`` float32.  With ``out_dir``, writes
         ``{out_dir}/{step}/gt.png`` and ``{out_dir}/{step}/{i}.png``.
         """
+        self._check_no_truncation("synthesize")
         imgs = np.asarray(views["imgs"], np.float32)
-        R = np.asarray(views["R"], np.float32)
-        T = np.asarray(views["T"], np.float32)
         n_views = imgs.shape[0] if max_views is None else min(
             imgs.shape[0], max_views)
         B = int(self.w.shape[0])
         H, W = imgs.shape[1:3]
         if n_views < 2:
             return np.zeros((0, B, H, W, 3), np.float32)
-        if draws is None:
-            if generator is None:
-                generator = torch.Generator(self.device).manual_seed(0)
-            draws = [Draws(generator)] * (n_views - 1)
-        elif len(draws) != n_views - 1:
-            raise ValueError(f"draws: need {n_views - 1} (one per "
-                             f"generated view), got {len(draws)}")
-
-        rec_i, rec_R, rec_T = self._record_init(imgs[0], R, T, n_views)
-        K = torch.as_tensor(np.asarray(views["K"], np.float32),
-                            device=self.device)
-        step = 1
-        for view_draws in draws:
-            _, rec_i, step = self.step(rec_i, rec_R, rec_T, step, K,
-                                       view_draws)
-        outs = rec_i[1:n_views].cpu().numpy()
-
+        outs = self.synthesize_many(
+            [views], None, max_views=n_views,
+            draws=[self._view_draws(n_views - 1, generator, draws,
+                                    "draws")])[0]
         if out_dir is not None:
             for s in range(1, n_views):
                 save_image(os.path.join(out_dir, str(s), "gt.png"), imgs[s])
@@ -174,3 +352,56 @@ class Sampler:
                     save_image(os.path.join(out_dir, str(s), f"{i}.png"),
                                outs[s - 1, i])
         return outs
+
+    def synthesize_many(self, views_list: Sequence[Dict[str, np.ndarray]],
+                        generators: Optional[Sequence[torch.Generator]],
+                        max_views: Optional[int] = None,
+                        draws: Optional[Sequence[Sequence]] = None
+                        ) -> np.ndarray:
+        """Autoregressively synthesise N objects' views with the objects
+        batched into every model call (:meth:`step_many`).
+
+        ``generators`` holds one generator per object, or ``draws`` one
+        list of per-view draw sources per object.  Given the same
+        per-object draws, each object's views equal :meth:`synthesize` on
+        that object to float tolerance (the larger batch may take other
+        convolution and matmul algorithms).  Every object contributes
+        ``n_views = min(min_i views_i, max_views)`` views.  The records
+        stay on the device; one fetch at the end.  Returns ``[N,
+        n_views-1, B, H, W, 3]``.
+        """
+        self._check_no_truncation("synthesize_many")
+        N = len(views_list)
+        n_views = min(int(np.shape(v["imgs"])[0]) for v in views_list)
+        if max_views is not None:
+            n_views = min(n_views, max_views)
+        B = int(self.w.shape[0])
+        H, W = np.shape(views_list[0]["imgs"])[1:3]
+        if n_views < 2:
+            return np.zeros((N, 0, B, H, W, 3), np.float32)
+        if draws is None:
+            if generators is None or len(generators) != N:
+                raise ValueError(f"synthesize_many: need one generator per "
+                                 f"object ({N})")
+            draws = [None] * N
+        elif len(draws) != N:
+            raise ValueError(f"synthesize_many: need one draw list per "
+                             f"object ({N}), got {len(draws)}")
+        per_object = [self._view_draws(
+            n_views - 1, None if generators is None else generators[n],
+            draws[n], f"draws[{n}]") for n in range(N)]
+        recs = [self._record_init(
+            np.asarray(v["imgs"][0], np.float32),
+            np.asarray(v["R"], np.float32), np.asarray(v["T"], np.float32),
+            n_views) for v in views_list]
+        rec_i, rec_R, rec_T = (
+            torch.from_numpy(np.stack([r[j] for r in recs])).to(self.device)
+            for j in range(3))
+        K = torch.from_numpy(np.stack([np.asarray(v["K"], np.float32)
+                                       for v in views_list])).to(self.device)
+        steps = [1] * N
+        for v in range(n_views - 1):
+            _, rec_i, steps = self.step_many(
+                rec_i, rec_R, rec_T, steps, K,
+                [per_object[n][v] for n in range(N)])
+        return rec_i[:, 1:n_views].cpu().numpy()

@@ -7,8 +7,11 @@ One ``torch.save`` per checkpoint, ``<dir>/ckpt_<step>.pt``, holding
 position.  Written to a temporary name and renamed, so a crash never
 leaves a half-written checkpoint under a final name; the newest ``keep``
 are kept.  A restore gives back the exact state, so the next step is the
-one the saving run would have taken.  The sliced, asynchronous and
-``ema_bf16`` modes wait for a later slice.
+one the saving run would have taken.  It replaces Adam's state tensors,
+so a train step captured as CUDA graphs before it is captured again
+(:class:`~diff3d_tpu_torch.train.step.TrainStep` compares the addresses
+it captured with the state's before every replay).  The sliced,
+asynchronous and ``ema_bf16`` modes wait for a later slice.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import List, Optional
 
 import torch
 
-from diff3d_tpu_torch.train.state import TrainState
+from diff3d_tpu_torch.train.state import TrainState, settle_lr
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -73,7 +76,19 @@ class CheckpointManager:
         ckpt = torch.load(self.path(step), map_location="cpu",
                           weights_only=True)
         state.model.load_state_dict(ckpt["model"])
-        state.optimizer.load_state_dict(ckpt["optim"])
+        # The optimizer keeps its own kind (``capturable`` on the card):
+        # a loaded state dict brings the saving optimizer's flags.
+        opt = state.optimizer
+        kinds = [{k: g[k] for k in ("capturable", "foreach") if k in g}
+                 for g in opt.param_groups]
+        opt.load_state_dict(ckpt["optim"])
+        for group, kind in zip(opt.param_groups, kinds):
+            group.update(kind)
+            for p in group["params"]:
+                st = opt.state.get(p, {})
+                if kind.get("capturable") and "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
+        settle_lr(opt)
         state.scheduler.load_state_dict(ckpt["sched"])
         if set(ckpt["ema"]) != set(state.ema):
             raise KeyError("checkpoint EMA names differ from the model's")

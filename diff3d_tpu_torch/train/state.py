@@ -4,7 +4,11 @@
 Adam with betas (0.9, 0.99) and eps 1e-8 (optax's default), a linear
 warmup over examples as a ``LambdaLR``, optional global-norm clipping
 (applied by the train step), and an EMA of the parameters with a
-half-life in examples, kept as a plain dict of f32 tensors.
+half-life in examples, kept as a plain dict of f32 tensors.  On a CUDA
+device Adam is ``capturable`` and its lr a device tensor that the
+schedule writes in place, so the update can run as a CUDA graph
+(:mod:`diff3d_tpu_torch.train.step`); the eager step there uses the same
+optimizer, so the two paths compute the same bits.
 """
 
 from __future__ import annotations
@@ -53,11 +57,33 @@ def warmup_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 def make_optimizer(params, cfg: TrainConfig):
     """``(Adam, LambdaLR)``: Adam over ``params`` with ``cfg.betas`` and
     eps 1e-8, its lr ``cfg.lr`` scaled by the warmup fraction of the
-    scheduler's step.  (Global-norm clipping, ``cfg.grad_clip``, happens
-    in the train step, before the update.)"""
-    opt = torch.optim.Adam(params, lr=cfg.lr, betas=tuple(cfg.betas),
-                           eps=ADAM_EPS)
+    scheduler's step.  Parameters on a CUDA device get a ``capturable``
+    Adam whose lr is a device tensor.  (Global-norm clipping,
+    ``cfg.grad_clip``, happens in the train step, before the update.)"""
+    params = list(params)
+    if params and params[0].is_cuda:
+        opt = torch.optim.Adam(
+            params, lr=torch.tensor(cfg.lr, device=params[0].device),
+            betas=tuple(cfg.betas), eps=ADAM_EPS, capturable=True,
+            foreach=True)
+    else:
+        opt = torch.optim.Adam(params, lr=cfg.lr, betas=tuple(cfg.betas),
+                               eps=ADAM_EPS)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, warmup_fraction(cfg))
+
+
+def settle_lr(optimizer: torch.optim.Optimizer) -> None:
+    """Keep each group's lr where its kind of Adam needs it: a tensor on
+    the parameters' device for a ``capturable`` group, a float otherwise
+    (a loaded state dict carries the saving run's lr as it was)."""
+    for group in optimizer.param_groups:
+        lr, dev = group["lr"], group["params"][0].device
+        if group.get("capturable"):
+            if not torch.is_tensor(lr) or lr.device != dev:
+                group["lr"] = torch.as_tensor(
+                    float(lr), dtype=torch.float32, device=dev)
+        elif torch.is_tensor(lr):
+            group["lr"] = float(lr)
 
 
 def set_schedule_step(state: TrainState, step: int) -> None:
@@ -68,8 +94,12 @@ def set_schedule_step(state: TrainState, step: int) -> None:
     sched.last_epoch = step
     for group, base, lam in zip(state.optimizer.param_groups, sched.base_lrs,
                                 sched.lr_lambdas):
-        group["lr"] = base * lam(step)
-    sched._last_lr = [g["lr"] for g in state.optimizer.param_groups]
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(base * lam(step))
+        else:
+            group["lr"] = base * lam(step)
+    sched._last_lr = [g["lr"].clone() if torch.is_tensor(g["lr"]) else g["lr"]
+                      for g in state.optimizer.param_groups]
 
 
 def ema_decay_per_step(cfg: TrainConfig) -> float:

@@ -2,18 +2,36 @@
 
 ``loss -> backward`` over ``accum_steps`` microbatches (gradients and
 loss averaged), optional global-norm clipping, Adam, then the EMA
-``e = d e + (1 - d) p`` of the updated parameters.  PyTorch runs it
-eagerly, in place on the :class:`~diff3d_tpu_torch.train.state.
-TrainState`.  The step's random draws (diffusion times, noise, CFG mask,
-unconditional frames, dropout) come from one generator seeded by
-``(seed, step)``, so a resumed run replays the same draws -- the property
-of the JAX package's ``jax.random.fold_in(rng, state.step)``.  Tests pass
-their own draws instead (:class:`~diff3d_tpu_torch.diffusion.TrainDraws`).
+``e = d e + (1 - d) p`` of the updated parameters, in place on the
+:class:`~diff3d_tpu_torch.train.state.TrainState`.  The step is two
+bodies, the JAX package's one jitted program cut where the microbatch
+loop ends:
+
+  * **micro** — dequantize -> ``p_losses`` -> the gradients, added into
+    the parameters' ``.grad`` buffers, and the loss into a running sum;
+  * **update** — average -> global norm -> clip -> Adam -> EMA.
+
+On a CUDA device (``cuda_graphs=True``) each body is captured once as a
+CUDA graph (:class:`~diff3d_tpu_torch.graphs.StepGraph`) and replayed:
+micro ``accum_steps`` times over static input buffers, then update.  The
+first step of a state runs both bodies eagerly and captures them after
+it; a step whose state no longer sits at the captured addresses (a
+checkpoint restore replaces Adam's tensors) does the same again.
+Elsewhere, or with ``cuda_graphs=False``, the bodies run eagerly.
+
+The step's random draws (diffusion times, noise, CFG mask, unconditional
+frames, dropout) come from one generator seeded by ``(seed, step)``, so a
+resumed run replays the same draws -- the property of the JAX package's
+``jax.random.fold_in(rng, state.step)``.  On the graph path it is one
+generator registered with the micro graph and reseeded before each step,
+which gives the eager step's draws bit for bit.  Tests pass their own
+draws instead (:class:`~diff3d_tpu_torch.diffusion.TrainDraws`); such a
+step runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,10 +39,11 @@ import torch
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.data.images import dequantize
 from diff3d_tpu_torch.diffusion import TrainDraws, p_losses
+from diff3d_tpu_torch.graphs import StepGraph
 from diff3d_tpu_torch.train.state import (TrainState, ema_decay_per_step,
                                           warmup_schedule)
 
-TrainStepFn = Callable[..., Dict[str, object]]
+INPUTS = ("imgs", "R", "T", "K")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -33,79 +52,203 @@ def step_seed(seed: int, step: int) -> int:
     return ((int(hi) << 32) | int(lo)) & ((1 << 63) - 1)
 
 
-def make_train_step(cfg: Config) -> TrainStepFn:
-    """Build ``step(state, batch, draws=None) -> metrics``.
+def micro_step(cfg: Config, model: torch.nn.Module,
+               params: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor],
+               draws, grads: Sequence[torch.Tensor],
+               total: torch.Tensor) -> None:
+    """One microbatch: the loss of ``batch`` (``imgs`` uint8, dequantized
+    here), its gradients added into ``grads`` (one per parameter; a
+    parameter the loss does not reach adds nothing) and the loss into
+    ``total``.  Reads no host value."""
+    dcfg = cfg.diffusion
+    gen = getattr(draws, "generator", None)
 
-    ``batch``: ``imgs [B, 2, H, W, 3]`` (uint8, dequantized here),
-    ``R [B, 2, 3, 3]``, ``T [B, 2, 3]``, ``K [B, 3, 3]`` on
-    the model's device, ``B = global_batch``.  ``draws``: one
-    :class:`TrainDraws`-like object per microbatch, or None for the step's
-    own generator.  Returns ``{'loss': tensor, 'lr': float, 'grad_norm':
-    tensor}`` -- the mean loss, the lr of this update (the schedule at the
-    pre-update step) and the global norm of the averaged gradients (before
-    clipping); the tensors stay on the device, unsynchronised."""
-    tcfg, dcfg = cfg.train, cfg.diffusion
+    def denoise(model_batch, cond_mask):
+        return model(model_batch, cond_mask, generator=gen)
+
+    loss = p_losses(denoise, dequantize(batch["imgs"]), batch["R"],
+                    batch["T"], batch["K"], draws, cond_prob=dcfg.cond_prob,
+                    loss_type=dcfg.loss_type, logsnr_min=dcfg.logsnr_min,
+                    logsnr_max=dcfg.logsnr_max)
+    got = torch.autograd.grad(loss, params, allow_unused=True)
+    used = [(a, g) for a, g in zip(grads, got) if g is not None]
+    torch._foreach_add_([a for a, _ in used], [g for _, g in used])
+    total.add_(loss.detach())
+
+
+def update_step(cfg: Config, state: TrainState, names: Sequence[str],
+                params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], total: torch.Tensor):
+    """Average the summed gradients and loss over the microbatches, take
+    their global norm (before clipping), clip, step Adam (which reads the
+    parameters' ``.grad``, i.e. ``grads``) and the EMA.  Returns ``(loss,
+    grad_norm)``; reads no host value."""
+    tcfg = cfg.train
     accum = tcfg.accum_steps
-    sched = warmup_schedule(tcfg)
+    if accum > 1:
+        torch._foreach_div_(list(grads), float(accum))
+        total = total / accum
+    grad_norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(list(grads))))
+    if tcfg.grad_clip > 0:
+        # optax.clip_by_global_norm: g * clip / norm when norm >= clip.
+        torch._foreach_mul_(list(grads), torch.where(
+            grad_norm < tcfg.grad_clip, 1.0, tcfg.grad_clip / grad_norm))
+    state.optimizer.step()
     decay = ema_decay_per_step(tcfg)
+    with torch.no_grad():
+        ema = [state.ema[n] for n in names]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, [p.detach() for p in params],
+                            alpha=1.0 - decay)
+    return total, grad_norm
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             draws: Optional[Sequence] = None) -> Dict[str, object]:
-        model = state.model
-        model.train()
-        names, params = zip(*model.named_parameters())
-        imgs = dequantize(batch["imgs"])
-        B = imgs.shape[0]
+
+def _zeroed_grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every parameter's ``.grad``, made where missing (optax updates every
+    leaf, a zero gradient too) and set to 0."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    torch._foreach_zero_(grads)
+    return grads
+
+
+class TrainStep:
+    """``step(state, batch, draws=None) -> metrics`` (see the module
+    docstring).
+
+    ``batch``: ``imgs [B, 2, H, W, 3]`` (uint8), ``R [B, 2, 3, 3]``,
+    ``T [B, 2, 3]``, ``K [B, 3, 3]`` on the model's device, ``B =
+    global_batch``.  ``draws``: one :class:`TrainDraws`-like object per
+    microbatch, or None for the step's own generator.  Returns ``{'loss':
+    tensor, 'lr': float, 'grad_norm': tensor}`` -- the mean loss, the lr
+    of this update (the schedule at the pre-update step) and the global
+    norm of the averaged gradients (before clipping); the tensors stay on
+    the device, unsynchronised, and are the step's own (on the graph path,
+    copies of the graph's outputs).  ``graphs`` holds the captured micro
+    and update graphs (None before the first graph step)."""
+
+    def __init__(self, cfg: Config, cuda_graphs: bool = False):
+        self.cfg = cfg
+        self.cuda_graphs = cuda_graphs
+        self.sched = warmup_schedule(cfg.train)
+        self._gen: Optional[torch.Generator] = None
+        self._captured = None
+
+    @property
+    def graphs(self):
+        c = self._captured
+        return None if c is None else (c["micro"], c["update"])
+
+    def release(self) -> None:
+        """Drop the captured graphs (their memory pool goes with them)."""
+        self._captured = None
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 draws: Optional[Sequence] = None) -> Dict[str, object]:
+        accum = self.cfg.train.accum_steps
+        B = batch["imgs"].shape[0]
         if B % accum:
             raise ValueError(f"batch {B} is not divisible by accum_steps "
                              f"{accum}")
-        mb = B // accum
-        if draws is None:
-            gen = torch.Generator(imgs.device).manual_seed(
-                step_seed(tcfg.seed, state.step))
-            draws = [TrainDraws(gen)] * accum
-        if len(draws) != accum:
+        if draws is not None and len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} microbatches")
+        state.model.train()
+        if draws is None and self.cuda_graphs:
+            return self._graphed(state, batch)
+        return self._eager(state, batch, draws)
 
-        state.optimizer.zero_grad(set_to_none=True)
-        total = None
+    def _eager(self, state, batch, draws, gen=None):
+        cfg, accum = self.cfg, self.cfg.train.accum_steps
+        names, params = zip(*state.model.named_parameters())
+        device = batch["imgs"].device
+        if draws is None:
+            gen = torch.Generator(device) if gen is None else gen
+            gen.manual_seed(step_seed(cfg.train.seed, state.step))
+            draws = [TrainDraws(gen)] * accum
+        grads = _zeroed_grads(params)
+        total = torch.zeros((), device=device)
+        mb = batch["imgs"].shape[0] // accum
         for i, d in enumerate(draws):
-            sl = slice(i * mb, (i + 1) * mb)
-            gen = getattr(d, "generator", None)
-
-            def denoise(model_batch, cond_mask, gen=gen):
-                return model(model_batch, cond_mask, generator=gen)
-
-            loss = p_losses(
-                denoise, imgs[sl], batch["R"][sl], batch["T"][sl],
-                batch["K"][sl], d, cond_prob=dcfg.cond_prob,
-                loss_type=dcfg.loss_type, logsnr_min=dcfg.logsnr_min,
-                logsnr_max=dcfg.logsnr_max)
-            loss.backward()
-            total = loss.detach() if total is None else total + loss.detach()
-
-        for p in params:      # optax updates every leaf, a zero grad too
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        if accum > 1:
-            torch._foreach_div_(grads, float(accum))
-            total = total / accum
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        if tcfg.grad_clip > 0:
-            # optax.clip_by_global_norm: g * clip / norm when norm >= clip.
-            torch._foreach_mul_(grads, torch.where(
-                grad_norm < tcfg.grad_clip, 1.0, tcfg.grad_clip / grad_norm))
-        lr = sched(state.step)
-        state.optimizer.step()
+            micro_step(cfg, state.model, params,
+                       {k: batch[k][i * mb:(i + 1) * mb] for k in INPUTS},
+                       d, grads, total)
+        lr = self.sched(state.step)
+        loss, grad_norm = update_step(cfg, state, names, params, grads, total)
         state.scheduler.step()
-        with torch.no_grad():
-            ema = [state.ema[n] for n in names]
-            torch._foreach_mul_(ema, decay)
-            torch._foreach_add_(ema, [p.detach() for p in params],
-                                alpha=1.0 - decay)
         state.step += 1
-        return {"loss": total, "lr": lr, "grad_norm": grad_norm}
+        return {"loss": loss, "lr": lr, "grad_norm": grad_norm}
 
-    return step
+    @staticmethod
+    def _key(state, batch, params) -> tuple:
+        """What a capture depends on: the batch's shapes and the addresses
+        of every tensor the graphs read or write."""
+        opt = state.optimizer
+        ptrs = [id(state)]
+        for p in params:
+            ptrs += [p.data_ptr(), -1 if p.grad is None else
+                     p.grad.data_ptr()]
+            ptrs += [t.data_ptr() for t in opt.state.get(p, {}).values()
+                     if torch.is_tensor(t)]
+        ptrs += [g["lr"].data_ptr() if torch.is_tensor(g["lr"]) else -1
+                 for g in opt.param_groups]
+        ptrs += [t.data_ptr() for t in state.ema.values()]
+        shapes = [(k, tuple(batch[k].shape), batch[k].dtype)
+                  for k in INPUTS]
+        return tuple(shapes), tuple(ptrs)
+
+    def _graphed(self, state, batch):
+        cfg, accum = self.cfg, self.cfg.train.accum_steps
+        names, params = zip(*state.model.named_parameters())
+        c = self._captured
+        if c is None or c["key"] != self._key(state, batch, params):
+            # This step runs eagerly (the warm-up: kernel attributes,
+            # library plans, Adam's state), then both bodies are captured.
+            self.release()
+            if self._gen is None:
+                self._gen = torch.Generator(batch["imgs"].device)
+            metrics = self._eager(state, batch, None, gen=self._gen)
+            self._capture(state, batch, names, params)
+            return metrics
+        self._gen.manual_seed(step_seed(cfg.train.seed, state.step))
+        torch._foreach_zero_(c["grads"])
+        c["total"].zero_()
+        mb = batch["imgs"].shape[0] // accum
+        for i in range(accum):
+            for k, buf in c["inputs"].items():
+                buf.copy_(batch[k][i * mb:(i + 1) * mb])
+            c["micro"].replay()
+        lr = self.sched(state.step)
+        c["update"].replay()
+        state.scheduler.step()
+        state.step += 1
+        loss, grad_norm = c["update"].output
+        return {"loss": loss.clone(), "lr": lr,
+                "grad_norm": grad_norm.clone()}
+
+    def _capture(self, state, batch, names, params) -> None:
+        cfg, accum = self.cfg, self.cfg.train.accum_steps
+        mb = batch["imgs"].shape[0] // accum
+        inputs = {k: batch[k][:mb].clone() for k in INPUTS}
+        grads = [p.grad for p in params]
+        total = torch.zeros((), device=batch["imgs"].device)
+        draws = TrainDraws(self._gen)
+        model = state.model
+        micro = StepGraph(
+            lambda: micro_step(cfg, model, params, inputs, draws, grads,
+                               total),
+            generators=[self._gen])
+        update = StepGraph(
+            lambda: update_step(cfg, state, names, params, grads, total),
+            pool=micro.pool())
+        self._captured = {"key": self._key(state, batch, params),
+                          "micro": micro, "update": update,
+                          "inputs": inputs, "grads": grads, "total": total}
+
+
+def make_train_step(cfg: Config, cuda_graphs: bool = False) -> TrainStep:
+    """The train step of ``cfg`` (:class:`TrainStep`); ``cuda_graphs``
+    captures it as CUDA graphs (a CUDA device only)."""
+    return TrainStep(cfg, cuda_graphs=cuda_graphs)

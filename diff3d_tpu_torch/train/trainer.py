@@ -11,8 +11,9 @@ resumes there (build the loader with ``start_step=trainer.state.step``).
 The preemption handler, in-training evaluation, the elastic supervisor
 and data parallelism wait for later slices.
 
-Runs on the card unless ``device`` names another.  An exact resume on the
-card also needs deterministic cuDNN (``torch.backends.cudnn.deterministic
+Runs on the card unless ``device`` names another; there the train step
+runs as CUDA graphs (``cuda_graphs=False`` runs it eagerly, for
+comparison).  An exact resume on the card also needs deterministic cuDNN (``torch.backends.cudnn.deterministic
 = True``, which ``cli/train_cli.py`` sets): the kernels of this package
 use no float atomics.
 """
@@ -30,6 +31,7 @@ import torch
 
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.device import resolve_device
+from diff3d_tpu_torch.graphs import use_cuda_graphs
 from diff3d_tpu_torch.models import xunet
 from diff3d_tpu_torch.train.checkpoint import CheckpointManager
 from diff3d_tpu_torch.train.state import TrainState, create_train_state
@@ -49,15 +51,19 @@ def init_params(model: xunet.XUNet, cfg: Config) -> xunet.XUNet:
 class Trainer:
     def __init__(self, cfg: Config, loader: Optional[Iterator] = None,
                  workdir: str = ".", transfer: bool = False,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 cuda_graphs: Optional[bool] = None):
         """``loader`` yields batches on the trainer's device; it may be
         attached after construction (``self.loader``), so a resuming
-        caller can seek it to ``self.state.step``."""
+        caller can seek it to ``self.state.step``.  ``cuda_graphs``: None
+        captures the step on a CUDA device and runs it eagerly elsewhere,
+        False runs it eagerly, True off a CUDA device raises."""
         cfg.validate()
         self.cfg = cfg
         self.loader = loader
         self.workdir = workdir
         self.device = resolve_device(device)
+        graphs = use_cuda_graphs(cuda_graphs, self.device)
         model = init_params(xunet.XUNet(cfg.model), cfg)
         model = model.to(self.device).train()
         log.info("XUNet: %.1fM params",
@@ -68,7 +74,7 @@ class Trainer:
             keep=cfg.train.keep_checkpoints)
         if transfer and self.ckpt.restore(self.state) is not None:
             log.info("resumed at step %d", self.state.step)
-        self.step_fn = make_train_step(cfg)
+        self.step_fn = make_train_step(cfg, cuda_graphs=graphs)
         self._metrics_path = os.path.join(workdir, "metrics.jsonl")
 
     def _log(self, record: dict) -> None:

@@ -564,3 +564,174 @@ def test_model_gradients_bf16_kernel_path_within_bf16_noise(cuda):
     assert dist["kernel_vs_plain"] <= 0.1, dist
     assert dist["kernel_vs_f32"] <= 1.25 * dist["noise"], dist
     assert dist["loss_rel"] <= 1e-2, dist
+
+
+# --- the sampler's reverse step and the train step as CUDA graphs ----------
+
+
+def _tiny_bf16(cuda, **train_kw):
+    """The tiny X-UNet's config in bf16 (as srn64 computes) with train
+    overrides, and its model from seed 0 on the card."""
+    import dataclasses
+
+    cfg = port_tiny_config(imgsize=16, ch=32)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"),
+        train=dataclasses.replace(cfg.train, **train_kw))
+    return cfg, build_model(cfg.model, cuda, seed=0,
+                            randomize_zero_init=True)
+
+
+def _orbit_object(n_views, seed, H=16):
+    """``n_views`` cameras on a circle looking at the origin, a K, and
+    smooth random images."""
+    rng = np.random.default_rng(seed)
+    Rs, Ts = [], []
+    for i in range(n_views):
+        a = 2 * np.pi * i / n_views + seed
+        pos = np.array([1.3 * np.cos(a), 1.3 * np.sin(a), 0.5])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        Rs.append(np.stack([right, np.cross(fwd, right), fwd], axis=1))
+        Ts.append(pos)
+    imgs = np.repeat(np.repeat(rng.uniform(-1, 1, (n_views, H // 4, H // 4,
+                                                   3)), 4, 1), 4, 2)
+    K = np.array([[H * 1.1, 0, H / 2], [0, H * 1.1, H / 2], [0, 0, 1]])
+    return {"imgs": imgs.astype(np.float32),
+            "R": np.stack(Rs).astype(np.float32),
+            "T": np.stack(Ts).astype(np.float32),
+            "K": K.astype(np.float32)}
+
+
+def test_sampler_graph_is_bit_identical_to_eager(cuda):
+    """``synthesize`` (one object, two segments per view) and
+    ``synthesize_many`` (two objects) with the reverse step replayed as a
+    CUDA graph against the eager step, from generators with the same
+    seeds: bit for bit.  The graphs hold both kernels and were
+    replayed."""
+    from diff3d_tpu_torch.graphs import graph_launches
+    from diff3d_tpu_torch.sampling import Sampler
+
+    cfg, model = _tiny_bf16(cuda)
+    views = [_orbit_object(3, 1), _orbit_object(3, 2)]
+    runs = {}
+    for graphs in (False, True):
+        s = Sampler(model, cfg, device=cuda, scan_chunks=2,
+                    cuda_graphs=graphs)
+        one = s.synthesize(views[0], torch.Generator(cuda).manual_seed(3))
+        many = s.synthesize_many(views, [torch.Generator(cuda).manual_seed(4),
+                                         torch.Generator(cuda).manual_seed(5)])
+        runs[graphs] = (one, many, s)
+    assert np.isfinite(runs[True][0]).all()
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    np.testing.assert_array_equal(runs[True][1], runs[False][1])
+    s = runs[True][2]
+    assert s.cuda_graphs and not runs[False][2].graphs
+    assert sorted(k[0] for k in s.graphs) == [1, 2]     # N = 1 and N = 2
+    steps = s.model_calls_per_view
+    for g in s.graphs.values():                # 2 views, 1 eager warm-up
+        assert g.replays == 2 * steps - 1
+        assert g.captured["fused_groupnorm"] > 0
+        assert g.captured["flash_attention"] > 0
+    ran = graph_launches(s.graphs.values())
+    assert ran["fused_groupnorm"] == sum(
+        g.captured["fused_groupnorm"] * g.replays for g in s.graphs.values())
+
+
+def _train_run(cuda, cfg, graphs, steps):
+    """``steps`` train steps of the tiny bf16 model from seed 0 on seeded
+    synthetic batches: the metrics, the final tensors, and the step."""
+    from diff3d_tpu_torch.data import InfiniteLoader, SyntheticDataset
+    from diff3d_tpu_torch.train import create_train_state, make_train_step
+
+    _, model = _tiny_bf16(cuda)
+    state = create_train_state(model.train(), cfg.train)
+    step = make_train_step(cfg, cuda_graphs=graphs)
+    loader = InfiniteLoader(SyntheticDataset(num_objects=4, num_views=6,
+                                             imgsize=16),
+                            cfg.train.global_batch, num_workers=0)
+    metrics = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in loader.batch(s).items()}
+        m = step(state, batch)
+        metrics.append((m["loss"].clone(), m["grad_norm"].clone(), m["lr"]))
+    tensors = {f"p.{k}": v.detach().clone()
+               for k, v in state.model.named_parameters()}
+    tensors.update({f"ema.{k}": v.clone() for k, v in state.ema.items()})
+    for i, st in enumerate(state.optimizer.state.values()):
+        tensors.update({f"adam.{i}.{k}": v.clone() for k, v in st.items()})
+    return metrics, tensors, step
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_graph_is_bit_identical_to_eager(cuda, accum):
+    """Four steps of the tiny bf16 model as CUDA graphs (the first eager,
+    then micro x accum and update replayed) against four eager steps from
+    the same state and (seed, step) generators: losses, gradient norms,
+    parameters, Adam's state and the EMA bit for bit (cuDNN
+    deterministic, as ``train_cli`` sets it)."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, _ = _tiny_bf16(cuda, global_batch=8, accum_steps=accum,
+                            lr=0.01, warmup_examples=16,
+                            grad_clip=0.05 if accum == 2 else 0.0)
+        got, got_t, step = _train_run(cuda, cfg, True, 4)
+        want, want_t, eager = _train_run(cuda, cfg, False, 4)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert eager.graphs is None
+    micro, update = step.graphs
+    assert micro.replays == 3 * accum and update.replays == 3
+    for name in ("fused_groupnorm", "groupnorm_backward", "flash_attention",
+                 "attention_backward_dkdv", "attention_backward_dq"):
+        assert micro.captured[name] > 0, name
+    for (la, ga, lra), (lb, gb, lrb) in zip(got, want):
+        assert torch.equal(la, lb) and torch.equal(ga, gb) and lra == lrb
+    assert got_t.keys() == want_t.keys()
+    differ = [k for k in got_t if not torch.equal(got_t[k], want_t[k])]
+    assert not differ, differ[:5]
+
+
+def test_graph_trainer_resume_is_bit_exact(cuda, tmp_path):
+    """A Trainer on the graph path checkpoints at step 2; a fresh Trainer
+    restores it (its step runs eagerly, then recaptures) and takes step
+    3, which equals the first Trainer's replayed step 3 bit for bit."""
+    from diff3d_tpu_torch.data import (InfiniteLoader, SyntheticDataset,
+                                       prefetch_to_device)
+    from diff3d_tpu_torch.train import Trainer
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, _ = _tiny_bf16(cuda, global_batch=8, warmup_examples=16,
+                            max_steps=3, ckpt_every=2)
+        ds = SyntheticDataset(num_objects=4, num_views=6, imgsize=16)
+
+        def trainer(transfer):
+            t = Trainer(cfg, workdir=str(tmp_path), transfer=transfer,
+                        device=cuda)
+            t.loader = prefetch_to_device(
+                InfiniteLoader(ds, 8, num_workers=0,
+                               start_step=t.state.step), cuda)
+            return t
+
+        first = trainer(False)
+        first.train(max_steps=2)
+        second = trainer(True)
+        assert second.state.step == 2
+        first.train()
+        second.train()
+        first.loader.close()
+        second.loader.close()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert first.step_fn.graphs is not None
+    assert second.step_fn.graphs is not None
+    a = dict(first.state.model.state_dict())
+    b = dict(second.state.model.state_dict())
+    a.update({f"ema.{k}": v for k, v in first.state.ema.items()})
+    b.update({f"ema.{k}": v for k, v in second.state.ema.items()})
+    assert not [k for k in a if not torch.equal(a[k], b[k])]

@@ -2,25 +2,30 @@
 """Where the PyTorch port's srn64 train step spends its time on the card,
 and how much memory it takes.
 
-Builds the trainer through ``cli/train_cli.py``'s code path (synthetic
-dataset, srn64 at full width, global batch ``--batch`` in ``--accum``
-microbatches), takes ``--warmup`` steps, then ``--steps`` steps under
-``torch.profiler``, and prints one JSON line: wall seconds per step,
-examples/s, the peak device memory over the run, the device-busy share
-of the profiled wall time, and device time per step by kernel group and
-for the top kernels, read from the exported Chrome trace.  The card's
+For each path (``--mode``: the step as CUDA graphs, the eager step, or
+both in turn, one trainer at a time) builds the trainer through
+``cli/train_cli.py``'s code path (synthetic dataset, srn64 at full width,
+global batch ``--batch`` in ``--accum`` microbatches), takes ``--warmup``
+steps (on the graph path the first is eager and ends in the capture),
+``--steps`` steps timed without the profiler, then ``--steps`` steps under
+``torch.profiler``, and prints one JSON line per path: wall seconds per
+step (both ways), examples/s, the peak device memory over the run, the
+device-busy share of the profiled wall time, and device time per step by
+kernel group and for the top kernels, read from the exported Chrome
+trace.  The card's
 name and power limit are printed first, as ``nvidia-smi`` gives them.  A
 microbatch that does not fit ends the run with CUDA's out-of-memory
 error.
 
 Usage (on the machine with the card, from the repo root):
     python3 tools/profile_torch_train.py [--accum 1] [--steps 2] \
-        [--trace build/profile/train_trace.json]
+        [--mode both] [--trace build/profile/train_trace.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -57,12 +62,12 @@ def main(argv=None) -> None:
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--workdir", default="build/profile_train")
+    p.add_argument("--mode", choices=["both", "graph", "eager"],
+                   default="both")
     p.add_argument("--trace", default="build/profile/train_trace.json")
     args = p.parse_args(argv)
 
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: CUDA is not available")
@@ -70,20 +75,38 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     sys.path.insert(0, os.getcwd())
+    modes = {"both": (True, False), "graph": (True,),
+             "eager": (False,)}[args.mode]
+    for graphs in modes:
+        profile_one(args, graphs)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_one(args, graphs: bool) -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from diff3d_tpu_torch.cli import train_cli
 
     shutil.rmtree(args.workdir, ignore_errors=True)
-    n = args.warmup + args.steps
+    n = args.warmup + 2 * args.steps
     trainer = train_cli.build_trainer(train_cli.build_parser().parse_args([
         "--synthetic", "--config", "srn64", "--batch", str(args.batch),
         "--accum", str(args.accum), "--steps", str(n),
         "--warmup_examples", str(10 * args.batch), "--ckpt_every", "0",
-        "--workdir", args.workdir]))
-    # The warm-up ends in train()'s last-step checkpoint; the profiled
-    # steps call the step directly, so no save falls inside the window.
+        "--workdir", args.workdir] + ([] if graphs else ["--eager"])))
+    # The warm-up ends in train()'s last-step checkpoint; the measured
+    # steps call the step directly, so no save falls inside the windows.
     torch.cuda.reset_peak_memory_stats()
     trainer.train(max_steps=args.warmup)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        trainer.step_fn(trainer.state, next(trainer.loader))
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -93,10 +116,14 @@ def main(argv=None) -> None:
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     trainer.loader.close()
+    trainer.step_fn.release()
+    del trainer
     shutil.rmtree(args.workdir, ignore_errors=True)
-    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    with open(args.trace) as f:
+    base, ext = os.path.splitext(args.trace)
+    trace = f"{base}_{'graph' if graphs else 'eager'}{ext}"
+    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     by_group, by_name = {}, {}
@@ -108,9 +135,10 @@ def main(argv=None) -> None:
     per = 1e-3 / args.steps                  # us over the window -> ms/step
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "batch": args.batch, "accum": args.accum, "steps": args.steps,
-        "wall_s_per_step": wall / args.steps,
-        "examples_per_s": args.batch * args.steps / wall,
+        "cuda_graphs": graphs, "batch": args.batch, "accum": args.accum,
+        "steps": args.steps, "wall_s_per_step": wall / args.steps,
+        "wall_s_per_step_unprofiled": plain_wall / args.steps,
+        "examples_per_s": args.batch * args.steps / plain_wall,
         "max_memory_allocated": peak,
         "device_busy_ms_per_step": busy_us * per,
         "device_busy_share": busy_us * 1e-6 / wall,
