@@ -73,9 +73,42 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      checkpoint restored into a fresh trainer (whose step runs eagerly and
      recaptures) takes one step, which must equal the first trainer's
      next, replayed, step bit for bit.
+ 11. eval — ``cli/eval_cli.py`` on that checkpoint (EMA) on synthetic
+     scenes: 2 objects, 3 views, DDIM at 32 steps, ``--w_select 1
+     --parity_objects 1 --orbit 4``; finite PSNR / SSIM / fid_randfeat per
+     w, the parity and orbit fields, s per object; run again, it
+     re-synthesises nothing and prints the same line.
+ 12. srn128_model — the srn128 X-UNet (bf16, seeded random weights) at
+     2B = 16: kernel path against plain path (rel. L2 3e-2, as srn64), ms
+     and launches per forward, and the ptxas registers and spill bytes of
+     every kernel instance its path launches (reported, not gated).
+ 13. srn128_sampler — one srn128 view, 256 ancestral steps, w = 0..7, the
+     reverse step as a CUDA graph: the srn128 sampling path, counts set to
+     0 before and read after; ms per step, s per view, peak memory; then
+     a 16-step view graph against eager, bit-identical.
+ 14. srn128_train — remat against no remat on one srn128 step at batch 4
+     (f32 and bf16, dropout 0.1, the same draws): loss and gradients
+     bit-identical, peak memory of each; the peaks of an eager Trainer
+     step at two batches under each remat policy predict the smallest
+     ``--accum`` that leaves 8 GiB of the card free, and under "nothing"
+     that accum is tried on the graph path in a child process (doubled if
+     it does not fit there: a capture needs more); then the ``Trainer``
+     built by
+     ``train_cli --config srn128 --remat --synthetic_scenes`` at global
+     batch 128, 4 steps as CUDA graphs, under "nothing" (``train()``: the
+     srn128 training path, counts set to 0 before and read after; the
+     recompute launches every block's forward kernels again) and under
+     "dots"; s/step, examples/s, peak memory, loss and grad_norm per step;
+     then ``sample_cli --config srn128`` on the "nothing" checkpoint (EMA)
+     at 32 steps: finite views.
+ 15. srn128_sites — every GroupNorm and attention site of a srn128
+     sampler step and of one training microbatch: each kernel against
+     its plain version, the forward's cluster plans fit the card; per
+     site and per step the time, bound, plain version and library call.
 
-Then one ``{"kernels": [...]}`` line and, last, the device line.  The
-library calls are timing yardsticks only; the port never calls them.
+Then one ``{"kernels": [...]}`` line (each kernel per srn64 step, then per
+srn128 step) and, last, the device line.  The library calls are timing
+yardsticks only; the port never calls them.
 
 Usage: python3 chip_smoke.py
 """
@@ -90,6 +123,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -118,8 +152,13 @@ WORKDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke_train")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(obj, elapsed_s=round(time.perf_counter() - _T0,
+                                               1))), flush=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -284,6 +323,7 @@ def phase_build():
     if small and not spill_free:
         raise AssertionError("build: a tensor-core kernel at D <= 128 "
                              "spills")
+    return {src: ptxas_kernels(log) for src, log in logs.items()}
 
 
 # Head dims above the tensor-core kernels' 256, inside the Pallas kernel's
@@ -378,7 +418,7 @@ def gn_inputs(shape, dtype, film, seed):
     return x, gamma, beta, kw
 
 
-def phase_groupnorm(gn_sites):
+def phase_groupnorm(gn_sites, phase="groupnorm", odd_shapes=True):
     import torch
     import torch.nn.functional as F
 
@@ -390,7 +430,7 @@ def phase_groupnorm(gn_sites):
            (1, 64, 1024, 32), (2, 64, 96, 32), (1, 1000, 144, 24),
            (3, 1, 128, 32),                             # L = 1
            (2, 64, 2048, 2048), (1, 16, 4096, 4096)]    # G up to C <= 4096
-    shapes = sorted({k[:4] for k in gn_sites}) + odd
+    shapes = sorted({k[:4] for k in gn_sites}) + (odd if odd_shapes else [])
     worst = 0.0
     checked = 0
     for si, shape in enumerate(shapes):
@@ -478,7 +518,7 @@ def phase_groupnorm(gn_sites):
         per_step["library_ms"] += count * lib_ms
         per_step["max_abs_err"] = max(per_step["max_abs_err"], err)
     per_step = _finish(per_step)
-    emit({"phase": "groupnorm", "checked": checked,
+    emit({"phase": phase, "checked": checked,
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|)",
           "bit_identical_run_to_run": True,
@@ -499,7 +539,7 @@ def attn_inputs(shape, dtype, seed):
             v.view(B, Lk, H, D))
 
 
-def phase_attention(attn_sites):
+def phase_attention(attn_sites, phase="attention", extra_shapes=True):
     import torch
     import torch.nn.functional as F
 
@@ -510,9 +550,10 @@ def phase_attention(attn_sites):
              (1, 200, 200, 2, 32), (1, 96, 160, 2, 64),
              (1, 64, 64, 2, 160), (1, 63, 65, 2, 64), (1, 129, 127, 2, 128),
              (1, 65, 63, 3, 36)]
-    shapes = sorted(attn_sites) + extra
+    wide = WIDE_ATTN if extra_shapes else []
+    shapes = sorted(attn_sites) + (extra if extra_shapes else [])
     worst = 0.0
-    for si, shape in enumerate(shapes + WIDE_ATTN):     # WIDE_ATTN untimed
+    for si, shape in enumerate(shapes + wide):          # wide: untimed
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attn_inputs(shape, dtype, si)
             out = flash_attention(q, k, v)
@@ -563,7 +604,7 @@ def phase_attention(attn_sites):
             flop_ms += count * flops / BF16_FLOPS * 1e3
             byte_ms += count * nbytes / HBM_BYTES_PER_S * 1e3
     per_step["bound_by"] = "operations" if flop_ms > byte_ms else "bytes"
-    emit({"phase": "attention", "checked": 2 * len(shapes + WIDE_ATTN),
+    emit({"phase": phase, "checked": 2 * len(shapes + wide),
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|)",
           "sites": sites, "per_step": per_step})
@@ -610,7 +651,8 @@ GN_BWD_EDGES = [(2, 4095, 128, 32), (1, 4096, 128, 32), (2, 40, 4096, 32),
                 (1, 9, 4096, 2048)]
 
 
-def phase_groupnorm_backward(gn_sites, accum):
+def phase_groupnorm_backward(gn_sites, accum, phase="groupnorm_backward",
+                             edges=True, f32_max_n=None):
     """The save_stats forward and the backward kernel at the training
     GroupNorm sites, both through the wrappers the model calls: the
     autograd ``fused_groupnorm`` on inputs that require grad (its saved
@@ -628,7 +670,7 @@ def phase_groupnorm_backward(gn_sites, accum):
     worst, checked = 0.0, 0
     # The cluster kernel's edges, untimed: L not a multiple of the cluster,
     # N = 1, C = 4096 at G = 32 and G = 2048.
-    for si, (N, L, C, G) in enumerate(GN_BWD_EDGES):
+    for si, (N, L, C, G) in enumerate(GN_BWD_EDGES if edges else []):
         for dtype in (torch.float32, torch.bfloat16):
             x, gamma, beta, kw = gn_inputs((N, L, C, G), dtype, True, 50 + si)
             gen = torch.Generator("cuda").manual_seed(60 + si)
@@ -658,9 +700,11 @@ def phase_groupnorm_backward(gn_sites, accum):
             sorted(gn_sites.items())):
         count *= accum
         for dtype in (torch.float32, torch.bfloat16):
-            x, gamma, beta, kw = gn_inputs((N, L, C, G), dtype, film, si)
+            nb = (N if dtype == torch.bfloat16 or f32_max_n is None
+                  else min(N, f32_max_n))
+            x, gamma, beta, kw = gn_inputs((nb, L, C, G), dtype, film, si)
             gen = torch.Generator("cuda").manual_seed(100 + si)
-            g = torch.randn(N, L, C, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(nb, L, C, generator=gen, device="cuda").to(dtype)
             sc, sh = kw.get("scale"), kw.get("shift")
             xr, gr, br = _leaf(x), _leaf(gamma), _leaf(beta)
             lkw = dict(num_groups=G, silu=silu)
@@ -773,16 +817,18 @@ def phase_groupnorm_backward(gn_sites, accum):
                       "fwd_bound_us": round(bound_f * 1e3, 3),
                       "bf16_errs": errs})
     fwd, bwd = _finish(fwd), _finish(bwd)
-    emit({"phase": "groupnorm_backward", "checked": checked,
+    emit({"phase": phase, "checked": checked,
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|); "
                        "dgamma/dbeta (f32 sums over N*L) 1e-4*(1+max|ref|)",
+          "f32_checked_samples": f32_max_n or "all",
           "sites": sites, "per_train_step_forward_save_stats": fwd,
           "per_train_step_backward": bwd})
     return fwd, bwd
 
 
-def phase_attention_backward(attn_sites, accum):
+def phase_attention_backward(attn_sites, accum, phase="attention_backward",
+                             extra_shapes=True, f32_max_n=None):
     """The lse forward and the backward kernels at the training attention
     sites (and srn128's), through the wrappers: ``flash_attention_lse`` on
     inputs that require grad, ``backward`` through it with the lse
@@ -798,7 +844,8 @@ def phase_attention_backward(attn_sites, accum):
         flash_attention, flash_attention_lse)
 
     extra = [(16, 1024, 1024, 4, 128), (16, 256, 256, 4, 256)]  # srn128
-    shapes = sorted(attn_sites) + extra
+    wide = WIDE_ATTN if extra_shapes else []
+    shapes = sorted(attn_sites) + (extra if extra_shapes else [])
     worst, checked = 0.0, 0
     rows = {"lse": {"max_abs_err": 0.0}, "dkdv": {"max_abs_err": 0.0},
             "dq": {"max_abs_err": 0.0}}
@@ -808,17 +855,19 @@ def phase_attention_backward(attn_sites, accum):
         return (flash_attention.launches, attention_backward_dkdv.launches,
                 attention_backward_dq.launches)
 
-    for si, shape in enumerate(shapes + WIDE_ATTN):
+    for si, shape in enumerate(shapes + wide):
         B, Lq, Lk, H, D = shape
         count = attn_sites.get(shape, 0) * accum
         for dtype in (torch.float32, torch.bfloat16):
+            nb = (B if dtype == torch.bfloat16 or f32_max_n is None
+                  else min(B, f32_max_n))
             for with_glse in (False, True):
-                q, k, v = attn_inputs(shape, dtype, si)
+                q, k, v = attn_inputs((nb,) + shape[1:], dtype, si)
                 qr, kr, vr = _leaf(q), _leaf(k), _leaf(v)
                 gen = torch.Generator("cuda").manual_seed(200 + si)
-                do = torch.randn(B, Lq, H, D, generator=gen,
+                do = torch.randn(nb, Lq, H, D, generator=gen,
                                  device="cuda").to(dtype)
-                gl = (torch.randn(B, Lq, H, generator=gen, device="cuda")
+                gl = (torch.randn(nb, Lq, H, generator=gen, device="cuda")
                       if with_glse else None)           # [B, L, H]
                 n0 = launches()
                 o, lse = flash_attention_lse(qr, kr, vr)
@@ -919,10 +968,11 @@ def phase_attention_backward(attn_sites, accum):
                       "bwd_library_backend": backend_b,
                       "bf16_errs": errs})
     rows = {k: _finish(v) for k, v in rows.items()}
-    emit({"phase": "attention_backward", "checked": checked,
+    emit({"phase": phase, "checked": checked,
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "o f32 1e-5 / bf16 2^-7; lse 1e-5; dq/dk/dv f32 "
                        "1e-4 / bf16 2^-7, each *(1+max|ref|)",
+          "f32_checked_batch_heads": f32_max_n or "all",
           "sites": sites, "per_train_step": rows,
           "note": "plain_ms and library_ms of dkdv and dq are the whole "
                   "backward (dq, dk, dv together)"})
@@ -953,16 +1003,14 @@ def orbit_views(n_views: int, H: int, seed: int):
             "T": np.stack(Ts).astype(np.float32), "K": K}
 
 
-def srn64_model():
-    """The srn64 full-width X-UNet, bf16, every weight random from a seed
+def random_model(cfg):
+    """The X-UNet of ``cfg`` on the card, every weight random from a seed
     (the zero-initialised convs and the GroupNorm affines too)."""
     import torch
 
-    from diff3d_tpu_torch.config import srn64_config
     from diff3d_tpu_torch.models import build_model
     from diff3d_tpu_torch.models.layers import FrameGroupNorm
 
-    cfg = srn64_config()
     model = build_model(cfg.model, "cuda", seed=0, randomize_zero_init=True)
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -971,7 +1019,15 @@ def srn64_model():
                 C = m.weight.shape[0]
                 m.weight.copy_(1.0 + 0.1 * torch.randn(C, generator=g))
                 m.bias.copy_(0.1 * torch.randn(C, generator=g))
-    return cfg, model
+    return model
+
+
+def srn64_model():
+    """The srn64 full-width X-UNet, bf16, seeded random weights."""
+    from diff3d_tpu_torch.config import srn64_config
+
+    cfg = srn64_config()
+    return cfg, random_model(cfg)
 
 
 def model_batch(cfg, B: int, seed: int):
@@ -997,7 +1053,8 @@ def model_batch(cfg, B: int, seed: int):
     return batch, cond_mask
 
 
-def phase_model(cfg, model, batch, cond_mask):
+def phase_model(cfg, model, batch, cond_mask, config="srn64",
+                phase="model"):
     import torch
 
     from diff3d_tpu_torch.models.layers import set_kernels
@@ -1020,15 +1077,15 @@ def phase_model(cfg, model, batch, cond_mask):
     err = float((out - ref).abs().max())
     rel = float((out - ref).norm() / ref.norm())
     if not rel <= 3e-2:
-        raise AssertionError(f"model: kernel path vs plain path relative "
+        raise AssertionError(f"{phase}: kernel path vs plain path relative "
                              f"L2 error {rel} > 3e-2")
-    emit({"phase": "model", "config": "srn64", "batch": int(out.shape[0]),
-          "max_abs_err": err, "rel_l2_err": rel,
-          "max_abs_ref": float(ref.abs().max()), "tolerance": "rel L2 3e-2",
-          "ms_per_forward": round(ms, 3),
-          "plain_ms_per_forward": round(plain_ms, 3),
-          "launches_per_forward": launches})
-    return launches
+    out = {"phase": phase, "config": config, "batch": int(out.shape[0]),
+           "max_abs_err": err, "rel_l2_err": rel,
+           "max_abs_ref": float(ref.abs().max()), "tolerance": "rel L2 3e-2",
+           "ms_per_forward": round(ms, 3),
+           "plain_ms_per_forward": round(plain_ms, 3),
+           "launches_per_forward": launches}
+    return out
 
 
 def phase_sampler(cfg, model):
@@ -1245,16 +1302,20 @@ def _graph_summary(graphs):
              "capture_s": round(g.capture_s, 3)} for g in graphs]
 
 
-def train_batch(cfg, B: int, step: int):
+def train_batch(cfg, B: int, step: int, scenes: bool = False):
     """Global batch ``step`` of the port's loader over the synthetic
-    dataset at the model's resolution, on the card."""
+    dataset (or, with ``scenes``, the ray-traced scenes) at the model's
+    resolution, on the card."""
     import torch
 
-    from diff3d_tpu_torch.data import InfiniteLoader, SyntheticDataset
+    from diff3d_tpu_torch.data import (InfiniteLoader, SyntheticDataset,
+                                       SyntheticScenesDataset)
 
-    loader = InfiniteLoader(SyntheticDataset(num_objects=64, num_views=32,
-                                             imgsize=cfg.model.H), B,
-                            num_workers=0)
+    ds = (SyntheticScenesDataset(num_objects=8, num_views=24,
+                                 imgsize=cfg.model.H) if scenes else
+          SyntheticDataset(num_objects=64, num_views=32,
+                           imgsize=cfg.model.H))
+    loader = InfiniteLoader(ds, B, num_workers=0)
     return {k: torch.from_numpy(v).cuda() for k, v in
             loader.batch(step).items()}
 
@@ -1508,22 +1569,651 @@ def phase_train(accum):
     if differ or not same_metrics:
         raise AssertionError(f"train: the resumed step differs "
                              f"({len(differ)} tensors, e.g. {differ[:3]})")
-    shutil.rmtree(WORKDIR, ignore_errors=True)
+    return out      # WORKDIR's checkpoints stay for the eval phase
+
+
+# ---- srn128: the paper's configuration, every UNet block rematerialised --
+
+SRN128_WORKDIR = WORKDIR + "_srn128"
+SRN128_SMALL_BATCH = 4          # remat against no remat: fits without remat
+SRN128_STEPS = 4                # Trainer steps per remat policy
+SRN128_SAMPLE_STEPS = 32        # sample_cli's schedule on the trained model
+HEADROOM_BYTES = 8 * 2 ** 30    # what --accum must leave free of the card
+GRAPH_MARGIN = 2 * 2 ** 30      # the prediction's allowance for the CUDA
+                                # graphs' private pool
+
+
+def srn128_ptxas(ptxas, gn_sites):
+    """Registers and spill bytes of every kernel instance the srn128 path
+    launches: the bf16 GroupNorm forward / backward instances of its site
+    variants, the parameter pass, and the bf16 tensor-core attention
+    kernels at D = 128 and 256 with their delta pre-pass."""
+    variants = {(film, silu) for (_, _, _, _, film, silu) in gn_sites}
+    want = {f"gn_{d}_cluster_kernel<__nv_bfloat16, 8, {str(f).lower()}, "
+            f"{str(si).lower()}>" for d in ("fwd", "bwd")
+            for f, si in variants}
+    want |= {"gn_bwd_param_kernel", "flash_bwd_delta_kernel<__nv_bfloat16>"}
+    want |= {f"flash_{k}_mma_kernel<{dp}>" for k in ("fwd", "bwd_dkdv",
+                                                      "bwd_dq")
+             for dp in (128, 256)}
+    out = {}
+    for src in ("film", "attention"):
+        for name, (regs, ss, sl) in ptxas.get(src, {}).items():
+            if name in want:
+                out[name] = {"registers": regs, "spill_stores": ss,
+                             "spill_loads": sl}
+    missing = sorted(want - set(out)) if ptxas.get("film") else []
+    return out, missing
+
+
+def phase_srn128_model(ptxas):
+    """The srn128 X-UNet (bf16, seeded random weights) at 2B = 16: kernel
+    path against plain path at the srn64 limit, ms and launches per
+    forward, and the ptxas registers / spills of its kernel instances
+    (reported, not gated)."""
+    from diff3d_tpu_torch.config import srn128_config
+
+    cfg = srn128_config()
+    model = random_model(cfg)
+    batch, cond_mask = model_batch(
+        cfg, 2 * len(cfg.diffusion.guidance_weights), seed=21)
+    out = phase_model(cfg, model, batch, cond_mask, config="srn128",
+                      phase="srn128_model")
+    gn_sites, _ = record_sites(model, batch, cond_mask)
+    out["ptxas"], out["ptxas_missing"] = srn128_ptxas(ptxas, gn_sites)
+    out["spilling"] = sorted(k for k, v in out["ptxas"].items()
+                             if v["spill_stores"] or v["spill_loads"])
+    emit(out)
+    return cfg, model
+
+
+def phase_srn128_sampler(cfg, model):
+    """One srn128 view (256 ancestral steps, w = 0..7) from
+    ``Sampler.synthesize`` on the graph path: the srn128 sampling path,
+    counts set to 0 just before and read after.  Then one view at 16
+    steps through the graph path and the eager path from one seed,
+    bit-identical."""
+    import torch
+
+    from diff3d_tpu_torch.sampling import Sampler
+
+    views = orbit_views(3, cfg.model.H, seed=22)
+    sampler = Sampler(model, cfg, device="cuda")
+    if not sampler.cuda_graphs:
+        raise AssertionError("srn128_sampler: the card's path is not the "
+                             "graph")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    outs = sampler.synthesize(views, torch.Generator("cuda").manual_seed(0),
+                              max_views=2)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eager = {k: v for k, v in _launch_counts().items()
+             if k in ("fused_groupnorm", "flash_attention")}
+    ran = _launch_counts(graphs=sampler.graphs.values())
+    launches = {k: ran[k] for k in eager}
+    graphs = list(sampler.graphs.values())
+    B = len(cfg.diffusion.guidance_weights)
+    if outs.shape != (1, B, cfg.model.H, cfg.model.W, 3) \
+            or not np.isfinite(outs).all():
+        raise AssertionError(f"srn128_sampler: output {outs.shape}, finite "
+                             f"{np.isfinite(outs).all()}")
+    if not graphs or any(g.captured.get(k, 0) == 0 or g.replays == 0
+                         for g in graphs for k in launches):
+        raise AssertionError(f"srn128_sampler: the graph path did not run "
+                             f"both kernels: {_graph_summary(graphs)}")
+    steps = sampler.model_calls_per_view
+    del sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bits = {}
+    for graph in (False, True):
+        s16 = Sampler(model, cfg, device="cuda", steps=16, cuda_graphs=graph)
+        bits[graph] = s16.synthesize(views,
+                                     torch.Generator("cuda").manual_seed(1),
+                                     max_views=2)
+        del s16
+    identical = np.array_equal(bits[True], bits[False])
+    out = {"config": "srn128", "views_generated": 1, "steps_per_view": steps,
+           "guidance_weights": B, "seconds": round(seconds, 3),
+           "s_per_view": round(seconds, 4),
+           "ms_per_denoise_step": round(1e3 * seconds / steps, 3),
+           "max_memory_allocated": peak,
+           "out_abs_max": float(np.abs(outs).max()),
+           "launches": launches, "eager_launches": eager,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "graphs": _graph_summary(graphs),
+           "graph_vs_eager_steps": 16, "graph_vs_eager_bit_identical":
+               identical}
+    emit(dict(phase="srn128_sampler", **out))
+    if not identical:
+        raise AssertionError("srn128_sampler: graph and eager views differ "
+                             f"(rel. L2 {_rel_l2(bits[True], bits[False])})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, steps
+
+
+def _srn128_step(cfg, weights, dtype, remat, policy="nothing"):
+    """One eager srn128 train step at the small batch from ``weights``,
+    dropout 0.1, the step's own (seed, step) generator: ``(loss, grads,
+    peak bytes)``."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import create_train_state, make_train_step
+
+    c = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype=dtype, remat=remat,
+                                       remat_policy=policy),
+        train=dataclasses.replace(cfg.train,
+                                  global_batch=SRN128_SMALL_BATCH,
+                                  accum_steps=1, warmup_examples=1280))
+    model = XUNet(c.model).cuda()
+    model.load_state_dict(weights)
+    state = create_train_state(model.train(), c.train)
+    batch = train_batch(c, SRN128_SMALL_BATCH, 0, scenes=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = make_train_step(c)(state, batch)
+    loss = m["loss"].clone()
+    grads = [p.grad.clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, grads, peak
+
+
+def _srn128_trainer(policy, accum, steps, workdir=SRN128_WORKDIR):
+    """A ``Trainer`` built by ``cli/train_cli.py --config srn128 --remat
+    --remat_policy <policy> --synthetic_scenes`` at global batch 128."""
+    from diff3d_tpu_torch.cli import train_cli
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ["--config", "srn128", "--remat", "--remat_policy", policy,
+            "--synthetic_scenes", "--batch", str(TRAIN_BATCH), "--accum",
+            str(accum), "--steps", str(steps), "--warmup_examples",
+            str(10 * TRAIN_BATCH), "--ckpt_every", str(steps),
+            "--num_workers", "8", "--workdir", workdir]
+    return train_cli.build_trainer(train_cli.build_parser().parse_args(argv))
+
+
+def _run_srn128_trainer(policy, accum, steps, checkpoint):
+    """Run a srn128 Trainer on the graph path: with ``checkpoint`` through
+    ``Trainer.train`` (the main path: counts set to 0 before, read after,
+    a checkpoint at the last step), else through its step function.
+    Returns the phase's record."""
+    import torch
+
+    trainer = _srn128_trainer(policy, accum, steps)
+    inner = trainer.step_fn
+    if not inner.cuda_graphs:
+        raise AssertionError("srn128_train: the card's path is not the graph")
+    rec = []
+
+    def timed(state, batch, draws=None):     # one sync per step
+        m = inner(state, batch, draws)
+        rec.append({"t": time.perf_counter(), "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])})
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    if checkpoint:
+        trainer.step_fn = timed
+        trainer.train()
+    else:
+        for _ in range(steps):
+            timed(trainer.state, next(trainer.loader))
+    eager = _launch_counts()
+    launches = _launch_counts(graphs=inner.graphs)
+    peak = torch.cuda.max_memory_allocated()
+    graphs = _graph_summary(inner.graphs)
+    micro, update = inner.graphs
+    trainer.loader.close()
+    inner.release()
+    del trainer, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = np.diff([t0] + [r["t"] for r in rec])
+    s_per_step = float(np.mean(times[1:]))
+    if len(rec) != steps or not all(math.isfinite(r["loss"])
+                                    and math.isfinite(r["grad_norm"])
+                                    for r in rec):
+        raise AssertionError(f"srn128_train {policy}: steps {rec}")
+    if micro.replays == 0 or update.replays == 0 or any(
+            micro.captured.get(k, 0) == 0 for k in launches):
+        raise AssertionError(f"srn128_train {policy}: the graph path did "
+                             f"not run every kernel: {graphs}")
+    free = torch.cuda.get_device_properties(0).total_memory - peak
+    return {"remat_policy": policy, "headroom_bytes": free,
+            "headroom_ok": free >= HEADROOM_BYTES, "accum_steps": accum,
+            "steps": steps,
+            "first_step_s": float(times[0]), "s_per_step": s_per_step,
+            "examples_per_s": TRAIN_BATCH / s_per_step,
+            "step_s": [float(t) for t in times],
+            "max_memory_allocated": peak,
+            "loss": [r["loss"] for r in rec],
+            "grad_norm": [r["grad_norm"] for r in rec],
+            "launches": launches, "eager_launches": eager,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "graphs": graphs}
+
+
+def graph_trial(policy, accum):
+    """Two srn128 Trainer steps on the graph path (the eager warm-up, the
+    capture, one replay) at ``accum``; prints ``{"peak": bytes}``, or
+    ``{"oom": message}`` when the card runs out of memory.  Runs in its
+    own process (``--srn128-graph-trial``): an out-of-memory error inside
+    a capture would leave the caller's CUDA state unusable."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    trainer = _srn128_trainer(policy, accum, 2,
+                              workdir=SRN128_WORKDIR + "_trial")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(2):
+            trainer.step_fn(trainer.state, next(trainer.loader))
+        torch.cuda.synchronize()
+        out = {"peak": torch.cuda.max_memory_allocated()}
+    except torch.OutOfMemoryError as e:
+        out = {"oom": str(e).splitlines()[0][:200]}
+    finally:
+        trainer.loader.close()
+    print(json.dumps(out), flush=True)
+
+
+def _run_graph_trial(policy, accum):
+    """:func:`graph_trial` in a child process; returns its record."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--srn128-graph-trial",
+         policy, str(accum)], capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    shutil.rmtree(SRN128_WORKDIR + "_trial", ignore_errors=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"srn128_train: graph trial at accum {accum} "
+                             f"failed: {proc.stderr[-2000:]}")
+    return dict(json.loads(lines[-1]), accum_steps=accum)
+
+
+def _pick_accum(peak_small, peak_per_example, budget):
+    """The smallest accum_steps (a divisor of the global batch) whose
+    microbatch's predicted peak stays within ``budget``, with the
+    prediction it was chosen by."""
+    for accum in (1, 2, 4, 8, 16, 32):
+        mb = TRAIN_BATCH // accum
+        pred = peak_small + (mb - SRN128_SMALL_BATCH) * peak_per_example
+        if pred <= budget:
+            return accum, pred
+    raise AssertionError("srn128_train: no accum_steps fits the card")
+
+
+def phase_srn128_train(cfg, model):
+    """Remat against no remat on one srn128 step at the small batch (f32
+    and bf16, dropout 0.1, the same draws): loss and gradients
+    bit-identical, peak memory of each.  Then the ``Trainer`` built by
+    ``train_cli --config srn128 --remat --synthetic_scenes`` at global
+    batch 128 on the graph path, ``--accum`` the smallest whose
+    predicted peak leaves 8 GiB free (predicted from the eager peaks at
+    two batch sizes; under "nothing" then tried on the graph path in a
+    child process, doubled if it does not fit), under "nothing"
+    (``Trainer.train``, the
+    srn128 training path, then a checkpoint) and under "dots" where it
+    fits; then ``sample_cli --config srn128`` on the checkpoint (EMA):
+    finite views."""
+    import torch
+
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    model.cpu()                 # the card holds only what each run makes
+    gc.collect()
+    torch.cuda.empty_cache()
+    compare = {}
+    for dtype in ("float32", "bfloat16"):
+        runs = {}
+        for remat in (False, True):
+            torch.backends.cudnn.deterministic = True
+            runs[remat] = _srn128_step(cfg, weights, dtype, remat)
+        (l0, g0, p0), (l1, g1, p1) = runs[False], runs[True]
+        differ = sum(not torch.equal(a, b) for a, b in zip(g0, g1))
+        compare[dtype] = {"loss_no_remat": float(l0),
+                          "loss_remat": float(l1),
+                          "loss_bit_identical": bool(torch.equal(l0, l1)),
+                          "grads_differing": differ,
+                          "grads_compared": len(g0),
+                          "peak_no_remat": p0, "peak_remat": p1}
+        del runs, g0, g1
+        gc.collect()
+    # Peak of a bf16 Trainer step (parameters, gradients, Adam's moments
+    # and the EMA resident) under each policy at two batches: its
+    # per-example slope predicts the microbatch that fits.
+    per_example = {}
+    for policy in ("nothing", "dots"):
+        pk = {b: _srn128_probe(cfg, weights, policy, b)
+              for b in (SRN128_SMALL_BATCH, 4 * SRN128_SMALL_BATCH)}
+        per_example[policy] = (
+            pk[SRN128_SMALL_BATCH],
+            (pk[4 * SRN128_SMALL_BATCH] - pk[SRN128_SMALL_BATCH])
+            / (3 * SRN128_SMALL_BATCH))
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = torch.cuda.get_device_properties(0).total_memory \
+        - HEADROOM_BYTES
+    chosen = {}
+    for policy, (p_small, p_ex) in per_example.items():
+        accum, pred = _pick_accum(p_small, p_ex, budget - GRAPH_MARGIN)
+        chosen[policy] = {
+            "peak_at_small_batch": p_small, "peak_per_example": p_ex,
+            "accum_steps": accum, "predicted_peak": pred,
+            "predicted_peak_at_half_accum": (
+                None if accum == 1 else
+                p_small + (2 * TRAIN_BATCH // accum - SRN128_SMALL_BATCH)
+                * p_ex)}
+    emit({"phase": "srn128_train_plan", "remat_vs_no_remat": compare,
+          "small_batch": SRN128_SMALL_BATCH, "memory_budget": budget,
+          "graph_margin": GRAPH_MARGIN, "chosen": chosen,
+          "tolerance": "bit-identical (cuDNN deterministic)"})
+    for dtype, c in compare.items():
+        if not c["loss_bit_identical"] or c["grads_differing"]:
+            raise AssertionError(f"srn128_train: remat vs no remat differ in "
+                                 f"{dtype}: {c}")
+    # The predicted peak is the eager step's; the graph's capture needs
+    # more (its private pool cannot be trimmed while capturing), so the
+    # predicted accum is tried on the graph path in a child process, and
+    # doubled if it runs out of memory there or leaves < 8 GiB free.
+    total = torch.cuda.get_device_properties(0).total_memory
+    trial = _run_graph_trial("nothing", chosen["nothing"]["accum_steps"])
+    chosen["nothing"]["graph_trial"] = trial
+    if "peak" not in trial or total - trial["peak"] < HEADROOM_BYTES:
+        chosen["nothing"]["accum_steps"] *= 2
+    emit({"phase": "srn128_train_accum", "chosen": chosen})
+    runs = {"nothing": _run_srn128_trainer(
+        "nothing", chosen["nothing"]["accum_steps"], SRN128_STEPS, True)}
+    if not runs["nothing"]["headroom_ok"]:
+        raise AssertionError(f"srn128_train: peak "
+                             f"{runs['nothing']['max_memory_allocated']} "
+                             "leaves less than 8 GiB of the card")
+    sampled = _srn128_sample_cli()
+    runs["dots"] = _run_srn128_trainer(
+        "dots", chosen["dots"]["accum_steps"], SRN128_STEPS, False)
+    shutil.rmtree(SRN128_WORKDIR, ignore_errors=True)
+    out = {"config": "srn128", "global_batch": TRAIN_BATCH, "runs": runs,
+           "sample_cli": sampled}
+    emit(dict(phase="srn128_train", **out))
+    return runs["nothing"]
+
+
+def _srn128_probe(cfg, weights, policy, batch_size):
+    """Peak bytes of an eager bf16 srn128 train step at ``batch_size``
+    under ``policy``: the second step of a fresh state, so Adam's moments
+    exist beside the parameters, their gradients and the EMA, as in the
+    Trainer."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import create_train_state, make_train_step
+
+    c = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, remat=True,
+                                       remat_policy=policy),
+        train=dataclasses.replace(cfg.train, global_batch=batch_size,
+                                  accum_steps=1, warmup_examples=1280))
+    model = XUNet(c.model).cuda()
+    model.load_state_dict(weights)
+    state = create_train_state(model.train(), c.train)
+    batch = train_batch(c, batch_size, 0, scenes=True)
+    step = make_train_step(c)
+    step(state, batch)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def write_srn_object(root, views):
+    """``views`` as an SRN object directory (``rgb/`` pngs, ``pose/`` flat
+    4x4 world-from-camera, ``intrinsics/`` flat K): ``sample_cli
+    --target``."""
+    from PIL import Image
+
+    from diff3d_tpu_torch.sampling.runtime import to_uint8
+
+    for sub in ("rgb", "pose", "intrinsics"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for v in range(views["imgs"].shape[0]):
+        name = f"{v:06d}"
+        Image.fromarray(to_uint8(views["imgs"][v])).save(
+            os.path.join(root, "rgb", name + ".png"))
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = views["R"][v], views["T"][v]
+        np.savetxt(os.path.join(root, "pose", name + ".txt"),
+                   pose.reshape(1, 16))
+        np.savetxt(os.path.join(root, "intrinsics", name + ".txt"),
+                   np.asarray(views["K"], np.float64).reshape(1, 9))
+    return root
+
+
+def _srn128_sample_cli():
+    """``sample_cli --config srn128`` on the srn128 Trainer's checkpoint
+    (its EMA weights), one view of a synthetic scene on a
+    ``SRN128_SAMPLE_STEPS``-step schedule: finite views (the sampler's
+    return value, read through a wrapper), PNGs written."""
+    import torch
+
+    from diff3d_tpu_torch.cli import sample_cli
+    from diff3d_tpu_torch.data import SyntheticScenesDataset
+    from diff3d_tpu_torch.sampling import Sampler
+
+    obj = write_srn_object(os.path.join(SRN128_WORKDIR, "object"),
+                           SyntheticScenesDataset(
+                               num_objects=1, num_views=3,
+                               imgsize=128, seed=1).all_views(0))
+    out_dir = os.path.join(SRN128_WORKDIR, "sampling")
+    got = []
+    real = Sampler.synthesize
+
+    def keep(self, *a, **k):
+        got.append(real(self, *a, **k))
+        return got[-1]
+
+    Sampler.synthesize = keep
+    t0 = time.perf_counter()
+    try:
+        sample_cli.main(["--config", "srn128", "--model",
+                         os.path.join(SRN128_WORKDIR, "checkpoints"),
+                         "--target", obj, "--out", out_dir, "--max_views",
+                         "2", "--steps", str(SRN128_SAMPLE_STEPS)])
+    finally:
+        Sampler.synthesize = real
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    pngs = sorted(os.listdir(os.path.join(out_dir, "1")))
+    if len(got) != 1 or got[0].shape[:2] != (1, 8) \
+            or not np.isfinite(got[0]).all() or len(pngs) != 9:
+        raise AssertionError(f"srn128 sample_cli: outputs {len(got)}, "
+                             f"pngs {pngs}")
+    return {"steps": SRN128_SAMPLE_STEPS, "seconds": round(seconds, 3),
+            "views": int(got[0].shape[0]), "finite": True,
+            "out_abs_max": float(np.abs(got[0]).max()), "pngs": len(pngs)}
+
+
+def meta_sites(cfg, B: int):
+    """``record_sites`` of ``cfg``'s X-UNet at batch ``B`` on the meta
+    device: the shapes without memory or kernels."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+
+    with torch.device("meta"):
+        model = XUNet(cfg.model).eval()
+    H = cfg.model.H
+    shapes = dict(x=(B, H, H, 3), z=(B, H, H, 3), logsnr=(B, 2),
+                  R=(B, 2, 3, 3), t=(B, 2, 3), K=(B, 3, 3))
+    batch = {k: torch.zeros(v, device="meta") for k, v in shapes.items()}
+    return record_sites(model, batch,
+                        torch.zeros(B, dtype=torch.bool, device="meta"))
+
+
+def phase_srn128_sites(cfg, accum, train_launches_per_step):
+    """Every GroupNorm and attention site of a srn128 sampler step (2B =
+    16) and of one srn128 training microbatch (128 / accum): each kernel
+    against its plain version at the srn64 tolerances (f32 on the first
+    16 samples of a training site, bf16 on all), the forward's cluster
+    plans fit the card (the backward's launch), and per site and per step
+    the kernel's time, bound, plain version and library call.  The train
+    step's forward rows are scaled by the forward launches per site that
+    the rematerialised srn128 Trainer ran (its recompute runs every
+    block's forward again)."""
+    sample_gn, sample_attn = meta_sites(
+        cfg, 2 * len(cfg.diffusion.guidance_weights))
+    mb = TRAIN_BATCH // accum
+    train_gn, train_attn = meta_sites(cfg, mb)
+    gn = phase_groupnorm(sample_gn, phase="srn128_groupnorm",
+                         odd_shapes=False)
+    attn = phase_attention(sample_attn, phase="srn128_attention",
+                           extra_shapes=False)
+    gn_fwd, gn_bwd = phase_groupnorm_backward(
+        train_gn, accum, phase="srn128_groupnorm_backward", edges=False,
+        f32_max_n=16)
+    attn_rows = phase_attention_backward(
+        train_attn, accum, phase="srn128_attention_backward",
+        extra_shapes=False, f32_max_n=16)
+    factor = {
+        "fused_groupnorm": train_launches_per_step["fused_groupnorm"]
+        / (accum * sum(train_gn.values())),
+        "flash_attention": train_launches_per_step["flash_attention"]
+        / (accum * sum(train_attn.values()))}
+    for row, f in ((gn_fwd, factor["fused_groupnorm"]),
+                   (attn_rows["lse"], factor["flash_attention"])):
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            row[k] *= f
+        row["remat_forward_factor"] = f
+    emit({"phase": "srn128_sites",
+          "sampler_sites": {"groupnorm": sum(sample_gn.values()),
+                            "attention": sum(sample_attn.values())},
+          "train_microbatch": mb, "accum_steps": accum,
+          "train_sites": {"groupnorm": sum(train_gn.values()),
+                          "attention": sum(train_attn.values())},
+          "per_sampler_step": {"fused_groupnorm": gn,
+                               "flash_attention": attn},
+          "per_train_step": {"fused_groupnorm[save_stats]": gn_fwd,
+                             "groupnorm_backward": gn_bwd,
+                             **{f"attention[{k}]": v
+                                for k, v in attn_rows.items()}},
+          "remat_forward_factor": factor,
+          "note": "forward rows of the train step count each site "
+                  "remat_forward_factor times (the recompute)"})
+    return gn, attn, gn_fwd, gn_bwd, attn_rows
+
+
+def phase_eval():
+    """``cli/eval_cli.py`` on the srn64 train phase's checkpoint (EMA) on
+    synthetic scenes: 2 objects, 3 views, DDIM at 32 steps, one
+    guidance-selection object, a matched-seed oracle object and a 4-frame
+    orbit; finite metrics per w, the parity and orbit fields; s per
+    object.  Then the same command again: no object re-synthesised, the
+    same JSON line."""
+    import contextlib
+    import io
+
+    import torch
+
+    from diff3d_tpu_torch.cli import eval_cli
+
+    out = os.path.join(WORKDIR, "eval.jsonl")
+    argv = ["--model", os.path.join(WORKDIR, "checkpoints"), "--config",
+            "srn64", "--synthetic_scenes", "--objects", "2", "--max_views",
+            "3", "--sampler", "ddim", "--sampler_steps", "32", "--w_select",
+            "1", "--parity_objects", "1", "--orbit", "4", "--out", out]
+    lines, seconds, stamps = [], [], []
+    objdir = out + ".objdir"
+    for _ in range(2):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eval_cli.main(argv)
+        seconds.append(time.perf_counter() - t0)
+        lines.append(buf.getvalue().strip().splitlines()[-1])
+        stamps.append({f: os.path.getmtime(os.path.join(objdir, f))
+                       for f in sorted(os.listdir(objdir))
+                       if f.endswith(".npz")})
+    rec = json.loads(lines[0])
+    progress = open(os.path.join(objdir, "progress.jsonl")).read()
+    n_objects = len(rec["per_object"]) + len(rec["w_select_objects"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    finite = all(math.isfinite(rec[k]) for k in ("psnr", "ssim",
+                                                  "fid_randfeat"))
+    finite &= all(math.isfinite(v) for v in rec["psnr_per_w"])
+    fields = ("sampler_parity" in rec and "orbit_consistency" in rec
+              and rec["orbit_consistency"]["frames"] == 4)
+    out = {"config": "srn64", "checkpoint_step": rec["checkpoint_step"],
+           "objects": rec["objects"], "views": rec["views"],
+           "psnr": rec["psnr"], "ssim": rec["ssim"],
+           "fid_randfeat": rec["fid_randfeat"],
+           "psnr_per_w": rec["psnr_per_w"], "w_selected": rec["w_selected"],
+           "sampler_parity": rec["sampler_parity"],
+           "orbit_consistency_l1": rec["orbit_consistency"]["consistency_l1"],
+           "orbit_consistency_psnr":
+               rec["orbit_consistency"]["consistency_psnr"],
+           "seconds": [round(t, 3) for t in seconds],
+           "s_per_object_first_run": round(seconds[0] / n_objects, 3),
+           "objects_synthesised": len(progress.splitlines()),
+           "records_rewritten_by_rerun": stamps[0] != stamps[1],
+           "rerun_line_identical": lines[0] == lines[1],
+           "finite": finite, "parity_and_orbit_fields": fields}
+    emit(dict(phase="eval", **out))
+    if not (finite and fields and lines[0] == lines[1]
+            and stamps[0] == stamps[1]
+            and len(progress.splitlines()) == n_objects):
+        raise AssertionError(f"eval: {out}")
     return out
+
+
+def kernel_entries(rows, design):
+    """The ``kernels`` line's entries: ``rows`` of ``(name, source,
+    replaces, launches, stats, per)``."""
+    return [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": n,
+        "max_abs_err": stats["max_abs_err"],
+        "ms": stats["ms"], "plain_ms": stats["plain_ms"],
+        "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
+        "library_ms": stats["library_ms"], "per": per,
+        "launches_counted": "eager launches + captured x replays of "
+                            "the path's CUDA graphs",
+        "design": design[name.split("@")[0]]}
+        for name, source, replaces, n, stats, per in rows]
 
 
 def main() -> None:
     import torch
 
     phase_device()
-    phase_build()
+    ptxas = phase_build()
     cfg, model = srn64_model()
     batch, cond_mask = model_batch(cfg, 2 * len(cfg.diffusion.guidance_weights),
                                    seed=5)
     gn_sites, attn_sites = record_sites(model, batch, cond_mask)
     gn = phase_groupnorm(gn_sites)
     attn = phase_attention(attn_sites)
-    phase_model(cfg, model, batch, cond_mask)
+    emit(phase_model(cfg, model, batch, cond_mask))
     launches, steps = phase_sampler(cfg, model)
     phase_sampler_graph(cfg, model)
     phase_sampler_many(cfg, model)
@@ -1542,12 +2232,37 @@ def main() -> None:
     phase_train_graph(TRAIN_ACCUM)
     train = phase_train(TRAIN_ACCUM)
     tl = train["launches"]
+    phase_eval()
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+
+    # srn128: the model, its sampling path, its training path (the
+    # Trainer's run decides accum_steps), then its kernel sites.
+    cfg128, model128 = phase_srn128_model(ptxas)
+    l128, _ = phase_srn128_sampler(cfg128, model128)
+    t128 = phase_srn128_train(cfg128, model128)
+    del model128
+    gc.collect()
+    torch.cuda.empty_cache()
+    accum128 = t128["accum_steps"]
+    gn128, attn128, gn_fwd128, gn_bwd128, attn128_rows = phase_srn128_sites(
+        cfg128, accum128, t128["launches_per_step"])
+    tl128 = t128["launches"]
 
     film, att = ("diff3d_tpu_torch/ops/csrc/film.cu",
                  "diff3d_tpu_torch/ops/csrc/attention.cu")
+    gn_fwd_at, gn_bwd_at = ("diff3d_tpu/ops/pallas_film.py:277",
+                            "diff3d_tpu/ops/pallas_film.py:414")
+    fa_at, dkdv_at, dq_at = ("diff3d_tpu/ops/pallas_attention.py:185",
+                             "diff3d_tpu/ops/pallas_attention.py:287",
+                             "diff3d_tpu/ops/pallas_attention.py:306")
     sample_per = "one denoise step (2B=16) at srn64, summed over sites"
     train_per = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                  f"{TRAIN_ACCUM}) at srn64, summed over sites")
+    sample128 = "one denoise step (2B=16) at srn128, summed over sites"
+    train128 = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
+                f"{accum128}, remat 'nothing': the forward kernels run "
+                "again in each block's recompute) at srn128, summed over "
+                "sites")
     cluster = "one thread-block cluster per sample, DSMEM exchange"
     design = {"fused_groupnorm": cluster,
               "fused_groupnorm[save_stats]": cluster,
@@ -1556,38 +2271,36 @@ def main() -> None:
               "attention_backward_dkdv": "mma.sync bf16",
               "attention_backward_dq": "mma.sync bf16",
               "groupnorm_backward": cluster}
-    kernels = []
-    for name, source, replaces, n, stats, per in (
-            ("fused_groupnorm", film, "diff3d_tpu/ops/pallas_film.py:277",
-             launches["fused_groupnorm"], gn, sample_per),
-            ("fused_groupnorm[save_stats]", film,
-             "diff3d_tpu/ops/pallas_film.py:277", tl["fused_groupnorm"],
-             gn_fwd, train_per),
-            ("groupnorm_backward", film,
-             "diff3d_tpu/ops/pallas_film.py:414", tl["groupnorm_backward"],
-             gn_bwd, train_per),
-            ("flash_attention", att,
-             "diff3d_tpu/ops/pallas_attention.py:185",
-             launches["flash_attention"], attn, sample_per),
-            ("flash_attention[save_lse]", att,
-             "diff3d_tpu/ops/pallas_attention.py:185",
-             tl["flash_attention"], attn_rows["lse"], train_per),
-            ("attention_backward_dkdv", att,
-             "diff3d_tpu/ops/pallas_attention.py:287",
-             tl["attention_backward_dkdv"], attn_rows["dkdv"], train_per),
-            ("attention_backward_dq", att,
-             "diff3d_tpu/ops/pallas_attention.py:306",
-             tl["attention_backward_dq"], attn_rows["dq"], train_per)):
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
-            "max_abs_err": stats["max_abs_err"],
-            "ms": stats["ms"], "plain_ms": stats["plain_ms"],
-            "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
-            "library_ms": stats["library_ms"], "per": per,
-            "launches_counted": "eager launches + captured x replays of "
-                                "the path's CUDA graphs",
-            "design": design.get(name, "cuda cores")})
+    kernels = kernel_entries([
+        ("fused_groupnorm", film, gn_fwd_at, launches["fused_groupnorm"], gn,
+         sample_per),
+        ("fused_groupnorm[save_stats]", film, gn_fwd_at,
+         tl["fused_groupnorm"], gn_fwd, train_per),
+        ("groupnorm_backward", film, gn_bwd_at, tl["groupnorm_backward"],
+         gn_bwd, train_per),
+        ("flash_attention", att, fa_at, launches["flash_attention"], attn,
+         sample_per),
+        ("flash_attention[save_lse]", att, fa_at, tl["flash_attention"],
+         attn_rows["lse"], train_per),
+        ("attention_backward_dkdv", att, dkdv_at,
+         tl["attention_backward_dkdv"], attn_rows["dkdv"], train_per),
+        ("attention_backward_dq", att, dq_at, tl["attention_backward_dq"],
+         attn_rows["dq"], train_per),
+        ("fused_groupnorm@srn128", film, gn_fwd_at,
+         l128["fused_groupnorm"], gn128, sample128),
+        ("fused_groupnorm[save_stats]@srn128", film, gn_fwd_at,
+         tl128["fused_groupnorm"], gn_fwd128, train128),
+        ("groupnorm_backward@srn128", film, gn_bwd_at,
+         tl128["groupnorm_backward"], gn_bwd128, train128),
+        ("flash_attention@srn128", att, fa_at, l128["flash_attention"],
+         attn128, sample128),
+        ("flash_attention[save_lse]@srn128", att, fa_at,
+         tl128["flash_attention"], attn128_rows["lse"], train128),
+        ("attention_backward_dkdv@srn128", att, dkdv_at,
+         tl128["attention_backward_dkdv"], attn128_rows["dkdv"], train128),
+        ("attention_backward_dq@srn128", att, dq_at,
+         tl128["attention_backward_dq"], attn128_rows["dq"], train128)],
+        design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1595,4 +2308,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--srn128-graph-trial"]:
+        graph_trial(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

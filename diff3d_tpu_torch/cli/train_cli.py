@@ -3,7 +3,9 @@
 The flags this slice of the port acts on: ``--config``, ``--batch``,
 ``--steps``, ``--accum``, ``--workdir``, ``--transfer`` (resume from the
 latest checkpoint, the data stream seeked to its step), ``--train_data``
-/ ``--picklefile`` (SRN) or ``--synthetic`` (the procedural dataset),
+/ ``--picklefile`` (SRN), ``--synthetic`` (the procedural dataset) or
+``--synthetic_scenes`` / ``--scene_objects`` (ray-traced sphere scenes),
+``--remat`` / ``--remat_policy`` (rematerialised UNet blocks),
 ``--num_workers``, ``--warmup_examples``, ``--ema_halflife_examples``,
 ``--ckpt_every``, the model widths (``--ch``, ``--emb_ch``,
 ``--num_res_blocks``, ``--imgsize``, as ``sample_cli`` takes them),
@@ -17,6 +19,9 @@ Usage:
         --warmup_examples 1280 --workdir runs/port_train
     python -m diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
         --synthetic --steps 2 --workdir /tmp/port_train
+    python -m diff3d_tpu_torch.cli.train_cli --config srn128 --accum 4 \\
+        --synthetic_scenes --steps 10 --warmup_examples 1280 \\
+        --workdir runs/port_train128
 """
 
 from __future__ import annotations
@@ -35,8 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not in this slice of the port (see ROADMAP.md): --val_data, "
                "--param_sharding, --model_parallel, --context_parallel, "
-               "--remat, --remat_policy, --attn_impl, --pallas, "
-               "--synthetic_scenes, --scene_objects, --eval_every, "
+               "--attn_impl, --pallas, --eval_every, "
                "--init_from, --init_res, --ckpt_mode, --ckpt_async, "
                "--elastic, --elastic_max_remesh.")
     p.add_argument("--transfer", action="store_true",
@@ -56,6 +60,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", default=".")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the procedural dataset (no SRN data)")
+    p.add_argument("--synthetic_scenes", action="store_true",
+                   help="train on the ray-traced sphere-scene dataset (a "
+                        "true 3D novel-view task at toy scale)")
+    p.add_argument("--scene_objects", type=int, default=64,
+                   help="number of training scenes for --synthetic_scenes")
+    p.add_argument("--remat", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="rematerialise UNet blocks in the backward pass "
+                        "(default from the config: on for srn128)")
+    p.add_argument("--remat_policy", choices=["nothing", "dots"],
+                   default=None,
+                   help="what a rematerialised block keeps: its input "
+                        "only, or also every conv / matmul output")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--warmup_examples", type=int, default=None,
                    help="linear lr warmup span in examples (default: 10M; "
@@ -89,6 +106,12 @@ def config_from_args(args):
     if over:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **over))
+    model_over = {k: v for k, v in (("remat", args.remat),
+                                    ("remat_policy", args.remat_policy))
+                  if v is not None}
+    if model_over:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, **model_over))
     return apply_model_width_overrides(cfg, args)
 
 
@@ -98,10 +121,15 @@ def build_trainer(args):
     import torch
 
     from diff3d_tpu_torch.data import (InfiniteLoader, SRNDataset,
-                                       SyntheticDataset, prefetch_to_device)
+                                       SyntheticDataset,
+                                       SyntheticScenesDataset,
+                                       prefetch_to_device)
     from diff3d_tpu_torch.device import resolve_device
     from diff3d_tpu_torch.train import Trainer
 
+    if args.synthetic and args.synthetic_scenes:
+        raise SystemExit(
+            "--synthetic and --synthetic_scenes are mutually exclusive")
     cfg = config_from_args(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -109,7 +137,10 @@ def build_trainer(args):
         # own kernels use no float atomics).
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    if args.synthetic:
+    if args.synthetic_scenes:
+        ds = SyntheticScenesDataset(num_objects=args.scene_objects,
+                                    num_views=24, imgsize=cfg.model.H)
+    elif args.synthetic:
         ds = SyntheticDataset(num_objects=64, num_views=32,
                               imgsize=cfg.model.H)
     else:

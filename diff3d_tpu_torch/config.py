@@ -2,9 +2,9 @@
 
 An own copy of the model, diffusion, train and data settings the sampling
 and training slices act on, with the JAX package's values.  Left out until
-a slice acts on them: ``remat`` / ``remat_policy`` (srn128);
-``attn_impl`` / ``attn_impl_levels`` and ``kernels`` (the port runs one
-implementation per device, see :mod:`diff3d_tpu_torch.ops.dispatch`);
+a slice acts on them: ``attn_impl`` / ``attn_impl_levels`` and ``kernels``
+(the port runs one implementation per device, see
+:mod:`diff3d_tpu_torch.ops.dispatch`);
 ``eval_every``, ``ckpt_mode`` / ``ckpt_async``; and the mesh / serving
 sections.
 """
@@ -15,6 +15,8 @@ import dataclasses
 from typing import Sequence
 
 import torch
+
+REMAT_POLICIES = ("nothing", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,11 @@ class ModelConfig:
     use_ref_pose_emb: bool = True
     logsnr_clip: float = 20.0
     dtype: str = "bfloat16"        # compute dtype; params stay float32
+    # Recompute each UNet block in the backward (``torch.utils.checkpoint``)
+    # instead of keeping its activations: 'nothing' keeps only the block's
+    # input, 'dots' also keeps every convolution and matrix-product output.
+    remat: bool = False
+    remat_policy: str = "nothing"  # 'nothing' | 'dots'
 
     @property
     def num_resolutions(self) -> int:
@@ -54,6 +61,10 @@ class ModelConfig:
             raise ValueError(
                 f"H={self.H}, W={self.W} must be divisible by {down} "
                 f"(len(ch_mult)-1 downsamplings)")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy={self.remat_policy!r} not in "
+                f"{REMAT_POLICIES}")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(
                 f"dtype={self.dtype!r} not in ('bfloat16', 'float32')")
@@ -138,8 +149,10 @@ def srn64_config() -> Config:
 
 
 def srn128_config() -> Config:
-    """The paper's full-resolution configuration."""
-    return Config(model=ModelConfig(H=128, W=128, ch=256))
+    """The paper's full-resolution configuration, with every UNet block
+    rematerialised (its activations at global batch 128 do not fit the
+    card otherwise)."""
+    return Config(model=ModelConfig(H=128, W=128, ch=256, remat=True))
 
 
 def test_config(imgsize: int = 16, ch: int = 8,

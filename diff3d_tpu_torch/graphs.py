@@ -20,6 +20,7 @@ is the wrappers' counts plus ``captured x replays`` of every graph
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
@@ -48,6 +49,11 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
             self.graph.register_generator_state(gen)
+        # Garbage of the eager warm-up (the reference cycles of
+        # torch.utils.checkpoint's frames hold a rematerialised step's
+        # activations until a collection) would otherwise stay allocated
+        # beside the graph's pool.
+        gc.collect()
         before = launch_counts()
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, pool=pool):

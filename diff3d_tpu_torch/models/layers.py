@@ -163,20 +163,30 @@ class FiLM(nn.Module):
         return e[..., :self.features], e[..., self.features:]
 
 
+def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """The keep mask of :func:`dropout`: a uniform draw from ``generator``
+    below ``1 - rate``."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    return torch.rand(tuple(shape), generator=generator, device=device) \
+        < 1.0 - rate
+
+
 def dropout(h: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``flax.linen.Dropout``: identity when not training or at rate 0,
-    zeros at rate 1, else ``h / (1 - rate)`` where a uniform draw from
-    ``generator`` is below ``1 - rate`` and 0 elsewhere.  The draw needs
-    an explicit generator (on ``h``'s device)."""
+    zeros at rate 1, else ``h / (1 - rate)`` where ``keep``
+    (:func:`dropout_keep`, drawn here from ``generator`` unless given) is
+    true and 0 elsewhere.  The draw needs an explicit generator (on
+    ``h``'s device)."""
     if not training or rate == 0.0:
         return h
     if rate == 1.0:
         return torch.zeros_like(h)
-    if generator is None:
-        raise ValueError("dropout in training needs a torch.Generator")
-    keep = torch.rand(h.shape, generator=generator, device=h.device) \
-        < 1.0 - rate
+    if keep is None:
+        keep = dropout_keep(h.shape, rate, generator, h.device)
     return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
 
 
@@ -185,7 +195,8 @@ class ResnetBlock(nn.Module):
     ``xunet.py:90-152``): GN -> SiLU -> conv3x3 -> GN -> FiLM -> dropout
     -> conv3x3(zero-init) -> (+ 1x1-projected skip) -> /sqrt(2) ->
     optional up/down resample.  Dropout is active in ``train()`` mode
-    only, drawing from the generator passed to :meth:`forward`."""
+    only, drawing from the generator passed to :meth:`forward` (or taking
+    its keep mask, ``[N, H, W, features]``, as ``keep``)."""
 
     def __init__(self, in_ch: int, features: int, emb_ch: int, *,
                  resample: Optional[str] = None, dropout: float = 0.0,
@@ -193,6 +204,7 @@ class ResnetBlock(nn.Module):
         super().__init__()
         dt = compute_dtype
         self.resample = resample
+        self.features = features
         self.dropout_rate = dropout
         self.FrameGroupNorm_0 = FrameGroupNorm(in_ch, silu=True)
         self.conv1 = Conv(in_ch, features, 3, compute_dtype=dt)
@@ -204,12 +216,12 @@ class ResnetBlock(nn.Module):
                           if in_ch != features else None)
 
     def forward(self, h_in: torch.Tensor, emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.conv1(self.FrameGroupNorm_0(h_in))
         scale, shift = self.FiLM_0(emb)
         h = dropout(self.FrameGroupNorm_1(h, scale, shift),
-                    self.dropout_rate, self.training, generator)
+                    self.dropout_rate, self.training, generator, keep)
         h = self.conv2(h)
         if self.skip_proj is not None:
             h_in = self.skip_proj(h_in)
@@ -289,8 +301,9 @@ class XUNetBlock(nn.Module):
                                              compute_dtype)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, frames: int,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.resnetblock(x, emb, generator)
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.resnetblock(x, emb, generator, keep)
         if self.use_attn:
             h = self.attnblock_cross(self.attnblock_self(h, frames), frames)
         return h

@@ -7,24 +7,111 @@ Forward contract, the JAX package's: a batch dict with ``x [B, H, W, 3]``,
 ``cond_mask [B] bool``; returns the predicted noise of the target frame,
 ``[B, H, W, 3]`` float32.  Parity traps: the up path concatenates
 ``[h, skip]`` in that order, and the head keeps frame 1 only.
+
+With ``cfg.remat`` every ``XUNetBlock`` and resampling ``ResnetBlock``
+is rematerialised in training, the counterpart of ``nn.remat(...,
+policy=...)`` (reference ``xunet.py:56-69``): ``remat_policy="nothing"``
+keeps only the block's input and recomputes the rest in the backward;
+``"dots"`` also keeps every convolution and matrix-product output
+(``jax.checkpoint_policies.dots_saveable``).  The recompute applies the
+same dropout masks as the forward (:func:`remat_call`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from diff3d_tpu_torch.config import ModelConfig
 from diff3d_tpu_torch.device import resolve_device
 from diff3d_tpu_torch.models.conditioning import (POSE_EMB_CH,
                                                   ConditioningProcessor)
 from diff3d_tpu_torch.models.layers import (Conv, Dense, FrameGroupNorm,
-                                            ResnetBlock, XUNetBlock)
+                                            ResnetBlock, XUNetBlock,
+                                            dropout_keep)
 
 FRAMES = 2      # source view + target view
+
+# The ops whose outputs the "dots" policy keeps: every convolution and
+# matrix product (F.linear and the plain attention decompose into these).
+# The kernel wrappers' outputs (``torch.empty`` that a ctypes kernel fills)
+# are recomputed, never kept.
+_DOTS = frozenset({torch.ops.aten.convolution.default,
+                   torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _pack_bits(keep: torch.Tensor) -> torch.Tensor:
+    """A bool mask as uint8 bits (little-endian within each byte); a mask
+    whose size is not a multiple of 8 stays as it is."""
+    if keep.numel() % 8:
+        return keep
+    shifts = torch.arange(8, dtype=torch.uint8, device=keep.device)
+    return (keep.reshape(-1, 8).to(torch.uint8) << shifts).sum(
+        -1, dtype=torch.uint8)
+
+
+def _unpack_bits(bits: torch.Tensor, shape) -> torch.Tensor:
+    if bits.dtype == torch.bool:
+        return bits
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return ((bits[:, None] >> shifts) & 1).bool().reshape(shape)
+
+
+def _draw_dropout(block: nn.Module, h: torch.Tensor,
+                  generator: Optional[torch.Generator]):
+    """``(bits, shape)``: the keep mask ``block`` would draw from
+    ``generator`` in its forward, drawn now (its one random draw, so the
+    generator's sequence is unchanged) and packed to bits; ``(None,
+    None)`` where its dropout does not draw."""
+    res = block.resnetblock if isinstance(block, XUNetBlock) else block
+    rate = res.dropout_rate
+    if not res.training or rate in (0.0, 1.0):
+        return None, None
+    shape = tuple(h.shape[:3]) + (res.features,)
+    return _pack_bits(dropout_keep(shape, rate, generator, h.device)), shape
+
+
+def remat_call(block: nn.Module, policy: str, *args,
+               generator: Optional[torch.Generator] = None):
+    """``block(*args, generator)`` under ``torch.utils.checkpoint``
+    (non-reentrant; the default generators are left alone: the model
+    draws only from ``generator``).
+
+    ``checkpoint(preserve_rng_state=True)`` restores only the default
+    generators, so a block that drew its dropout mask from ``generator``
+    would draw a new one in the recompute.  Its mask is drawn before the
+    block runs instead, in the order the block would draw it, and kept as
+    bits (1/16 of a bf16 activation) for the forward and the recompute;
+    the generator is not drawn from again, so it ends where a run without
+    remat leaves it.  (Snapshotting the generator and replaying its state
+    in the recompute would need ``Generator.clone_state()`` inside the
+    captured backward, which PyTorch refuses during a CUDA graph
+    capture.)"""
+    bits, shape = _draw_dropout(block, args[0], generator)
+
+    def run(*a):
+        *a, b = a
+        keep = None if b is None else _unpack_bits(b, shape)
+        return block(*a, generator, keep)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(run, *args, bits, use_reentrant=False,
+                            preserve_rng_state=False, **kw)
 
 
 class XUNet(nn.Module):
@@ -87,7 +174,9 @@ class XUNet(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """``generator`` feeds dropout in ``train()`` mode (every
-        ResnetBlock draws from it in call order)."""
+        ResnetBlock draws from it in call order).  Remat acts only in
+        ``train()`` mode with autograd recording; otherwise the blocks run
+        as they are."""
         cfg = self.cfg
         num_res = cfg.num_resolutions
         B, H, W, C = batch["x"].shape
@@ -97,6 +186,15 @@ class XUNet(nn.Module):
                 f"{tuple(cond_mask.shape)} do not fit H={cfg.H} W={cfg.W}")
         logsnr_emb, pose_embs = self.conditioningprocessor(batch, cond_mask)
         logsnr_emb = logsnr_emb.reshape(B * FRAMES, 1, 1, cfg.emb_ch)
+
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
+
+        def block(name, *args):
+            mod = getattr(self, name)
+            if remat:
+                return remat_call(mod, cfg.remat_policy, *args,
+                                  generator=generator)
+            return mod(*args, generator)
 
         def level_emb(i):
             return logsnr_emb + pose_embs[i]        # [B*F, h, w, emb_ch]
@@ -109,20 +207,19 @@ class XUNet(nn.Module):
         for i in range(num_res):
             emb = level_emb(i)
             for b in range(cfg.num_res_blocks):
-                h = getattr(self, f"down_{i}_{b}")(h, emb, FRAMES,
-                                                   generator)
+                h = block(f"down_{i}_{b}", h, emb, FRAMES)
                 hs.append(h)
             if i != num_res - 1:
-                h = getattr(self, f"down_{i}_downsample")(h, emb, generator)
+                h = block(f"down_{i}_downsample", h, emb)
                 hs.append(h)
-        h = self.middle(h, level_emb(num_res - 1), FRAMES, generator)
+        h = block("middle", h, level_emb(num_res - 1), FRAMES)
         for i in reversed(range(num_res)):
             emb = level_emb(i)
             for b in range(cfg.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop()], dim=-1)
-                h = getattr(self, f"up_{i}_{b}")(h, emb, FRAMES, generator)
+                h = block(f"up_{i}_{b}", h, emb, FRAMES)
             if i != 0:
-                h = getattr(self, f"up_{i}_upsample")(h, emb, generator)
+                h = block(f"up_{i}_upsample", h, emb)
         assert not hs
 
         h = self.last_conv(self.last_gn(h))

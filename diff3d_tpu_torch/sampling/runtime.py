@@ -51,6 +51,32 @@ def save_image(path: str, img: np.ndarray) -> None:
     Image.fromarray(to_uint8(img)).save(path)
 
 
+def save_frame_sequence(out_dir: str, frames: np.ndarray,
+                        prefix: str = "frame") -> dict:
+    """Write ``frames`` (``[n, H, W, 3]`` in [-1, 1], or ``[n, B, H, W,
+    3]``, of which lane 0 is written) as ``<out_dir>/<prefix>_%03d.png``
+    plus a one-row ``contact_sheet.png`` (counterpart:
+    ``diff3d_tpu/utils/frames.py``).  Returns ``{"dir", "frames",
+    "contact_sheet"}``, the paths written."""
+    from PIL import Image
+
+    frames = np.asarray(frames, np.float32)
+    if frames.ndim == 5:
+        frames = frames[:, 0]
+    if frames.ndim != 4 or frames.shape[-1] != 3 or not len(frames):
+        raise ValueError(f"frames must be [n>0, H, W, 3] (or [n, B, H, W, "
+                         f"3]), got {frames.shape}")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for k, frame in enumerate(frames):
+        paths.append(os.path.join(out_dir, f"{prefix}_{k:03d}.png"))
+        save_image(paths[-1], frame)
+    sheet = os.path.join(out_dir, "contact_sheet.png")
+    Image.fromarray(np.concatenate([to_uint8(f) for f in frames],
+                                   axis=1)).save(sheet)
+    return {"dir": out_dir, "frames": paths, "contact_sheet": sheet}
+
+
 def record_capacity(n_views: int) -> int:
     """Record-buffer capacity for an object synthesised to ``n_views``
     views, rounded up to a power of two (the serving layer buckets by

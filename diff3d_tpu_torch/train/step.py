@@ -18,6 +18,9 @@ first step of a state runs both bodies eagerly and captures them after
 it; a step whose state no longer sits at the captured addresses (a
 checkpoint restore replaces Adam's tensors) does the same again.
 Elsewhere, or with ``cuda_graphs=False``, the bodies run eagerly.
+With ``cfg.model.remat`` the micro body's backward recomputes every
+block's forward (:mod:`diff3d_tpu_torch.models.xunet`); on the graph path
+that recompute is part of the captured backward.
 
 The step's random draws (diffusion times, noise, CFG mask, unconditional
 frames, dropout) come from one generator seeded by ``(seed, step)``, so a
@@ -31,6 +34,7 @@ step runs eagerly.
 
 from __future__ import annotations
 
+import gc
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -175,6 +179,10 @@ class TrainStep:
             micro_step(cfg, state.model, params,
                        {k: batch[k][i * mb:(i + 1) * mb] for k in INPUTS},
                        d, grads, total)
+            if cfg.model.remat:
+                # torch.utils.checkpoint's frames leave reference cycles
+                # that hold the microbatch's activations until collected.
+                gc.collect()
         lr = self.sched(state.step)
         loss, grad_norm = update_step(cfg, state, names, params, grads, total)
         state.scheduler.step()

@@ -569,14 +569,15 @@ def test_model_gradients_bf16_kernel_path_within_bf16_noise(cuda):
 # --- the sampler's reverse step and the train step as CUDA graphs ----------
 
 
-def _tiny_bf16(cuda, **train_kw):
-    """The tiny X-UNet's config in bf16 (as srn64 computes) with train
-    overrides, and its model from seed 0 on the card."""
+def _tiny_bf16(cuda, model_kw=None, **train_kw):
+    """The tiny X-UNet's config in bf16 (as srn64 computes) with model and
+    train overrides, and its model from seed 0 on the card."""
     import dataclasses
 
     cfg = port_tiny_config(imgsize=16, ch=32)
     cfg = dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"),
+        cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16",
+                                       **(model_kw or {})),
         train=dataclasses.replace(cfg.train, **train_kw))
     return cfg, build_model(cfg.model, cuda, seed=0,
                             randomize_zero_init=True)
@@ -645,7 +646,7 @@ def _train_run(cuda, cfg, graphs, steps):
     from diff3d_tpu_torch.data import InfiniteLoader, SyntheticDataset
     from diff3d_tpu_torch.train import create_train_state, make_train_step
 
-    _, model = _tiny_bf16(cuda)
+    model = build_model(cfg.model, cuda, seed=0, randomize_zero_init=True)
     state = create_train_state(model.train(), cfg.train)
     step = make_train_step(cfg, cuda_graphs=graphs)
     loader = InfiniteLoader(SyntheticDataset(num_objects=4, num_views=6,
@@ -735,3 +736,191 @@ def test_graph_trainer_resume_is_bit_exact(cuda, tmp_path):
     a.update({f"ema.{k}": v for k, v in first.state.ema.items()})
     b.update({f"ema.{k}": v for k, v in second.state.ema.items()})
     assert not [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _bit_identical_runs(cuda, runs):
+    """``runs()`` with cuDNN's deterministic algorithms, as ``train_cli``
+    sets them."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return runs()
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _assert_same_run(got, want):
+    (got_m, got_t), (want_m, want_t) = got, want
+    for (la, ga, lra), (lb, gb, lrb) in zip(got_m, want_m):
+        assert torch.equal(la, lb) and torch.equal(ga, gb) and lra == lrb
+    assert got_t.keys() == want_t.keys()
+    differ = [k for k in got_t if not torch.equal(got_t[k], want_t[k])]
+    assert not differ, differ[:5]
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_remat_train_graph_is_bit_identical_to_eager(cuda, policy, accum):
+    """The tiny bf16 model with every block rematerialised and dropout
+    0.1: four steps as CUDA graphs (the recompute, with its generator
+    replay, inside the captured backward) against four eager steps, bit
+    for bit.  The captured micro graph launches more forward kernels than
+    the same model's without remat: one more forward per block."""
+    remat = dict(remat=True, remat_policy=policy, dropout=0.1)
+    kw = dict(global_batch=8, accum_steps=accum, lr=0.01,
+              warmup_examples=16)
+    cfg, _ = _tiny_bf16(cuda, model_kw=remat, **kw)
+    plain_cfg, _ = _tiny_bf16(cuda, model_kw=dict(dropout=0.1), **kw)
+
+    def runs():
+        return (_train_run(cuda, cfg, True, 4),
+                _train_run(cuda, cfg, False, 4),
+                _train_run(cuda, plain_cfg, True, 2))
+
+    (gm, gt, step), (em, et, _), (_, _, plain) = _bit_identical_runs(
+        cuda, runs)
+    _assert_same_run((gm, gt), (em, et))
+    micro = step.graphs[0]
+    assert micro.replays == 3 * accum
+    for name in ("fused_groupnorm", "flash_attention"):
+        assert micro.captured[name] > plain.graphs[0].captured[name], name
+    for name in ("groupnorm_backward", "attention_backward_dkdv",
+                 "attention_backward_dq"):
+        assert micro.captured[name] == plain.graphs[0].captured[name], name
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_remat_matches_no_remat_on_card(cuda, policy):
+    """Three eager steps of the tiny bf16 model with dropout 0.1, remat on
+    against remat off, from the same seeds: losses, gradient norms,
+    parameters, Adam's state and the EMA bit for bit."""
+    kw = dict(global_batch=8, accum_steps=2, lr=0.01, warmup_examples=16)
+    on, _ = _tiny_bf16(cuda, model_kw=dict(remat=True, remat_policy=policy,
+                                           dropout=0.1), **kw)
+    off, _ = _tiny_bf16(cuda, model_kw=dict(dropout=0.1), **kw)
+    got, want = _bit_identical_runs(cuda, lambda: (
+        _train_run(cuda, on, False, 3), _train_run(cuda, off, False, 3)))
+    _assert_same_run(got[:2], want[:2])
+
+
+def _srn128_sites():
+    """Every GroupNorm site ``(L, C, G, film, silu)`` and attention site
+    ``(L, heads, D)`` of the srn128 X-UNet, from a forward on the meta
+    device (no memory, no kernels)."""
+    from diff3d_tpu_torch.config import srn128_config
+    from diff3d_tpu_torch.models.layers import AttnLayer, FrameGroupNorm
+    from diff3d_tpu_torch.models.xunet import XUNet
+
+    cfg = srn128_config().model
+    with torch.device("meta"):
+        model = XUNet(cfg).eval()
+    B, H = 1, cfg.H
+    shapes = dict(x=(B, H, H, 3), z=(B, H, H, 3), logsnr=(B, 2),
+                  R=(B, 2, 3, 3), t=(B, 2, 3), K=(B, 3, 3))
+    batch = {k: torch.zeros(v, device="meta") for k, v in shapes.items()}
+    gn, attn = set(), set()
+
+    def gn_hook(mod, args, kwargs, out):
+        _, h, w, C = args[0].shape
+        film = len(args) > 1 or kwargs.get("scale") is not None
+        gn.add((h * w, C, mod.num_groups, film, mod.silu))
+
+    def attn_hook(mod, args, out):
+        q, _ = args
+        attn.add((q.shape[1], mod.num_heads, q.shape[2] // mod.num_heads))
+
+    for m in model.modules():
+        if isinstance(m, FrameGroupNorm):
+            m.register_forward_hook(gn_hook, with_kwargs=True)
+        elif isinstance(m, AttnLayer):
+            m.register_forward_hook(attn_hook)
+    with torch.no_grad():
+        model(batch, torch.zeros(B, dtype=torch.bool, device="meta"))
+    return sorted(gn), sorted(attn)
+
+
+SRN128_N = (32, 64)     # the sampler step's GroupNorm N; a train microbatch's
+
+
+def test_srn128_groupnorm_sites_match_plain(cuda):
+    """At every srn128 GroupNorm site, in bf16, with the sampler step's N
+    and a training microbatch's: the forward (with ``save_stats``) and
+    the backward kernels against their plain versions, and the sites'
+    cluster plans fit the card."""
+    from diff3d_tpu_torch.ops import build
+
+    gn_sites, _ = _srn128_sites()
+    assert len(gn_sites) >= 15
+    lib = build.library("film")
+    dt = torch.bfloat16
+    for N in SRN128_N:
+        for si, (L, C, G, film, silu) in enumerate(gn_sites):
+            g = torch.Generator(cuda).manual_seed(si)
+            x = torch.randn(N, L, C, generator=g, device=cuda).to(dt)
+            gamma = 1 + 0.1 * torch.randn(C, generator=g, device=cuda)
+            beta = 0.1 * torch.randn(C, generator=g, device=cuda)
+            kw = dict(num_groups=G, silu=silu)
+            sc = sh = None
+            if film:
+                e = (0.3 * torch.randn(N, L, 2 * C, generator=g,
+                                       device=cuda)).to(dt)
+                sc, sh = e[..., :C], e[..., C:]
+                kw.update(scale=sc, shift=sh)
+            plan = cuda_film.forward_plan(N, L, C, G, 2, film)
+            assert cuda_film.max_active_clusters(
+                lib, L, C, G, plan, dt, film, silu) > 0, (N, L, C, plan)
+            ref_stats = cuda_film.groupnorm_stats_reference(x, G)
+            _close(cuda_film.fused_groupnorm(x, gamma, beta, **kw),
+                   cuda_film.groupnorm_reference(x, gamma, beta, **kw), dt)
+            out, stats = cuda_film.launch(lib, x, gamma, beta, sc, sh,
+                                          num_groups=G, silu=silu,
+                                          stream=None, save_stats=True)
+            _close(out, cuda_film.groupnorm_reference(
+                x, gamma, beta, stats=ref_stats, **kw), dt)
+            _close(stats, ref_stats, torch.float32)
+            dy = torch.randn(N, L, C, generator=g, device=cuda).to(dt)
+            args = (x, dy, gamma, beta, sc, sh, stats)
+            got = cuda_film.groupnorm_backward(*args, num_groups=G,
+                                               silu=silu)
+            want = cuda_film.groupnorm_backward_reference(
+                *args, num_groups=G, silu=silu)
+            for name, a, b in zip(("dx", "dscale", "dshift", "dgamma",
+                                   "dbeta"), got, want):
+                if b is None:
+                    continue
+                if name in ("dgamma", "dbeta"):
+                    _close(a, b, torch.float32, SUM_TOL)
+                else:
+                    _close(a, b, dt)
+            del x, dy, out, got, want
+
+
+def test_srn128_attention_sites_match_plain(cuda):
+    """At every srn128 attention site (L 1024 at D 128, L 256 at D 256)
+    with the sampler step's batch-heads (2B x 2 frames) and a training
+    microbatch's, in bf16: the forward, the lse forward and the backward
+    kernels against their plain versions."""
+    _, attn_sites = _srn128_sites()
+    assert attn_sites == [(256, 4, 256), (1024, 4, 128)]
+    dt = torch.bfloat16
+    for N in SRN128_N:
+        for si, (L, H, D) in enumerate(attn_sites):
+            g = torch.Generator(cuda).manual_seed(10 + si)
+            q, k, v = (torch.randn(N, L, H, D, generator=g,
+                                   device=cuda).to(dt) for _ in range(3))
+            _close(cuda_attention.flash_attention(q, k, v),
+                   cuda_attention.attention_reference(q, k, v), dt)
+            o, lse = cuda_attention.flash_attention_lse(q, k, v)
+            o_ref, lse_ref = cuda_attention.attention_lse_reference(q, k, v)
+            _close(o, o_ref, dt)
+            _close(lse, lse_ref.transpose(1, 2), torch.float32)
+            do = torch.randn(N, L, H, D, generator=g, device=cuda).to(dt)
+            lse_bhl = lse.transpose(1, 2).contiguous()
+            dk, dv, delta = cuda_attention.attention_backward_dkdv(
+                q, k, v, o, lse_bhl, do)
+            dq = cuda_attention.attention_backward_dq(q, k, v, o, lse_bhl,
+                                                      do, delta)
+            want = cuda_attention.attention_backward_reference(
+                q, k, v, o, lse_bhl, do)
+            for a, b in zip((dq, dk, dv), want):
+                _close(a, b, dt)

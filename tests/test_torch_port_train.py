@@ -499,5 +499,12 @@ def test_train_cli_on_cpu(tmp_path, data):
             (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in recs] == [1, 2]
     assert (tmp_path / "checkpoints" / "ckpt_2.pt").exists()
+    trainer = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        ["--device", "cpu", "--config", "test", "--num_workers", "0",
+         "--remat", "--remat_policy", "dots", "--workdir",
+         str(tmp_path / "remat")] + args))
+    trainer.loader.close()
+    model_cfg = trainer.state.model.cfg
+    assert model_cfg.remat and model_cfg.remat_policy == "dots"
     with pytest.raises(SystemExit):       # waits for a later slice
-        train_cli.main(["--device", "cpu", "--remat"])
+        train_cli.main(["--device", "cpu", "--elastic"])

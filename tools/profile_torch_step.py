@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's srn64 denoise step spends its time on the card.
+"""Where the PyTorch port's denoise step spends its time on the card.
 
-Builds the srn64 full-width X-UNet (bf16, every weight random from a seed),
+Builds the full-width X-UNet of ``--config`` (srn64 or srn128; bf16, every
+weight random from a seed),
 and for each path (``--mode``: the reverse step replayed as a CUDA graph,
 the eager step, or both in turn) runs one warm-up view (for the graph path:
 its first step, the capture, the replays), one view of ``--steps`` reverse
@@ -13,8 +14,8 @@ the top kernels, read from the exported Chrome trace.  The card's name and
 power limit are printed first, as ``nvidia-smi`` gives them.
 
 Usage (on the machine with the card, from the repo root):
-    python3 tools/profile_torch_step.py [--steps 8] [--mode both] \
-        [--trace build/profile/step_trace.json]
+    python3 tools/profile_torch_step.py [--config srn64] [--steps 8] \
+        [--mode both] [--trace build/profile/step_trace.json]
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", choices=["srn64", "srn128"], default="srn64")
     p.add_argument("--steps", type=int, default=8,
                    help="reverse steps in the profiled view (divides 256)")
     p.add_argument("--mode", choices=["both", "graph", "eager"],
@@ -65,9 +67,11 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     sys.path.insert(0, os.getcwd())
     import chip_smoke
+    from diff3d_tpu_torch import config as config_lib
     from diff3d_tpu_torch.sampling import Sampler
 
-    cfg, model = chip_smoke.srn64_model()
+    cfg = getattr(config_lib, f"{args.config}_config")()
+    model = chip_smoke.random_model(cfg)
     views = chip_smoke.orbit_views(2, cfg.model.H, seed=3)
     modes = {"both": (True, False), "graph": (True,),
              "eager": (False,)}[args.mode]
@@ -107,7 +111,8 @@ def main(argv=None) -> None:
         per = 1e-3 / args.steps              # us over the view -> ms/step
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         print(json.dumps({
-            "cuda_graphs": graphs, "steps": args.steps,
+            "config": args.config, "cuda_graphs": graphs,
+            "steps": args.steps,
             "wall_ms_per_step": 1e3 * wall / args.steps,
             "wall_ms_per_step_unprofiled": 1e3 * plain_wall / args.steps,
             "device_busy_ms_per_step": busy_us * per,

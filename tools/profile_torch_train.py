@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's srn64 train step spends its time on the card,
-and how much memory it takes.
+"""Where the PyTorch port's train step spends its time on the card, and
+how much memory it takes.
 
 For each path (``--mode``: the step as CUDA graphs, the eager step, or
 both in turn, one trainer at a time) builds the trainer through
-``cli/train_cli.py``'s code path (synthetic dataset, srn64 at full width,
-global batch ``--batch`` in ``--accum`` microbatches), takes ``--warmup``
+``cli/train_cli.py``'s code path (synthetic dataset, ``--config`` srn64 or
+srn128 at full width, srn128 with every block rematerialised under
+``--remat_policy``, global batch ``--batch`` in ``--accum``
+microbatches), takes ``--warmup``
 steps (on the graph path the first is eager and ends in the capture),
 ``--steps`` steps timed without the profiler, then ``--steps`` steps under
 ``torch.profiler``, and prints one JSON line per path: wall seconds per
@@ -18,8 +20,10 @@ microbatch that does not fit ends the run with CUDA's out-of-memory
 error.
 
 Usage (on the machine with the card, from the repo root):
-    python3 tools/profile_torch_train.py [--accum 1] [--steps 2] \
-        [--mode both] [--trace build/profile/train_trace.json]
+    python3 tools/profile_torch_train.py [--config srn64] [--accum 1] \
+        [--steps 2] [--mode both] [--trace build/profile/train_trace.json]
+    python3 tools/profile_torch_train.py --config srn128 --accum 2 \
+        --mode graph
 """
 
 from __future__ import annotations
@@ -57,6 +61,10 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", choices=["srn64", "srn128"], default="srn64")
+    p.add_argument("--remat_policy", choices=["nothing", "dots"],
+                   default=None, help="srn128's remat policy (default: "
+                                      "the config's)")
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--accum", type=int, default=1)
     p.add_argument("--warmup", type=int, default=1)
@@ -92,15 +100,18 @@ def profile_one(args, graphs: bool) -> None:
 
     shutil.rmtree(args.workdir, ignore_errors=True)
     n = args.warmup + 2 * args.steps
+    policy = ([] if args.remat_policy is None
+              else ["--remat_policy", args.remat_policy])
     trainer = train_cli.build_trainer(train_cli.build_parser().parse_args([
-        "--synthetic", "--config", "srn64", "--batch", str(args.batch),
+        "--synthetic", "--config", args.config, "--batch", str(args.batch),
         "--accum", str(args.accum), "--steps", str(n),
         "--warmup_examples", str(10 * args.batch), "--ckpt_every", "0",
-        "--workdir", args.workdir] + ([] if graphs else ["--eager"])))
-    # The warm-up ends in train()'s last-step checkpoint; the measured
-    # steps call the step directly, so no save falls inside the windows.
+        "--workdir", args.workdir] + policy
+        + ([] if graphs else ["--eager"])))
+    # Every step is called directly: no checkpoint falls in the run.
     torch.cuda.reset_peak_memory_stats()
-    trainer.train(max_steps=args.warmup)
+    for _ in range(args.warmup):
+        trainer.step_fn(trainer.state, next(trainer.loader))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
@@ -115,6 +126,7 @@ def profile_one(args, graphs: bool) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    trainer_cfg = trainer.cfg
     trainer.loader.close()
     trainer.step_fn.release()
     del trainer
@@ -134,7 +146,10 @@ def profile_one(args, graphs: bool) -> None:
     busy_us = float(np.sum([e["dur"] for e in kernels]))
     per = 1e-3 / args.steps                  # us over the window -> ms/step
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    mcfg = trainer_cfg.model
     print(json.dumps({
+        "config": args.config, "remat": mcfg.remat,
+        "remat_policy": mcfg.remat_policy if mcfg.remat else None,
         "cuda_graphs": graphs, "batch": args.batch, "accum": args.accum,
         "steps": args.steps, "wall_s_per_step": wall / args.steps,
         "wall_s_per_step_unprofiled": plain_wall / args.steps,
