@@ -106,8 +106,32 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      its plain version, the forward's cluster plans fit the card; per
      site and per step the time, bound, plain version and library call.
 
-Then one ``{"kernels": [...]}`` line (each kernel per srn64 step, then per
-srn128 step) and, last, the device line.  The library calls are timing
+ 16. srn128_init_from — ``train_cli --config srn128 --ch 128 --init_from
+     <the srn64 train checkpoint> --init_res 64 --synthetic_scenes --accum
+     <srn128_train's>`` (``--ckpt_mode ema_bf16``), 2 steps at global
+     batch 128 on the graph path: before the first step every tensor but
+     ``pos_emb`` equals the srn64 source's EMA and ``pos_emb`` is 128 x
+     128; finite losses; s/step.
+
+Between 11 and 12 (after eval, on the srn64 train checkpoint):
+ 11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=3)``
+     at srn64 full width, batch 128, the teacher the train checkpoint's
+     EMA, one CUDA graph for every round (the distillation path: counts
+     set to 0 before, read after; s/step, peak); each round's
+     ``full_sliced`` checkpoint; the same run eagerly, bit-identical;
+     the last checkpoint restored bit for bit; round 2 rerun from round
+     1's checkpoint, bit for bit; one step at batch 16 kernels vs plain
+     (bf16: loss and gradients 1e-2); a 2-step DDIM view, finite.  Then
+     distill_groupnorm / distill_attention: rows 1 and 3 (no statistics)
+     at the teacher's sites (the train step's), checked and timed.
+ 11c. convert — reference ``.pt`` files at srn64 and srn128 full width
+     from seeded random weights: ``convert_cli --verify`` then
+     ``convert_cli``; key counts; a dropped key and a changed shape exit
+     non-zero; ``sample_cli --sampler ddim --steps 8`` on the converted
+     srn64 checkpoint, finite.
+
+Then one ``{"kernels": [...]}`` line (each kernel per srn64 step, per
+srn128 step, then per distill step) and, last, the device line.  The library calls are timing
 yardsticks only; the port never calls them.
 
 Usage: python3 chip_smoke.py
@@ -2186,6 +2210,529 @@ def phase_eval():
     return out
 
 
+# ---- distillation, conversion, 64^2 -> 128^2 transfer --------------------
+
+DISTILL_BATCH = 128             # the reference's batch, one microbatch
+DISTILL_START, DISTILL_FINAL, DISTILL_ROUND_STEPS = 8, 2, 3
+DISTILL_WORKDIR = WORKDIR + "_distill"
+CONVERT_WORKDIR = WORKDIR + "_convert"
+CONVERT_STEP = 100_000
+INIT_WORKDIR = WORKDIR + "_srn128_init"
+
+
+def _distill_cfg(B):
+    from diff3d_tpu_torch.config import srn64_config
+
+    cfg = srn64_config()
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, global_batch=B, warmup_examples=10 * B))
+
+
+def _teacher_ema(cfg):
+    """The srn64 ``Trainer`` checkpoint's EMA (phase ``train``), by
+    parameter name, on the card."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import CheckpointManager
+
+    src = XUNet(cfg.model)
+    step = CheckpointManager(os.path.join(WORKDIR, "checkpoints")) \
+        .restore_ema(dict(src.named_parameters()))
+    return step, {k: v.detach().to("cuda") for k, v in
+                  src.named_parameters()}
+
+
+def _distill_run(cfg, teacher, graphs, start_step=0, start_steps=None,
+                 workdir=None):
+    """``distill()`` from ``teacher`` over the port's loader (synthetic
+    dataset, seeked to ``start_step``), ``DISTILL_ROUND_STEPS`` steps per
+    round, through a timing wrapper around the step (one sync per step).
+    Returns the final EMA, the history, the per-step records, the last
+    state (on the card), the step object, and the launch counts (eager +
+    the graph's captured x replays) and peak of the run."""
+    import torch
+
+    from diff3d_tpu_torch.data import (InfiniteLoader, SyntheticDataset,
+                                       prefetch_to_device)
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import distill, make_distill_step
+
+    B = cfg.train.global_batch
+    loader = prefetch_to_device(InfiniteLoader(
+        SyntheticDataset(num_objects=64, num_views=32, imgsize=cfg.model.H),
+        B, seed=cfg.train.seed, num_workers=8, start_step=start_step),
+        "cuda")
+    inner = make_distill_step(cfg, cuda_graphs=graphs)
+    rec, last = [], {}
+
+    def timed(state, teacher_model, batch, k):
+        t_in = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = inner(state, teacher_model, batch, k)
+        end.record()
+        float(m["distill_loss"])                 # one sync per step
+        rec.append({"t_in": t_in, "t": time.perf_counter(), "k": k,
+                    "event_ms": start.elapsed_time(end),
+                    "loss": m["distill_loss"].clone(),
+                    "grad_norm": m["grad_norm"].clone(), "lr": m["lr"]})
+        last["state"] = state
+        return m
+
+    student = XUNet(cfg.model).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    try:
+        final, history = distill(
+            student, cfg, teacher, loader,
+            start_steps=DISTILL_START if start_steps is None
+            else start_steps, final_steps=DISTILL_FINAL,
+            round_steps=DISTILL_ROUND_STEPS, workdir=workdir, log_every=0,
+            step_fn=timed)
+    finally:
+        loader.close()
+    eager = _launch_counts()
+    launches = _launch_counts(graphs=[inner.graph])
+    peak = torch.cuda.max_memory_allocated()
+    # A step's wall time runs from the end of the one before: the batch's
+    # fetch included, as in the train phases.  The first step of each
+    # round also carries the previous round's checkpoint and reset.
+    times = np.diff([t0] + [r["t"] for r in rec])
+    return {"final": final, "history": history, "rec": rec,
+            "state": last["state"], "step": inner, "launches": launches,
+            "eager_launches": eager, "peak": peak,
+            "step_s": [float(t) for t in times],
+            "call_s": [r["t"] - r["t_in"] for r in rec],
+            "event_ms": [r["event_ms"] for r in rec]}
+
+
+def _distill_tensors(state):
+    return {k: v.detach().cpu() for k, v in _state_tensors(state).items()}
+
+
+def _distill_kernel_vs_plain(cfg, teacher):
+    """One eager distill step at ``STEP_BATCH`` (k = ``DISTILL_FINAL``,
+    the same draws) with the student and the teacher through the kernels
+    and through the plain versions: ``(loss relative error, gradients'
+    relative L2, launches of the kernel step)``."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.models.layers import set_kernels
+    from diff3d_tpu_torch.train import (DistillDraws, create_train_state,
+                                        make_distill_step)
+
+    c = _distill_cfg(STEP_BATCH)
+    batch = train_batch(c, STEP_BATCH, 0)
+    runs = {}
+    for impl in ("cuda", "torch"):
+        student = XUNet(c.model).cuda()
+        t_model = XUNet(c.model).cuda().eval().requires_grad_(False)
+        with torch.no_grad():
+            for m in (student, t_model):
+                for name, p in m.named_parameters():
+                    p.copy_(teacher[name])
+        set_kernels(student, impl)
+        set_kernels(t_model, impl)
+        state = create_train_state(student, c.train)
+        _launch_counts(reset=True)
+        m = make_distill_step(c)(
+            state, t_model, batch, DISTILL_FINAL,
+            draws=DistillDraws(torch.Generator("cuda").manual_seed(7)))
+        torch.cuda.synchronize()
+        runs[impl] = (float(m["distill_loss"]),
+                      [p.grad.detach().float().clone()
+                       for p in student.parameters()], _launch_counts())
+        del student, t_model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, gk, launches), (lp, gp, _) = runs["cuda"], runs["torch"]
+    num = sum(float((a - b).norm() ** 2) for a, b in zip(gk, gp))
+    rel = (num / sum(float(b.norm() ** 2) for b in gp)) ** 0.5
+    return abs(lk - lp) / abs(lp), rel, lk, lp, launches
+
+
+def phase_distill():
+    """Progressive distillation at srn64 full width: the teacher is the
+    train phase's checkpoint EMA.  The main path: ``distill(start_steps=8,
+    final_steps=2, round_steps=3)`` on the 256-step grid (rounds k = 4 and
+    2) at batch ``DISTILL_BATCH`` as one CUDA graph for every round, the
+    launch counts set to 0 before and read after; every round's
+    ``full_sliced`` checkpoint.  Then: the same run eagerly (per-step
+    losses, gradient norms and the final state bit-identical); the last
+    round's checkpoint restored against the final state, bit for bit;
+    round 2 rerun from round 1's restored checkpoint against the main
+    run's (bit for bit); one step at batch 16 kernels vs plain versions
+    (loss and gradients, 1e-2); a 2-step DDIM view of the distilled EMA,
+    finite."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.train import CheckpointManager, create_train_state
+
+    torch.backends.cudnn.deterministic = True
+    cfg = _distill_cfg(DISTILL_BATCH)
+    teacher_step, teacher = _teacher_ema(cfg)
+    shutil.rmtree(DISTILL_WORKDIR, ignore_errors=True)
+    run = _distill_run(cfg, teacher, True, workdir=DISTILL_WORKDIR)
+    graph, launches = run["step"].graph, run["launches"]
+    n_steps = len(run["rec"])
+    rounds = [h["student_steps"] for h in run["history"]]
+    if rounds != [DISTILL_START // 2, DISTILL_FINAL] \
+            or n_steps != 2 * DISTILL_ROUND_STEPS:
+        raise AssertionError(f"distill: rounds {rounds}, steps {n_steps}")
+    if graph is None or graph.replays != n_steps - 1 or any(
+            graph.captured.get(k, 0) == 0 for k in launches) or any(
+            n == 0 for n in launches.values()):
+        raise AssertionError(f"distill: one graph for every round did not "
+                             f"run every kernel: {_graph_summary([graph])}, "
+                             f"{launches}")
+    graph_summary = _graph_summary([graph])
+    main = {"metrics": [(r["loss"].cpu(), r["grad_norm"].cpu(), r["lr"])
+                        for r in run["rec"]],
+            "tensors": _distill_tensors(run["state"]),
+            "final": {k: v.cpu() for k, v in run["final"].items()}}
+    # Steady state: replays that start no round (a round's first step
+    # waits for the previous round's checkpoint).
+    firsts = {i * DISTILL_ROUND_STEPS for i in range(len(rounds))}
+    replay_s = [t for i, t in enumerate(run["step_s"]) if i not in firsts]
+    out = {"config": "srn64", "batch": DISTILL_BATCH, "teacher": (
+        f"srn64 Trainer checkpoint step {teacher_step}, EMA"),
+        "start_steps": DISTILL_START, "final_steps": DISTILL_FINAL,
+        "round_steps": DISTILL_ROUND_STEPS, "rounds": rounds,
+        "timesteps": cfg.diffusion.timesteps,
+        "step_s": run["step_s"], "s_per_step": float(np.mean(replay_s)),
+        "step_call_s": run["call_s"], "step_event_ms": run["event_ms"],
+        "round_start_s": [run["step_s"][i] for i in sorted(firsts)],
+        "first_step_s": run["step_s"][0],
+        "examples_per_s": DISTILL_BATCH / float(np.mean(replay_s)),
+        "max_memory_allocated": run["peak"],
+        "loss": [float(m[0]) for m in main["metrics"]],
+        "grad_norm": [float(m[1]) for m in main["metrics"]],
+        "history": run["history"], "launches": launches,
+        "eager_launches": run["eager_launches"],
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "graphs": graph_summary}
+    run["step"].release()
+    del run, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The last round's checkpoint against the final state.
+    ckpt_state = create_train_state(XUNet(cfg.model).cuda().eval(),
+                                    cfg.train)
+    last_dir = os.path.join(DISTILL_WORKDIR, f"steps_{DISTILL_FINAL}")
+    got_step = CheckpointManager(last_dir).restore(ckpt_state)
+    restored = _distill_tensors(ckpt_state)
+    ckpt_differ = [k for k in main["tensors"]
+                   if not torch.equal(main["tensors"][k], restored[k])]
+    del ckpt_state, restored
+    # Graph against eager, every step of both rounds.
+    eager = _distill_run(cfg, teacher, False)
+    eager_metrics = [(r["loss"].cpu(), r["grad_norm"].cpu(), r["lr"])
+                     for r in eager["rec"]]
+    eager_tensors = _distill_tensors(eager["state"])
+    out["eager_s_per_step"] = float(np.mean(
+        [t for i, t in enumerate(eager["step_s"]) if i not in firsts]))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_metrics = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       and a[2] == b[2]
+                       for a, b in zip(main["metrics"], eager_metrics))
+    ge_differ = [k for k in main["tensors"]
+                 if not torch.equal(main["tensors"][k], eager_tensors[k])]
+    del eager_tensors
+    # Round 2 again, from round 1's checkpoint (its EMA is the teacher).
+    first_state = create_train_state(XUNet(cfg.model).cuda().eval(),
+                                     cfg.train)
+    CheckpointManager(os.path.join(
+        DISTILL_WORKDIR, f"steps_{DISTILL_START // 2}")).restore(first_state)
+    round1_ema = {k: v.clone() for k, v in first_state.ema.items()}
+    del first_state
+    rerun = _distill_run(cfg, round1_ema, False,
+                         start_step=DISTILL_ROUND_STEPS,
+                         start_steps=DISTILL_START // 2)
+    rerun_same = all(torch.equal(rerun["final"][k].cpu(), main["final"][k])
+                     for k in main["final"])
+    del rerun, round1_ema
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_err, grad_rel, lk, lp, kp_launches = _distill_kernel_vs_plain(
+        cfg, teacher)
+    # The distilled EMA drives a k = 2 DDIM sampler.
+    view_model = XUNet(cfg.model).cuda()
+    with torch.no_grad():
+        params = dict(view_model.named_parameters())
+        for k, v in main["final"].items():
+            params[k].copy_(v)
+    sampler = Sampler(view_model, cfg, sampler_kind="ddim",
+                      steps=DISTILL_FINAL)
+    t0 = time.perf_counter()
+    view = sampler.synthesize(orbit_views(3, cfg.model.H, seed=4),
+                              torch.Generator("cuda").manual_seed(0),
+                              max_views=2)
+    view_s = time.perf_counter() - t0
+    del teacher, main, sampler, view_model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DISTILL_WORKDIR, ignore_errors=True)
+    out.update({
+        "checkpoint_step": got_step,
+        "checkpoint_restore_bit_exact": not ckpt_differ,
+        "graph_vs_eager_bit_identical": same_metrics and not ge_differ,
+        "graph_vs_eager_tensors_differing": len(ge_differ),
+        "round2_rerun_from_round1_checkpoint_bit_identical": rerun_same,
+        "kernel_vs_plain": {"batch": STEP_BATCH, "student_steps":
+                            DISTILL_FINAL, "loss_kernel": lk,
+                            "loss_plain": lp, "loss_rel_err": loss_err,
+                            "grad_rel_l2": grad_rel,
+                            "launches": kp_launches},
+        "ddim_view": {"steps": DISTILL_FINAL, "seconds": round(view_s, 3),
+                      "shape": list(view.shape),
+                      "finite": bool(np.isfinite(view).all())},
+        "tolerance": f"graph vs eager, checkpoints: bit-identical (cuDNN "
+                     f"deterministic); kernel vs plain (bf16): loss "
+                     f"{BF16_STEP_LOSS_TOL} relative, gradients "
+                     f"{BF16_STEP_GRAD_TOL} relative L2"})
+    emit(dict(phase="distill", **out))
+    if ckpt_differ or got_step != DISTILL_ROUND_STEPS:
+        raise AssertionError(f"distill: the last round's checkpoint "
+                             f"(step {got_step}) differs: {ckpt_differ[:3]}")
+    if not (same_metrics and not ge_differ):
+        raise AssertionError(f"distill: graph and eager differ "
+                             f"({len(ge_differ)} tensors, e.g. "
+                             f"{ge_differ[:3]})")
+    if not rerun_same:
+        raise AssertionError("distill: round 2 from round 1's checkpoint "
+                             "differs")
+    if not (loss_err <= BF16_STEP_LOSS_TOL and grad_rel <= BF16_STEP_GRAD_TOL
+            and all(math.isfinite(x) for x in out["loss"])):
+        raise AssertionError(f"distill: kernel vs plain "
+                             f"{out['kernel_vs_plain']}, losses "
+                             f"{out['loss']}")
+    if not out["ddim_view"]["finite"]:
+        raise AssertionError("distill: the DDIM view is not finite")
+    return out
+
+
+def _expect_exit(fn, argv):
+    """``fn(argv)`` must exit with a non-zero status; returns its
+    message."""
+    try:
+        fn(argv)
+    except SystemExit as e:
+        if e.code in (0, None):
+            raise AssertionError(f"{argv}: exit status {e.code}")
+        return str(e.code)[:300]
+    raise AssertionError(f"{argv}: returned instead of exiting non-zero")
+
+
+def phase_convert():
+    """A reference ``.pt`` at srn64 and at srn128 full width, seeded random
+    weights in the reference's key scheme (``expected_torch_state``):
+    ``convert_cli --verify``, then ``convert_cli`` (step kept, the
+    schedule at it, zero Adam moments, EMA = weights); key counts against
+    the port's parameters; a file with a key dropped and one with a shape
+    changed exit non-zero; ``sample_cli --sampler ddim --steps 8`` on the
+    converted srn64 checkpoint: a finite view."""
+    import torch
+
+    from diff3d_tpu_torch import config as config_lib
+    from diff3d_tpu_torch.cli import convert_cli, sample_cli
+    from diff3d_tpu_torch.convert import expected_torch_state
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.sampling import Sampler
+
+    shutil.rmtree(CONVERT_WORKDIR, ignore_errors=True)
+    os.makedirs(CONVERT_WORKDIR)
+    out = {}
+    for config in ("srn64", "srn128"):
+        cfg = getattr(config_lib, f"{config}_config")()
+        expected = expected_torch_state(cfg.model)
+        g = torch.Generator().manual_seed(3)
+        sd = {k: 0.02 * torch.randn(shape, generator=g)
+              for k, shape in expected.items()}
+        pt = os.path.join(CONVERT_WORKDIR, f"{config}.pt")
+        torch.save({"model": sd, "optim": {}, "step": CONVERT_STEP}, pt)
+        dst = os.path.join(CONVERT_WORKDIR, f"{config}_ckpt")
+        base = ["--torch_ckpt", pt, "--out", dst, "--config", config]
+        t0 = time.perf_counter()
+        convert_cli.main(base + ["--verify"])
+        verify_s = time.perf_counter() - t0
+        if os.path.exists(dst):
+            raise AssertionError("convert: --verify wrote a checkpoint")
+        t0 = time.perf_counter()
+        convert_cli.main(base)
+        convert_s = time.perf_counter() - t0
+        saved = torch.load(os.path.join(dst, f"ckpt_{CONVERT_STEP}.pt"),
+                           map_location="cpu", weights_only=True)
+        with torch.device("meta"):
+            n_params = len(list(XUNet(cfg.model).parameters()))
+        attn = sum(1 for k in expected if k.endswith("in_proj_weight"))
+        ok = (saved["step"] == CONVERT_STEP
+              and saved["sched"]["last_epoch"] == CONVERT_STEP
+              and saved["optim"]["state"] == {}
+              and len(saved["model"]) == n_params == len(sd) + 4 * attn
+              and all(torch.equal(saved["model"][k], saved["ema"][k])
+                      for k in saved["model"]))
+        out[config] = {"reference_keys": len(sd), "port_parameters":
+                       n_params, "attention_layers": attn,
+                       "converted_tensors": len(saved["model"]),
+                       "bytes_pt": os.path.getsize(pt),
+                       "verify_s": round(verify_s, 3),
+                       "convert_s": round(convert_s, 3), "ok": ok}
+        del saved, sd
+        gc.collect()
+        if not ok:
+            raise AssertionError(f"convert {config}: {out[config]}")
+        if config == "srn64":
+            keys = sorted(expected)
+            bad = torch.load(pt, weights_only=True)
+            bad["model"].pop(keys[0])
+            dropped = os.path.join(CONVERT_WORKDIR, "dropped.pt")
+            torch.save(bad, dropped)
+            bad = torch.load(pt, weights_only=True)
+            bad["model"][keys[1]] = torch.zeros(3)
+            reshaped = os.path.join(CONVERT_WORKDIR, "reshaped.pt")
+            torch.save(bad, reshaped)
+            del bad
+            out["mutated"] = {
+                name: _expect_exit(convert_cli.main, [
+                    "--torch_ckpt", path, "--out",
+                    os.path.join(CONVERT_WORKDIR, "never"), "--config",
+                    "srn64"])
+                for name, path in (("key_dropped", dropped),
+                                   ("shape_changed", reshaped))}
+            if os.path.exists(os.path.join(CONVERT_WORKDIR, "never")):
+                raise AssertionError("convert: a mutated file was written")
+            # sample_cli on the converted checkpoint, 8 DDIM steps.
+            obj = write_srn_object(os.path.join(CONVERT_WORKDIR, "object"),
+                                   orbit_views(3, cfg.model.H, seed=6))
+            got, real = [], Sampler.synthesize
+
+            def keep(self, *a, **k):
+                got.append(real(self, *a, **k))
+                return got[-1]
+
+            Sampler.synthesize = keep
+            t0 = time.perf_counter()
+            try:
+                sample_cli.main(["--config", "srn64", "--model", dst,
+                                 "--target", obj, "--out",
+                                 os.path.join(CONVERT_WORKDIR, "sampling"),
+                                 "--max_views", "2", "--sampler", "ddim",
+                                 "--steps", "8"])
+            finally:
+                Sampler.synthesize = real
+            out["sample_cli"] = {
+                "steps": 8, "sampler": "ddim",
+                "seconds": round(time.perf_counter() - t0, 3),
+                "views": int(got[0].shape[0]) if got else 0,
+                "finite": bool(got and np.isfinite(got[0]).all())}
+            if not out["sample_cli"]["finite"]:
+                raise AssertionError(f"convert: sample_cli {out}")
+        shutil.rmtree(dst, ignore_errors=True)
+        os.remove(pt)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(CONVERT_WORKDIR, ignore_errors=True)
+    emit(dict(phase="convert", **out))
+    return out
+
+
+def phase_srn128_init_from(accum):
+    """``train_cli --config srn128 --ch 128 --init_from <the srn64 train
+    phase's checkpoint> --init_res 64 --synthetic_scenes --accum <accum>``
+    (srn64's width: a transfer keeps every width, only H and W change) at
+    global batch 128 for 2 steps on the graph path (checkpoint mode
+    ``ema_bf16``): before the first step every parameter and EMA tensor
+    but ``pos_emb`` equals the srn64 source's EMA, and ``pos_emb`` is 128
+    x 128; finite losses; s/step."""
+    import torch
+
+    from diff3d_tpu_torch.cli import train_cli
+    from diff3d_tpu_torch.config import srn64_config
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import CheckpointManager
+
+    src_dir = os.path.join(WORKDIR, "checkpoints")
+    src = XUNet(srn64_config().model)
+    src_step = CheckpointManager(src_dir).restore_ema(
+        dict(src.named_parameters()))
+    want = {k: v.detach() for k, v in src.named_parameters()}
+    shutil.rmtree(INIT_WORKDIR, ignore_errors=True)
+    argv = ["--config", "srn128", "--ch", str(src.cfg.ch),
+            "--synthetic_scenes", "--batch",
+            str(TRAIN_BATCH), "--accum", str(accum), "--steps", "2",
+            "--warmup_examples", str(10 * TRAIN_BATCH), "--num_workers",
+            "8", "--ckpt_mode", "ema_bf16", "--workdir", INIT_WORKDIR,
+            "--init_from", src_dir, "--init_res", "64"]
+    t0 = time.perf_counter()
+    trainer = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        argv))
+    build_s = time.perf_counter() - t0
+    state = trainer.state
+    differ, pos_shape = [], None
+    for name, p in state.model.named_parameters():
+        if name.endswith("pos_emb"):
+            pos_shape = tuple(p.shape)
+            continue
+        if not (torch.equal(p.detach().cpu(), want[name])
+                and torch.equal(state.ema[name].cpu(), want[name])):
+            differ.append(name)
+    inner = trainer.step_fn
+    rec = []
+
+    def timed(st, batch, draws=None):
+        m = inner(st, batch, draws)
+        rec.append({"t": time.perf_counter(), "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])})
+        return m
+
+    trainer.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        trainer.loader.close()
+    times = np.diff([t0] + [r["t"] for r in rec])
+    marker = json.load(open(os.path.join(INIT_WORKDIR, "checkpoints",
+                                         "ckpt_format.json")))
+    out = {"config": "srn128 at srn64's width (--ch 128)",
+           "source": f"srn64 step {src_step} (EMA)",
+           "init_res": 64, "accum_steps": accum,
+           "global_batch": TRAIN_BATCH, "tensors_differing": len(differ),
+           "pos_emb_shape": list(pos_shape or ()),
+           "build_s": round(build_s, 3),
+           "step_s": [float(t) for t in times],
+           "s_per_step": float(times[-1]),
+           "loss": [r["loss"] for r in rec],
+           "grad_norm": [r["grad_norm"] for r in rec],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "checkpoint_mode": marker["mode"]}
+    inner.release()
+    del trainer, inner, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(INIT_WORKDIR, ignore_errors=True)
+    emit(dict(phase="srn128_init_from", **out))
+    if differ or pos_shape != (128, 128, 144):
+        raise AssertionError(f"srn128_init_from: {len(differ)} tensors "
+                             f"differ from the source (e.g. {differ[:3]}), "
+                             f"pos_emb {pos_shape}")
+    if len(rec) != 2 or not all(math.isfinite(r["loss"]) for r in rec):
+        raise AssertionError(f"srn128_init_from: steps {rec}")
+    return out
+
+
 def kernel_entries(rows, design):
     """The ``kernels`` line's entries: ``rows`` of ``(name, source,
     replaces, launches, stats, per)``."""
@@ -2233,7 +2780,19 @@ def main() -> None:
     train = phase_train(TRAIN_ACCUM)
     tl = train["launches"]
     phase_eval()
-    shutil.rmtree(WORKDIR, ignore_errors=True)
+
+    # Distillation from the train phase's checkpoint (its student step is
+    # one training microbatch's work; the teacher's two forwards run rows
+    # 1 and 3 at the same sites), then reference-checkpoint conversion.
+    if DISTILL_BATCH != mb:
+        raise AssertionError("distill: its sites are the train phase's")
+    distilled = phase_distill()
+    dl = distilled["launches"]
+    gn_teacher = phase_groupnorm(gn_train, phase="distill_groupnorm",
+                                 odd_shapes=False)
+    attn_teacher = phase_attention(attn_train, phase="distill_attention",
+                                   extra_shapes=False)
+    phase_convert()
 
     # srn128: the model, its sampling path, its training path (the
     # Trainer's run decides accum_steps), then its kernel sites.
@@ -2247,6 +2806,8 @@ def main() -> None:
     gn128, attn128, gn_fwd128, gn_bwd128, attn128_rows = phase_srn128_sites(
         cfg128, accum128, t128["launches_per_step"])
     tl128 = t128["launches"]
+    phase_srn128_init_from(accum128)
+    shutil.rmtree(WORKDIR, ignore_errors=True)
 
     film, att = ("diff3d_tpu_torch/ops/csrc/film.cu",
                  "diff3d_tpu_torch/ops/csrc/attention.cu")
@@ -2263,6 +2824,19 @@ def main() -> None:
                 f"{accum128}, remat 'nothing': the forward kernels run "
                 "again in each block's recompute) at srn128, summed over "
                 "sites")
+    teacher_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
+                   "the teacher's two forwards, summed over sites; "
+                   "launches: every forward launch of the wrapper (teacher "
+                   "and student)")
+    student_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
+                   "the student's forward and backward (a train step's "
+                   "sites), summed over sites; launches of the wrapper")
+
+    def twice(row):
+        return dict(row, **{k: 2 * row[k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+            if k in row})
+
     cluster = "one thread-block cluster per sample, DSMEM exchange"
     design = {"fused_groupnorm": cluster,
               "fused_groupnorm[save_stats]": cluster,
@@ -2299,7 +2873,21 @@ def main() -> None:
         ("attention_backward_dkdv@srn128", att, dkdv_at,
          tl128["attention_backward_dkdv"], attn128_rows["dkdv"], train128),
         ("attention_backward_dq@srn128", att, dq_at,
-         tl128["attention_backward_dq"], attn128_rows["dq"], train128)],
+         tl128["attention_backward_dq"], attn128_rows["dq"], train128),
+        ("fused_groupnorm@distill", film, gn_fwd_at, dl["fused_groupnorm"],
+         twice(gn_teacher), teacher_per),
+        ("fused_groupnorm[save_stats]@distill", film, gn_fwd_at,
+         dl["fused_groupnorm"], gn_fwd, student_per),
+        ("groupnorm_backward@distill", film, gn_bwd_at,
+         dl["groupnorm_backward"], gn_bwd, student_per),
+        ("flash_attention@distill", att, fa_at, dl["flash_attention"],
+         twice(attn_teacher), teacher_per),
+        ("flash_attention[save_lse]@distill", att, fa_at,
+         dl["flash_attention"], attn_rows["lse"], student_per),
+        ("attention_backward_dkdv@distill", att, dkdv_at,
+         dl["attention_backward_dkdv"], attn_rows["dkdv"], student_per),
+        ("attention_backward_dq@distill", att, dq_at,
+         dl["attention_backward_dq"], attn_rows["dq"], student_per)],
         design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

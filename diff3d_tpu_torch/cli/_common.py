@@ -50,30 +50,42 @@ def load_eval_params(path: str, model, raw_params: bool) -> Optional[int]:
     record one).
 
     ``path`` is any of: a checkpoint directory of the port's ``Trainer``
-    (its latest ``ckpt_<step>.pt``); one ``ckpt_<step>.pt``; a plain
-    state dict (``torch.save(model.state_dict())``); a Flax parameter
-    tree saved as an ``.npz``.  From a Trainer checkpoint the EMA weights
-    load, or the raw ones under ``raw_params`` (the reference's
-    ``--raw_params``); a plain state dict or an ``.npz`` holds one set of
-    weights, which loads as it is.  The log says which set loaded."""
+    in any of its modes (``full``, ``ema_bf16``, ``full_sliced``, read by
+    the directory's marker; its latest checkpoint); one
+    ``ckpt_<step>.pt``; a plain state dict
+    (``torch.save(model.state_dict())``); a Flax parameter tree saved as
+    an ``.npz``.  From a checkpoint the EMA weights load, or the raw ones
+    under ``raw_params`` (the reference's ``--raw_params``; an
+    ``ema_bf16`` checkpoint has none and raises ``ValueError``); a plain
+    state dict or an ``.npz`` holds one set of weights, which loads as it
+    is.  The log says which set loaded."""
     import torch
 
     from diff3d_tpu_torch.convert import load_flax_params, load_npz
     from diff3d_tpu_torch.train.checkpoint import CheckpointManager
 
+    which = "raw" if raw_params else "EMA"
     if os.path.isdir(path):
-        step = CheckpointManager(path).latest_step()
+        mgr = CheckpointManager(path)
+        step = mgr.restore_ema(dict(model.named_parameters()),
+                               raw=raw_params)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {path}")
-        path = CheckpointManager(path).path(step)
+        logging.info("loaded the %s weights of step %d from %s (mode %s)",
+                     which, step, path, mgr.mode)
+        return step
     if path.endswith(".npz"):
         load_flax_params(model, load_npz(path))
         logging.info("loaded the Flax parameters of %s (one set of "
                      "weights)", path)
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and {"model", "ema", "step"} <= set(ckpt):
+    if isinstance(ckpt, dict) and {"ema", "step"} <= set(ckpt):
         if raw_params:
+            if "model" not in ckpt:
+                raise ValueError(f"{path} is an ema_bf16 checkpoint: it has "
+                                 "no raw parameters (--raw_params "
+                                 "unavailable)")
             model.load_state_dict(ckpt["model"])
         else:
             params = dict(model.named_parameters())
@@ -84,8 +96,8 @@ def load_eval_params(path: str, model, raw_params: bool) -> Optional[int]:
                 for name, t in ckpt["ema"].items():
                     params[name].copy_(t)
         step = int(ckpt["step"])
-        logging.info("loaded the %s weights of step %d from %s",
-                     "raw" if raw_params else "EMA", step, path)
+        logging.info("loaded the %s weights of step %d from %s", which,
+                     step, path)
         return step
     model.load_state_dict(ckpt)
     logging.info("loaded the state dict %s as it is (one set of weights%s)",

@@ -1,12 +1,15 @@
 """Novel-view sampling entry point (counterpart:
 ``diff3d_tpu/cli/sample_cli.py``).
 
-``--model`` is a checkpoint directory of the port's ``Trainer`` (its
-latest ``ckpt_<step>.pt``), one ``ckpt_<step>.pt``, a plain state dict
+``--model`` is a checkpoint directory of the port's ``Trainer`` in any
+mode (its latest checkpoint; ``convert_cli``'s output is one), one
+``ckpt_<step>.pt``, a plain state dict
 (``torch.save(model.state_dict())``) or a Flax parameter tree saved as an
 ``.npz`` of ``/``-joined paths (:func:`~diff3d_tpu_torch.cli._common.
 load_eval_params`).  From a checkpoint it samples with the EMA weights,
-or the raw ones under ``--raw_params``.  (Reading an Orbax checkpoint
+or the raw ones under ``--raw_params``.  ``--sampler ddim`` samples
+deterministically (a distilled k-step student: ``--sampler ddim --steps
+k``).  (Reading an Orbax checkpoint
 needs JAX, so it waits.)  Runs on the card unless ``--device`` names
 another; there the reverse step runs as a CUDA graph.
 Output layout: ``{out}/{step}/{gt,0..7}.png``.
@@ -45,6 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split each view's reverse diffusion into this "
                         "many segments (must divide --steps; bit-identical "
                         "to 1)")
+    p.add_argument("--sampler", choices=["ancestral", "ddim"],
+                   default="ancestral",
+                   help="reverse-process update: 'ancestral' (the paper's "
+                        "stochastic sampler) or 'ddim' (deterministic, eta "
+                        "= 0: a distilled k-step student samples with "
+                        "--sampler ddim --steps k)")
     p.add_argument("--raw_params", action="store_true",
                    help="sample with raw params instead of EMA")
     p.add_argument("--seed", type=int, default=0)
@@ -86,6 +95,7 @@ def main(argv=None) -> None:
     views = load_object_views(os.path.normpath(args.target), cfg.model.H)
     try:
         sampler = Sampler(model, cfg, device=device,
+                          sampler_kind=args.sampler,
                           scan_chunks=args.scan_chunks)
     except ValueError as e:     # --scan_chunks that does not divide --steps
         raise SystemExit(str(e))

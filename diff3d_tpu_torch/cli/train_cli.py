@@ -7,10 +7,14 @@ latest checkpoint, the data stream seeked to its step), ``--train_data``
 ``--synthetic_scenes`` / ``--scene_objects`` (ray-traced sphere scenes),
 ``--remat`` / ``--remat_policy`` (rematerialised UNet blocks),
 ``--num_workers``, ``--warmup_examples``, ``--ema_halflife_examples``,
-``--ckpt_every``, the model widths (``--ch``, ``--emb_ch``,
-``--num_res_blocks``, ``--imgsize``, as ``sample_cli`` takes them),
-``--device`` (the card unless another is named) and ``--eager`` (the
-train step eagerly instead of as CUDA graphs, for comparison).
+``--ckpt_every``, ``--ckpt_mode`` / ``--ckpt_async`` (the checkpoint
+modes of ``train/checkpoint.py``), ``--init_from`` / ``--init_res``
+(seed the parameters and the EMA from a checkpoint trained at another
+resolution, ``convert/progressive.py``), the model widths (``--ch``,
+``--emb_ch``, ``--num_res_blocks``, ``--imgsize``, as ``sample_cli``
+takes them), ``--device`` (the card unless another is named) and
+``--eager`` (the train step eagerly instead of as CUDA graphs, for
+comparison).
 The JAX package's other flags wait for later slices of the port; the
 parser rejects them as unknown (exit code 2).
 
@@ -22,6 +26,12 @@ Usage:
     python -m diff3d_tpu_torch.cli.train_cli --config srn128 --accum 4 \\
         --synthetic_scenes --steps 10 --warmup_examples 1280 \\
         --workdir runs/port_train128
+    python -m diff3d_tpu_torch.cli.train_cli --config srn128 --ch 128 \\
+        --accum 4 --synthetic_scenes --init_from runs/port_train/checkpoints \\
+        --init_res 64 --workdir runs/port_train128_seeded
+
+(``--init_from`` keeps every width: srn64 is ch 128, srn128 ch 256, so a
+64^2 -> 128^2 transfer takes ``--ch 128``.)
 """
 
 from __future__ import annotations
@@ -41,7 +51,6 @@ def build_parser() -> argparse.ArgumentParser:
         epilog="Not in this slice of the port (see ROADMAP.md): --val_data, "
                "--param_sharding, --model_parallel, --context_parallel, "
                "--attn_impl, --pallas, --eval_every, "
-               "--init_from, --init_res, --ckpt_mode, --ckpt_async, "
                "--elastic, --elastic_max_remesh.")
     p.add_argument("--transfer", action="store_true",
                    help="resume from the latest checkpoint in --workdir")
@@ -81,6 +90,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EMA half-life in examples (default: 500K)")
     p.add_argument("--ckpt_every", type=int, default=None,
                    help="checkpoint cadence in steps")
+    p.add_argument("--init_from", default=None,
+                   help="seed params+EMA from this checkpoint (its EMA "
+                        "weights, any mode), trained at --init_res with the "
+                        "same width: progressive resolution transfer -- "
+                        "pos_emb is bilinearly resized, every other "
+                        "parameter copies.  Fresh optimizer and schedule "
+                        "(unlike --transfer); skipped when --transfer "
+                        "resumed past step 0")
+    p.add_argument("--init_res", type=int, default=64,
+                   help="resolution the --init_from checkpoint was trained "
+                        "at")
+    p.add_argument("--ckpt_mode", choices=["full", "ema_bf16", "full_sliced"],
+                   default=None,
+                   help="'full' (the default on a fresh directory): exact "
+                        "resume, one file per checkpoint; 'ema_bf16': the "
+                        "bf16 EMA only (eval weights, warm restart); "
+                        "'full_sliced': exact resume, one file per tensor "
+                        "with per-tensor retry and an atomic commit.  "
+                        "Default: the directory's mode")
+    p.add_argument("--ckpt_async", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="write full_sliced checkpoints from a background "
+                        "thread (the default); --no-ckpt_async writes them "
+                        "synchronously.  No effect on the other modes")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only when "
                         "named)")
@@ -102,7 +135,8 @@ def config_from_args(args):
         ("accum_steps", args.accum),
         ("warmup_examples", args.warmup_examples),
         ("ema_halflife_examples", args.ema_halflife_examples),
-        ("ckpt_every", args.ckpt_every)) if v is not None}
+        ("ckpt_every", args.ckpt_every), ("ckpt_mode", args.ckpt_mode),
+        ("ckpt_async", args.ckpt_async)) if v is not None}
     if over:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **over))
@@ -150,11 +184,50 @@ def build_trainer(args):
     trainer = Trainer(cfg, workdir=args.workdir, transfer=args.transfer,
                       device=device,
                       cuda_graphs=False if args.eager else None)
+    if args.init_from:
+        seed_from_checkpoint(trainer, args.init_from, args.init_res)
     loader = InfiniteLoader(ds, cfg.train.global_batch, seed=cfg.train.seed,
                             num_workers=args.num_workers,
                             start_step=trainer.state.step)
     trainer.loader = prefetch_to_device(loader, device)
     return trainer
+
+
+def seed_from_checkpoint(trainer, path: str, init_res: int) -> None:
+    """Progressive resolution transfer (``convert/progressive.py``): copy
+    the EMA weights of the checkpoint at ``path``, trained at ``init_res``
+    with the trainer's widths, into the trainer's parameters and EMA, with
+    ``pos_emb`` resized.  In place, with ``copy_``: the trainer's captured
+    step reads its tensors at their addresses, so a replaced tensor would
+    never be read.  Skipped (logged) when the trainer already resumed past
+    step 0."""
+    import torch
+
+    from diff3d_tpu_torch.cli._common import load_eval_params
+    from diff3d_tpu_torch.convert.progressive import (
+        adapt_params_resolution, check_resolution_compatible)
+    from diff3d_tpu_torch.models import XUNet
+
+    state = trainer.state
+    if state.step > 0:
+        logging.info(
+            "--init_from %s SKIPPED: the workdir already resumed at step %d "
+            "(progressive-transfer seeding only applies to a fresh run; "
+            "point --workdir somewhere new to re-seed)", path, state.step)
+        return
+    mcfg = trainer.cfg.model
+    src = XUNet(dataclasses.replace(mcfg, H=init_res, W=init_res))
+    src_step = load_eval_params(path, src, raw_params=False)   # on the CPU
+    params = adapt_params_resolution(
+        {k: v.detach() for k, v in src.named_parameters()}, (mcfg.H, mcfg.W))
+    target = dict(state.model.named_parameters())
+    check_resolution_compatible(params, target)
+    with torch.no_grad():
+        for name, p in target.items():
+            p.copy_(params[name])
+            state.ema[name].copy_(params[name])
+    logging.info("seeded params+EMA from %s (step-%s %dx%d model) -> %dx%d",
+                 path, src_step, init_res, init_res, mcfg.H, mcfg.W)
 
 
 def main(argv=None) -> None:

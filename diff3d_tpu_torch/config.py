@@ -5,14 +5,13 @@ and training slices act on, with the JAX package's values.  Left out until
 a slice acts on them: ``attn_impl`` / ``attn_impl_levels`` and ``kernels``
 (the port runs one implementation per device, see
 :mod:`diff3d_tpu_torch.ops.dispatch`);
-``eval_every``, ``ckpt_mode`` / ``ckpt_async``; and the mesh / serving
-sections.
+``eval_every``; and the mesh / serving sections.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -106,6 +105,14 @@ class TrainConfig:
     seed: int = 0
     checkpoint_dir: str = "checkpoints"
     keep_checkpoints: int = 3
+    # "full" (exact resume), "ema_bf16" (the bf16 EMA only: eval weights
+    # and a warm restart) or "full_sliced" (exact resume, one file per
+    # tensor, committed by a rename); None follows the directory's marker
+    # ("full" on a fresh directory).  See train/checkpoint.py.
+    ckpt_mode: Optional[str] = None
+    # full_sliced only: snapshot on the training thread, write the files
+    # from a background thread.  False writes them synchronously.
+    ckpt_async: bool = True
     grad_clip: float = 0.0              # global-norm clip; 0 disables
 
 

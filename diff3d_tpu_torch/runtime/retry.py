@@ -1,0 +1,85 @@
+"""Bounded retry with capped exponential backoff (counterpart:
+``diff3d_tpu/runtime/retry.py``, its ``RetryPolicy`` and
+``is_transient_io_error``).
+
+The checkpoint writer (:mod:`diff3d_tpu_torch.train.checkpoint`) retries
+each tensor's device-to-host fetch and each commit of a sliced
+checkpoint under a policy.  The classification of backend faults (a lost
+card, a failed collective) belongs to the serving and elastic layers,
+which the port does not have yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import random
+import time
+from typing import Any, Callable
+
+log = logging.getLogger(__name__)
+
+
+class RetryableError(RuntimeError):
+    """A fault the caller may safely retry (injected faults in tests
+    subclass it)."""
+
+
+def is_transient_io_error(exc: BaseException) -> bool:
+    """True if ``exc`` is a filesystem fault worth retrying: checkpoint
+    commits go to network filesystems, where ``OSError`` is routinely
+    transient."""
+    return isinstance(exc, (OSError, RetryableError))
+
+
+@dataclasses.dataclass
+class RetryPolicy:
+    """Bounded retry with capped exponential backoff and seeded jitter.
+
+    ``classify`` decides whether an error is retried; a non-retryable
+    error (or the last attempt's) is re-raised as it is.  ``sleep`` is
+    injectable so tests run at full speed, and the jitter draws from
+    ``random.Random(seed)`` per call, so a policy always produces the
+    same backoff sequence.
+    """
+
+    max_attempts: int = 3
+    base_delay_s: float = 1.0
+    max_delay_s: float = 60.0
+    growth: float = 2.0         # 1.0 = constant backoff
+    jitter: float = 0.25        # +/- fraction of the delay
+    seed: int = 0
+    classify: Callable[[BaseException], bool] = is_transient_io_error
+    sleep: Callable[[float], None] = time.sleep
+
+    def delay_for(self, attempt: int, rng: random.Random) -> float:
+        """Backoff after failed attempt number ``attempt`` (1-based)."""
+        delay = min(self.max_delay_s,
+                    self.base_delay_s * self.growth ** (attempt - 1))
+        if self.jitter:
+            delay *= 1.0 + self.jitter * (2.0 * rng.random() - 1.0)
+        return max(0.0, delay)
+
+    def call(self, fn: Callable[[], Any], *, describe: str = "call") -> Any:
+        """Run ``fn`` under this policy and return its result; each retry
+        is logged, and the last error is raised unchanged."""
+        if self.max_attempts < 1:
+            raise ValueError(
+                f"max_attempts must be >= 1, got {self.max_attempts}")
+        rng = random.Random(self.seed)
+        for attempt in range(1, self.max_attempts + 1):
+            try:
+                return fn()
+            except Exception as exc:  # noqa: BLE001 - classify decides
+                try:
+                    retryable = bool(self.classify(exc))
+                except Exception:  # a broken classifier must not mask it
+                    retryable = False
+                if not retryable or attempt >= self.max_attempts:
+                    raise
+                delay = self.delay_for(attempt, rng)
+                log.warning("%s: attempt %d/%d failed (%s); retrying in "
+                            "%.2fs", describe, attempt, self.max_attempts,
+                            exc, delay)
+                self.sleep(delay)
+        raise AssertionError("unreachable")  # pragma: no cover

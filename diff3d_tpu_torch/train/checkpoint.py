@@ -1,80 +1,465 @@
 """Checkpoints of the train state (counterpart:
-``diff3d_tpu/train/checkpoint.py``, its ``full`` mode).
+``diff3d_tpu/train/checkpoint.py``).
 
-One ``torch.save`` per checkpoint, ``<dir>/ckpt_<step>.pt``, holding
-``{'model', 'ema', 'optim', 'sched', 'step'}`` -- the reference's
-``{'model', 'optim', 'step'}`` plus the EMA and the warmup schedule's
-position.  Written to a temporary name and renamed, so a crash never
-leaves a half-written checkpoint under a final name; the newest ``keep``
-are kept.  A restore gives back the exact state, so the next step is the
-one the saving run would have taken.  It replaces Adam's state tensors,
-so a train step captured as CUDA graphs before it is captured again
-(:class:`~diff3d_tpu_torch.train.step.TrainStep` compares the addresses
-it captured with the state's before every replay).  The sliced,
-asynchronous and ``ema_bf16`` modes wait for a later slice.
+Save modes:
+
+  * ``"full"`` (the default) -- one ``torch.save`` per checkpoint,
+    ``<dir>/ckpt_<step>.pt``, holding ``{'model', 'ema', 'optim', 'sched',
+    'step'}``: the reference's ``{'model', 'optim', 'step'}`` plus the EMA
+    and the warmup schedule's position.  Exact resume.
+  * ``"ema_bf16"`` -- ``<dir>/ckpt_<step>.pt`` holding ``{'ema', 'step'}``
+    with the EMA cast to bfloat16: eval-grade weights
+    (:meth:`CheckpointManager.restore_ema`) and a warm restart (the
+    ``Trainer`` takes the EMA as its parameters and its EMA, Adam's
+    moments start at zero, the schedule at the step).
+  * ``"full_sliced"`` -- the whole state as one ``.npy`` file per tensor
+    plus ``sliced_manifest.json`` under ``<dir>/<step>/``: written to
+    ``<step>.tmp`` and committed by a rename, each tensor's device-to-host
+    fetch retried on its own, the commit retried over filesystem faults.
+    Exact resume, as ``full``.  With ``async_writes`` the snapshot is
+    taken on the caller's thread (after a synchronisation of the stream
+    that wrote the state) and the files are written by a writer thread;
+    :meth:`CheckpointManager.wait_until_finished` is the durability
+    barrier, and a write that failed is raised at the next call.
+
+Every file is written under a temporary name and renamed, so a crash
+never leaves a half-written checkpoint under a final name; the newest
+``keep`` are kept.  The directory carries a ``ckpt_format.json`` marker
+naming a mode other than ``full``; an unmarked directory is ``full`` (so
+every checkpoint written before the marker existed stays readable), and a
+mode that disagrees with the marker is refused.
+
+A restore first compares every tensor's name, shape and dtype on disk
+with the target's and raises :class:`CheckpointMismatchError` naming the
+first that differs, before anything is copied.  ``full`` replaces Adam's
+state tensors (``load_state_dict``); ``full_sliced`` copies into the
+state's tensors in place where they exist.  A train step captured as CUDA
+graphs compares the addresses it captured with the state's before every
+replay and captures again where they moved
+(:class:`~diff3d_tpu_torch.train.step.TrainStep`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
 import os
+import queue
 import re
-from typing import List, Optional
+import shutil
+import threading
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from diff3d_tpu_torch.train.state import TrainState, settle_lr
+from diff3d_tpu_torch.runtime.retry import RetryPolicy, is_transient_io_error
+from diff3d_tpu_torch.train.state import (TrainState, set_schedule_step,
+                                          settle_lr)
+
+log = logging.getLogger(__name__)
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+_MARKER = "ckpt_format.json"
+_SLICED_MANIFEST = "sliced_manifest.json"
+MODES = ("full", "ema_bf16", "full_sliced")
+
+#: Per-tensor device-to-host fetch retry of a sliced save: any exception
+#: is retried (a transient fault costs one tensor's retry, not the save).
+_FETCH_RETRY = RetryPolicy(
+    max_attempts=3, base_delay_s=5.0, max_delay_s=10.0, growth=2.0,
+    jitter=0.0, classify=lambda exc: True)
+
+#: Snapshots an asynchronous manager holds for its writer at most.
+_MAX_INFLIGHT = 2
+
+#: Commit retry of a sliced save over filesystem faults; every attempt
+#: rebuilds the temporary directory from the host snapshot.
+_DEFAULT_WRITE_RETRY = RetryPolicy(
+    max_attempts=4, base_delay_s=0.5, max_delay_s=8.0, growth=2.0,
+    jitter=0.25, classify=is_transient_io_error)
+
+
+class CheckpointMismatchError(ValueError):
+    """A checkpoint and its target disagree on a tensor's presence, shape
+    or dtype; raised before anything is copied, naming the tensor
+    (``leaf``), what the target expects and what was found, and the
+    checkpoint's step."""
+
+    def __init__(self, msg: str, *, leaf: Optional[str] = None,
+                 expected=None, found=None, step: Optional[int] = None):
+        super().__init__(msg)
+        self.leaf = leaf
+        self.expected = expected
+        self.found = found
+        self.step = step
+
+
+def _meta(t: torch.Tensor) -> Tuple[tuple, str]:
+    return tuple(t.shape), str(t.dtype).replace("torch.", "")
+
+
+def _adam_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+    opt = state.optimizer
+    return [(f"adam.{name}.{key}", st[key])
+            for name, p in state.model.named_parameters()
+            for st in [opt.state.get(p, {})] for key in sorted(st)
+            if torch.is_tensor(st[key])]
+
+
+def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+    """Every tensor of ``state`` by name, in a fixed order: ``model.*``
+    (the state dict), ``ema.*``, ``adam.<param>.<key>`` (where Adam has
+    made its state)."""
+    return ([(f"model.{k}", v) for k, v in state.model.state_dict().items()]
+            + [(f"ema.{k}", v) for k, v in state.ema.items()]
+            + _adam_leaves(state))
+
+
+def _expected(state: TrainState, with_adam: bool
+              ) -> List[Tuple[str, tuple, str]]:
+    """(name, shape, dtype) of every tensor a checkpoint of ``state`` holds
+    (Adam's for every parameter when ``with_adam``: the step counter and
+    both moments in float32)."""
+    out = [(n, *_meta(t)) for n, t in state_leaves(state)
+           if not n.startswith("adam.")]
+    if with_adam:
+        for name, p in state.model.named_parameters():
+            out += [(f"adam.{name}.exp_avg", tuple(p.shape), "float32"),
+                    (f"adam.{name}.exp_avg_sq", tuple(p.shape), "float32"),
+                    (f"adam.{name}.step", (), "float32")]
+    return sorted(out)
+
+
+def _preflight(found: Sequence[Tuple[str, tuple, str]],
+               expected: Sequence[Tuple[str, tuple, str]], where: str,
+               step: int) -> None:
+    """Raise :class:`CheckpointMismatchError` at the first tensor that is
+    missing, extra, or of another shape or dtype."""
+    got = {n: (s, d) for n, s, d in found}
+    want = {n: (s, d) for n, s, d in expected}
+    for name in sorted(want.keys() - got.keys()):
+        raise CheckpointMismatchError(
+            f"{where} (step {step}) has no tensor {name!r}, which the "
+            f"target expects as {want[name]} -- model/optimizer config "
+            "mismatch", leaf=name, expected=want[name], found=None,
+            step=step)
+    for name in sorted(got.keys() - want.keys()):
+        raise CheckpointMismatchError(
+            f"{where} (step {step}) holds tensor {name!r} {got[name]}, "
+            "which the target does not have -- model/optimizer config "
+            "mismatch", leaf=name, expected=None, found=got[name],
+            step=step)
+    for name in sorted(want):
+        (ws, wd), (gs, gd) = want[name], got[name]
+        if gs != ws:
+            raise CheckpointMismatchError(
+                f"{where} (step {step}): tensor {name!r} has shape {gs}, "
+                f"the target expects {ws} -- model/optimizer config "
+                "mismatch", leaf=name, expected=ws, found=gs, step=step)
+        if gd != wd:
+            raise CheckpointMismatchError(
+                f"{where} (step {step}): tensor {name!r} was saved as {gd}, "
+                f"the target expects {wd} -- model/optimizer config "
+                "mismatch", leaf=name, expected=wd, found=gd, step=step)
+
+
+def _full_leaves(ckpt: Mapping, names: Sequence[str]
+                 ) -> List[Tuple[str, tuple, str]]:
+    """(name, shape, dtype) of every tensor of a ``full`` checkpoint;
+    Adam's state is keyed by parameter index there."""
+    out = [(f"model.{k}", *_meta(v)) for k, v in ckpt["model"].items()]
+    out += [(f"ema.{k}", *_meta(v)) for k, v in ckpt["ema"].items()]
+    for i, st in ckpt["optim"]["state"].items():
+        name = names[i] if 0 <= int(i) < len(names) else f"#{i}"
+        out += [(f"adam.{name}.{key}", *_meta(v))
+                for key, v in st.items() if torch.is_tensor(v)]
+    return sorted(out)
+
+
+@dataclasses.dataclass
+class _Snapshot:
+    """A host copy of one train state, ready to write: taken on the
+    caller's thread, written by any thread."""
+
+    step: int
+    arrays: List[np.ndarray]          # bfloat16 viewed as int16
+    manifest: dict
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 mode: Optional[str] = None, async_writes: bool = False,
+                 write_retry: Optional[RetryPolicy] = None):
+        """``mode=None`` follows the directory's marker (``full`` when it
+        has none); an explicit mode must agree with an existing marker.
+        ``async_writes`` applies to ``full_sliced`` only: at most
+        ``_MAX_INFLIGHT`` snapshots wait for the writer (host memory),
+        beyond that :meth:`save` blocks.  ``write_retry`` replaces the
+        commit's retry policy (tests pass one that does not sleep)."""
+        if mode is not None and mode not in MODES:
+            raise ValueError(f"mode={mode!r} not in {MODES}")
         self.directory = directory
         self.keep = keep
+        marker = os.path.join(directory, _MARKER)
+        if os.path.exists(marker):
+            with open(marker) as f:
+                marked = json.load(f)["mode"]
+            if marked not in MODES:
+                raise ValueError(f"{marker} declares unknown mode "
+                                 f"{marked!r}")
+            if mode is not None and mode != marked:
+                raise ValueError(
+                    f"{directory} is marked mode={marked!r} but "
+                    f"mode={mode!r} was requested -- use a fresh "
+                    "checkpoint directory to change modes")
+            self.mode = marked
+        else:
+            self.mode = mode or "full"
+            if self.mode != "full":
+                # An unmarked directory that holds checkpoints holds full
+                # ones: stamping it with another mode would wedge them.
+                if self._files() or self._sliced_steps():
+                    raise ValueError(
+                        f"{directory} already contains full checkpoints; "
+                        f"refusing to relabel it mode={self.mode!r} -- use "
+                        "a fresh checkpoint directory")
+                os.makedirs(directory, exist_ok=True)
+                with open(marker, "w") as f:
+                    json.dump({"mode": self.mode}, f)
+        self._write_retry = write_retry or _DEFAULT_WRITE_RETRY
+        self._async = bool(async_writes) and self.mode == "full_sliced"
+        self._lock = threading.Lock()
+        self._error: Optional[BaseException] = None   # guarded by _lock
+        self._pending: set = set()                    # guarded by _lock
+        self._queue: queue.Queue = queue.Queue()
+        self._inflight = threading.Semaphore(_MAX_INFLIGHT)
+        self._writer: Optional[threading.Thread] = None
 
-    def steps(self) -> List[int]:
-        """Steps of the checkpoints on disk, ascending."""
+    # ---- listing ------------------------------------------------------
+
+    def _files(self) -> List[int]:
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(m.group(1)) for m in
                       map(_NAME.match, os.listdir(self.directory)) if m)
 
+    def _sliced_steps(self) -> List[int]:
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit() and os.path.exists(os.path.join(
+                          self.directory, d, _SLICED_MANIFEST)))
+
+    def steps(self) -> List[int]:
+        """Steps of the checkpoints on disk, ascending."""
+        return (self._sliced_steps() if self.mode == "full_sliced"
+                else self._files())
+
     def path(self, step: int) -> str:
+        """The checkpoint of ``step``: a file (``full``, ``ema_bf16``) or a
+        directory (``full_sliced``)."""
+        if self.mode == "full_sliced":
+            return os.path.join(self.directory, str(step))
         return os.path.join(self.directory, f"ckpt_{step}.pt")
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
 
+    def _prune(self) -> None:
+        if self.keep <= 0:
+            return
+        for old in self.steps()[:-self.keep]:
+            path = self.path(old)
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+            else:
+                os.remove(path)
+
+    # ---- saving -------------------------------------------------------
+
     def save(self, state: TrainState, *, force: bool = False) -> bool:
-        """Write ``state``; an existing checkpoint of the same step is kept
-        unless ``force``.  Returns whether it wrote."""
+        """Write ``state``; returns whether it wrote.  An existing
+        checkpoint of the same step is kept unless ``force`` (a committed
+        ``full_sliced`` step is always kept: it is the state of that
+        step).  A deferred write failure is raised here first."""
+        self._raise_deferred_error()
+        if self.mode == "full_sliced":
+            return self._save_sliced(state)
         path = self.path(state.step)
         if os.path.exists(path) and not force:
             return False
+        if self.mode == "ema_bf16":
+            payload = {"ema": {k: v.detach().to("cpu", torch.bfloat16)
+                               for k, v in state.ema.items()},
+                       "step": state.step}
+        else:
+            payload = {"model": state.model.state_dict(), "ema": state.ema,
+                       "optim": state.optimizer.state_dict(),
+                       "sched": state.scheduler.state_dict(),
+                       "step": state.step}
         os.makedirs(self.directory, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": state.model.state_dict(), "ema": state.ema,
-                    "optim": state.optimizer.state_dict(),
-                    "sched": state.scheduler.state_dict(),
-                    "step": state.step}, tmp)
+        torch.save(payload, tmp)
         os.replace(tmp, path)
-        for old in self.steps()[:-self.keep] if self.keep > 0 else []:
-            os.remove(self.path(old))
+        self._prune()
         return True
+
+    def _snapshot(self, state: TrainState) -> _Snapshot:
+        """Host copies of every tensor of ``state``, on the caller's
+        thread: the step that wrote them runs on this thread's stream, and
+        the next step overwrites them in place."""
+        leaves = state_leaves(state)
+        devices = {t.device for _, t in leaves if t.is_cuda}
+        for dev in devices:
+            torch.cuda.current_stream(dev).synchronize()
+        arrays, meta = [], []
+        for i, (name, t) in enumerate(leaves):
+            host = _FETCH_RETRY.call(
+                lambda t=t: t.detach().to("cpu", copy=True),
+                describe=f"sliced save: tensor {i} ({name}) fetch")
+            shape, dtype = _meta(host)
+            if host.dtype == torch.bfloat16:     # numpy has no bfloat16
+                host = host.view(torch.int16)
+            arrays.append(host.numpy())
+            meta.append({"name": name, "shape": list(shape),
+                         "dtype": dtype})
+        return _Snapshot(step=state.step, arrays=arrays, manifest={
+            "step": state.step,
+            "schedule_step": int(state.scheduler.last_epoch),
+            "leaves": meta})
+
+    def _commit(self, snap: _Snapshot) -> None:
+        """Write one snapshot and publish it by a rename; safe to retry
+        (each attempt starts the temporary directory afresh)."""
+        final = self.path(snap.step)
+        if os.path.exists(final):
+            return
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        for i, arr in enumerate(snap.arrays):
+            np.save(os.path.join(tmp, f"t_{i:05d}.npy"), arr)
+        with open(os.path.join(tmp, _SLICED_MANIFEST), "w") as f:
+            json.dump(snap.manifest, f)
+        os.replace(tmp, final)           # readers never see a partial one
+        self._prune()
+
+    def _save_sliced(self, state: TrainState) -> bool:
+        step = state.step
+        with self._lock:
+            pending = step in self._pending
+        if pending or os.path.exists(self.path(step)):
+            return False
+        snap = self._snapshot(state)
+        if not self._async:
+            self._write_retry.call(lambda: self._commit(snap),
+                                   describe=f"ckpt commit (step {step})")
+            return True
+        if self._writer is None:
+            self._writer = threading.Thread(
+                target=self._writer_loop, name="ckpt-writer", daemon=True)
+            self._writer.start()
+        with self._lock:
+            self._pending.add(step)
+        self._inflight.acquire()          # backpressure: bounded host RAM
+        self._queue.put(snap)
+        return True
+
+    def _writer_loop(self) -> None:
+        while True:
+            snap = self._queue.get()
+            if snap is None:
+                self._queue.task_done()
+                return
+            try:
+                self._write_retry.call(
+                    lambda: self._commit(snap),
+                    describe=f"async ckpt commit (step {snap.step})")
+            except BaseException as e:  # noqa: BLE001 - raised later
+                # Raised at the next save() or wait_until_finished(): a
+                # checkpoint that did not land must reach the caller.
+                log.exception("async checkpoint commit failed (step %d)",
+                              snap.step)
+                with self._lock:
+                    self._error = e
+            finally:
+                with self._lock:
+                    self._pending.discard(snap.step)
+                self._inflight.release()
+                self._queue.task_done()
+
+    def _raise_deferred_error(self) -> None:
+        with self._lock:
+            err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def wait_until_finished(self) -> None:
+        """Durability barrier: returns once every accepted save is on
+        disk, raising a deferred write failure."""
+        if self._writer is not None:
+            self._queue.join()
+        self._raise_deferred_error()
+
+    def close(self) -> None:
+        """Finish the queued writes and stop the writer thread."""
+        if self._writer is not None:
+            self._queue.put(None)
+            self._writer.join(timeout=60.0)
+            if self._writer.is_alive():  # pragma: no cover - stuck disk
+                log.error("checkpoint writer did not exit within 60 s")
+            self._writer = None
+
+    # ---- restoring ----------------------------------------------------
+
+    def _pick(self, step: Optional[int]) -> Optional[int]:
+        steps = self.steps()
+        if step is None:
+            return steps[-1] if steps else None
+        if step not in steps:
+            raise ValueError(f"checkpoint step {step} not found in "
+                             f"{self.directory}; available: "
+                             f"{steps or 'none'}")
+        return step
+
+    def _manifest(self, step: int) -> dict:
+        with open(os.path.join(self.path(step), _SLICED_MANIFEST)) as f:
+            return json.load(f)
+
+    def _load_leaf(self, step: int, index: int, meta: dict) -> torch.Tensor:
+        arr = np.load(os.path.join(self.path(step), f"t_{index:05d}.npy"))
+        t = torch.from_numpy(arr)
+        return t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> Optional[int]:
         """Load checkpoint ``step`` (the latest when None) into ``state``
-        in place; returns its step, or None when there is none."""
-        step = self.latest_step() if step is None else step
+        in place and return its step, or None when there is none.  Only
+        the exact-resume modes: an ``ema_bf16`` directory raises
+        ``ValueError`` (:meth:`restore_ema` reads it)."""
+        if self.mode == "ema_bf16":
+            raise ValueError(
+                f"restore() on a mode='ema_bf16' checkpoint directory "
+                f"({self.directory}); use restore_ema() -- it holds no "
+                "optimizer state")
+        step = self._pick(step)
         if step is None:
             return None
+        if self.mode == "full_sliced":
+            return self._restore_sliced(state, step)
         # Loaded on the host: the loaders below move each tensor to its
         # parameter's device, and Adam's step counters stay on the host
         # where a fresh Adam keeps them.
         ckpt = torch.load(self.path(step), map_location="cpu",
                           weights_only=True)
+        names = [n for n, _ in state.model.named_parameters()]
+        found = _full_leaves(ckpt, names)
+        _preflight(found, _expected(state, any(
+            n.startswith("adam.") for n, _, _ in found)), self.path(step),
+            step)
         state.model.load_state_dict(ckpt["model"])
         # The optimizer keeps its own kind (``capturable`` on the card):
         # a loaded state dict brings the saving optimizer's flags.
@@ -90,10 +475,78 @@ class CheckpointManager:
                     st["step"] = st["step"].to(p.device, torch.float32)
         settle_lr(opt)
         state.scheduler.load_state_dict(ckpt["sched"])
-        if set(ckpt["ema"]) != set(state.ema):
-            raise KeyError("checkpoint EMA names differ from the model's")
         with torch.no_grad():
             for name, t in ckpt["ema"].items():
                 state.ema[name].copy_(t)
         state.step = int(ckpt["step"])
         return state.step
+
+    def _restore_sliced(self, state: TrainState, step: int) -> int:
+        manifest = self._manifest(step)
+        found = [(m["name"], tuple(m["shape"]), m["dtype"])
+                 for m in manifest["leaves"]]
+        with_adam = any(n.startswith("adam.") for n, _, _ in found)
+        _preflight(found, _expected(state, with_adam), self.path(step),
+                   step)
+        targets = dict(state_leaves(state))
+        opt = state.optimizer
+        params = dict(state.model.named_parameters())
+        with torch.no_grad():
+            for i, meta in enumerate(manifest["leaves"]):
+                name, src = meta["name"], self._load_leaf(step, i, meta)
+                if name in targets:
+                    targets[name].copy_(src)         # in place
+                    continue
+                # Adam has made no state yet: make it as Adam would.
+                pname, key = name[len("adam."):].rsplit(".", 1)
+                p = params[pname]
+                capturable = opt.param_groups[0].get("capturable", False)
+                dev = p.device if (key != "step" or capturable) else "cpu"
+                opt.state[p][key] = src.to(dev, copy=True)
+            if not with_adam:
+                # A checkpoint taken before the first update: Adam's
+                # moments are zero, in place where they exist.
+                for _, t in _adam_leaves(state):
+                    t.zero_()
+        set_schedule_step(state, int(manifest["schedule_step"]))
+        state.step = int(manifest["step"])
+        return state.step
+
+    def restore_ema(self, params: Mapping[str, torch.Tensor],
+                    step: Optional[int] = None, *,
+                    raw: bool = False) -> Optional[int]:
+        """Copy the EMA weights of checkpoint ``step`` (the latest when
+        None) into ``params`` (parameter name -> tensor, e.g.
+        ``dict(model.named_parameters())`` or a state's ``ema``) in place,
+        upcast to their dtype; returns the step, or None when there is no
+        checkpoint.  ``raw`` copies the trained (non-EMA) weights instead,
+        which only the exact-resume modes hold."""
+        if raw and self.mode == "ema_bf16":
+            raise ValueError(
+                f"{self.directory} is an ema_bf16 checkpoint: it has no raw "
+                "parameters (--raw_params unavailable)")
+        step = self._pick(step)
+        if step is None:
+            return None
+        prefix = "model." if raw else "ema."
+        stored = "bfloat16" if self.mode == "ema_bf16" else None
+        want = sorted((prefix + k, tuple(v.shape), stored
+                       or _meta(v)[1]) for k, v in params.items())
+        if self.mode == "full_sliced":
+            manifest = self._manifest(step)
+            picked = [(i, m) for i, m in enumerate(manifest["leaves"])
+                      if m["name"].startswith(prefix)]
+            _preflight([(m["name"], tuple(m["shape"]), m["dtype"])
+                        for _, m in picked], want, self.path(step), step)
+            tensors = {m["name"][len(prefix):]: self._load_leaf(step, i, m)
+                       for i, m in picked}
+        else:
+            ckpt = torch.load(self.path(step), map_location="cpu",
+                              weights_only=True)
+            tensors = ckpt["model" if raw else "ema"]
+            _preflight([(prefix + k, *_meta(v)) for k, v in tensors.items()],
+                       want, self.path(step), step)
+        with torch.no_grad():
+            for name, t in tensors.items():
+                params[name].copy_(t)
+        return step

@@ -8,6 +8,11 @@ a non-finite loss or gradient norm halts with ``FloatingPointError``
 before anything poisoned is saved; any other exception inside the loop
 writes an emergency checkpoint and re-raises, so ``transfer=True``
 resumes there (build the loader with ``start_step=trainer.state.step``).
+Checkpoints are written in ``cfg.train.ckpt_mode``
+(:mod:`~diff3d_tpu_torch.train.checkpoint`); ``train()`` returns once
+they are on disk.  ``transfer=True`` on an ``ema_bf16`` directory is a
+warm restart: parameters and EMA from the checkpoint's EMA, fresh Adam
+moments, the schedule at its step.
 The preemption handler, in-training evaluation, the elastic supervisor
 and data parallelism wait for later slices.
 
@@ -34,7 +39,8 @@ from diff3d_tpu_torch.device import resolve_device
 from diff3d_tpu_torch.graphs import use_cuda_graphs
 from diff3d_tpu_torch.models import xunet
 from diff3d_tpu_torch.train.checkpoint import CheckpointManager
-from diff3d_tpu_torch.train.state import TrainState, create_train_state
+from diff3d_tpu_torch.train.state import (TrainState, create_train_state,
+                                          set_schedule_step)
 from diff3d_tpu_torch.train.step import make_train_step
 
 log = logging.getLogger(__name__)
@@ -71,8 +77,21 @@ class Trainer:
         self.state: TrainState = create_train_state(model, cfg.train)
         self.ckpt = CheckpointManager(
             os.path.join(workdir, cfg.train.checkpoint_dir),
-            keep=cfg.train.keep_checkpoints)
-        if transfer and self.ckpt.restore(self.state) is not None:
+            keep=cfg.train.keep_checkpoints, mode=cfg.train.ckpt_mode,
+            async_writes=cfg.train.ckpt_async)
+        if transfer and self.ckpt.mode == "ema_bf16":
+            # Warm restart: the checkpoint holds the EMA only, so the
+            # parameters and the EMA both start from it, Adam's moments
+            # from zero, and the schedule at the step (no second warmup).
+            step = self.ckpt.restore_ema(self.state.ema)
+            if step is not None:
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        p.copy_(self.state.ema[name])
+                set_schedule_step(self.state, step)
+                self.state.step = step
+                log.info("warm-restarted (ema_bf16) at step %d", step)
+        elif transfer and self.ckpt.restore(self.state) is not None:
             log.info("resumed at step %d", self.state.step)
         self.step_fn = make_train_step(cfg, cuda_graphs=graphs)
         self._metrics_path = os.path.join(workdir, "metrics.jsonl")
@@ -134,7 +153,10 @@ class Trainer:
             # interrupted step.
             try:
                 self.ckpt.save(self.state, force=True)
+                self.ckpt.wait_until_finished()
             except Exception:  # best effort; the original error wins
                 log.exception("emergency checkpoint failed")
             raise
+        # Durability: a returned train() means its checkpoints landed.
+        self.ckpt.wait_until_finished()
         return self.state

@@ -924,3 +924,152 @@ def test_srn128_attention_sites_match_plain(cuda):
                 q, k, v, o, lse_bhl, do)
             for a, b in zip((dq, dk, dv), want):
                 _close(a, b, dt)
+
+
+# ---- distillation and sliced checkpoints on the card ----------------------
+
+
+def _distill_batches(cuda, B, H=16, start=0):
+    from diff3d_tpu_torch.data import InfiniteLoader, SyntheticDataset
+
+    loader = InfiniteLoader(SyntheticDataset(num_objects=4, num_views=6,
+                                             imgsize=H), B, num_workers=0)
+    s = start
+    while True:
+        yield {k: torch.from_numpy(v).to(cuda)
+               for k, v in loader.batch(s).items()}
+        s += 1
+
+
+def _distill_run(cuda, cfg, teacher, graphs):
+    """Two rounds (k = 2, 1) of 2 steps of the tiny bf16 model: per-step
+    metrics, the returned EMA, and the step."""
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import distill, make_distill_step
+
+    inner = make_distill_step(cfg, cuda_graphs=graphs)
+    metrics = []
+
+    def step(state, t, batch, k):
+        m = inner(state, t, batch, k)
+        metrics.append((m["distill_loss"].clone(), m["grad_norm"].clone(),
+                        m["lr"]))
+        return m
+
+    final, _ = distill(XUNet(cfg.model).to(cuda), cfg, teacher,
+                       _distill_batches(cuda, cfg.train.global_batch),
+                       start_steps=4, final_steps=1, round_steps=2,
+                       log_every=0, step_fn=step)
+    return metrics, final, inner
+
+
+def test_distill_graph_is_bit_identical_to_eager(cuda):
+    """``distill`` with one CUDA graph for every round (the first step
+    eager, then captured; round 2 replays it with k = 1 and the state
+    reset in place) against the eager step: losses, gradient norms and the
+    final EMA bit for bit.  The graph holds all five kernels."""
+    cfg, model = _tiny_bf16(cuda, global_batch=4, lr=0.01,
+                            warmup_examples=8, grad_clip=0.5)
+    teacher = {k: v.detach().clone() for k, v in model.named_parameters()}
+    (gm, gf, step), (em, ef, eager) = _bit_identical_runs(
+        cuda, lambda: (_distill_run(cuda, cfg, teacher, True),
+                       _distill_run(cuda, cfg, teacher, False)))
+    assert eager.graph is None and step.graph.replays == 3
+    for name in ("fused_groupnorm", "groupnorm_backward", "flash_attention",
+                 "attention_backward_dkdv", "attention_backward_dq"):
+        assert step.graph.captured[name] > 0, name
+    for (la, ga, lra), (lb, gb, lrb) in zip(gm, em):
+        assert torch.equal(la, lb) and torch.equal(ga, gb) and lra == lrb
+    assert all(torch.isfinite(m[0]) for m in gm)
+    assert not [k for k in gf if not torch.equal(gf[k], ef[k])]
+    assert any(not torch.equal(gf[k], teacher[k]) for k in teacher)
+
+
+def test_distill_loss_kernel_path_matches_plain_path(cuda):
+    """One distill step of the tiny model in f32 (TF32 off), student and
+    teacher through the kernels and through the plain versions, the same
+    draws: the loss within 1e-5 relative, the gradients within 1e-4
+    relative L2 (summation order only), with samples at i = k, where x^ is
+    eps^'s error scaled by 1/alpha_t ~ 2e4."""
+    import dataclasses
+
+    from diff3d_tpu_torch.train import (DistillDraws, create_train_state,
+                                        make_distill_step)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = port_tiny_config(imgsize=16, ch=32)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, global_batch=8))
+    batch = next(_distill_batches(cuda, 8))
+    out = {}
+    try:
+        for impl in ("cuda", "torch"):
+            student = build_model(cfg.model, cuda, seed=0,
+                                  randomize_zero_init=True)
+            teacher = build_model(cfg.model, cuda, seed=1,
+                                  randomize_zero_init=True)
+            teacher.requires_grad_(False)
+            set_kernels(student, impl)
+            set_kernels(teacher, impl)
+            state = create_train_state(student, cfg.train)
+            m = make_distill_step(cfg)(
+                state, teacher, batch, 2,
+                draws=DistillDraws(torch.Generator(cuda).manual_seed(3)))
+            out[impl] = (float(m["distill_loss"]),
+                         [p.grad.detach().clone()
+                          for p in student.parameters()])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    u = torch.rand(8, generator=torch.Generator(cuda).manual_seed(3),
+                   device=cuda)
+    assert bool((torch.floor(u * 2) + 1 == 2).any())
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp), (lk, lp)
+    assert _rel_l2(gk, gp) <= 1e-4, _rel_l2(gk, gp)
+
+
+def test_full_sliced_async_round_trip_of_card_tensors(cuda, tmp_path):
+    """A state on the card after two graph-path train steps, saved
+    ``full_sliced`` with the asynchronous writer, restored into a fresh
+    state on the card: every tensor (capturable Adam's step counters on
+    the card too) bit for bit, in place, and the next step of both is the
+    same (cuDNN deterministic, as ``train_cli`` sets it)."""
+    _bit_identical_runs(cuda, lambda: _sliced_round_trip(cuda, tmp_path))
+
+
+def _sliced_round_trip(cuda, tmp_path):
+    from diff3d_tpu_torch.train import (CheckpointManager,
+                                        create_train_state, make_train_step)
+    from diff3d_tpu_torch.train.checkpoint import state_leaves
+
+    cfg, model = _tiny_bf16(cuda, global_batch=8, lr=0.01,
+                            warmup_examples=16)
+    batches = _distill_batches(cuda, 8)
+    step = make_train_step(cfg, cuda_graphs=True)
+    state = create_train_state(model.train(), cfg.train)
+    for _ in range(2):
+        step(state, next(batches))
+    mgr = CheckpointManager(str(tmp_path), mode="full_sliced",
+                            async_writes=True)
+    assert mgr.save(state)
+    mgr.wait_until_finished()
+    mgr.close()
+    fresh = create_train_state(
+        build_model(cfg.model, cuda, seed=5).train(), cfg.train)
+    make_train_step(cfg)(fresh, next(_distill_batches(cuda, 8, start=7)))
+    ptrs = [t.data_ptr() for _, t in state_leaves(fresh)]
+    assert CheckpointManager(str(tmp_path)).restore(fresh) == 2
+    assert [t.data_ptr() for _, t in state_leaves(fresh)] == ptrs
+    a, b = dict(state_leaves(state)), dict(state_leaves(fresh))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert b[k].device == a[k].device and torch.equal(a[k], b[k]), k
+    batch = next(batches)
+    m1 = step(state, batch)
+    m2 = make_train_step(cfg, cuda_graphs=True)(fresh, batch)
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert torch.equal(m1["grad_norm"], m2["grad_norm"])

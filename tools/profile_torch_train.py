@@ -17,13 +17,17 @@ kernel group and for the top kernels, read from the exported Chrome
 trace.  The card's
 name and power limit are printed first, as ``nvidia-smi`` gives them.  A
 microbatch that does not fit ends the run with CUDA's out-of-memory
-error.
+error.  ``--distill K`` profiles the progressive-distillation step
+(``train/distill.py``) at ``K`` student steps instead: the trainer's
+state is the student, a second X-UNet with its weights the teacher, the
+whole batch one microbatch.
 
 Usage (on the machine with the card, from the repo root):
     python3 tools/profile_torch_train.py [--config srn64] [--accum 1] \
         [--steps 2] [--mode both] [--trace build/profile/train_trace.json]
     python3 tools/profile_torch_train.py --config srn128 --accum 2 \
         --mode graph
+    python3 tools/profile_torch_train.py --distill 2
 """
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ def main(argv=None) -> None:
     p.add_argument("--mode", choices=["both", "graph", "eager"],
                    default="both")
     p.add_argument("--trace", default="build/profile/train_trace.json")
+    p.add_argument("--distill", type=int, default=None, metavar="K",
+                   help="profile the distill step at K student steps")
     args = p.parse_args(argv)
 
     import torch
@@ -108,27 +114,44 @@ def profile_one(args, graphs: bool) -> None:
         "--warmup_examples", str(10 * args.batch), "--ckpt_every", "0",
         "--workdir", args.workdir] + policy
         + ([] if graphs else ["--eager"])))
+    step_fn = trainer.step_fn
+    if args.distill:
+        from diff3d_tpu_torch.models import XUNet
+        from diff3d_tpu_torch.train import make_distill_step
+
+        teacher = XUNet(trainer.cfg.model).cuda().eval()
+        teacher.requires_grad_(False)
+        teacher.load_state_dict(trainer.state.model.state_dict())
+        step_fn = make_distill_step(trainer.cfg, cuda_graphs=graphs)
+
+    def one():
+        if args.distill:
+            step_fn(trainer.state, teacher, next(trainer.loader),
+                    args.distill)
+        else:
+            step_fn(trainer.state, next(trainer.loader))
+
     # Every step is called directly: no checkpoint falls in the run.
     torch.cuda.reset_peak_memory_stats()
     for _ in range(args.warmup):
-        trainer.step_fn(trainer.state, next(trainer.loader))
+        one()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        trainer.step_fn(trainer.state, next(trainer.loader))
+        one()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            trainer.step_fn(trainer.state, next(trainer.loader))
+            one()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     trainer_cfg = trainer.cfg
     trainer.loader.close()
-    trainer.step_fn.release()
+    step_fn.release()
     del trainer
     shutil.rmtree(args.workdir, ignore_errors=True)
     base, ext = os.path.splitext(args.trace)
@@ -148,7 +171,8 @@ def profile_one(args, graphs: bool) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     mcfg = trainer_cfg.model
     print(json.dumps({
-        "config": args.config, "remat": mcfg.remat,
+        "config": args.config, "distill_student_steps": args.distill,
+        "remat": mcfg.remat,
         "remat_policy": mcfg.remat_policy if mcfg.remat else None,
         "cuda_graphs": graphs, "batch": args.batch, "accum": args.accum,
         "steps": args.steps, "wall_s_per_step": wall / args.steps,
