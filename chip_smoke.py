@@ -40,6 +40,22 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      1-4: on an f32 copy of the model at 16 steps against ``step`` per
      object (rel. L2 1e-3); ``synthesize_many`` of one view of 4 objects
      at 256 steps in bf16 timed, with finite outputs.
+ 6d. serve — the single-engine service at srn64 full width through
+     ``cli/serve_cli.py``'s ``build_service`` (chip_smoke's random weights
+     as a state dict, ``--sampler_steps 64 --schedules ddim:16
+     --max_batch 4 --warmup``) and HTTP on an ephemeral port: the serving
+     path, counts set to 0 before ``build_service`` and read after.
+     Three concurrent requests (4 lanes, one padding) bit-identical to
+     ``synthesize_many`` on the same sampler over the same lanes; a
+     5-view request admitted while a 7-view one runs finishes first; a
+     replay answered from the result cache; a ``ddim:16`` request; a hot
+     swap (every weight + 0.05) changes the views with no new graph and
+     no moved parameter, and swapping back restores them bit for bit;
+     ``/healthz``, ``/metrics``, ``/stats``; ``stop`` joins the engine.
+     s per view step at lanes 1, 2, 4, time to first view, each graph's
+     first-use seconds and bytes, peak memory, launches.  Then
+     serve_groupnorm / serve_attention: rows 1 and 3 at the 4-lane view
+     step's sites, checked and timed.
   7. groupnorm_backward — at every GroupNorm site shape of one srn64
      training microbatch (recorded with hooks), bf16 and f32, random
      upstream gradients: ``fused_groupnorm`` as autograd records it (with
@@ -131,7 +147,8 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      srn64 checkpoint, finite.
 
 Then one ``{"kernels": [...]}`` line (each kernel per srn64 step, per
-srn128 step, then per distill step) and, last, the device line.  The library calls are timing
+served step, per srn128 step, then per distill step) and, last, the
+device line.  The library calls are timing
 yardsticks only; the port never calls them.
 
 Usage: python3 chip_smoke.py
@@ -1301,6 +1318,285 @@ def phase_sampler_many(cfg, model):
     if not rel <= 1e-3:
         raise AssertionError(f"sampler_many: step_many vs step rel. L2 "
                              f"{rel} > 1e-3")
+    return out
+
+
+SERVE_WORKDIR = WORKDIR + "_serve"
+SERVE_ARGV = ["--config", "srn64", "--port", "0", "--sampler_steps", "64",
+              "--schedules", "ddim:16", "--max_batch", "4", "--max_wait_ms",
+              "500", "--warmup"]
+SERVE_WAIT_S = 600.0            # every HTTP wait's limit
+
+
+def _serve_http(port, path, payload=None):
+    """One request to the service on this host: ``(status, body)``."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+        return r.status, r.read()
+
+
+def _serve_payload(views, seed, **kw):
+    return {"views": {k: np.asarray(v).tolist() for k, v in views.items()},
+            "seed": seed, "n_views": int(views["imgs"].shape[0]), **kw}
+
+
+def _post_all(port, payloads):
+    """POST ``payloads`` to /synthesize at once, one thread each; their
+    JSON bodies in order, with the wall time each answered at."""
+    import threading
+
+    out, errs = [None] * len(payloads), []
+
+    def run(i):
+        try:
+            status, body = _serve_http(port, "/synthesize", payloads[i])
+            if status != 200:
+                raise AssertionError(f"serve: status {status}")
+            out[i] = dict(json.loads(body), answered=time.perf_counter())
+        except Exception as e:       # re-raised below, on this thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT_S)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: requests failed: {errs}")
+    return out
+
+
+def _views_of(body):
+    return np.asarray(body["views"], np.float32)
+
+
+def phase_serve(cfg, model):
+    """The single-engine service at srn64 full width, built by
+    ``serve_cli``'s own ``build_service`` from chip_smoke's seeded random
+    weights (a state dict, ``--model``) and driven over HTTP on an
+    ephemeral port: ``--sampler_steps 64 --schedules ddim:16 --max_batch
+    4 --warmup``.  Three concurrent requests (4 lanes, one padding) must
+    be bit-identical to ``synthesize_many`` on the same sampler over the
+    three objects plus a fourth repeating object 0 under another seed; a
+    5-view request posted after a 7-view one has committed its first
+    view must finish first; a replay comes from the result cache; a
+    ``ddim:16`` request; a hot swap (every weight + 0.05) changes the
+    views without a new graph or a moved parameter, and swapping back
+    restores them bit for bit; ``/healthz``, ``/metrics``, ``/stats``;
+    ``stop`` joins the engine thread.  The counts are set to 0 before
+    ``build_service`` (its warm-up captures are part of the path) and
+    read after; the reference's replays are taken out."""
+    import threading
+
+    import torch
+
+    from diff3d_tpu_torch.cli import serve_cli
+    from diff3d_tpu_torch.serving import lane_count
+
+    H = cfg.model.H
+    os.makedirs(SERVE_WORKDIR, exist_ok=True)
+    weights = os.path.join(SERVE_WORKDIR, "srn64_random.pt")
+    torch.save(model.state_dict(), weights)
+    argv = ["--model", weights] + SERVE_ARGV
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    service = serve_cli.build_service(serve_cli.build_parser().parse_args(
+        argv))
+    build_s = time.perf_counter() - t0
+    eng = service.engine
+    sampler = eng.samplers[("ancestral", 64)]
+
+    def graphs():
+        return [g for s in eng.samplers.values() for g in s.graphs.values()]
+
+    steps_log, seen = [], set()
+    inner = eng._run_view_step
+
+    def timed(active):           # the engine thread's view step, timed
+        b = active[0].req.bucket
+        key = (f"{b.sampler}:{b.steps}", lane_count(len(active),
+                                                     eng.max_batch),
+               b.capacity)
+        t = time.perf_counter()
+        inner(active)
+        steps_log.append({"schedule": key[0], "lanes": key[1],
+                          "capacity": key[2], "live": len(active),
+                          "first_use": key not in seen,
+                          "s": time.perf_counter() - t})
+        seen.add(key)
+
+    eng._run_view_step = timed
+    service.start(serve_http=True)
+    port = service.port
+
+    def counter(name):
+        snap = json.loads(_serve_http(port, "/metrics?format=json")[1])
+        return snap["counters"].get(name, 0.0)
+
+    def ttfv(body):
+        req = service.get_request(body["id"])
+        return req.first_view_time - req.submit_time
+
+    # Three concurrent requests: 4 lanes, one of them padding.
+    objs = [orbit_views(3, H, seed=50 + i) for i in range(3)]
+    first = _post_all(port, [_serve_payload(v, i)
+                             for i, v in enumerate(objs)])
+    before_ref = _launch_counts(graphs=graphs())
+    ref = sampler.synthesize_many(
+        objs + [objs[0]],
+        [torch.Generator("cuda").manual_seed(s) for s in (0, 1, 2, 1234)])
+    after_ref = _launch_counts(graphs=graphs())
+    identical = all(np.array_equal(_views_of(first[i]), ref[i])
+                    for i in range(3))
+
+    # Admission between views: a 5-view request joins a 7-view one.
+    done0 = counter("serving_views_completed_total")
+    late = {}
+    long_t = threading.Thread(target=lambda: late.update(long=_post_all(
+        port, [_serve_payload(orbit_views(7, H, seed=60), 7)])[0]))
+    long_t.start()
+    deadline = time.perf_counter() + SERVE_WAIT_S
+    while counter("serving_views_completed_total") <= done0:
+        if time.perf_counter() > deadline:
+            raise AssertionError("serve: the 7-view request made no view")
+        time.sleep(0.05)
+    late["short"] = _post_all(port, [_serve_payload(
+        orbit_views(5, H, seed=61), 8)])[0]
+    long_t.join(SERVE_WAIT_S)
+    if "long" not in late:
+        raise AssertionError("serve: the 7-view request failed")
+    admitted_first = late["short"]["answered"] < late["long"]["answered"]
+    late_finite = all(np.isfinite(_views_of(late[k])).all()
+                      and _views_of(late[k]).shape[0] == n
+                      for k, n in (("long", 6), ("short", 4)))
+
+    # The result cache, then the second schedule.
+    views_before = counter("serving_views_completed_total")
+    (cached,) = _post_all(port, [_serve_payload(objs[0], 0)])
+    cache_ok = (cached["cached"] and cached["views"] == first[0]["views"]
+                and counter("serving_views_completed_total")
+                == views_before)
+    (ddim,) = _post_all(port, [_serve_payload(
+        orbit_views(3, H, seed=62), 9, sampler_kind="ddim", steps=16)])
+    ddim_finite = bool(np.isfinite(_views_of(ddim)).all())
+
+    status, health = _serve_http(port, "/healthz")
+    health = json.loads(health)
+    text = _serve_http(port, "/metrics")[1].decode()
+    metric_lines = [ln for ln in text.splitlines()
+                    if ln and not ln.startswith("#")]
+    for ln in metric_lines:
+        float(ln.rsplit(" ", 1)[1])             # each sample parses
+
+    # Hot swap: every weight + 0.05, then back.
+    live = eng.sampler.model
+    ptrs = {k: p.data_ptr() for k, p in live.named_parameters()}
+    n_graphs = len(graphs())
+    orig = {k: t.clone() for k, t in live.state_dict().items()}
+    again = [_serve_payload(v, i) for i, v in enumerate(objs)]
+    service.registry.swap({k: t + 0.05 for k, t in orig.items()},
+                          version="swap-1")
+    swapped = _post_all(port, again)
+    service.registry.swap(orig, version="swap-2")
+    restored = _post_all(port, again)
+    del orig
+    swap = {
+        "cached": [b["cached"] for b in swapped + restored],
+        "differs_from_first": all(
+            not np.array_equal(_views_of(s), _views_of(f))
+            for s, f in zip(swapped, first)),
+        "restored_bit_identical": all(
+            np.array_equal(_views_of(r), _views_of(f))
+            for r, f in zip(restored, first)),
+        "graphs_before": n_graphs, "graphs_after": len(graphs()),
+        "data_ptrs_unchanged": ptrs == {
+            k: p.data_ptr() for k, p in live.named_parameters()},
+        "params_version": json.loads(_serve_http(port, "/healthz")[1])[
+            "params_version"]}
+
+    stats = json.loads(_serve_http(port, "/stats")[1])["engine"]
+    ran = _launch_counts(graphs=graphs())
+    launches = {k: ran[k] - (after_ref[k] - before_ref[k])
+                for k in ("fused_groupnorm", "flash_attention")}
+    summary = _graph_summary(graphs())
+    first_view = {"concurrent_3": [round(ttfv(b), 3) for b in first],
+                  "admitted_mid_job": round(ttfv(late["short"]), 3),
+                  "alone_7_views": round(ttfv(late["long"]), 3)}
+    service.stop(drain_s=10.0)
+    stopped = not eng.alive
+    programs = stats["program_cache"]["programs"]
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [p["max_memory_allocated"] for p in programs.values()])
+    del service, eng, sampler, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(weights)
+
+    def steady(lanes):
+        s = [r["s"] for r in steps_log if r["lanes"] == lanes
+             and r["schedule"] == "ancestral:64" and not r["first_use"]]
+        return round(float(np.median(s)), 4) if s else None
+
+    per_lanes = {f"lanes_{n}": steady(n) for n in (1, 2, 4)}
+    out = {"config": "srn64", "argv": SERVE_ARGV,
+           "build_and_warmup_s": round(build_s, 3),
+           "s_per_view_step": per_lanes,
+           "ms_per_denoise_step": {k: (None if v is None
+                                       else round(1e3 * v / 64, 3))
+                                   for k, v in per_lanes.items()},
+           "lanes4_over_4x_lanes1": (
+               None if None in (per_lanes["lanes_1"], per_lanes["lanes_4"])
+               else round(per_lanes["lanes_4"]
+                          / (4 * per_lanes["lanes_1"]), 4)),
+           "view_steps": [dict(r, s=round(r["s"], 4)) for r in steps_log],
+           "time_to_first_view_s": first_view,
+           "programs": programs,
+           "baseline_allocated": baseline,
+           "max_memory_allocated": peak,
+           "launches": launches,
+           "reference_launches": {k: after_ref[k] - before_ref[k]
+                                  for k in launches},
+           "graphs": summary,
+           "graphs_note": "replays include the reference "
+                          "synthesize_many's; launches do not",
+           "bit_identical_to_synthesize_many": identical,
+           "late_request_finished_first": admitted_first,
+           "late_views_finite": late_finite, "cached_replay": cache_ok,
+           "ddim16_finite": ddim_finite, "swap": swap,
+           "healthz": [status, health["status"]],
+           "metrics_samples": len(metric_lines), "stopped": stopped}
+    emit(dict(phase="serve", **out))
+    failed = [k for k, ok in (
+        ("bit_identical_to_synthesize_many", identical),
+        ("late_request_finished_first", admitted_first),
+        ("late_views_finite", late_finite), ("cached_replay", cache_ok),
+        ("ddim16_finite", ddim_finite),
+        ("first_views_finite", all(np.isfinite(_views_of(b)).all()
+                                   for b in first)),
+        ("swap_not_cached", not any(swap["cached"])),
+        ("swap_differs", swap["differs_from_first"]),
+        ("swap_restored", swap["restored_bit_identical"]),
+        ("swap_no_recapture",
+         swap["graphs_before"] == swap["graphs_after"]),
+        ("swap_in_place", swap["data_ptrs_unchanged"]),
+        ("healthz", status == 200 and health["status"] == "ok"),
+        ("stopped", stopped),
+        ("launches", all(n > 0 for n in launches.values())),
+        ("graphs", all(g["replays"] > 0 and g["captured"].get(k, 0) > 0
+                       for g in summary
+                       for k in ("fused_groupnorm", "flash_attention"))),
+        ("program_bytes", all(p["peak_bytes"] for p in programs.values())))
+        if not ok]
+    if failed:
+        raise AssertionError(f"serve: {failed}")
     return out
 
 
@@ -2767,6 +3063,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # The single-engine service (serve_cli over HTTP), then rows 1 and 3
+    # at its 4-lane view step's sites.
+    serve = phase_serve(cfg, model)
+    lanes4 = 4 * 2 * len(cfg.diffusion.guidance_weights)
+    gn_serve_sites, attn_serve_sites = record_sites(
+        model, *model_batch(cfg, lanes4, seed=7))
+    gn_serve = phase_groupnorm(gn_serve_sites, phase="serve_groupnorm",
+                               odd_shapes=False)
+    attn_serve = phase_attention(attn_serve_sites, phase="serve_attention",
+                                 extra_shapes=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # The training sites: one microbatch of the train phase.
     mb = TRAIN_BATCH // TRAIN_ACCUM
     gn_train, attn_train = record_sites(model, *model_batch(cfg, mb, seed=6))
@@ -2820,6 +3129,10 @@ def main() -> None:
     train_per = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                  f"{TRAIN_ACCUM}) at srn64, summed over sites")
     sample128 = "one denoise step (2B=16) at srn128, summed over sites"
+    serve_per = (f"one denoise step of a served view step at 4 lanes "
+                 f"(N*2B = {lanes4}) at srn64, summed over sites; "
+                 "launches: the serve phase's (warm-up captures, every "
+                 "served view step)")
     train128 = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                 f"{accum128}, remat 'nothing': the forward kernels run "
                 "again in each block's recompute) at srn128, summed over "
@@ -2860,6 +3173,10 @@ def main() -> None:
          tl["attention_backward_dkdv"], attn_rows["dkdv"], train_per),
         ("attention_backward_dq", att, dq_at, tl["attention_backward_dq"],
          attn_rows["dq"], train_per),
+        ("fused_groupnorm@serve", film, gn_fwd_at,
+         serve["launches"]["fused_groupnorm"], gn_serve, serve_per),
+        ("flash_attention@serve", att, fa_at,
+         serve["launches"]["flash_attention"], attn_serve, serve_per),
         ("fused_groupnorm@srn128", film, gn_fwd_at,
          l128["fused_groupnorm"], gn128, sample128),
         ("fused_groupnorm[save_stats]@srn128", film, gn_fwd_at,

@@ -12,8 +12,8 @@ becomes a hand-written CUDA C++ kernel under ``ops/csrc/``, built with
 Entry points (:func:`diff3d_tpu_torch.models.build_model`,
 :class:`diff3d_tpu_torch.sampling.Sampler`,
 :class:`diff3d_tpu_torch.train.Trainer`, ``cli/sample_cli.py``,
-``cli/train_cli.py``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without a card and without an explicit device they
+``cli/train_cli.py``, ``cli/serve_cli.py``) run on ``cuda`` unless the
+caller passes ``device="cpu"``; without a card and without an explicit device they
 raise.  On the card the sampler's reverse step and the train step run as
 CUDA graphs (:mod:`diff3d_tpu_torch.graphs`), the counterpart of the
 reference's compiled programs.
@@ -22,8 +22,10 @@ reference's compiled programs.
 __version__ = "0.1.0"
 
 from diff3d_tpu_torch.config import (Config, DataConfig, DiffusionConfig,
-                                     ModelConfig, TrainConfig, srn64_config,
-                                     srn128_config, test_config)
+                                     ModelConfig, ServingConfig, TrainConfig,
+                                     srn64_config, srn128_config,
+                                     test_config)
 
 __all__ = ["Config", "DataConfig", "DiffusionConfig", "ModelConfig",
-           "TrainConfig", "srn64_config", "srn128_config", "test_config"]
+           "ServingConfig", "TrainConfig", "srn64_config", "srn128_config",
+           "test_config"]

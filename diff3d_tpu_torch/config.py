@@ -1,11 +1,12 @@
 """Typed configuration of the port (counterpart: ``diff3d_tpu/config.py``).
 
-An own copy of the model, diffusion, train and data settings the sampling
-and training slices act on, with the JAX package's values.  Left out until
-a slice acts on them: ``attn_impl`` / ``attn_impl_levels`` and ``kernels``
+An own copy of the model, diffusion, train, data and serving settings the
+ported slices act on, with the JAX package's values.  Left out until a
+slice acts on them: ``attn_impl`` / ``attn_impl_levels`` and ``kernels``
 (the port runs one implementation per device, see
-:mod:`diff3d_tpu_torch.ops.dispatch`);
-``eval_every``; and the mesh / serving sections.
+:mod:`diff3d_tpu_torch.ops.dispatch`); ``eval_every``; the mesh section;
+and the serving fields of the cross-process fleet (heartbeats, the
+transport's frame ceiling).
 """
 
 from __future__ import annotations
@@ -126,15 +127,102 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """The single-engine inference service (:mod:`diff3d_tpu_torch.serving`),
+    with the JAX package's defaults.
+
+    Concurrent requests are microbatched into fixed-shape device batches
+    (bucketed by image size and record capacity) and admitted between
+    view steps (continuous batching at view granularity).
+    """
+
+    host: str = "127.0.0.1"
+    port: int = 8080
+    # Submissions beyond this many pending requests are rejected (HTTP
+    # 429), never queued without bound.
+    max_queue: int = 64
+    # Lane ceiling per bucket; the engine pads the active set up to the
+    # next power of two <= max_batch (one captured graph per lane count).
+    max_batch: int = 8
+    # Microbatch flush deadline after the first request of a bucket.
+    max_wait_ms: float = 50.0
+    # Per-request deadline (queue wait + compute).
+    default_timeout_s: float = 300.0
+    # LRU result cache entries keyed by request content (0 disables).
+    result_cache_entries: int = 32
+    # Per-request view ceiling (bounds the record capacity).
+    max_views: int = 16
+    # Stuck-step watchdog: a view step older than this fails its
+    # in-flight requests with a typed retryable error and degrades the
+    # engine; 0 disables it.
+    watchdog_timeout_s: float = 600.0
+    # Attempts per view step (1 = no retry) and the base backoff.
+    step_retry_attempts: int = 2
+    step_retry_backoff_s: float = 0.2
+    # Consecutive clean steps that bring `degraded` back to `ok`.
+    degraded_recovery_steps: int = 3
+    # Advisory wait on typed retryable rejections (HTTP Retry-After).
+    retry_after_s: float = 5.0
+    # Watchdog respawns of a dead engine loop before failing fast.
+    engine_max_restarts: int = 3
+    # Engine replicas behind a fleet router; the port serves one
+    # (the fleet is ROADMAP A9b).
+    replicas: int = 1
+
+    def validate(self) -> None:
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch={self.max_batch} must be >= 1")
+        if self.max_queue < 1:
+            raise ValueError(f"max_queue={self.max_queue} must be >= 1")
+        if self.max_wait_ms < 0:
+            raise ValueError(f"max_wait_ms={self.max_wait_ms} must be >= 0")
+        if self.default_timeout_s <= 0:
+            raise ValueError(
+                f"default_timeout_s={self.default_timeout_s} must be > 0")
+        if self.max_views < 2:
+            raise ValueError(
+                f"max_views={self.max_views} must be >= 2 (one "
+                "conditioning view + one target)")
+        if self.watchdog_timeout_s < 0:
+            raise ValueError(
+                f"watchdog_timeout_s={self.watchdog_timeout_s} must be "
+                ">= 0 (0 disables)")
+        if self.step_retry_attempts < 1:
+            raise ValueError(
+                f"step_retry_attempts={self.step_retry_attempts} must be "
+                ">= 1 (1 = no retry)")
+        if self.step_retry_backoff_s < 0:
+            raise ValueError(
+                f"step_retry_backoff_s={self.step_retry_backoff_s} must "
+                "be >= 0")
+        if self.degraded_recovery_steps < 1:
+            raise ValueError(
+                f"degraded_recovery_steps={self.degraded_recovery_steps} "
+                "must be >= 1")
+        if self.retry_after_s <= 0:
+            raise ValueError(
+                f"retry_after_s={self.retry_after_s} must be > 0")
+        if self.engine_max_restarts < 0:
+            raise ValueError(
+                f"engine_max_restarts={self.engine_max_restarts} must be "
+                ">= 0")
+        if self.replicas < 1:
+            raise ValueError(f"replicas={self.replicas} must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     diffusion: DiffusionConfig = dataclasses.field(
         default_factory=DiffusionConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    serving: ServingConfig = dataclasses.field(
+        default_factory=ServingConfig)
 
     def validate(self) -> None:
         self.model.validate()
+        self.serving.validate()
         if self.diffusion.loss_type not in ("l1", "l2", "huber"):
             raise ValueError(f"loss_type={self.diffusion.loss_type!r} not "
                              "in ('l1', 'l2', 'huber')")

@@ -1,12 +1,14 @@
 """Bounded retry with capped exponential backoff (counterpart:
-``diff3d_tpu/runtime/retry.py``, its ``RetryPolicy`` and
-``is_transient_io_error``).
+``diff3d_tpu/runtime/retry.py``, its ``RetryPolicy``,
+``is_transient_io_error`` and ``is_transient_backend_error``).
 
 The checkpoint writer (:mod:`diff3d_tpu_torch.train.checkpoint`) retries
 each tensor's device-to-host fetch and each commit of a sliced
-checkpoint under a policy.  The classification of backend faults (a lost
-card, a failed collective) belongs to the serving and elastic layers,
-which the port does not have yet.
+checkpoint under a policy; the serving engine retries a view step under
+one that classifies with :func:`is_transient_backend_error`.  CUDA's
+sticky errors (an illegal memory access, a launch failure, a device-side
+assert, a launch timeout) poison the context, so they are never
+transient: a retry in the same process can only repeat them.
 """
 
 from __future__ import annotations
@@ -15,14 +17,60 @@ import dataclasses
 import logging
 import random
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 log = logging.getLogger(__name__)
 
 
 class RetryableError(RuntimeError):
-    """A fault the caller may safely retry (injected faults in tests
-    subclass it)."""
+    """A fault the caller may safely retry: a failed or stuck engine
+    step, degraded admission, a draining engine (injected faults in tests
+    subclass it).  ``retry_after_s`` is an advisory wait; the HTTP layer
+    maps it to a ``Retry-After`` header."""
+
+    def __init__(self, msg: str = "", *,
+                 retry_after_s: Optional[float] = None):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+#: Lower-cased substrings that mark an exception as a transient
+#: transport or backend fault (the JAX package's list: gRPC status names
+#: and the failure strings of its bench rounds).
+_TRANSIENT_MARKERS = (
+    "unavailable",
+    "deadline_exceeded",
+    "deadline exceeded",
+    "connection reset",
+    "connection refused",
+    "socket closed",
+    "broken pipe",
+    "transport closed",
+    "failed to connect",
+    "temporarily",
+)
+
+#: Lower-cased substrings of CUDA's sticky errors: each leaves the
+#: context unusable, so they are never transient whatever else the
+#: message says.
+_STICKY_CUDA_MARKERS = (
+    "an illegal memory access",
+    "unspecified launch failure",
+    "device-side assert",
+    "cudaerrorlaunchtimeout",
+)
+
+
+def is_transient_backend_error(exc: BaseException) -> bool:
+    """True if ``exc`` looks like a transient backend or transport fault:
+    a :class:`RetryableError`, a ``ConnectionError``, or a message with
+    one of the transport markers, unless it names a sticky CUDA error."""
+    msg = str(exc).lower()
+    if any(marker in msg for marker in _STICKY_CUDA_MARKERS):
+        return False
+    if isinstance(exc, (RetryableError, ConnectionError)):
+        return True
+    return any(marker in msg for marker in _TRANSIENT_MARKERS)
 
 
 def is_transient_io_error(exc: BaseException) -> bool:

@@ -18,8 +18,18 @@ it is captured once per shape as a CUDA graph
 compiled ``lax.scan``) and replayed; elsewhere, or with
 ``cuda_graphs=False``, it runs eagerly.  :meth:`Sampler.step_many` and
 :meth:`Sampler.synthesize_many` batch N objects into every model call.
-The mesh (``mesh`` / ``lane_multiple``), ``lower_step_many`` and the
-per-call ``params=`` swap wait for later slices of the port.
+
+The serving engine gives all its samplers one CUDA-graph memory pool
+(:attr:`Sampler.graph_pool`), so its graphs (one per lane count, record
+capacity and schedule) share their intermediates instead of each
+holding its own.  That is safe because one thread replays one graph at a
+time on one stream, and a step writes its results only into buffers
+allocated outside the capture.  The per-call ``params=`` swap of the JAX
+package becomes an in-place copy into the model's parameters
+(:class:`~diff3d_tpu_torch.serving.ParamsRegistry`), which the captured
+graphs read at fixed addresses.  The mesh waits for a later slice
+(``lane_multiple`` is 1, the JAX package's no-mesh case), and so does
+``lower_step_many``.
 """
 
 from __future__ import annotations
@@ -115,7 +125,16 @@ class Sampler:
         it eagerly (the comparison path); True off a CUDA device raises.
         The first view of a shape runs its first step eagerly, then
         captures the step; a failed capture raises.
+
+    :attr:`graph_pool` (None: each graph gets a pool of its own) may be
+    set to a CUDA-graph memory pool handle
+    (``torch.cuda.graph_pool_handle()``) that every later capture goes
+    into; only one graph of a shared pool may run at a time.
     """
+
+    #: Object-axis quantum of the lane count; the mesh, which would make
+    #: it the data-axis size, waits for the parallel layer.
+    lane_multiple = 1
 
     def __init__(self, model: torch.nn.Module, cfg: Config, *,
                  device: Optional[Union[str, torch.device]] = None,
@@ -161,6 +180,7 @@ class Sampler:
         # step per (objects, capacity, H, W, record dtype).
         self._loops: Dict[tuple, ReverseLoop] = {}
         self.graphs: Dict[tuple, StepGraph] = {}
+        self.graph_pool = None
 
     @property
     def model_calls_per_view(self) -> int:
@@ -297,7 +317,8 @@ class Sampler:
         if graph is None:
             loop.step()
             n -= 1
-            graph = self.graphs[key] = StepGraph(loop.step)
+            graph = self.graphs[key] = StepGraph(loop.step,
+                                                 pool=self.graph_pool)
         for _ in range(n):
             graph.replay()
 

@@ -1,0 +1,7 @@
+"""Test support: deterministic fault injection (counterpart:
+``diff3d_tpu/testing``)."""
+
+from diff3d_tpu_torch.testing.faults import (FaultInjected, FaultInjector,
+                                            FaultSpec, wrap_sampler)
+
+__all__ = ["FaultInjected", "FaultInjector", "FaultSpec", "wrap_sampler"]

@@ -1073,3 +1073,126 @@ def _sliced_round_trip(cuda, tmp_path):
     m2 = make_train_step(cfg, cuda_graphs=True)(fresh, batch)
     assert torch.equal(m1["loss"], m2["loss"])
     assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+
+
+# ---- the single-engine service on the card --------------------------------
+
+
+def _served(svc, payloads, timeout=300.0):
+    """Submit ``payloads`` before the engine starts (so they run as one
+    batch), start it, and return their results."""
+    reqs = [svc.submit(p) for p in payloads]
+    svc.start(serve_http=False)
+    return [r.result(timeout=timeout) for r in reqs]
+
+
+def _serving_setup(cuda, **serving):
+    import dataclasses
+
+    from diff3d_tpu_torch.config import ServingConfig
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.serving import ServingService
+
+    cfg, model = _tiny_bf16(cuda)
+    cfg = dataclasses.replace(cfg, serving=ServingConfig(
+        port=0, max_batch=4, max_wait_ms=0.0, **serving))
+    svc = ServingService(Sampler(model, cfg, device=cuda), cfg)
+    return cfg, model, svc
+
+
+def _serving_payload(seed, n_views=3):
+    v = _orbit_object(n_views, seed)
+    return {"views": {k: a.tolist() for k, a in v.items()}, "seed": seed,
+            "n_views": n_views}
+
+
+def test_served_views_are_synthesize_many_over_the_same_lanes(cuda):
+    """Three requests served as 4 lanes (one padding lane) on the graph
+    path: each bit for bit ``synthesize_many`` over the three objects
+    plus a fourth repeating object 0 under another seed; the served
+    graph holds both kernels and was replayed."""
+    cfg, model, svc = _serving_setup(cuda)
+    seeds = (0, 1, 2)
+    try:
+        outs = _served(svc, [_serving_payload(s) for s in seeds])
+    finally:
+        svc.stop()
+    sampler = svc.engine.sampler
+    views = [_orbit_object(3, s) for s in seeds]
+    ref = sampler.synthesize_many(
+        views + [views[0]],
+        [torch.Generator(cuda).manual_seed(s) for s in (0, 1, 2, 77)])
+    for n in range(3):
+        assert np.isfinite(outs[n]).all()
+        np.testing.assert_array_equal(outs[n], ref[n])
+    (graph,) = sampler.graphs.values()
+    assert graph.replays > 0 and graph.captured["fused_groupnorm"] > 0
+    assert graph.captured["flash_attention"] > 0
+    stats = svc.engine.programs.stats(include_memory=True)
+    (prog,) = stats["programs"].values()
+    assert prog["peak_bytes"] > 0 and prog["argument_bytes"] > 0
+
+
+def test_served_swap_copies_in_place_without_a_recapture(cuda):
+    """A swap between requests: the same graphs, the parameters at the
+    same addresses, other views; swapping back restores the first views
+    bit for bit."""
+    cfg, model, svc = _serving_setup(cuda)
+    p = _serving_payload(3)
+    ptrs = {k: t.data_ptr() for k, t in model.named_parameters()}
+    orig = {k: t.clone() for k, t in model.state_dict().items()}
+    try:
+        (base,) = _served(svc, [p])
+        graphs = dict(svc.engine.sampler.graphs)
+        svc.registry.swap({k: t + 0.05 for k, t in orig.items()}, "v1")
+        swapped = svc.submit(p).result(timeout=300.0)
+        svc.registry.swap(orig, "v2")
+        again = svc.submit(p).result(timeout=300.0)
+    finally:
+        svc.stop()
+    assert not np.array_equal(swapped, base)
+    np.testing.assert_array_equal(again, base)
+    assert svc.engine.sampler.graphs == graphs
+    assert {k: t.data_ptr() for k, t in model.named_parameters()} == ptrs
+
+
+def test_graphs_share_one_pool_and_replay_out_of_order(cuda):
+    """Several (lanes, capacity) keys captured into one memory pool, then
+    replayed in another order than their capture, against a sampler that
+    gives each graph a pool of its own: bit for bit."""
+    from diff3d_tpu_torch.diffusion import Draws
+    from diff3d_tpu_torch.sampling import Sampler
+
+    cfg, model = _tiny_bf16(cuda)
+    shared = Sampler(model, cfg, device=cuda)
+    shared.graph_pool = torch.cuda.graph_pool_handle()
+    own = Sampler(model, cfg, device=cuda)
+    B = len(cfg.diffusion.guidance_weights)
+    keys = [(1, 2), (4, 4), (2, 8), (4, 2)]
+
+    def step(sampler, N, cap, seed):
+        rng = np.random.default_rng(seed)
+        objs = [_orbit_object(cap, seed + n) for n in range(N)]
+        rec = np.zeros((N, cap, B, 16, 16, 3), np.float32)
+        rec[:, 0] = rng.uniform(-1, 1, (N, B, 16, 16, 3))
+
+        def t(a):
+            return torch.tensor(np.asarray(a, np.float32), device=cuda)
+
+        out, _, _ = sampler.step_many(
+            t(rec), t([o["R"] for o in objs]), t([o["T"] for o in objs]),
+            [1] * N, t([o["K"] for o in objs]),
+            [Draws(torch.Generator(cuda).manual_seed(seed + n))
+             for n in range(N)])
+        return out.cpu().numpy()
+
+    order = keys + keys[::-1] + [keys[1], keys[3], keys[0], keys[2]]
+    for i, (N, cap) in enumerate(order):
+        a = step(shared, N, cap, 10 * i)
+        b = step(own, N, cap, 10 * i)
+        assert np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+    assert len(shared.graphs) == len(keys)
+    pools = {g.pool() for g in shared.graphs.values()}
+    assert len(pools) == 1
+    assert len({g.pool() for g in own.graphs.values()}) == len(keys)
