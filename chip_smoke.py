@@ -39,7 +39,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
   6c. sampler_many — ``step_many`` over N = 4 objects at record lengths
      1-4: on an f32 copy of the model at 16 steps against ``step`` per
      object (rel. L2 1e-3); ``synthesize_many`` of one view of 4 objects
-     at 256 steps in bf16 timed, with finite outputs.
+     at 64 steps (cut from 256 in PR 10) in bf16 timed, with finite
+     outputs.
  6d. serve — the single-engine service at srn64 full width through
      ``cli/serve_cli.py``'s ``build_service`` (chip_smoke's random weights
      as a state dict, ``--sampler_steps 64 --schedules ddim:16
@@ -56,6 +57,30 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      first-use seconds and bytes, peak memory, launches.  Then
      serve_groupnorm / serve_attention: rows 1 and 3 at the 4-lane view
      step's sites, checked and timed.
+ 6e. serve_fleet — two srn64 replicas behind the fleet router
+     (``serve_cli --replicas 2 --sampler_steps 64 --schedules
+     ancestral:64,1@ddim:16 --max_batch 2 --warmup``, each replica with
+     its own weights, samplers and graphs) over HTTP: four sticky
+     sessions, two owned by each replica by rendezvous, posted 0.1 s apart
+     so both replicas meet their first 2-lane use at once; each replica's
+     views bit-identical to ``synthesize_many`` on its own sampler over the
+     same lanes; the ``1@ddim:16`` request on replica 1 only; a rolling
+     rollout (every weight + 0.05) changes the views and rolling back
+     restores them bit for bit, every graph and ``data_ptr`` kept; replica
+     0 killed: its session gets ``SessionLost`` (503, Retry-After) and
+     sessionless traffic fails over.  s per view step of each replica at
+     lanes 1 and 2, each first use's seconds and bytes, weight bytes per
+     replica, launches.  Then serve_fleet_groupnorm /
+     serve_fleet_attention: rows 1 and 3 at the 2-lane sites.
+ 6f. serve_workers — ``worker_cli --devices 0 --port 0`` as a process on
+     the card, fronted by ``serve_cli --workers`` (no engine of its own,
+     no device memory allocated): its views against the in-process
+     engine's for the same payload and seed (bit-identical, else rel. L2
+     1e-3); SIGTERM drains it, exit 0; a second worker with
+     ``--hbm_budget_bytes`` one byte above the first's pin plus one
+     record admits one request and refuses a second ``ReplicaOverBudget``
+     (503, Retry-After), exit 0.  Boot seconds; the worker's launches
+     read over the wire.
   7. groupnorm_backward — at every GroupNorm site shape of one srn64
      training microbatch (recorded with hooks), bf16 and f32, random
      upstream gradients: ``fused_groupnorm`` as autograd records it (with
@@ -98,10 +123,22 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      2B = 16: kernel path against plain path (rel. L2 3e-2, as srn64), ms
      and launches per forward, and the ptxas registers and spill bytes of
      every kernel instance its path launches (reported, not gated).
- 13. srn128_sampler — one srn128 view, 256 ancestral steps, w = 0..7, the
-     reverse step as a CUDA graph: the srn128 sampling path, counts set to
-     0 before and read after; ms per step, s per view, peak memory; then
-     a 16-step view graph against eager, bit-identical.
+ 13. srn128_sampler — one srn128 view, 64 ancestral steps (cut from 256:
+     the step is the same), w = 0..7, the reverse step as a CUDA graph:
+     the srn128 sampling path, counts set to 0 before and read after; ms
+     per step, s per view, peak memory; then a 16-step view graph against
+     eager, bit-identical.
+ 13b. serve_cascade — ``serve_cli --config srn128 --cascade
+     draft=64:ddim:8,refine=128:ancestral:64@t0.40625 --max_batch 2`` on
+     the srn128 weights over HTTP: two concurrent 3-view cascades walked
+     through ``?from=K`` (4 events each, each view's draft before its
+     refine, a gapless cursor, finite views); one cascade alone
+     bit-identical to ``CascadeSampler.synthesize_cascade``; a swap
+     refreshes the draft's ``pos_emb`` in place with no new capture.  s
+     per view step of each phase at lanes 1 and 2, each request's times
+     to first draft / refined frame, launches split by phase.  Then
+     serve_cascade_groupnorm / serve_cascade_attention: rows 1 and 3 at
+     the draft's (64^2) and the refine's (128^2) 2-lane sites.
  14. srn128_train — remat against no remat on one srn128 step at batch 4
      (f32 and bf16, dropout 0.1, the same draws): loss and gradients
      bit-identical, peak memory of each; the peaks of an eager Trainer
@@ -111,10 +148,10 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      it does not fit there: a capture needs more); then the ``Trainer``
      built by
      ``train_cli --config srn128 --remat --synthetic_scenes`` at global
-     batch 128, 4 steps as CUDA graphs, under "nothing" (``train()``: the
+     batch 128 as CUDA graphs, 3 steps under "nothing" (``train()``: the
      srn128 training path, counts set to 0 before and read after; the
-     recompute launches every block's forward kernels again) and under
-     "dots"; s/step, examples/s, peak memory, loss and grad_norm per step;
+     recompute launches every block's forward kernels again) and 2 under
+     "dots" (cut from 4 each); s/step, examples/s, peak memory, loss and grad_norm per step;
      then ``sample_cli --config srn128`` on the "nothing" checkpoint (EMA)
      at 32 steps: finite views.
  15. srn128_sites — every GroupNorm and attention site of a srn128
@@ -147,7 +184,8 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      srn64 checkpoint, finite.
 
 Then one ``{"kernels": [...]}`` line (each kernel per srn64 step, per
-served step, per srn128 step, then per distill step) and, last, the
+served step (single engine, fleet, worker), per cascade step (draft and
+refine apart), per srn128 step, then per distill step) and, last, the
 device line.  The library calls are timing
 yardsticks only; the port never calls them.
 
@@ -163,6 +201,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -206,7 +245,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms over ``iters`` back-to-back runs
     (CUDA events, after ``warmup`` runs).  Python's garbage collector is
     off while they run, as in ``timeit``: a collection of this process's
-    heap would otherwise land in one window as a host pause."""
+    heap would otherwise land in one window as a host pause.  No
+    collection is forced first: with this process's heap one takes ~0.1
+    s, and the site phases time hundreds of calls."""
     import torch
 
     for _ in range(warmup):
@@ -214,7 +255,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    gc.collect()
     gc.disable()
     try:
         start.record()
@@ -235,7 +275,6 @@ def host_us(fn, iters: int = 200) -> float:
 
     fn()
     torch.cuda.synchronize()
-    gc.collect()
     gc.disable()
     try:
         t0 = time.perf_counter()
@@ -259,7 +298,6 @@ def device_ms(fn, iters: int = 20) -> float:
     cycles = int(4e9 * (per_call * iters + 2e-4))   # 2x margin at ~2 GHz
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    gc.collect()
     gc.disable()
     try:
         torch.cuda._sleep(cycles)
@@ -459,7 +497,8 @@ def gn_inputs(shape, dtype, film, seed):
     return x, gamma, beta, kw
 
 
-def phase_groupnorm(gn_sites, phase="groupnorm", odd_shapes=True):
+def phase_groupnorm(gn_sites, phase="groupnorm", odd_shapes=True,
+                    site=None):
     import torch
     import torch.nn.functional as F
 
@@ -559,7 +598,8 @@ def phase_groupnorm(gn_sites, phase="groupnorm", odd_shapes=True):
         per_step["library_ms"] += count * lib_ms
         per_step["max_abs_err"] = max(per_step["max_abs_err"], err)
     per_step = _finish(per_step)
-    emit({"phase": phase, "checked": checked,
+    emit({"phase": phase, **({"site": site} if site else {}),
+          "checked": checked,
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|)",
           "bit_identical_run_to_run": True,
@@ -580,7 +620,8 @@ def attn_inputs(shape, dtype, seed):
             v.view(B, Lk, H, D))
 
 
-def phase_attention(attn_sites, phase="attention", extra_shapes=True):
+def phase_attention(attn_sites, phase="attention", extra_shapes=True,
+                    site=None):
     import torch
     import torch.nn.functional as F
 
@@ -645,7 +686,8 @@ def phase_attention(attn_sites, phase="attention", extra_shapes=True):
             flop_ms += count * flops / BF16_FLOPS * 1e3
             byte_ms += count * nbytes / HBM_BYTES_PER_S * 1e3
     per_step["bound_by"] = "operations" if flop_ms > byte_ms else "bytes"
-    emit({"phase": phase, "checked": 2 * len(shapes + wide),
+    emit({"phase": phase, **({"site": site} if site else {}),
+          "checked": 2 * len(shapes + wide),
           "worst_err_over_tol": round(worst, 4),
           "tolerance": "f32 1e-5*(1+max|ref|); bf16 2^-7*(1+max|ref|)",
           "sites": sites, "per_step": per_step})
@@ -1246,12 +1288,15 @@ def phase_sampler_graph(cfg, model):
     return out
 
 
+SAMPLER_MANY_STEPS = 64         # the timed batched view (cut from 256)
+
+
 def phase_sampler_many(cfg, model):
     """``step_many`` over N = 4 objects at record lengths 1-4 against
     ``step`` per object on an f32 copy of the model at 16 steps (rel. L2
     1e-3: the batched convolutions and matmuls may take other algorithms);
-    then ``synthesize_many`` of one view of 4 objects at 256 steps in
-    bf16, timed."""
+    then ``synthesize_many`` of one view of 4 objects at
+    ``SAMPLER_MANY_STEPS`` steps in bf16, timed."""
     import torch
 
     from diff3d_tpu_torch.diffusion import Draws
@@ -1293,7 +1338,7 @@ def phase_sampler_many(cfg, model):
     gc.collect()
     torch.cuda.empty_cache()
 
-    bf16 = Sampler(model, cfg, device="cuda")
+    bf16 = Sampler(model, cfg, device="cuda", steps=SAMPLER_MANY_STEPS)
     views = [orbit_views(2, H, seed=30 + n) for n in range(N)]
     gens = [torch.Generator("cuda").manual_seed(40 + n) for n in range(N)]
     bf16.synthesize_many(views, gens)          # warm-up: the capture
@@ -1305,9 +1350,11 @@ def phase_sampler_many(cfg, model):
     out = {"objects": N, "record_lens": lens, "record_capacity": cap,
            "f32_steps": 16, "rel_l2_many_vs_step": rel,
            "tolerance": "rel L2 1e-3 (f32, TF32 off)",
-           "bf16_steps": 256, "bf16_seconds": round(seconds, 4),
-           "bf16_ms_per_step": round(1e3 * seconds / 256, 3),
-           "bf16_ms_per_object_step": round(1e3 * seconds / 256 / N, 3),
+           "bf16_steps": SAMPLER_MANY_STEPS,
+           "bf16_seconds": round(seconds, 4),
+           "bf16_ms_per_step": round(1e3 * seconds / SAMPLER_MANY_STEPS, 3),
+           "bf16_ms_per_object_step": round(
+               1e3 * seconds / SAMPLER_MANY_STEPS / N, 3),
            "bf16_max_memory_allocated": torch.cuda.max_memory_allocated(),
            "bf16_out_abs_max": float(np.abs(outs).max()),
            "graphs": _graph_summary(bf16.graphs.values())}
@@ -1344,17 +1391,18 @@ def _serve_payload(views, seed, **kw):
             "seed": seed, "n_views": int(views["imgs"].shape[0]), **kw}
 
 
-def _post_all(port, payloads):
-    """POST ``payloads`` to /synthesize at once, one thread each; their
-    JSON bodies in order, with the wall time each answered at."""
+def _post_all(port, payloads, gap_s=0.0, path="/synthesize"):
+    """POST ``payloads`` to ``path`` at once (``gap_s`` apart, in order),
+    one thread each; their JSON bodies in order, with the wall time each
+    answered at."""
     import threading
 
     out, errs = [None] * len(payloads), []
 
     def run(i):
         try:
-            status, body = _serve_http(port, "/synthesize", payloads[i])
-            if status != 200:
+            status, body = _serve_http(port, path, payloads[i])
+            if status not in (200, 202):
                 raise AssertionError(f"serve: status {status}")
             out[i] = dict(json.loads(body), answered=time.perf_counter())
         except Exception as e:       # re-raised below, on this thread
@@ -1364,6 +1412,7 @@ def _post_all(port, payloads):
                for i in range(len(payloads))]
     for t in threads:
         t.start()
+        time.sleep(gap_s)
     for t in threads:
         t.join(SERVE_WAIT_S)
     if errs or any(t.is_alive() for t in threads):
@@ -1598,6 +1647,693 @@ def phase_serve(cfg, model):
     if failed:
         raise AssertionError(f"serve: {failed}")
     return out
+
+
+FLEET_ARGV = ["--config", "srn64", "--port", "0", "--replicas", "2",
+              "--sampler_steps", "64", "--schedules",
+              "ancestral:64,1@ddim:16", "--max_batch", "2",
+              "--max_wait_ms", "500", "--warmup"]
+
+
+def _http_error(port, path, payload):
+    """POST ``payload``, which must be refused: ``(status, Retry-After,
+    body)``."""
+    import urllib.error
+
+    try:
+        _serve_http(port, path, payload)
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), json.loads(e.read())
+    raise AssertionError(f"{path}: the request was not refused")
+
+
+class _HeldTurns:
+    """An engine's device turns, timed: ``held`` accumulates the seconds
+    this engine held the card (its view steps' work on the device, not
+    the wait for another engine's turn)."""
+
+    def __init__(self, turns):
+        self.turns, self.held = turns, 0.0
+
+    def __enter__(self):
+        self.turns.__enter__()
+        self.t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.held += time.perf_counter() - self.t
+        self.turns.__exit__(*exc)
+
+
+def _log_view_steps(name, eng, log):
+    """Wrap ``eng``'s view step to append, per step, the replica, the
+    bucket's schedule / phase, lane count, live requests (in lane order),
+    whether the key was new, the step's wall interval and the seconds it
+    held the card (``held_s``; the wall minus any wait for another
+    engine's turn)."""
+    from diff3d_tpu_torch.serving import lane_count
+
+    inner, seen = eng._run_view_step, set()
+    eng.turns = _HeldTurns(eng.turns)
+
+    def timed(active):
+        b = active[0].req.bucket
+        key = (b.phase or f"{b.sampler}:{b.steps}",
+               lane_count(len(active), eng.max_batch), b.capacity)
+        t, held = time.perf_counter(), eng.turns.held
+        inner(active)
+        log.append({"replica": name, "schedule": key[0], "lanes": key[1],
+                    "capacity": key[2], "live": len(active),
+                    "ids": [s.req.id for s in active],
+                    "first_use": key not in seen, "start": t,
+                    "s": time.perf_counter() - t,
+                    "held_s": eng.turns.held - held})
+        seen.add(key)
+
+    eng._run_view_step = timed
+
+
+def _steady(log, field="held_s", **match):
+    """Median ``field`` of the logged view steps matching ``match``, the
+    key's first use left out."""
+    s = [r[field] for r in log if not r["first_use"]
+         and all(r[k] == v for k, v in match.items())]
+    return round(float(np.median(s)), 4) if s else None
+
+
+def _sessions_by_owner(replicas, per):
+    """``per`` session ids whose rendezvous owner is each replica."""
+    from diff3d_tpu_torch.serving import Router
+
+    out = {r.name: [] for r in replicas}
+    i = 0
+    while any(len(v) < per for v in out.values()):
+        sid = f"obj-{i}"
+        owner = Router.rendezvous_order(sid, replicas)[0].name
+        if len(out[owner]) < per:
+            out[owner].append(sid)
+        i += 1
+    return out
+
+
+def phase_serve_fleet(cfg, model):
+    """Two srn64 replicas behind the fleet router, built by ``serve_cli``'s
+    ``build_service`` (``--replicas 2 --sampler_steps 64 --schedules
+    ancestral:64,1@ddim:16 --max_batch 2 --warmup``) and driven over HTTP:
+    four sticky sessions posted 0.1 s apart (two owned by each replica by
+    rendezvous) meet both replicas' first use of their 2-lane graph at
+    once; each replica's views bit-identical to ``synthesize_many`` on its
+    own sampler over the same lanes; the ``1@ddim:16`` request on replica
+    1 only; a rolling rollout (every weight + 0.05) changes the views and
+    rolling back restores them bit for bit with every graph and every
+    ``data_ptr`` kept; then replica 0 killed: sessionless traffic fails
+    over to replica 1 and r0's session gets ``SessionLost`` (503 with
+    Retry-After).  Counts set to 0 before ``build_service``, read after;
+    the references' replays taken out."""
+    import torch
+
+    from diff3d_tpu_torch.cli import serve_cli
+
+    H = cfg.model.H
+    os.makedirs(SERVE_WORKDIR, exist_ok=True)
+    weights = os.path.join(SERVE_WORKDIR, "srn64_random.pt")
+    torch.save(model.state_dict(), weights)
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    service = serve_cli.build_service(serve_cli.build_parser().parse_args(
+        ["--model", weights] + FLEET_ARGV))
+    build_s = time.perf_counter() - t0
+    reps = service.replicas
+    r0, r1 = reps
+    sampler_key = r0.engine.default_schedule
+    log = []
+    for rep in reps:
+        _log_view_steps(rep.name, rep.engine, log)
+
+    def graphs():
+        return [g for rep in reps for s in rep.engine.samplers.values()
+                for g in s.graphs.values()]
+
+    service.start(serve_http=True)
+    port = service.port
+    owned = _sessions_by_owner(reps, 2)
+    order = [owned["r0"][0], owned["r1"][0], owned["r0"][1],
+             owned["r1"][1]]
+    objs = {sid: orbit_views(3, H, seed=70 + i)
+            for i, sid in enumerate(order)}
+    seeds = {sid: 70 + i for i, sid in enumerate(order)}
+
+    def sticky():
+        return _post_all(port, [_serve_payload(
+            objs[sid], seeds[sid], session_id=sid) for sid in order],
+            gap_s=0.1)
+
+    first = dict(zip(order, sticky()))
+    sticky_ok = all(rep.session_count(sid) == 1
+                    for rep in reps for sid in owned[rep.name])
+    firsts = {rep.name: next(r for r in log if r["replica"] == rep.name
+                             and r["first_use"] and r["lanes"] == 2)
+              for rep in reps}
+    a, b = firsts["r0"], firsts["r1"]
+    overlap = (a["start"] < b["start"] + b["s"]
+               and b["start"] < a["start"] + a["s"])
+
+    # Each replica's two sessions ran as one 2-lane batch: the lane
+    # order of its first step is the reference's object order.
+    before_ref = _launch_counts(graphs=graphs())
+    identical = {}
+    sid_of = {first[sid]["id"]: sid for sid in order}
+    for rep in reps:
+        lanes = [sid_of[rid] for rid in firsts[rep.name]["ids"]]
+        ref = rep.engine.sampler.synthesize_many(
+            [objs[sid] for sid in lanes],
+            [torch.Generator("cuda").manual_seed(seeds[sid])
+             for sid in lanes])
+        identical[rep.name] = all(
+            np.array_equal(_views_of(first[sid]), ref[n])
+            for n, sid in enumerate(lanes))
+    after_ref = _launch_counts(graphs=graphs())
+
+    # The schedule only replica 1 serves (1@ddim:16).
+    (only1,) = set(r1.supported_schedules()) - set(r0.supported_schedules())
+    kind, n_steps = only1.split(":")
+    (ddim,) = _post_all(port, [_serve_payload(
+        orbit_views(3, H, seed=79), 79, sampler_kind=kind,
+        steps=int(n_steps))])
+    ddim_on = {rep.name: sum(p["uses"] for p in rep.engine.programs
+                             .stats()["programs"].values()
+                             if (p["sampler"], p["steps"])
+                             == (kind, int(n_steps)))
+               for rep in reps}
+
+    # Rolling rollout and back.
+    ptrs = [{k: p.data_ptr() for k, p in
+             rep.engine.sampler.model.named_parameters()} for rep in reps]
+    n_graphs = len(graphs())
+    orig = {k: t.clone() for k, t in r0.engine.sampler.model
+            .state_dict().items()}
+    t_roll = time.perf_counter()
+    report = service.rollout({k: t + 0.05 for k, t in orig.items()},
+                             version="roll-1")
+    roll_s = time.perf_counter() - t_roll
+    rolled = dict(zip(order, sticky()))
+    back_report = service.rollout(orig, version="roll-2")
+    back = dict(zip(order, sticky()))
+    del orig
+    rollout = {
+        "report": report, "back": back_report, "seconds": round(roll_s, 3),
+        "differs": all(not np.array_equal(_views_of(rolled[s]),
+                                          _views_of(first[s]))
+                       for s in order),
+        "restored_bit_identical": all(
+            np.array_equal(_views_of(back[s]), _views_of(first[s]))
+            for s in order),
+        "graphs_before": n_graphs, "graphs_after": len(graphs()),
+        "data_ptrs_unchanged": ptrs == [
+            {k: p.data_ptr() for k, p in
+             rep.engine.sampler.model.named_parameters()} for rep in reps],
+        "params_versions": service.health()["params_versions"]}
+
+    # Lanes-1 steps on each replica, then replica 0 dies.
+    lone = [_post_all(port, [_serve_payload(orbit_views(3, H, seed=80 + i),
+                                            80 + i)])[0] for i in range(2)]
+    r0.kill("killed by chip_smoke")
+    lost = _http_error(port, "/synthesize", _serve_payload(
+        objs[owned["r0"][0]], 90, session_id=owned["r0"][0]))
+    failover = [_post_all(port, [_serve_payload(
+        orbit_views(3, H, seed=82 + i), 82 + i)])[0] for i in range(2)]
+    snap = json.loads(_serve_http(port, "/metrics?format=json")[1])
+    fleet = json.loads(_serve_http(port, "/fleet")[1])
+    health = service.health()
+    ran = _launch_counts(graphs=graphs())
+    launches = {k: ran[k] - (after_ref[k] - before_ref[k])
+                for k in ("fused_groupnorm", "flash_attention")}
+    summary = _graph_summary(graphs())
+    programs = {rep.name: rep.engine.programs.stats(include_memory=True)[
+        "programs"] for rep in reps}
+    ttfv = {sid: round(service.get_request(first[sid]["id"])
+                       .first_view_time
+                       - service.get_request(first[sid]["id"]).submit_time,
+                       3) for sid in order}
+    service.stop(drain_s=10.0)
+    stopped = not any(rep.engine.alive for rep in reps)
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [p["max_memory_allocated"] for ps in programs.values()
+                  for p in ps.values()])
+    weights_bytes = {rep.name: rep.weights_bytes for rep in reps}
+    del service, reps, r0, r1
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(weights)
+
+    steps = [dict({k: v for k, v in r.items() if k not in ("ids",
+                                                           "start")},
+                  s=round(r["s"], 4), held_s=round(r["held_s"], 4))
+             for r in log]
+    default = "{}:{}".format(*sampler_key)
+    per_lanes = {rep: {f"lanes_{n}": _steady(log, replica=rep, lanes=n,
+                                               schedule=default)
+                       for n in (1, 2)} for rep in ("r0", "r1")}
+    wall_lanes = {rep: {f"lanes_{n}": _steady(log, "s", replica=rep,
+                                                lanes=n, schedule=default)
+                        for n in (1, 2)} for rep in ("r0", "r1")}
+    sessions_lost = {"status": lost[0], "retry_after": lost[1],
+                     "error": lost[2]["error"][:160]}
+    out = {"config": "srn64", "argv": FLEET_ARGV,
+           "build_and_warmup_s": round(build_s, 3),
+           "s_per_view_step": per_lanes,
+           "s_per_view_step_note": "seconds each view step held the card "
+                                   "(its device turn); wall, with any wait "
+                                   "for the other replica's turn, beside",
+           "wall_s_per_view_step": wall_lanes,
+           "first_uses": {k: {"start_s": round(v["start"] - t0, 3),
+                              "s": round(v["s"], 3)}
+                          for k, v in firsts.items()},
+           "first_uses_overlap": overlap, "view_steps": steps,
+           "time_to_first_view_s": ttfv, "programs": programs,
+           "weights_bytes": weights_bytes,
+           "baseline_allocated": baseline, "max_memory_allocated": peak,
+           "launches": launches,
+           "reference_launches": {k: after_ref[k] - before_ref[k]
+                                  for k in launches},
+           "graphs": summary, "sessions": owned,
+           "sticky_on_rendezvous_owner": sticky_ok,
+           "bit_identical_to_synthesize_many": identical,
+           "replica_1_schedule": only1, "replica_1_schedule_uses": ddim_on,
+           "ddim16_finite": bool(np.isfinite(_views_of(ddim)).all()),
+           "rollout": rollout, "session_lost": sessions_lost,
+           "failover_views_finite": all(np.isfinite(_views_of(b)).all()
+                                        for b in failover + lone),
+           "router_failover_total": snap["counters"].get(
+               "router_failover_total"),
+           "router_sessions_lost_total": snap["counters"].get(
+               "router_sessions_lost_total"),
+           "fleet_health": health["replicas"],
+           "fleet_replicas": sorted(fleet["replicas"]),
+           "stopped": stopped}
+    emit(dict(phase="serve_fleet", **out))
+    failed = [k for k, ok in (
+        ("sticky_on_rendezvous_owner", sticky_ok),
+        ("first_uses_overlap", overlap),
+        ("bit_identical_to_synthesize_many", all(identical.values())),
+        ("first_views_finite", all(np.isfinite(_views_of(v)).all()
+                                   for v in first.values())),
+        ("replica_1_schedule_on_replica_1_only",
+         ddim_on["r0"] == 0 and ddim_on["r1"] > 0),
+        ("ddim16_finite", out["ddim16_finite"]),
+        ("rollout_swapped", report["ok"] and back_report["ok"]),
+        ("rollout_differs", rollout["differs"]),
+        ("rollback_restored", rollout["restored_bit_identical"]),
+        ("rollout_no_recapture",
+         rollout["graphs_before"] == rollout["graphs_after"]),
+        ("rollout_in_place", rollout["data_ptrs_unchanged"]),
+        ("session_lost_503", lost[0] == 503 and lost[1] is not None
+         and "lost" in lost[2]["error"]),
+        ("failover", out["failover_views_finite"]
+         and (out["router_failover_total"] or 0) >= 1
+         and health["replicas"] == {"r0": "dead", "r1": "ok"}),
+        ("stopped", stopped),
+        ("launches", all(n > 0 for n in launches.values())),
+        ("program_bytes", all(p["peak_bytes"] for ps in programs.values()
+                              for p in ps.values())))
+        if not ok]
+    if failed:
+        raise AssertionError(f"serve_fleet: {failed}")
+    return out
+
+
+WORKER_SERVE = ["--config", "srn64", "--sampler_steps", "64", "--max_batch",
+                "2"]
+WORKER_ARGV = WORKER_SERVE + ["--max_views", "3", "--devices", "0",
+                              "--port", "0"]
+WORKER_BOOT_S = 600.0
+
+
+def _worker_proc(weights, name, budget=0):
+    """``worker_cli`` as a process on the card: ``(process, ready line,
+    seconds to the ready line)``."""
+    import select
+
+    cmd = [sys.executable, "-m", "diff3d_tpu_torch.cli.worker_cli",
+           "--model", weights, "--name", name] + WORKER_ARGV
+    if budget:
+        cmd += ["--hbm_budget_bytes", str(budget)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    err = open(os.path.join(SERVE_WORKDIR, f"{name}.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], WORKER_BOOT_S)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        proc.kill()
+        proc.wait(60)
+        with open(os.path.join(SERVE_WORKDIR, f"{name}.log")) as f:
+            tail = f.read()[-2000:]
+        raise AssertionError(f"serve_workers: {name} did not start: {tail}")
+    return proc, json.loads(line), time.perf_counter() - t0
+
+
+def _front_door(port):
+    """``serve_cli --workers 127.0.0.1:<port>``: the remote-only fleet."""
+    from diff3d_tpu_torch.cli import serve_cli
+
+    return serve_cli.build_service(serve_cli.build_parser().parse_args(
+        WORKER_SERVE + ["--port", "0", "--workers", f"127.0.0.1:{port}"])
+    ).start(serve_http=True)
+
+
+def _sigterm(proc):
+    """SIGTERM ``proc`` and wait: ``(exit code, seconds)``."""
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    return proc.wait(timeout=120), time.perf_counter() - t0
+
+
+def phase_serve_workers(cfg, model):
+    """``worker_cli --devices 0 --port 0`` (``--sampler_steps 64
+    --max_batch 2 --max_views 3``) as a process on the card, on a state
+    dict of the same weights, fronted by ``serve_cli --workers`` with no
+    engine of its own (the front door allocates no device memory): its
+    views equal to the in-process engine's (``serve_cli`` without
+    ``--workers``) for the same payload and seed; SIGTERM drains it and
+    it exits 0.  A second worker, booted with ``--hbm_budget_bytes`` one
+    byte above the first worker's pin plus one request's record, admits
+    one request and refuses a second concurrent one
+    ``ReplicaOverBudget`` (503 with Retry-After), then exits 0 on
+    SIGTERM.  The phase's launches are the in-process engine's (a
+    worker's run in its own process)."""
+    import torch
+
+    from diff3d_tpu_torch.cli import serve_cli
+    from diff3d_tpu_torch.serving import ViewRequest
+    from diff3d_tpu_torch.serving.worker import HbmAdmission
+
+    H = cfg.model.H
+    os.makedirs(SERVE_WORKDIR, exist_ok=True)
+    weights = os.path.join(SERVE_WORKDIR, "srn64_random.pt")
+    torch.save(model.state_dict(), weights)
+    obj = orbit_views(3, H, seed=95)
+    payload = _serve_payload(obj, 95)
+    _launch_counts(reset=True)
+    local = serve_cli.build_service(serve_cli.build_parser().parse_args(
+        ["--model", weights, "--port", "0"] + WORKER_SERVE)).start(
+        serve_http=True)
+    (want,) = _post_all(local.port, [payload])
+    local_graphs = [g for s in local.engine.samplers.values()
+                    for g in s.graphs.values()]
+    launches = _launch_counts(graphs=local_graphs)
+    local.stop(drain_s=10.0)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    procs = []
+    try:
+        proc, ready, boot_s = _worker_proc(weights, "w0")
+        procs.append(proc)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        front = _front_door(ready["port"])
+        remote_only = not any(hasattr(r, "engine") for r in front.replicas)
+        (got,) = _post_all(front.port, [payload])
+        snap = front.replicas[0].snapshot()
+        worker_launches = snap["kernel_launches"]
+        front.stop()
+        torch.cuda.synchronize()
+        no_device_memory = (torch.cuda.memory_allocated() == allocated
+                            and torch.cuda.memory_reserved() == reserved)
+        identical = np.array_equal(_views_of(got), _views_of(want))
+        rel = _rel_l2(_views_of(got), _views_of(want))
+        rc0, drain0_s = _sigterm(proc)
+
+        pins = snap["hbm"]["program_peaks"]
+        if not pins:
+            raise AssertionError("serve_workers: the worker's warm-up "
+                                 "measured no pins")
+        record = HbmAdmission(guidance_B=len(cfg.diffusion.guidance_weights)
+                              ).record_bytes(ViewRequest(obj))
+        budget = max(pins.values()) + record + 1
+        proc, ready1, boot1_s = _worker_proc(weights, "w1", budget)
+        procs.append(proc)
+        front = _front_door(ready1["port"])
+        (held,) = _post_all(front.port, [dict(payload, block=False)])
+        # A session's first request: the router re-raises the worker's
+        # ReplicaOverBudget itself (a sessionless one would fail over and
+        # come back FleetOverloaded).
+        refused = _http_error(front.port, "/synthesize", _serve_payload(
+            obj, 96, session_id="over-budget"))
+        deadline = time.perf_counter() + SERVE_WAIT_S
+        while True:
+            status, body = _serve_http(front.port, f"/result/{held['id']}")
+            if status == 200:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("serve_workers: the admitted request "
+                                     "did not finish")
+            time.sleep(0.1)
+        held_views = np.asarray(json.loads(body)["views"], np.float32)
+        gate = front.replicas[0].snapshot()["hbm"]
+        front.stop()
+        rc1, drain1_s = _sigterm(proc)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+            p.stdout.close()
+    os.remove(weights)
+    out = {"config": "srn64", "argv": WORKER_ARGV,
+           "worker_boot_s": [round(boot_s, 3), round(boot1_s, 3)],
+           "ready": [ready, ready1], "remote_only": remote_only,
+           "front_door_allocates_nothing": no_device_memory,
+           "bit_identical_to_in_process": identical,
+           "rel_l2_to_in_process": rel, "pins": pins,
+           "pins_second_worker": gate["program_peaks"],
+           "record_bytes": record, "budget_bytes": budget,
+           "refused": {"status": refused[0], "retry_after": refused[1],
+                       "error": refused[2]["error"][:200]},
+           "gate": gate, "admitted_views_finite":
+               bool(np.isfinite(held_views).all()),
+           "sigterm_exit_codes": [rc0, rc1],
+           "sigterm_to_exit_s": [round(drain0_s, 3), round(drain1_s, 3)],
+           "launches": {k: worker_launches[k] for k in ("fused_groupnorm",
+                                                        "flash_attention")},
+           "launches_note": "the first worker's, counted in its process "
+                            "from its start (warm-up captures, the served "
+                            "request) and read over the wire",
+           "in_process_launches": {k: launches[k] for k in (
+               "fused_groupnorm", "flash_attention")}}
+    emit(dict(phase="serve_workers", **out))
+    failed = [k for k, ok in (
+        ("remote_only", remote_only),
+        ("front_door_allocates_nothing", no_device_memory),
+        ("views_match_in_process", identical or rel <= 1e-3),
+        ("views_finite", bool(np.isfinite(_views_of(got)).all())),
+        ("over_budget_503", refused[0] == 503 and refused[1] is not None
+         and f"> budget {budget}" in refused[2]["error"]),
+        ("gate_counted", gate["rejects"] == 1),
+        ("admitted_views_finite", out["admitted_views_finite"]),
+        ("sigterm_exit_0", rc0 == 0 and rc1 == 0),
+        ("launches", all(n > 0 for n in out["launches"].values())))
+        if not ok]
+    if failed:
+        raise AssertionError(f"serve_workers: {failed}")
+    return out
+
+
+CASCADE_PLAN = "draft=64:ddim:8,refine=128:ancestral:64@t0.40625"
+CASCADE_ARGV = ["--config", "srn128", "--port", "0", "--cascade",
+                CASCADE_PLAN, "--max_batch", "2", "--max_wait_ms", "500"]
+
+
+def _poll_cascade(port, rid):
+    """Walk ``GET /result/<id>?from=K`` to the end: the events, and
+    whether the cursor was gapless."""
+    events, nxt, gapless = [], 0, True
+    deadline = time.perf_counter() + SERVE_WAIT_S
+    while True:
+        poll = json.loads(_serve_http(port, f"/result/{rid}?from={nxt}")[1])
+        gapless &= (poll["from"] == nxt and [e["event"] for e in
+                                             poll["events"]]
+                    == list(range(nxt, poll["next"])))
+        events += poll["events"]
+        nxt = poll["next"]
+        if poll["status"] != "running":
+            return events, gapless and poll["status"] == "done"
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"serve_cascade: {rid} did not finish")
+        time.sleep(0.05)
+
+
+def phase_serve_cascade(cfg, model):
+    """The served cascade at srn128 full width (ch 256), built by
+    ``serve_cli --cascade draft=64:ddim:8,refine=128:ancestral:64@t0.40625
+    --max_batch 2`` on a state dict of the srn128 phases' seeded random
+    weights, over HTTP: two concurrent 3-view cascades (posted 0.1 s
+    apart, ``block=false``) walked through ``?from=K``: 4 events each,
+    each view's draft event before its refine event, a gapless cursor,
+    finite views; one cascade alone bit-identical to
+    ``CascadeSampler.synthesize_cascade`` on the same phase seeds; a swap
+    (every weight + 0.05) refreshes the draft's ``pos_emb`` in place (the
+    same address, the served one resized) with no new capture.  Counts
+    set to 0 before ``build_service``, read after; the reference's
+    replays taken out and the launches split by phase.  Returns the
+    record and the draft's and refine's kernel sites at 2 lanes."""
+    import torch
+
+    from diff3d_tpu_torch.cli import serve_cli
+    from diff3d_tpu_torch.convert.progressive import POS_EMB, resize_bilinear
+
+    H = cfg.model.H
+    os.makedirs(SERVE_WORKDIR, exist_ok=True)
+    weights = os.path.join(SERVE_WORKDIR, "srn128_random.pt")
+    torch.save(model.state_dict(), weights)
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    service = serve_cli.build_service(serve_cli.build_parser().parse_args(
+        ["--model", weights] + CASCADE_ARGV))
+    build_s = time.perf_counter() - t0
+    os.remove(weights)
+    eng = service.engine
+    casc = eng.cascade
+    log = []
+    _log_view_steps("r0", eng, log)
+    service.start(serve_http=True)
+    port = service.port
+    objs = [orbit_views(3, H, seed=100 + i) for i in range(2)]
+    heads = _post_all(port, [_serve_payload(o, 100 + i, block=False)
+                             for i, o in enumerate(objs)], gap_s=0.1,
+                      path="/cascade")
+    walks = [_poll_cascade(port, h["id"]) for h in heads]
+    reqs = [service.get_request(h["id"]) for h in heads]
+    order_ok = all(
+        [e["phase"] for e in ev if e["frame"] == f] == ["draft", "refine"]
+        for ev, _ in walks for f in (0, 1))
+    finite = all(np.isfinite(np.asarray(e["view"], np.float32)).all()
+                 for ev, _ in walks for e in ev)
+    timing = [{"draft_first_s": round(r.first_draft_time - r.submit_time,
+                                      3),
+               "refined_first_s": round(r.first_refined_time
+                                        - r.submit_time, 3),
+               "done_s": round(r.done_time - r.submit_time, 3)}
+              for r in reqs]
+
+    def graphs():
+        return (list(casc.draft.graphs.values())
+                + list(casc.refine.graphs.values()))
+
+    # One cascade alone, then the offline reference on the same samplers.
+    alone = orbit_views(3, H, seed=110)
+    (lone,) = _post_all(port, [_serve_payload(alone, 110)], path="/cascade")
+    lone_events = service.get_request(lone["id"]).events_since(0)
+    replays = {id(g): g.replays for g in graphs()}
+    before_ref = _launch_counts(graphs=graphs())
+    ref = casc.synthesize_cascade(alone, seed=110)
+    after_ref = _launch_counts(graphs=graphs())
+    ref_replays = {id(g): g.replays - replays[id(g)] for g in graphs()}
+    identical = np.array_equal(_views_of(lone), ref["refined"])
+    drafts_identical = all(np.array_equal(
+        e["frame"], ref["draft"][e["view"] - 1]) for e in lone_events
+        if e["phase"] == "draft")
+
+    # A swap: the draft's pos_emb refreshed in place, nothing recaptured.
+    served = casc.refine.model
+    pe = casc.draft.model.get_parameter(POS_EMB)
+    pe_ptr, n_graphs = pe.data_ptr(), len(graphs())
+    orig = {k: t.clone() for k, t in served.state_dict().items()}
+    service.registry.swap({k: t + 0.05 for k, t in orig.items()}, "swap-1")
+    del orig
+    (swapped,) = _post_all(port, [_serve_payload(alone, 110)],
+                           path="/cascade")
+    with torch.no_grad():
+        refreshed = torch.equal(pe, resize_bilinear(
+            served.get_parameter(POS_EMB), tuple(pe.shape[:2])))
+    swap = {"draft_pos_emb_in_place": pe.data_ptr() == pe_ptr,
+            "draft_pos_emb_refreshed": refreshed,
+            "graphs_before": n_graphs, "graphs_after": len(graphs()),
+            "differs": not np.array_equal(_views_of(swapped),
+                                          _views_of(lone))}
+
+    ran = _launch_counts(graphs=graphs())
+    launches = {k: ran[k] - (after_ref[k] - before_ref[k])
+                for k in ("fused_groupnorm", "flash_attention")}
+    by_phase = {}
+    for phase, s in (("draft", casc.draft), ("refine", casc.refine)):
+        by_phase[phase] = {k: sum(
+            g.captured.get(k, 0) * (g.replays + 1 - ref_replays[id(g)])
+            for g in s.graphs.values()) for k in launches}
+    stats = eng.programs.stats(include_memory=True)["programs"]
+    summary = _graph_summary(graphs())
+    calls = {"draft": casc.draft.model_calls_per_view,
+             "refine": casc.refine.model_calls_per_view}
+    service.stop(drain_s=10.0)
+    stopped = not eng.alive
+    lanes = 2 * 2 * len(cfg.diffusion.guidance_weights)
+    sites = {}
+    for phase, s in (("draft", casc.draft), ("refine", casc.refine)):
+        sites[phase] = record_sites(
+            s.model, *model_batch(s.cfg, lanes, seed=120))
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [p["max_memory_allocated"] for p in stats.values()])
+    del service, eng, casc, served, pe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = [dict({k: v for k, v in r.items() if k not in ("ids", "start")},
+                  s=round(r["s"], 4), held_s=round(r["held_s"], 4))
+             for r in log]
+    per_step = {phase: {f"lanes_{n}": _steady(log, schedule=phase, lanes=n)
+                        for n in (1, 2)} for phase in ("draft", "refine")}
+    ms_step = {phase: {k: (None if v is None else round(
+        1e3 * v / calls[phase], 3)) for k, v in d.items()}
+        for phase, d in per_step.items()}
+    out = {"config": "srn128", "argv": CASCADE_ARGV,
+           "model_calls_per_view": calls,
+           "build_s": round(build_s, 3), "requests": timing,
+           "s_per_view_step": per_step, "ms_per_denoise_step": ms_step,
+           "view_steps": steps, "programs": stats,
+           "baseline_allocated": baseline, "max_memory_allocated": peak,
+           "launches": launches, "launches_by_phase": by_phase,
+           "reference_launches": {k: after_ref[k] - before_ref[k]
+                                  for k in launches},
+           "graphs": summary,
+           "events": [len(ev) for ev, _ in walks],
+           "draft_before_refine": order_ok,
+           "cursor_gapless": [g for _, g in walks], "views_finite": finite,
+           "alone_bit_identical_to_synthesize_cascade": identical,
+           "alone_drafts_identical": drafts_identical, "swap": swap,
+           "stopped": stopped}
+    emit(dict(phase="serve_cascade", **out))
+    failed = [k for k, ok in (
+        ("four_events", all(len(ev) == 4 for ev, _ in walks)),
+        ("draft_before_refine", order_ok),
+        ("cursor_gapless", all(g for _, g in walks)),
+        ("views_finite", finite),
+        ("bit_identical_to_synthesize_cascade",
+         identical and drafts_identical),
+        ("swap_refreshes_draft_in_place",
+         swap["draft_pos_emb_in_place"] and swap["draft_pos_emb_refreshed"]),
+        ("swap_no_recapture", swap["graphs_before"] == swap["graphs_after"]),
+        ("swap_differs", swap["differs"]),
+        ("stopped", stopped),
+        ("launches", all(n > 0 for n in launches.values())),
+        ("launches_split", all(
+            by_phase["draft"][k] + by_phase["refine"][k] == launches[k]
+            for k in launches)),
+        ("program_bytes", all(p["peak_bytes"] for p in stats.values())))
+        if not ok]
+    if failed:
+        raise AssertionError(f"serve_cascade: {failed}")
+    return out, sites
 
 
 def _launch_counts(reset: bool = False, graphs=()):
@@ -1896,7 +2632,9 @@ def phase_train(accum):
 
 SRN128_WORKDIR = WORKDIR + "_srn128"
 SRN128_SMALL_BATCH = 4          # remat against no remat: fits without remat
-SRN128_STEPS = 4                # Trainer steps per remat policy
+SRN128_STEPS = 3                # Trainer steps under "nothing" (the path)
+SRN128_DOTS_STEPS = 2           # and under "dots" (first + one replayed)
+SRN128_VIEW_STEPS = 64          # the srn128 sampling path's view
 SRN128_SAMPLE_STEPS = 32        # sample_cli's schedule on the trained model
 HEADROOM_BYTES = 8 * 2 ** 30    # what --accum must leave free of the card
 GRAPH_MARGIN = 2 * 2 ** 30      # the prediction's allowance for the CUDA
@@ -1948,8 +2686,9 @@ def phase_srn128_model(ptxas):
 
 
 def phase_srn128_sampler(cfg, model):
-    """One srn128 view (256 ancestral steps, w = 0..7) from
-    ``Sampler.synthesize`` on the graph path: the srn128 sampling path,
+    """One srn128 view (``SRN128_VIEW_STEPS`` = 64 ancestral steps, w =
+    0..7) from ``Sampler.synthesize`` on the graph path: the srn128
+    sampling path,
     counts set to 0 just before and read after.  Then one view at 16
     steps through the graph path and the eager path from one seed,
     bit-identical."""
@@ -1958,7 +2697,7 @@ def phase_srn128_sampler(cfg, model):
     from diff3d_tpu_torch.sampling import Sampler
 
     views = orbit_views(3, cfg.model.H, seed=22)
-    sampler = Sampler(model, cfg, device="cuda")
+    sampler = Sampler(model, cfg, device="cuda", steps=SRN128_VIEW_STEPS)
     if not sampler.cuda_graphs:
         raise AssertionError("srn128_sampler: the card's path is not the "
                              "graph")
@@ -2264,7 +3003,7 @@ def phase_srn128_train(cfg, model):
                              "leaves less than 8 GiB of the card")
     sampled = _srn128_sample_cli()
     runs["dots"] = _run_srn128_trainer(
-        "dots", chosen["dots"]["accum_steps"], SRN128_STEPS, False)
+        "dots", chosen["dots"]["accum_steps"], SRN128_DOTS_STEPS, False)
     shutil.rmtree(SRN128_WORKDIR, ignore_errors=True)
     out = {"config": "srn128", "global_batch": TRAIN_BATCH, "runs": runs,
            "sample_cli": sampled}
@@ -3076,6 +3815,21 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # The fleet: two replicas behind the router, then worker processes
+    # fronted remote-only; rows 1 and 3 at the 2-lane view step's sites.
+    fleet = phase_serve_fleet(cfg, model)
+    workers = phase_serve_workers(cfg, model)
+    lanes2 = 2 * 2 * len(cfg.diffusion.guidance_weights)
+    gn_fleet_sites, attn_fleet_sites = record_sites(
+        model, *model_batch(cfg, lanes2, seed=8))
+    gn_fleet = phase_groupnorm(gn_fleet_sites, phase="serve_fleet_groupnorm",
+                               odd_shapes=False)
+    attn_fleet = phase_attention(attn_fleet_sites,
+                                 phase="serve_fleet_attention",
+                                 extra_shapes=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # The training sites: one microbatch of the train phase.
     mb = TRAIN_BATCH // TRAIN_ACCUM
     gn_train, attn_train = record_sites(model, *model_batch(cfg, mb, seed=6))
@@ -3107,6 +3861,19 @@ def main() -> None:
     # Trainer's run decides accum_steps), then its kernel sites.
     cfg128, model128 = phase_srn128_model(ptxas)
     l128, _ = phase_srn128_sampler(cfg128, model128)
+    # The served cascade (a 64^2 draft at srn128 widths, a truncated
+    # 128^2 refine), then rows 1 and 3 at its draft's and refine's sites.
+    cascade, csites = phase_serve_cascade(cfg128, model128)
+    gn_casc = {p: phase_groupnorm(csites[p][0],
+                                  phase="serve_cascade_groupnorm",
+                                  odd_shapes=False, site=p)
+               for p in ("draft", "refine")}
+    attn_casc = {p: phase_attention(csites[p][1],
+                                    phase="serve_cascade_attention",
+                                    extra_shapes=False, site=p)
+                 for p in ("draft", "refine")}
+    gc.collect()
+    torch.cuda.empty_cache()
     t128 = phase_srn128_train(cfg128, model128)
     del model128
     gc.collect()
@@ -3133,6 +3900,21 @@ def main() -> None:
                  f"(N*2B = {lanes4}) at srn64, summed over sites; "
                  "launches: the serve phase's (warm-up captures, every "
                  "served view step)")
+    fleet_per = (f"one denoise step of a served view step at 2 lanes "
+                 f"(N*2B = {lanes2}) at srn64, summed over sites; launches: "
+                 "the serve_fleet phase's (both replicas: warm-up captures, "
+                 "every served view step)")
+    workers_per = (f"one denoise step of a served view step at 2 lanes "
+                   f"(N*2B = {lanes2}) at srn64, summed over sites (the "
+                   "worker's warm-up runs 1 and 2 lanes); launches: the "
+                   "first worker process's (warm-up captures, the served "
+                   "request), read over the wire")
+    casc_lanes = 2 * 2 * len(cfg128.diffusion.guidance_weights)
+    casc_per = {p: (f"one denoise step of the served cascade's {p} phase at "
+                    f"2 lanes (N*2B = {casc_lanes}, {res}^2, srn128 "
+                    "widths), summed over sites; launches: the "
+                    f"serve_cascade phase's {p} phase (1 and 2 lanes)")
+                for p, res in (("draft", 64), ("refine", 128))}
     train128 = (f"one train step (global batch {TRAIN_BATCH}, accum_steps "
                 f"{accum128}, remat 'nothing': the forward kernels run "
                 "again in each block's recompute) at srn128, summed over "
@@ -3177,6 +3959,20 @@ def main() -> None:
          serve["launches"]["fused_groupnorm"], gn_serve, serve_per),
         ("flash_attention@serve", att, fa_at,
          serve["launches"]["flash_attention"], attn_serve, serve_per),
+        ("fused_groupnorm@serve_fleet", film, gn_fwd_at,
+         fleet["launches"]["fused_groupnorm"], gn_fleet, fleet_per),
+        ("flash_attention@serve_fleet", att, fa_at,
+         fleet["launches"]["flash_attention"], attn_fleet, fleet_per),
+        ("fused_groupnorm@serve_workers", film, gn_fwd_at,
+         workers["launches"]["fused_groupnorm"], gn_fleet, workers_per),
+        ("flash_attention@serve_workers", att, fa_at,
+         workers["launches"]["flash_attention"], attn_fleet, workers_per)]
+        + [(f"{k}@cascade_{p}", src, at,
+            cascade["launches_by_phase"][p][k], stats[p], casc_per[p])
+           for k, src, at, stats in (
+               ("fused_groupnorm", film, gn_fwd_at, gn_casc),
+               ("flash_attention", att, fa_at, attn_casc))
+           for p in ("draft", "refine")] + [
         ("fused_groupnorm@srn128", film, gn_fwd_at,
          l128["fused_groupnorm"], gn128, sample128),
         ("fused_groupnorm[save_stats]@srn128", film, gn_fwd_at,

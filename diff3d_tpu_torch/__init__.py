@@ -12,9 +12,9 @@ becomes a hand-written CUDA C++ kernel under ``ops/csrc/``, built with
 Entry points (:func:`diff3d_tpu_torch.models.build_model`,
 :class:`diff3d_tpu_torch.sampling.Sampler`,
 :class:`diff3d_tpu_torch.train.Trainer`, ``cli/sample_cli.py``,
-``cli/train_cli.py``, ``cli/serve_cli.py``) run on ``cuda`` unless the
-caller passes ``device="cpu"``; without a card and without an explicit device they
-raise.  On the card the sampler's reverse step and the train step run as
+``cli/train_cli.py``, ``cli/serve_cli.py``, ``cli/worker_cli.py``) run
+on ``cuda`` unless the caller passes ``device="cpu"``; without a card
+and without an explicit device they raise.  On the card the sampler's reverse step and the train step run as
 CUDA graphs (:mod:`diff3d_tpu_torch.graphs`), the counterpart of the
 reference's compiled programs.
 """

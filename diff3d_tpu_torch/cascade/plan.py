@@ -1,6 +1,5 @@
 """Cascade plans: what runs at which resolution, and where refinement
-starts (counterpart: ``diff3d_tpu/cascade/plan.py``, a copy; the cascade
-sampler and request are ROADMAP A9b).
+starts (counterpart: ``diff3d_tpu/cascade/plan.py``, a copy).
 
 A cascade serves one object twice: a cheap low-resolution
 *draft* pass (typically the distilled student, few DDIM steps) whose

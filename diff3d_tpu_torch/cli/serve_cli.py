@@ -1,5 +1,5 @@
 """Long-running novel-view inference service (counterpart:
-``diff3d_tpu/cli/serve_cli.py``, its single-engine path).
+``diff3d_tpu/cli/serve_cli.py``).
 
 Loads weights and serves ``POST /synthesize`` — concurrent requests are
 microbatched into shared view steps (:mod:`diff3d_tpu_torch.serving`), so
@@ -19,9 +19,21 @@ Usage:
     python -m diff3d_tpu_torch.cli.serve_cli --init random --config test \\
         --device cpu
 
-Endpoints: ``POST /synthesize``, ``POST /trajectory``, ``GET
-/result/<id>``, ``GET /healthz``, ``GET /metrics`` (text; ``?format=json``
-for the structured snapshot), ``GET /stats``.
+    # two replicas behind the fleet router, and progressive previews:
+    python -m diff3d_tpu_torch.cli.serve_cli --model ckpt.pt --replicas 2 \\
+        --schedules 'ancestral:64,1@ddim:16'
+    python -m diff3d_tpu_torch.cli.serve_cli --model ckpt.pt \\
+        --config srn128 --cascade 'draft=64:ddim:8,refine=128:ancestral:64@t0.40625'
+
+    # front worker processes (cli/worker_cli.py), no local engine:
+    python -m diff3d_tpu_torch.cli.serve_cli --workers 127.0.0.1:9100
+
+Endpoints: ``POST /synthesize``, ``POST /trajectory``, ``POST /cascade``
+(with ``--cascade``), ``GET /result/<id>``, ``GET /healthz``, ``GET
+/metrics`` (text; ``?format=json`` for the structured snapshot), ``GET
+/stats``, and ``GET /fleet`` behind the fleet router (``--replicas`` > 1
+or ``--workers``).  With ``--workers`` alone no engine is built and the
+process touches no device.
 """
 
 from __future__ import annotations
@@ -36,13 +48,10 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           apply_model_width_overrides,
                                           load_eval_params)
 
-_WAITING = ("Not in this slice of the port (see ROADMAP.md): --workers and "
-            "--cascade (ROADMAP A9b: the cross-process fleet and cascades) "
-            "and --mesh (A10: the parallel layer) are not flags here, so "
-            "they are refused; --replicas above 1 and per-replica "
-            "'i@kind:steps' entries of --schedules exit non-zero (A9b: the "
-            "fleet router).  --pallas has no counterpart: the port runs one "
-            "implementation per device (ops/dispatch.py).")
+_WAITING = ("Not in the port (see ROADMAP.md): --mesh (A10: the parallel "
+            "layer) is not a flag here, so it is refused; --pallas has no "
+            "counterpart: the port runs one implementation per device "
+            "(ops/dispatch.py).")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,10 +106,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="extra schedules to serve beyond the default, as "
                         "'kind:steps,...' (e.g. 'ddim:16'); requests "
                         "naming any other schedule get a typed 503 with "
-                        "this list")
+                        "this list.  With --replicas N, prefix an entry "
+                        "with 'i@' to give it to replica i only (e.g. "
+                        "'1@ddim:16') — the router places requests on a "
+                        "replica that serves their schedule")
     p.add_argument("--replicas", type=int, default=None,
-                   help="engine replicas; the port serves 1 (the fleet "
-                        "router is ROADMAP A9b)")
+                   help="in-process engine replicas behind the fleet "
+                        "router front door (default: config, 1 = plain "
+                        "single-engine service); each has its own copy of "
+                        "the weights, samplers and graphs.  Sessions "
+                        "(payload 'session_id') pin to a replica; adds GET "
+                        "/fleet and router counters to GET /metrics")
+    p.add_argument("--workers", default=None,
+                   help="front pre-started worker processes "
+                        "(diff3d_tpu_torch.cli.worker_cli) as remote "
+                        "replicas: 'host:port,host:port'.  Mixes with "
+                        "--replicas: N in-process replicas plus the listed "
+                        "workers form one fleet; with --workers alone no "
+                        "local engine is built, so this process touches "
+                        "no device")
+    p.add_argument("--cascade", default=None, metavar="PLAN",
+                   help="serve progressive-preview cascades (POST "
+                        "/cascade): 'draft=RES:kind:steps,refine=RES:kind:"
+                        "steps@tSTART', e.g. 'draft=64:ddim:8,refine=128:"
+                        "ancestral:64@t0.40625' — the draft streams first "
+                        "at RES, then a truncated refine pass (from "
+                        "t=START, a grid point of its schedule) replaces "
+                        "each frame in place; refine RES must equal the "
+                        "config's image size")
     p.add_argument("--scan_chunks", type=int, default=1,
                    help="split each view's reverse steps into this many "
                         "segments (must divide the per-view step count; "
@@ -131,6 +164,8 @@ def _config(args):
     over = {k: getattr(args, k) for k in
             ("host", "port", "max_batch", "max_queue", "max_wait_ms")
             if getattr(args, k) is not None}
+    if args.replicas:            # 0 = remote-only fleet, keep cfg valid
+        over["replicas"] = args.replicas
     if args.timeout_s is not None:
         over["default_timeout_s"] = args.timeout_s
     if args.watchdog_s is not None:
@@ -142,44 +177,118 @@ def _config(args):
     return cfg
 
 
-def _schedules(spec: str):
-    """``'kind:steps,...'`` -> ``[(kind, steps), ...]``."""
+def _schedules(spec: str, n_replicas: int):
+    """``'[i@]kind:steps,...'`` -> ``[(replica index or None, (kind,
+    steps)), ...]``."""
     out = []
     for entry in spec.split(","):
         entry = entry.strip()
         if not entry:
             continue
-        if "@" in entry:
-            raise SystemExit(
-                f"--schedules entry {entry!r}: per-replica schedules "
-                "('i@kind:steps') need the fleet router (ROADMAP A9b)")
-        kind, _, steps_s = entry.partition(":")
+        target, at, rest = entry.partition("@")
+        idx = None
+        if at:
+            try:
+                idx = int(target)
+            except ValueError:
+                raise SystemExit(
+                    f"--schedules entry {entry!r}: replica prefix must be "
+                    "an integer index ('i@kind:steps')") from None
+            if not 0 <= idx < n_replicas:
+                raise SystemExit(
+                    f"--schedules entry {entry!r}: replica index {idx} "
+                    f"outside --replicas {n_replicas}")
+        else:
+            rest = entry
+        kind, _, steps_s = rest.partition(":")
         try:
-            out.append((kind, int(steps_s)))
+            out.append((idx, (kind, int(steps_s))))
         except ValueError:
             raise SystemExit(f"--schedules entry {entry!r}: expected "
-                             "'kind:steps'") from None
+                             "'[i@]kind:steps'") from None
     return out
 
 
-def build_service(args):
-    """Config + weights + sampler(s) -> a :class:`ServingService`, not
-    started; with ``--warmup`` its graphs of the ``max_views`` bucket
-    are already captured."""
-    from diff3d_tpu_torch.device import resolve_device
-    from diff3d_tpu_torch.models import build_model
-    from diff3d_tpu_torch.sampling import Sampler, record_capacity
-    from diff3d_tpu_torch.serving import Bucket, ServingService
+def _worker_addrs(spec):
+    addrs = []
+    for entry in (spec or "").split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        host, _, port_s = entry.rpartition(":")
+        try:
+            addrs.append((host or "127.0.0.1", int(port_s)))
+        except ValueError:
+            raise SystemExit(f"--workers entry {entry!r}: expected "
+                             "'host:port'") from None
+    return addrs
 
-    if args.replicas is not None and args.replicas > 1:
-        raise SystemExit(f"--replicas {args.replicas}: the port serves one "
-                         "engine; the fleet router is ROADMAP A9b")
-    extra_specs = _schedules(args.schedules) if args.schedules else []
-    device = resolve_device(args.device)
+
+def _remotes(addrs, cfg):
+    from diff3d_tpu_torch.serving.transport import (RemoteReplica,
+                                                   TransportError)
+
+    reps = []
+    for host, port in addrs:
+        try:
+            reps.append(RemoteReplica(
+                host, port,
+                heartbeat_interval_s=cfg.serving.heartbeat_interval_s,
+                heartbeat_timeout_s=cfg.serving.heartbeat_timeout_s,
+                max_frame_bytes=cfg.serving.max_frame_bytes))
+        except TransportError as e:
+            raise SystemExit(
+                f"--workers {host}:{port}: worker unreachable ({e}) — "
+                "start it first with 'python -m "
+                "diff3d_tpu_torch.cli.worker_cli'") from None
+    return reps
+
+
+def build_service(args):
+    """Config + weights + sampler(s) -> a :class:`ServingService`, or a
+    :class:`FleetService` with ``--replicas`` > 1 or ``--workers``, not
+    started; with ``--warmup`` every local engine's graphs of the
+    ``max_views`` bucket are already captured."""
+    from diff3d_tpu_torch.serving import FleetService
+
     try:
         cfg = _config(args)
     except ValueError as e:
         raise SystemExit(str(e))
+    worker_addrs = _worker_addrs(args.workers)
+    # Local in-process replicas: with --workers present, default to a
+    # remote-only fleet unless --replicas asks for local ones too.
+    n_local = args.replicas if args.replicas is not None else (
+        0 if worker_addrs else cfg.serving.replicas)
+    if n_local < 0 or (n_local == 0 and not worker_addrs):
+        raise SystemExit(f"--replicas {n_local} needs --workers (and is "
+                         "never negative)")
+    extra_specs = (_schedules(args.schedules, n_local) if args.schedules
+                   else [])
+    if n_local == 0:
+        # Remote-only front door: no local engine, no device touched.
+        if args.cascade:
+            raise SystemExit("--cascade needs local replicas: the worker "
+                             "transport carries no cascade")
+        logging.info("fronting %d remote workers, no local replicas",
+                     len(worker_addrs))
+        return FleetService(_remotes(worker_addrs, cfg), cfg)
+    if any(i is not None for i, _ in extra_specs) and n_local < 2:
+        raise SystemExit("per-replica 'i@kind:steps' schedules require "
+                         "--replicas > 1")
+    return _local_service(args, cfg, n_local, extra_specs, worker_addrs)
+
+
+def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
+    """The service over ``n_local`` in-process replicas (plus the
+    ``worker_addrs`` remotes)."""
+    from diff3d_tpu_torch.device import resolve_device
+    from diff3d_tpu_torch.models import build_model
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.serving import FleetService, ServingService
+    from diff3d_tpu_torch.serving.fleet import build_fleet
+
+    device = resolve_device(args.device)
     model = build_model(cfg.model, device)
     if args.init == "random":
         version = "random-init"
@@ -201,22 +310,61 @@ def build_service(args):
             raise SystemExit(f"schedule {kind}:{steps}: {e}")
 
     default = sampler(args.sampler, args.sampler_steps)
-    extra = {}
-    for sched in extra_specs:
-        if sched != (default.sampler_kind, default.steps):
-            extra[sched] = sampler(*sched)
-    service = ServingService(default, cfg, params_version=version,
-                             extra_samplers=extra or None)
+    cascade = None
+    if args.cascade:
+        from diff3d_tpu_torch.cascade import CascadePlan, CascadeSampler
+
+        try:
+            plan = CascadePlan.parse(args.cascade)
+            if plan.refine.resolution != cfg.model.H:
+                raise ValueError(
+                    f"refine resolution {plan.refine.resolution} must "
+                    f"equal the config's image size {cfg.model.H} "
+                    f"(--config {args.config})")
+            cascade = CascadeSampler(model, cfg, plan, device=device)
+        except ValueError as e:
+            raise SystemExit(f"--cascade: {e}")
+        logging.info("cascade plan %s (draft %d^2 -> refine %d^2 from "
+                     "t=%g)", plan.spec(), plan.draft.resolution,
+                     plan.refine.resolution, plan.refine.start_t)
+    extra, per_replica = {}, {}
+    for idx, sched in extra_specs:
+        if sched == (default.sampler_kind, default.steps):
+            continue                        # already the default sampler
+        target = extra if idx is None else per_replica.setdefault(idx, {})
+        target[sched] = sampler(*sched)
+    if worker_addrs or n_local > 1:
+        service = FleetService(build_fleet(
+            default, cfg, n_local, extra_samplers=extra or None,
+            per_replica_extra=per_replica or None, params_version=version,
+            cascade=cascade) + _remotes(worker_addrs, cfg), cfg)
+    else:
+        service = ServingService(default, cfg, params_version=version,
+                                 extra_samplers=extra or None,
+                                 cascade=cascade)
     if args.warmup:
-        eng = service.engine
-        cap = record_capacity(cfg.serving.max_views)
-        for s in eng.samplers.values():
-            bucket = Bucket(cfg.model.H, cfg.model.W, cap, s.steps,
-                            s.sampler_kind)
-            secs = eng.programs.warmup(bucket, s.lane_multiple,
-                                       eng.guidance_B)
-            logging.info("warmed bucket %s in %.1fs", tuple(bucket), secs)
+        engines = ([service.engine] if hasattr(service, "engine")
+                   else [rep.engine for rep in service.replicas
+                         if hasattr(rep, "engine")])
+        for eng in engines:
+            warmup(eng, cfg)
     return service
+
+
+def warmup(eng, cfg) -> None:
+    """Capture ``eng``'s single-lane view step of the ``max_views``
+    bucket for every schedule and cascade phase."""
+    from diff3d_tpu_torch.sampling import record_capacity
+    from diff3d_tpu_torch.serving import Bucket
+
+    cap = record_capacity(cfg.serving.max_views)
+    phases = ([("draft", eng.cascade.draft), ("refine", eng.cascade.refine)]
+              if eng.cascade is not None else [])
+    for phase, s in [(None, s) for s in eng.samplers.values()] + phases:
+        bucket = Bucket(s.cfg.model.H, s.cfg.model.W, cap, s.steps,
+                        s.sampler_kind, phase)
+        secs = eng.programs.warmup(bucket, s.lane_multiple, eng.guidance_B)
+        logging.info("warmed bucket %s in %.1fs", tuple(bucket), secs)
 
 
 def main(argv=None) -> None:
@@ -225,9 +373,11 @@ def main(argv=None) -> None:
 
     service = build_service(args)
     service.start(serve_http=True)
+    fleet = ", GET /fleet" if hasattr(service, "fleet_snapshot") else ""
     logging.info("listening on http://%s:%d (POST /synthesize, POST "
-                 "/trajectory, GET /healthz, GET /metrics, GET /stats)",
-                 service.cfg.serving.host, service.port)
+                 "/trajectory, POST /cascade, GET /healthz, GET /metrics, "
+                 "GET /stats%s)", service.cfg.serving.host, service.port,
+                 fleet)
 
     done = threading.Event()
 

@@ -128,8 +128,8 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """The single-engine inference service (:mod:`diff3d_tpu_torch.serving`),
-    with the JAX package's defaults.
+    """The inference service (:mod:`diff3d_tpu_torch.serving`), with the
+    JAX package's defaults.
 
     Concurrent requests are microbatched into fixed-shape device batches
     (bucketed by image size and record capacity) and admitted between
@@ -165,9 +165,19 @@ class ServingConfig:
     retry_after_s: float = 5.0
     # Watchdog respawns of a dead engine loop before failing fast.
     engine_max_restarts: int = 3
-    # Engine replicas behind a fleet router; the port serves one
-    # (the fleet is ROADMAP A9b).
+    # In-process engine replicas behind the fleet router's front door
+    # (1 = single-replica ServingService, no router).  Each replica owns
+    # its weights, samplers, graphs, scheduler and engine; sessions pin
+    # to replicas.
     replicas: int = 1
+    # Cross-process fleet (serving/transport.py): probe each worker every
+    # `interval`; a worker silent past `timeout` is marked dead (its
+    # sticky sessions get SessionLost, exactly like an in-process kill).
+    heartbeat_interval_s: float = 0.25
+    heartbeat_timeout_s: float = 3.0
+    # Transport frame-size ceiling (a garbage length prefix must not
+    # demand gigabytes of buffer).
+    max_frame_bytes: int = 1 << 30
 
     def validate(self) -> None:
         if self.max_batch < 1:
@@ -208,6 +218,19 @@ class ServingConfig:
                 ">= 0")
         if self.replicas < 1:
             raise ValueError(f"replicas={self.replicas} must be >= 1")
+        if self.heartbeat_interval_s <= 0:
+            raise ValueError(
+                f"heartbeat_interval_s={self.heartbeat_interval_s} must "
+                "be > 0")
+        if self.heartbeat_timeout_s <= self.heartbeat_interval_s:
+            raise ValueError(
+                f"heartbeat_timeout_s={self.heartbeat_timeout_s} must "
+                f"exceed heartbeat_interval_s={self.heartbeat_interval_s} "
+                "(a single missed probe must not kill a replica)")
+        if self.max_frame_bytes < (1 << 16):
+            raise ValueError(
+                f"max_frame_bytes={self.max_frame_bytes} must be >= 64 KiB "
+                "(a single 8x8 view frame already needs ~1 KiB of JSON)")
 
 
 @dataclasses.dataclass(frozen=True)

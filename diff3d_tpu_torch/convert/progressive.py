@@ -38,15 +38,23 @@ def adapt_params_resolution(params: Mapping[str, torch.Tensor],
         raise KeyError("conditioningprocessor: not an X-UNet state dict")
     out = dict(params)
     pe = out.get(POS_EMB)
-    H2, W2 = dst_hw
-    if pe is not None and tuple(pe.shape[:2]) != (H2, W2):
-        H, W = pe.shape[:2]
-        x = pe.permute(2, 0, 1)[None].float()             # [1, C, H, W]
-        y = F.interpolate(x, size=(H2, W2), mode="bilinear",
-                          align_corners=False,
-                          antialias=H2 < H or W2 < W)
-        out[POS_EMB] = y[0].permute(1, 2, 0).to(pe.dtype).contiguous()
+    if pe is not None and tuple(pe.shape[:2]) != tuple(dst_hw):
+        out[POS_EMB] = resize_bilinear(pe, dst_hw).to(pe.dtype)
     return out
+
+
+def resize_bilinear(x: torch.Tensor, dst_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """``x [..., H, W, C]`` resized to ``dst_hw`` as
+    ``jax.image.resize(x, ..., "bilinear")`` does (see the module
+    docstring), in float32; contiguous."""
+    H, W, C = x.shape[-3:]
+    H2, W2 = dst_hw
+    lead = x.shape[:-3]
+    y = x.reshape(-1, H, W, C).permute(0, 3, 1, 2).float()  # [N, C, H, W]
+    y = F.interpolate(y, size=(H2, W2), mode="bilinear",
+                      align_corners=False, antialias=H2 < H or W2 < W)
+    return y.permute(0, 2, 3, 1).reshape(*lead, H2, W2, C).contiguous()
 
 
 def init_student_from_teacher(params: Mapping[str, torch.Tensor],

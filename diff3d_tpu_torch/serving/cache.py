@@ -13,7 +13,10 @@ Three independent layers, cheapest first:
     ``compile_s`` and counted in ``serving_program_compiles_total``),
     later uses replay it (``serving_program_hits_total``).  On the card
     the first use also records the bytes it added at its peak
-    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``).
+    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``);
+    a worker's admission gate takes these as its pins.  Cascade phase
+    samplers ride a registry of their own keyed by the bucket's phase
+    tag (:meth:`ProgramCache.register_phase`).
   * :class:`ParamsRegistry` — hot weight swap.  The captured graphs read
     the model's parameters at the addresses they had at capture, so a
     swap is an in-place ``copy_`` into the one model every sampler of
@@ -28,7 +31,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -50,6 +53,9 @@ class ParamsRegistry:
         self._applied = version  # guarded-by: self._lock
         self._pending: Optional[tuple] = None  # guarded-by: self._lock
         self.swaps = 0  # guarded-by: self._lock
+        # Swaps copied into the model so far (the engine thread's
+        # apply()); a phase adapter refreshes when it moves.
+        self.applied = 0  # guarded-by: self._lock
 
     @property
     def version(self) -> str:
@@ -84,15 +90,26 @@ class ParamsRegistry:
 
     def apply(self) -> str:
         """Copy a staged swap into the model (the engine's thread, between
-        view steps) and return the version now live."""
+        view steps) and return the version now live.
+
+        The engine issues its work on a stream of its own, so a staged
+        device tensor is waited for first (the caller's stream may still
+        be writing it), and the copies are waited for after (the caller's
+        tensors may be freed and their memory reused once dropped)."""
         with self._lock:
             if self._pending is not None:
                 version, new = self._pending
                 self._pending = None
+                on_card = any(t.is_cuda for t in new.values())
+                if on_card:
+                    torch.cuda.synchronize()
                 with torch.no_grad():
                     for k, t in new.items():
                         self._live[k].copy_(t)
+                if on_card:
+                    torch.cuda.current_stream().synchronize()
                 self._applied = version
+                self.applied += 1
             return self._applied
 
 
@@ -103,7 +120,10 @@ class ProgramCache:
     or a dict ``{(sampler_kind, steps): Sampler}`` (the engine's schedule
     registry, all sharing one model): a bucket whose ``steps`` /
     ``sampler`` fields are set routes to the matching sampler, so the
-    schedule rides the same key space as the shapes.
+    schedule rides the same key space as the shapes.  A bucket whose
+    ``phase`` is set routes to the cascade phase sampler registered under
+    it instead: a refine step takes a drafts operand, so it must never be
+    reachable through the plain schedule space, even at equal shapes.
     """
 
     def __init__(self, sampler, metrics=None):
@@ -115,6 +135,12 @@ class ProgramCache:
         else:
             self._samplers = {(sampler.sampler_kind, sampler.steps): sampler}
             self._sampler = sampler
+        self._phase_samplers: Dict[str, object] = {}
+        # Per-phase weight adapters (the draft phase's in-place refresh of
+        # its resized pos_emb) and the registry generation each last ran
+        # at, so a swap is adapted once, not every view step.
+        self._phase_adapt: Dict[str, Callable[[], None]] = {}
+        self._phase_adapted: Dict[str, int] = {}  # guarded-by: self._lock
         self._lock = threading.Lock()
         self._programs: Dict[tuple, dict] = {}  # guarded-by: self._lock
         m = metrics
@@ -126,9 +152,43 @@ class ProgramCache:
             "view steps served by an already-captured graph") if m \
             else None
 
+    def register_phase(self, phase: str, sampler,
+                       adapt: Optional[Callable[[], None]] = None) -> None:
+        """Attach a cascade phase sampler: buckets tagged ``phase``
+        dispatch here instead of the schedule registry.  ``adapt``
+        (optional) brings the phase's weights up to date with the served
+        model's, in place; it runs on the engine thread before the
+        phase's first step after each applied swap."""
+        if phase not in ("draft", "refine"):
+            raise ValueError(f"phase={phase!r} not in ('draft', 'refine')")
+        self._phase_samplers[phase] = sampler
+        if adapt is not None:
+            self._phase_adapt[phase] = adapt
+
+    def _adapt_phase(self, phase: str, generation: int) -> None:
+        """Run ``phase``'s adapter once per registry generation."""
+        adapt = self._phase_adapt.get(phase)
+        if adapt is None:
+            return
+        with self._lock:
+            if self._phase_adapted.get(phase) == generation:
+                return
+        adapt()
+        with self._lock:
+            self._phase_adapted[phase] = generation
+
     def _sampler_for(self, bucket):
         """The sampler serving ``bucket``'s schedule (the default sampler
-        for an unresolved schedule)."""
+        for an unresolved schedule; the phase registry for a cascade
+        phase's bucket)."""
+        if bucket.phase is not None:
+            try:
+                return self._phase_samplers[bucket.phase]
+            except KeyError:
+                raise KeyError(
+                    f"no {bucket.phase!r} phase sampler (bucket "
+                    f"{tuple(bucket)}); the engine should have rejected "
+                    "this cascade at submit time") from None
         kind, steps = bucket.sampler, bucket.steps
         if kind is None and steps is None:
             return self._sampler
@@ -142,12 +202,17 @@ class ProgramCache:
                 "the engine should have rejected this at submit time")
 
     def step_many(self, bucket, lanes: int, record_imgs, record_R,
-                  record_T, steps, K, draws):
+                  record_T, steps, K, draws, *, drafts=None,
+                  generation: int = 0):
         """One batched view step on device tensors (``Sampler.step_many``'s
         arguments: the pose buffers carry every view's pose, ``draws``
-        one draw source per lane).  Returns its ``(out, record_imgs,
-        steps + 1)``."""
+        one draw source per lane).  ``drafts`` is the refine phase's
+        ``[N, B, H, W, 3]`` upsampled-draft operand (None elsewhere);
+        ``generation`` the weights registry's count of applied swaps.
+        Returns its ``(out, record_imgs, steps + 1)``."""
         sampler = self._sampler_for(bucket)
+        if bucket.phase is not None:
+            self._adapt_phase(bucket.phase, generation)
         key = (tuple(bucket), int(lanes))
         with self._lock:
             entry = self._programs.get(key)
@@ -156,7 +221,7 @@ class ProgramCache:
                 entry = self._programs[key] = {
                     "compile_s": None, "capture_s": None, "uses": 0,
                     "steps": sampler.steps, "sampler": sampler.sampler_kind,
-                    "memory": None}
+                    "phase": bucket.phase, "memory": None}
             entry["uses"] += 1
         if first and self._compiles:
             self._compiles.inc()
@@ -170,8 +235,9 @@ class ProgramCache:
             torch.cuda.reset_peak_memory_stats(device)
         graphs_before = set(sampler.graphs)
         t0 = time.monotonic()
+        kw = {} if drafts is None else {"drafts": drafts}
         out = sampler.step_many(record_imgs, record_R, record_T, steps, K,
-                                draws)
+                                draws, **kw)
         if first:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -207,13 +273,16 @@ class ProgramCache:
         N = int(lanes)
         eye = torch.eye(3, device=device)
         gen = torch.Generator(device).manual_seed(0)
+        drafts = (torch.zeros((N, guidance_B, H, W, 3), device=device)
+                  if bucket.phase == "refine" else None)
         t0 = time.monotonic()
         out, _, _ = self.step_many(
             bucket, lanes,
             torch.zeros((N, cap, guidance_B, H, W, 3), device=device),
             eye.expand(N, cap, 3, 3).contiguous(),
             torch.zeros((N, cap, 3), device=device), [1] * N,
-            eye.expand(N, 3, 3).contiguous(), [Draws(gen)] * N)
+            eye.expand(N, 3, 3).contiguous(), [Draws(gen)] * N,
+            drafts=drafts)
         out.cpu()
         return time.monotonic() - t0
 
@@ -238,6 +307,8 @@ class ProgramCache:
                     and (kind, steps) != default):
                 s += (f"x{kind or 'default'}"
                       f"{steps if steps is not None else ''}")
+            if len(b) >= 6 and b[5] is not None:
+                s += f"x{b[5]}"      # cascade phase tag
             return s + f"xlanes{lanes}"
 
         def mem(v, field):
@@ -254,6 +325,7 @@ class ProgramCache:
                         "capture_s": v["capture_s"],
                         "steps": v["steps"],
                         "sampler": v["sampler"],
+                        "phase": v["phase"],
                         "peak_bytes": mem(v, "peak_bytes"),
                         "argument_bytes": mem(v, "argument_bytes"),
                         "max_memory_allocated": mem(

@@ -1,6 +1,5 @@
 """Device-executor engine: continuous batching at view granularity
-(counterpart: ``diff3d_tpu/serving/engine.py``; its cascade phases are
-ROADMAP A9b).
+(counterpart: ``diff3d_tpu/serving/engine.py``).
 
 One thread owns the card.  Its loop is:
 
@@ -42,18 +41,32 @@ mid-flight without reshuffling device memory.  The fetch of the view
 ``serving_host_{upload,fetch}_bytes_total`` counters measure what crosses
 the host boundary.
 
-Only the engine thread touches CUDA.  A capture in the default (global)
+Only the engine threads touch CUDA.  A capture in the default (global)
 error mode is broken by a CUDA call from any other thread, so the HTTP
 handlers build requests as numpy arrays, the watchdog only reads
 deadlines, and :meth:`ProgramCache.warmup` runs before :meth:`start`.
+Several engines on one device (a fleet's replicas) take turns: each view
+step (its staging, replays or first-use capture, and fetch) runs under
+the device's FIFO turn lock (:func:`device_turns`), so no engine's CUDA
+call can fall inside another's capture, and a first use's peak-memory
+reading is its own.  Each engine issues its work on a CUDA stream of its
+own.
+
+A cascade (:class:`~diff3d_tpu_torch.cascade.CascadeSampler`) adds two
+phase samplers reached only through phase-tagged buckets: a
+:class:`~diff3d_tpu_torch.cascade.CascadeRequest` never queues itself;
+its draft child is queued at submit, and when the draft child retires,
+its result chains the refine child (the upsampled drafts) into the
+queue, on the engine thread.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +103,46 @@ _HEALTH_GAUGE = {HEALTH_OK: 0, HEALTH_DEGRADED: 1, HEALTH_DRAINING: 2}
 #: Seed of the throwaway generators of padding lanes (their views are
 #: discarded; any seed will do).
 PAD_SEED = 0x5EED
+
+
+class _Turns:
+    """A FIFO lock: waiters enter in the order they asked, so an engine
+    that releases and at once asks again cannot starve another."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._queue: collections.deque = (
+            collections.deque())  # guarded-by: self._cv
+        self._held = False  # guarded-by: self._cv
+
+    def __enter__(self) -> "_Turns":
+        me = object()
+        with self._cv:
+            self._queue.append(me)
+            while self._held or self._queue[0] is not me:
+                self._cv.wait()
+            self._queue.popleft()
+            self._held = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with self._cv:
+            self._held = False
+            self._cv.notify_all()
+
+
+_turns_lock = threading.Lock()
+# One turn lock per device for the whole process: the device is
+# process-wide, whoever builds the engines on it.
+_turns: Dict[Tuple[str, int], _Turns] = {}  # guarded-by: _turns_lock
+
+
+def device_turns(device: torch.device) -> _Turns:
+    """The process-wide turn lock of ``device``, shared by every engine
+    that runs on it (see the module docstring)."""
+    key = (device.type, 0 if device.index is None else device.index)
+    with _turns_lock:
+        return _turns.setdefault(key, _Turns())
 
 
 class EngineStopTimeout(RuntimeError):
@@ -129,8 +182,13 @@ class _Slot:
         self.record_T[:req.n_views] = req.T[:req.n_views]
         self.step = 1                       # next view index to synthesise
         self.draws = req.draws
-        self.gen = (torch.Generator(device).manual_seed(req.seed)
+        # A cascade phase child runs its own stream of the request seed.
+        seed = getattr(req, "stream_seed", req.seed)
+        self.gen = (torch.Generator(device).manual_seed(seed)
                     if self.draws is None else None)
+        # Refine-phase children carry the [n_views-1, B, H, W, 3]
+        # upsampled drafts their truncated loops renoise from.
+        self.drafts = getattr(req, "drafts", None)
         self.outs: List[np.ndarray] = []
 
     def view_draws(self):
@@ -144,8 +202,10 @@ class Engine:
     """Single consumer of the :class:`Scheduler`; owner of device work.
 
     ``extra_samplers`` maps ``(sampler_kind, steps)`` to further samplers
-    over the same model (the replica's extra schedules).  On the card
-    every sampler's graphs are captured into one memory pool.
+    over the same model (the replica's extra schedules); ``cascade`` is an
+    optional :class:`~diff3d_tpu_torch.cascade.CascadeSampler` over the
+    same model.  On the card every sampler's graphs, the cascade's too,
+    are captured into one memory pool of this engine's own.
     """
 
     def __init__(self, sampler, scheduler: Scheduler,
@@ -153,7 +213,8 @@ class Engine:
                  params_registry: Optional[ParamsRegistry] = None,
                  result_cache: Optional[ResultCache] = None,
                  program_cache: Optional[ProgramCache] = None,
-                 extra_samplers: Optional[dict] = None):
+                 extra_samplers: Optional[dict] = None,
+                 cascade=None):
         self.sampler = sampler
         self.scheduler = scheduler
         self.metrics = metrics
@@ -177,9 +238,21 @@ class Engine:
                     "default sampler's — all schedules must share a mesh")
             self.samplers[(kind, int(steps))] = extra
         self.device = sampler.device
+        # Cascade serving: the two phase samplers are reached only
+        # through phase-tagged buckets, never through the (kind, steps)
+        # schedule registry, so plain clients cannot address them.
+        self.cascade = cascade
+        phase_samplers = []
+        if cascade is not None:
+            if cascade.refine.model is not sampler.model:
+                raise ValueError(
+                    "cascade: its refine sampler is not over the default "
+                    "sampler's model — the served model IS the refine "
+                    "phase")
+            phase_samplers = [cascade.draft, cascade.refine]
         if sampler.cuda_graphs:
             pool = torch.cuda.graph_pool_handle()
-            for s in self.samplers.values():
+            for s in list(self.samplers.values()) + phase_samplers:
                 s.graph_pool = pool
         self.num_devices = (torch.cuda.device_count()
                             if self.device.type == "cuda" else 1)
@@ -188,6 +261,14 @@ class Engine:
             cfg.result_cache_entries, metrics)
         self.programs = program_cache or ProgramCache(
             self.samplers if len(self.samplers) > 1 else sampler, metrics)
+        if cascade is not None:
+            # The draft shares the served weights but for its resized
+            # pos_emb, which a swap leaves stale: refreshed in place
+            # before the draft's first step after each applied swap.
+            self.programs.register_phase("draft", cascade.draft,
+                                         adapt=cascade.refresh_draft)
+            self.programs.register_phase("refine", cascade.refine)
+        self.turns = device_turns(self.device)
         self.guidance_B = int(sampler.w.shape[0])
         self.lane_multiple = int(sampler.lane_multiple)
         self.max_batch = (-(-cfg.max_batch // self.lane_multiple)
@@ -251,6 +332,12 @@ class Engine:
         self._traj_active_g = m.gauge(
             "serving_active_trajectories",
             "trajectory requests admitted but not yet resolved")
+        self._cascade_requests = m.counter(
+            "serving_cascade_requests_total",
+            "cascade (progressive-preview) requests accepted")
+        self._cascade_frames = m.counter(
+            "serving_cascade_frames_total",
+            "cascade phase frames committed (draft + refine)")
         self._health_g = m.gauge(
             "serving_engine_health",
             "engine health (0=ok, 1=degraded, 2=draining)")
@@ -330,6 +417,55 @@ class Engine:
         if req.is_trajectory:
             self._traj_requests.inc()
         return self.scheduler.submit(req)
+
+    def supports_cascade(self, plan_spec: Optional[str] = None) -> bool:
+        """Would :meth:`submit_cascade` accept a request?  With a plan
+        spec, the replica must serve exactly that plan (cascade samplers
+        are built at boot, never on client demand)."""
+        if self.cascade is None:
+            return False
+        return (plan_spec is None
+                or plan_spec == self.cascade.plan.spec())
+
+    def submit_cascade(self, req) -> ViewRequest:
+        """Schedule a :class:`~diff3d_tpu_torch.cascade.CascadeRequest`.
+
+        The parent never queues; its draft child is submitted now under
+        the ``(draft_resolution, "draft")`` bucket, and when every draft
+        view has resolved the refine child — carrying the upsampled
+        drafts — is chained in under ``(H, "refine")`` (the chaining
+        callback runs on the engine thread at the draft's retire).  The
+        parent resolves with the refine child's result; any child
+        failure rejects the parent.
+        """
+        if self.cascade is None:
+            raise UnsupportedSchedule(
+                f"{req.id}: this replica serves no cascade plan",
+                supported=self.supported_schedules(),
+                retry_after_s=self.cfg.retry_after_s)
+        if req.plan.spec() != self.cascade.plan.spec():
+            raise UnsupportedSchedule(
+                f"{req.id}: cascade plan {req.plan.spec()} does not "
+                f"match the replica's {self.cascade.plan.spec()}",
+                supported=[self.cascade.plan.spec()],
+                retry_after_s=self.cfg.retry_after_s)
+
+        def chain_refine(draft_result: np.ndarray) -> None:
+            # Runs on the engine thread inside the draft child's
+            # _resolve; a submit failure propagates back into the
+            # child's resolve hook, which rejects the parent.
+            self.scheduler.submit(req.make_refine_child(draft_result))
+
+        draft = req.make_draft_child(chain_refine)
+        self._submitted.inc()
+        self._cascade_requests.inc()
+        req.submit_time = time.monotonic()
+        try:
+            self.scheduler.submit(draft)
+        except BaseException as e:
+            req._reject(e)
+            raise
+        return req
 
     def start(self) -> "Engine":
         if self._thread is not None:
@@ -449,6 +585,8 @@ class Engine:
                 "default_schedule": (
                     f"{self.default_schedule[0]}:{self.default_schedule[1]}"),
                 "supported_schedules": self.supported_schedules(),
+                "cascade": (self.cascade.plan.spec()
+                            if self.cascade is not None else None),
                 "trajectories": self.trajectory_progress(),
             }
         }
@@ -605,6 +743,15 @@ class Engine:
     # -- executor loop ---------------------------------------------------
 
     def _loop(self) -> None:
+        if self.device.type == "cuda":
+            with self.turns:
+                stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                self._serve()
+        else:
+            self._serve()
+
+    def _serve(self) -> None:
         active: List[_Slot] = []
         try:
             while not self._stop.is_set():
@@ -677,37 +824,53 @@ class Engine:
         Ks = np.stack([active[i].req.K for i in idx])
         self._upload_bytes.inc(record_imgs.nbytes + record_R.nbytes
                                + record_T.nbytes + Ks.nbytes)
+        bucket = active[0].req.bucket
+        # Refine-phase batches add the per-lane draft operand: lane i's
+        # upsampled draft of the view it synthesises now (slot.step is
+        # 1-based; drafts index 0 is view 1).
+        drafts = None
+        if bucket.phase == "refine":
+            drafts = np.stack([active[i].drafts[active[i].step - 1]
+                               for i in idx])
+            self._upload_bytes.inc(drafts.nbytes)
         saved = [(s.gen, s.gen.get_state()) for s in active
                  if s.gen is not None]
-        bucket = active[0].req.bucket
         device = self.device
-        # One weights version per view step: a staged swap lands here,
-        # between steps, and never inside one.
-        version = self.registry.apply()
-        t0 = time.monotonic()
 
         def _dispatch():
             # Arm the watchdog per attempt: a retry gets a fresh step
             # budget, and the deadline is cleared even on failure so the
-            # backoff sleep can't be mistaken for a stuck device.
-            if self.cfg.watchdog_timeout_s > 0:
-                self._step_deadline = (time.monotonic()
-                                       + self.cfg.watchdog_timeout_s)
-            try:
-                for gen, state in saved:      # a retry redraws the same
-                    gen.set_state(state)
-                draws = [s.view_draws() for s in active] + [
-                    Draws(torch.Generator(device).manual_seed(PAD_SEED))
-                    for _ in range(pad)]
-                out, _, _ = self.programs.step_many(
-                    bucket, lanes,
-                    torch.from_numpy(record_imgs).to(device),
-                    torch.from_numpy(record_R).to(device),
-                    torch.from_numpy(record_T).to(device), steps,
-                    torch.from_numpy(Ks).to(device), draws)
-                return out[:n].cpu().numpy()   # the step's one sync
-            finally:
-                self._step_deadline = None
+            # backoff sleep can't be mistaken for a stuck device.  The
+            # device turn is taken per attempt too, never across the
+            # backoff.
+            with self.turns:
+                if self.cfg.watchdog_timeout_s > 0:
+                    self._step_deadline = (time.monotonic()
+                                           + self.cfg.watchdog_timeout_s)
+                try:
+                    for gen, state in saved:  # a retry redraws the same
+                        gen.set_state(state)
+                    draws = [s.view_draws() for s in active] + [
+                        Draws(torch.Generator(device).manual_seed(PAD_SEED))
+                        for _ in range(pad)]
+                    out, _, _ = self.programs.step_many(
+                        bucket, lanes,
+                        torch.from_numpy(record_imgs).to(device),
+                        torch.from_numpy(record_R).to(device),
+                        torch.from_numpy(record_T).to(device), steps,
+                        torch.from_numpy(Ks).to(device), draws,
+                        drafts=(None if drafts is None
+                                else torch.from_numpy(drafts).to(device)),
+                        generation=self.registry.applied)
+                    return out[:n].cpu().numpy()  # the step's one sync
+                finally:
+                    self._step_deadline = None
+
+        # One weights version per view step: a staged swap lands here,
+        # between steps, and never inside one.
+        with self.turns:
+            version = self.registry.apply()
+        t0 = time.monotonic()
 
         out = self.step_policy.call(_dispatch,
                                     describe=f"view step {bucket}")
@@ -733,6 +896,8 @@ class Engine:
             slot.req._commit_frame(slot.step, view)
             if slot.req.is_trajectory:
                 self._traj_frames.inc()
+            if bucket.phase is not None:
+                self._cascade_frames.inc()
             slot.step += 1
         # Remember the version for the result-cache key of requests that
         # finish this step.

@@ -114,7 +114,7 @@ class UnsupportedSchedule(RetryableError):
         self.supported = list(supported or [])
 
 
-# Fleet-level typed rejections (the fleet router is ROADMAP A9b).  Same
+# Fleet-level typed rejections (serving/router.py).  Same
 # taxonomy, one level up: the *fleet*, not a single replica, could not
 # place the request right now.
 
@@ -151,7 +151,7 @@ class SessionLost(RetryableError):
 
 
 class ReplicaOverBudget(RetryableError):
-    """HBM-budgeted admission control (the worker, ROADMAP A9b): admitting
+    """Memory-budgeted admission control (serving/worker.py): admitting
     this request would push the replica's device slice past its HBM
     budget — resident session-record bytes plus the program's peak
     exceed ``hbm_budget_bytes``.  Rejected *at the door*, before any device

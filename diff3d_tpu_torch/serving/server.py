@@ -4,10 +4,10 @@
 
 ``ThreadingHTTPServer`` + ``BaseHTTPRequestHandler`` only, no web
 framework.  Handler threads do pure host work (JSON <-> numpy, queue
-submit, event wait) and never touch CUDA; the single engine thread owns
-every device call, so ``GET /healthz`` and ``GET /metrics`` stay
-responsive while a long job is on the card (and a graph capture on the
-engine thread is never broken by another thread's CUDA call).
+submit, event wait) and never touch CUDA; the engine threads own every
+device call, so ``GET /healthz`` and ``GET /metrics`` stay responsive
+while a long job is on the card (and a graph capture on an engine
+thread is never broken by another thread's CUDA call).
 
 Surface:
   * ``POST /synthesize`` — submit a job.  Body: ``{"views": {"imgs",
@@ -28,14 +28,20 @@ Surface:
     status line; ``block=false`` returns ``202 {"id", "n_frames"}``
     for incremental polling; ``block=true`` (default) waits and
     returns all frames at once.
-  * ``POST /cascade`` — progressive-preview synthesis; cascades are
-    ROADMAP A9b, so this replica answers as the JAX service does with
-    no cascade plan configured: ``503`` (a malformed ``"plan"`` spec in
-    the payload is ``400``).
+  * ``POST /cascade`` — progressive-preview synthesis: the same
+    ``{"views": ...}`` payload at the served (refine) resolution; the
+    replica's cascade plan decides both phase schedules
+    (``sampler_kind``/``steps`` are rejected).  Response modes mirror
+    /trajectory, but the streamed/polled unit is a *phase-tagged
+    event*: draft frames arrive first (preview), each refined frame
+    then replaces its draft at the same ``frame`` index.  ``503`` when
+    the replica serves no cascade plan.
   * ``GET /result/<id>`` — poll a submitted job.  For trajectory
     requests ``?from=K`` returns frames ``K..`` committed so far plus
     progress (``200`` even while running) — the incremental-poll
-    streaming surface.
+    streaming surface.  For cascade requests ``?from=K`` walks the
+    phase-tagged event buffer the same way (``next`` continues the
+    cursor without gaps).
   * ``GET /healthz`` — liveness + engine/queue state (incl. supported
     schedules).
   * ``GET /metrics`` — text exposition; ``/metrics?format=json`` for the
@@ -44,8 +50,10 @@ Surface:
   * ``GET /stats`` — the structured snapshot (alias of
     ``/metrics?format=json``): per-bucket program-cache entries carry
     their step count and sampler kind.
-  * ``GET /fleet`` — ``404`` on a single-replica service (the fleet
-    router is ROADMAP A9b).
+  * ``GET /fleet`` — fleet topology + per-replica health/depth/sessions
+    and trajectory progress (404 on a single-replica service; served
+    when the front door is the router's
+    :class:`~diff3d_tpu_torch.serving.router.FleetService`).
 
 Backpressure maps to status codes, never to silent queuing: a full queue
 is ``429``, a request deadline is ``504``, a cancelled request ``409``,
@@ -67,6 +75,9 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+# Only the (dependency-free) plan module at import time: cascade.request
+# subclasses scheduler.ViewRequest, so importing it here would close an
+# import cycle through the serving package __init__.
 from diff3d_tpu_torch.cascade.plan import CascadePlan
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.runtime.retry import RetryableError
@@ -144,8 +155,8 @@ def _check_against_model(req: ViewRequest, cfg: Config) -> ViewRequest:
 def build_request(payload: dict, cfg: Config) -> ViewRequest:
     """Validate a JSON-shaped payload against the served model and build
     the :class:`ViewRequest`.  Shared by the single-replica
-    :class:`ServingService` and (ROADMAP A9b) the fleet router's front
-    door."""
+    :class:`ServingService` and the fleet router's front door — both
+    enforce the same ceilings before any replica is chosen."""
     if "views" not in payload:
         raise ValueError("payload must carry a 'views' object with "
                          "imgs/R/T/K")
@@ -187,11 +198,38 @@ def build_trajectory_request(payload: dict,
     return _check_against_model(req, cfg)
 
 
+def build_cascade_request(payload: dict, cfg: Config,
+                          plan: CascadePlan) -> ViewRequest:
+    """Build a :class:`~diff3d_tpu_torch.cascade.CascadeRequest` from a
+    JSON-shaped payload.
+
+    The payload is the plain /synthesize shape at the served (refine)
+    resolution; the cascade *plan* owns both phase schedules, so a
+    payload naming its own ``sampler_kind``/``steps`` is rejected —
+    cascade samplers are built at boot, never minted per request.
+    """
+    if "views" not in payload:
+        raise ValueError("payload must carry a 'views' object with "
+                         "imgs/R/T/K")
+    from diff3d_tpu_torch.cascade.request import CascadeRequest
+
+    kw = _request_kwargs(payload, cfg)
+    if kw.pop("sampler_kind") is not None or kw.pop("steps") is not None:
+        raise ValueError(
+            "cascade requests take their schedules from the replica's "
+            "cascade plan — drop sampler_kind/steps from the payload")
+    req = CascadeRequest(
+        {k: np.asarray(v) for k, v in payload["views"].items()},
+        plan, **kw)
+    return _check_against_model(req, cfg)
+
+
 def remember_request(requests: "OrderedDict[str, ViewRequest]",
                      lock: threading.Lock, req: ViewRequest,
                      cap: int) -> None:
     """Record an accepted request in a front door's id->request map,
-    evicting the oldest *finished* entries past ``cap``."""
+    evicting the oldest *finished* entries past ``cap`` (shared by the
+    single-replica service and the fleet front door)."""
     with lock:
         requests[req.id] = req
         while len(requests) > cap:
@@ -243,6 +281,42 @@ def trajectory_poll_payload(req: TrajectoryRequest, start: int) -> dict:
     return body
 
 
+def _event_body(event: dict, seq: int) -> dict:
+    """One phase-tagged frame event on the wire: ``frame`` is the
+    0-based preview slot (view k -> frame k-1) a client renders draft
+    events into and overwrites with the matching refine event."""
+    return {
+        "event": seq,
+        "phase": event["phase"],
+        "frame": event["view"] - 1,
+        "view": event["frame"].tolist(),
+    }
+
+
+def cascade_poll_payload(req: ViewRequest, start: int) -> dict:
+    """Incremental-poll body for a cascade's ``GET /result/<id>?from=K``:
+    phase-tagged events ``K..`` committed so far.  A finished cascade
+    has ``2 * n_frames`` events — one draft and one refine per view —
+    and ``next`` continues the cursor without gaps or repeats."""
+    events = req.events_since(start)
+    done = req.done()
+    body = {
+        "id": req.id,
+        "status": "done" if done and req.error is None else (
+            "failed" if done else "running"),
+        "n_frames": req.n_frames,
+        "n_events": req.n_events,
+        "events_committed": req.events_done(),
+        "from": start,
+        "next": start + len(events),
+        "events": [_event_body(e, start + i)
+                   for i, e in enumerate(events)],
+    }
+    if done and req.error is not None:
+        body["error"] = str(req.error)
+    return body
+
+
 class ServingService:
     """Wires scheduler + engine + caches + metrics around one Sampler.
 
@@ -250,11 +324,14 @@ class ServingService:
     """
 
     def __init__(self, sampler, cfg: Config, params_version: str = "v0",
-                 extra_samplers: Optional[dict] = None):
+                 extra_samplers: Optional[dict] = None, cascade=None):
         """``extra_samplers`` maps ``(sampler_kind, steps)`` to extra
         :class:`~diff3d_tpu_torch.sampling.Sampler` instances over the
         default sampler's model — the additional schedules this replica
-        serves beyond the default sampler's own."""
+        serves beyond the default sampler's own.  ``cascade`` is an
+        optional :class:`~diff3d_tpu_torch.cascade.CascadeSampler` over
+        the same model enabling the progressive-preview surface
+        (``POST /cascade``)."""
         cfg.serving.validate()
         self.cfg = cfg
         self.metrics = MetricsRegistry()
@@ -274,7 +351,7 @@ class ServingService:
                                      self.metrics),
             program_cache=ProgramCache(
                 samplers if len(samplers) > 1 else sampler, self.metrics),
-            extra_samplers=extra_samplers)
+            extra_samplers=extra_samplers, cascade=cascade)
         self._requests_lock = threading.Lock()
         self._requests: "OrderedDict[str, ViewRequest]" = OrderedDict()
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -334,17 +411,25 @@ class ServingService:
                          4 * self.cfg.serving.max_queue)
         return req
 
-    def submit_cascade(self, payload: dict) -> "ViewRequest":
-        """``POST /cascade``: this replica serves no cascade plan
-        (cascades are ROADMAP A9b), so the request is refused with
-        :class:`UnsupportedSchedule` (503), as the JAX service refuses
-        one when booted without ``--cascade``; a ``"plan"`` spec in the
-        payload is parsed first, so a malformed one is a 400."""
+    def submit_cascade(self, payload: dict) -> ViewRequest:
+        """Build + schedule a progressive-preview request against the
+        replica's cascade plan (``POST /cascade``); phase-tagged frame
+        events stream through the request's event buffer as each phase
+        commits them.  A ``"plan"`` in the payload is parsed first, so a
+        malformed one is a 400 whatever the replica serves."""
         if payload.get("plan") is not None:
             CascadePlan.parse(str(payload["plan"]))
-        raise UnsupportedSchedule(
-            "this replica serves no cascade plan (cascades are ROADMAP "
-            "A9b)", supported=self.engine.supported_schedules())
+        if self.engine.cascade is None:
+            raise UnsupportedSchedule(
+                "this replica serves no cascade plan (boot with "
+                "--cascade)",
+                supported=self.engine.supported_schedules())
+        req = build_cascade_request(payload, self.cfg,
+                                    self.engine.cascade.plan)
+        self.engine.submit_cascade(req)
+        remember_request(self._requests, self._requests_lock, req,
+                         4 * self.cfg.serving.max_queue)
+        return req
 
     def get_request(self, request_id: str) -> Optional[ViewRequest]:
         with self._requests_lock:
@@ -368,7 +453,8 @@ class ServingService:
             "lane_multiple": self.engine.lane_multiple,
             "max_batch": self.engine.max_batch,
             "supported_schedules": self.engine.supported_schedules(),
-            "cascade": None,
+            "cascade": (self.engine.cascade.plan.spec()
+                        if self.engine.cascade is not None else None),
         }
 
     def metrics_snapshot(self, include_memory: bool = False) -> dict:
@@ -421,29 +507,44 @@ def make_http_server(service: ServingService, host: str,
                 self._send_json(
                     200, service.metrics_snapshot(include_memory=True))
             elif url.path == "/fleet":
-                # The single-replica service has no fleet.
-                self._send_json(404, {"error": "not a fleet front door"})
+                # Served only by the fleet router's front door
+                # (serving/router.py FleetService, duck-typed into this
+                # handler); the single-replica service has no fleet.
+                snap = getattr(service, "fleet_snapshot", None)
+                if snap is None:
+                    self._send_json(
+                        404, {"error": "not a fleet front door"})
+                else:
+                    self._send_json(200, snap())
             elif url.path.startswith("/result/"):
                 req = service.get_request(url.path[len("/result/"):])
                 qs = parse_qs(url.query or "")
+                cascade = getattr(req, "is_cascade", False)
                 if req is None:
                     self._send_json(404, {"error": "unknown request id"})
-                elif req.is_trajectory and "from" in qs:
-                    # Incremental poll: committed frames are deliverable
-                    # whether the request is still running, finished, or
-                    # even failed mid-path (the body carries the error).
+                elif (req.is_trajectory or cascade) and "from" in qs:
+                    # Incremental poll: committed frames/events are
+                    # deliverable whether the request is still running,
+                    # finished, or even failed mid-path (the body
+                    # carries the error).
                     try:
                         start = int(qs["from"][0])
                     except ValueError:
                         self._send_json(
                             400, {"error": "from must be an integer"})
                         return
-                    self._send_json(200, trajectory_poll_payload(req, start))
+                    self._send_json(
+                        200, cascade_poll_payload(req, start) if cascade
+                        else trajectory_poll_payload(req, start))
                 elif not req.done():
                     body = {"id": req.id, "status": "pending"}
                     if req.is_trajectory:
                         body["n_frames"] = req.n_frames
                         body["frames_committed"] = req.frames_done()
+                    if cascade:
+                        body["n_frames"] = req.n_frames
+                        body["n_events"] = req.n_events
+                        body["events_committed"] = req.events_done()
                     self._send_json(202, body)
                 elif req.error is not None:
                     self._send_json(_error_status(req.error),
@@ -516,6 +617,55 @@ def make_http_server(service: ServingService, host: str,
                     break
             self._write_chunk(b"")   # terminal zero-length chunk
 
+        def _stream_cascade(self, req, wait: float) -> None:
+            """Progressive-preview streaming: the same chunked-NDJSON
+            surface as ``_stream_trajectory``, but the unit is a
+            phase-tagged event — draft frames arrive first, then the
+            refine event for each frame index replaces it client-side."""
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            self._stream_line({"id": req.id, "status": "streaming",
+                               "n_frames": req.n_frames,
+                               "n_events": req.n_events,
+                               "n_views": req.n_views})
+            deadline = time.monotonic() + wait
+            sent = 0
+            while True:
+                try:
+                    events = req.wait_events(
+                        sent, timeout=max(
+                            0.05, min(1.0, deadline - time.monotonic())))
+                except BaseException as e:
+                    self._stream_line({"id": req.id, "status": "error",
+                                       "events_committed": sent,
+                                       "http_status": _error_status(e),
+                                       "error": str(e)})
+                    break
+                for e in events:
+                    self._stream_line(_event_body(e, sent))
+                    sent += 1
+                if req.done() and sent >= req.events_done():
+                    err = req.error
+                    if err is None:
+                        self._stream_line({"id": req.id, "status": "done",
+                                           "events_committed": sent,
+                                           "cached": req.cached})
+                    else:
+                        self._stream_line(
+                            {"id": req.id, "status": "error",
+                             "events_committed": sent,
+                             "http_status": _error_status(err),
+                             "error": str(err)})
+                    break
+                if time.monotonic() > deadline:
+                    req.cancel()
+                    self._stream_line({"id": req.id, "status": "timeout",
+                                       "events_committed": sent})
+                    break
+            self._write_chunk(b"")   # terminal zero-length chunk
+
         def do_POST(self):
             url = urlparse(self.path)
             if url.path not in ("/synthesize", "/trajectory", "/cascade"):
@@ -529,7 +679,11 @@ def make_http_server(service: ServingService, host: str,
                 if trajectory:
                     req = service.submit_trajectory(payload)
                 elif cascade:
-                    req = service.submit_cascade(payload)
+                    submit = getattr(service, "submit_cascade", None)
+                    if submit is None:
+                        raise UnsupportedSchedule(
+                            "this service has no cascade surface")
+                    req = submit(payload)
                 else:
                     req = service.submit(payload)
             except Exception as e:
@@ -541,10 +695,16 @@ def make_http_server(service: ServingService, host: str,
             if trajectory and payload.get("stream", False):
                 self._stream_trajectory(req, wait)
                 return
+            if cascade and payload.get("stream", False):
+                self._stream_cascade(req, wait)
+                return
             if not payload.get("block", True):
                 body = {"id": req.id, "status": "pending"}
                 if trajectory:
                     body["n_frames"] = req.n_frames
+                if cascade:
+                    body["n_frames"] = req.n_frames
+                    body["n_events"] = req.n_events
                 self._send_json(202, body)
                 return
             # Block the handler thread (not the engine) for the result.

@@ -2,6 +2,8 @@
 ``diff3d_tpu/testing``)."""
 
 from diff3d_tpu_torch.testing.faults import (FaultInjected, FaultInjector,
-                                            FaultSpec, wrap_sampler)
+                                            FaultSpec, arm_replica,
+                                            replica_site, wrap_sampler)
 
-__all__ = ["FaultInjected", "FaultInjector", "FaultSpec", "wrap_sampler"]
+__all__ = ["FaultInjected", "FaultInjector", "FaultSpec", "arm_replica",
+           "replica_site", "wrap_sampler"]

@@ -1,6 +1,7 @@
 """Deterministic, seedable fault injection for chaos testing (counterpart:
-``diff3d_tpu/testing/faults.py``: ``FaultInjector`` and ``wrap_sampler``,
-copied; the trainer's and the fleet's hooks come with their slices).
+``diff3d_tpu/testing/faults.py``: ``FaultInjector``, ``wrap_sampler`` and
+the fleet's ``arm_replica``, copied; the trainer's ``wrap_iter`` comes
+with its slice).
 
 A :class:`FaultInjector` owns a set of named *sites* — instrumentation
 points such as ``"engine.step"`` or the checkpoint writer's ``"commit"``
@@ -27,8 +28,12 @@ Fault kinds:
 * ``"sigterm"`` — deliver a real ``SIGTERM`` to this process's main
   thread (drives the trainer's preemption path end-to-end).
 * ``"kill"``    — invoke the kill hook registered for the site
-  (:meth:`FaultInjector.set_kill_hook`, e.g. ``Engine.kill``) and then
-  raise, aborting the dispatch that fired it.
+  (:meth:`FaultInjector.set_kill_hook`) and then raise, aborting the
+  dispatch that fired it.  This is replica death for the fleet router:
+  :func:`arm_replica` instruments a fleet replica so every view-step
+  dispatch fires ``replica.<name>.step`` and registers
+  ``Replica.kill`` as that site's kill hook — a ``kill`` spec then
+  takes the replica down mid-run, in-flight work and all.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ class FaultInjector:
         self._specs: Dict[str, List[FaultSpec]] = collections.defaultdict(list)
         self._rngs: Dict[str, random.Random] = {}
         # Per-site kill hooks ("kill" specs invoke them); see
-        # set_kill_hook.
+        # set_kill_hook / arm_replica.
         self._kill_hooks: Dict[str, Callable[[], None]] = (
             {})  # guarded-by: self._lock
         self.calls: collections.Counter = collections.Counter()
@@ -117,7 +122,7 @@ class FaultInjector:
     def set_kill_hook(self, site: str,
                       hook: Callable[[], None]) -> None:
         """Register the destructive action a ``"kill"`` spec at ``site``
-        performs (e.g. ``Engine.kill``).  The hook runs on the thread
+        performs (e.g. ``Replica.kill``).  The hook runs on the thread
         that fired the site — for a replica that is its own engine
         loop, which is exactly what real mid-dispatch death looks
         like."""
@@ -164,7 +169,7 @@ class FaultInjector:
                 if hook is None:
                     raise RuntimeError(
                         f"kill spec fired at {site!r} but no kill hook "
-                        "is registered (set_kill_hook)")
+                        "is registered (set_kill_hook / arm_replica)")
                 log.info("fault[%s]: invoking kill hook (call %d)",
                          site, n)
                 hook()
@@ -224,3 +229,32 @@ class _FaultySampler:
 def wrap_sampler(sampler, injector: FaultInjector, site: str = "engine.step"):
     """Wrap a sampler so every ``step_many`` dispatch fires ``site``."""
     return _FaultySampler(sampler, injector, site)
+
+
+def replica_site(name: str) -> str:
+    """The named fault site of one fleet replica's view-step dispatch."""
+    return f"replica.{name}.step"
+
+
+def arm_replica(replica, injector: FaultInjector) -> str:
+    """Instrument one fleet replica for chaos and return its site name.
+
+    Every view-step dispatch of ``replica`` (any schedule or cascade
+    phase — the hook sits on its ProgramCache, below the samplers) fires
+    ``replica.<name>.step``; specs registered there then mean:
+
+    * ``kind="slow", delay_s=...`` — a slow replica (past the watchdog
+      budget: a wedged one);
+    * ``kind="error"``             — a faulting replica (degrades);
+    * ``kind="kill"``              — replica death mid-dispatch:
+      ``Replica.kill`` runs, in-flight and queued requests resolve with
+      typed retryable errors, and the replica reports ``dead``.
+
+    Post-hoc instrumentation (no build-time sampler wrapping), so each
+    replica of a fleet is armed under its own name.
+    """
+    site = replica_site(replica.name)
+    programs = replica.engine.programs
+    programs.step_many = injector.wrap(site, programs.step_many)
+    injector.set_kill_hook(site, replica.kill)
+    return site

@@ -1196,3 +1196,97 @@ def test_graphs_share_one_pool_and_replay_out_of_order(cuda):
     pools = {g.pool() for g in shared.graphs.values()}
     assert len(pools) == 1
     assert len({g.pool() for g in own.graphs.values()}) == len(keys)
+
+
+# ---- the fleet and cascades on the card -------------------------------------
+
+
+def test_fleet_replicas_first_captures_overlap_each_bit_identical(cuda):
+    """Two replicas of a fleet, each with two requests queued before
+    either engine starts, so both meet their first use (an eager step
+    and a capture) at the same time: every replica captures graphs of
+    its own into a pool of its own, and each replica's views are bit for
+    bit those of a lone service over the same weights and payloads."""
+    import copy
+    import dataclasses
+
+    from diff3d_tpu_torch.config import ServingConfig
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.serving import FleetService, ServingService
+    from diff3d_tpu_torch.serving.server import build_request
+
+    cfg, model = _tiny_bf16(cuda)
+    cfg = dataclasses.replace(cfg, serving=ServingConfig(
+        port=0, max_batch=2, max_wait_ms=0.0, replicas=2))
+    lone_model = copy.deepcopy(model)
+    fleet = FleetService.build(Sampler(model, cfg, device=cuda), cfg)
+    seeds = {"r0": (0, 1), "r1": (2, 3)}
+    reqs = {rep.name: [rep.submit(build_request(_serving_payload(s), cfg))
+                       for s in seeds[rep.name]] for rep in fleet.replicas}
+    fleet.start(serve_http=False)
+    try:
+        got = {n: [r.result(timeout=300.0) for r in rs]
+               for n, rs in reqs.items()}
+    finally:
+        fleet.stop()
+    graphs = [list(rep.engine.sampler.graphs.values())
+              for rep in fleet.replicas]
+    assert all(len(g) == 1 and g[0].replays > 0 for g in graphs)
+    assert graphs[0][0].pool() != graphs[1][0].pool()
+    for name, ss in seeds.items():
+        svc = ServingService(Sampler(lone_model, cfg, device=cuda), cfg)
+        want = _served(svc, [_serving_payload(s) for s in ss])
+        svc.stop()
+        for a, b in zip(got[name], want):
+            assert np.isfinite(a).all()
+            np.testing.assert_array_equal(a, b)
+
+
+def test_served_cascade_swap_refreshes_the_draft_in_place(cuda):
+    """A swap between served cascades: the draft's ``pos_emb`` and every
+    weight keep their addresses, no graph is captured again, the views
+    change and equal an offline cascade over the swapped weights, and
+    swapping back restores the first views bit for bit."""
+    import dataclasses
+
+    from diff3d_tpu_torch.cascade import CascadePlan, CascadeSampler
+    from diff3d_tpu_torch.config import ServingConfig
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.serving import ServingService
+
+    cfg, model = _tiny_bf16(cuda)
+    cfg = dataclasses.replace(cfg, serving=ServingConfig(
+        port=0, max_batch=2, max_wait_ms=0.0))
+    plan = CascadePlan.parse("draft=8:ddim:2,refine=16:ancestral:4@t0.5")
+    casc = CascadeSampler(model, cfg, plan, device=cuda)
+    svc = ServingService(Sampler(model, cfg, device=cuda), cfg,
+                         cascade=casc).start(serve_http=False)
+    payload = _serving_payload(7)
+
+    def ptrs():
+        return {(m, k): p.data_ptr() for m, mod in (
+            ("draft", casc.draft.model), ("refine", casc.refine.model))
+            for k, p in mod.named_parameters()}
+
+    try:
+        base = svc.submit_cascade(payload).result(timeout=300.0)
+        before, graphs = ptrs(), (dict(casc.draft.graphs),
+                                  dict(casc.refine.graphs))
+        orig = {k: t.clone() for k, t in model.state_dict().items()}
+        svc.registry.swap({k: t + 0.05 for k, t in orig.items()}, "v1")
+        swapped = svc.submit_cascade(payload).result(timeout=300.0)
+        assert ptrs() == before
+        assert (dict(casc.draft.graphs), dict(casc.refine.graphs)) == graphs
+        ref_model = build_model(cfg.model, cuda)
+        ref_model.load_state_dict({k: t + 0.05 for k, t in orig.items()})
+        ref = CascadeSampler(ref_model, cfg, plan, device=cuda)
+        want = ref.synthesize_cascade(_orbit_object(3, 7), seed=7)
+        np.testing.assert_array_equal(swapped, want["refined"])
+        svc.registry.swap(orig, "v2")
+        again = svc.submit_cascade(payload).result(timeout=300.0)
+    finally:
+        svc.stop()
+    assert not np.array_equal(swapped, base)
+    np.testing.assert_array_equal(again, base)
+    assert all(g.replays > 0 for g in graphs[0].values())
+    assert all(g.replays > 0 for g in graphs[1].values())

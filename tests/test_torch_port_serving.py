@@ -765,8 +765,8 @@ def test_serve_cli_serves_on_the_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--replicas", "2"], ["--schedules", "0@ddim:2"],
-    ["--schedules", "ddim"], ["--workers", "127.0.0.1:9000"], ["--mesh"],
+    ["--replicas", "0"], ["--schedules", "0@ddim:2"],
+    ["--schedules", "ddim"], ["--workers", "127.0.0.1:1"], ["--mesh"],
     ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"], ["--pallas"],
     ["--sampler_steps", "3"], ["--max_batch", "0"]])
 def test_serve_cli_refuses(argv):
@@ -776,8 +776,10 @@ def test_serve_cli_refuses(argv):
         serve_cli.build_service(serve_cli.build_parser().parse_args(
             base + argv))
     assert ei.value.code not in (0, None)
-    if argv[0] == "--replicas" or argv == ["--schedules", "0@ddim:2"]:
-        assert "A9b" in str(ei.value.code)
+    why = {"--replicas": "needs --workers", "--schedules": "--replicas > 1",
+           "--workers": "unreachable", "--cascade": "refine resolution"}
+    if argv[0] in why and argv != ["--schedules", "ddim"]:
+        assert why[argv[0]] in str(ei.value.code)
 
 
 def test_serve_cli_refuses_to_run_on_the_cpu_unasked(monkeypatch):
