@@ -7,6 +7,11 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
   2. build   — compile both CUDA sources with nvcc (in parallel); the
      tensor-core kernels (forward, dK/dV, dQ) at a padded head dim <= 128
      must not spill.
+  2b. native — the data path's native PNG decoder (``g++``, libpng) on
+     the card's host: built or not (the build's last line if not); where
+     built, a PNG written with zlib and struct decoded to half size alone
+     and through the pool, against the float box mean (1e-6) and the PIL
+     path where PIL is installed (4.5/255).
   3. groupnorm — the fused GroupNorm kernel against its plain version on
      every GroupNorm site shape of the srn64 sampler and the odd shapes of
      ``tests/test_pallas_film.py`` (and G up to C = 4096, L = 1), all four
@@ -113,7 +118,18 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      s/step, examples/s, peak memory, loss and grad_norm per step; then a
      checkpoint restored into a fresh trainer (whose step runs eagerly and
      recaptures) takes one step, which must equal the first trainer's
-     next, replayed, step bit for bit.
+     next, replayed, step bit for bit.  Then the same run with
+     ``--eval_every 3`` on the synthetic val set in two trainers: a
+     SIGTERM delivered through ``testing.faults.wrap_iter`` at the 4th
+     batch of the first (the preemption handler installed): ``train()``
+     returns at step 4 with that step's checkpoint on disk and the
+     handler uninstalls; the second resumes with ``--transfer`` to step
+     6.  Finite val losses at steps 3 and 6; the state at step 6
+     bit-identical to the first trainer's, which neither evaluated nor
+     stopped; each eval's launches; the val forward (EMA weights, one val
+     batch, injected draws) through the kernels against the plain
+     versions (loss and denoiser output, relative 1e-2).  Each trainer's
+     graphs are released before the next captures.
  11. eval — ``cli/eval_cli.py`` on that checkpoint (EMA) on synthetic
      scenes: 2 objects, 3 views, DDIM at 32 steps, ``--w_select 1
      --parity_objects 1 --orbit 4``; finite PSNR / SSIM / fid_randfeat per
@@ -148,12 +164,12 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      it does not fit there: a capture needs more); then the ``Trainer``
      built by
      ``train_cli --config srn128 --remat --synthetic_scenes`` at global
-     batch 128 as CUDA graphs, 3 steps under "nothing" (``train()``: the
+     batch 128 as CUDA graphs, 2 steps under "nothing" (``train()``: the
      srn128 training path, counts set to 0 before and read after; the
      recompute launches every block's forward kernels again) and 2 under
-     "dots" (cut from 4 each); s/step, examples/s, peak memory, loss and grad_norm per step;
+     "dots" (cut from 4 each, then "nothing" to 2); s/step, examples/s, peak memory, loss and grad_norm per step;
      then ``sample_cli --config srn128`` on the "nothing" checkpoint (EMA)
-     at 32 steps: finite views.
+     at 16 steps (cut from 32): finite views.
  15. srn128_sites — every GroupNorm and attention site of a srn128
      sampler step and of one training microbatch: each kernel against
      its plain version, the forward's cluster plans fit the card; per
@@ -167,7 +183,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      128; finite losses; s/step.
 
 Between 11 and 12 (after eval, on the srn64 train checkpoint):
- 11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=3)``
+ 11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
+     (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
      EMA, one CUDA graph for every round (the distillation path: counts
      set to 0 before, read after; s/step, peak); each round's
@@ -185,8 +202,8 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
 
 Then one ``{"kernels": [...]}`` line (each kernel per srn64 step, per
 served step (single engine, fleet, worker), per cascade step (draft and
-refine apart), per srn128 step, then per distill step) and, last, the
-device line.  The library calls are timing
+refine apart), per srn128 step, per distill step, then per val forward of
+the Trainer's evaluation) and, last, the device line.  The library calls are timing
 yardsticks only; the port never calls them.
 
 Usage: python3 chip_smoke.py
@@ -202,9 +219,11 @@ import os
 import re
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -366,6 +385,78 @@ def ptxas_kernels(log: str):
         kernels = {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", d): v
                    for d, v in zip(names.splitlines(), kernels.values())}
     return kernels
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG of ``rgb [H, W, 3]`` written with zlib and struct
+    (no image library)."""
+    h, w, _ = rgb.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+NATIVE_TOL = 1e-6               # native decode vs the float box mean
+PIL_TOL = 4.5 / 255             # native vs PIL (uint8 fixed-point resize)
+
+
+def phase_native():
+    """The data path's native PNG decoder on the card's host: whether it
+    built (with the build's last line if not).  Where it did, a 64 x 64
+    PNG written here decoded to 32 x 32 alone and through the shared
+    pool, against the float 2 x 2 box mean (1e-6) and against the port's
+    PIL path where PIL is installed (4.5 / 255: PIL resizes in uint8)."""
+    from diff3d_tpu_torch import native
+    from diff3d_tpu_torch.data import srn
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    out = {"available": ok, "build_error": native.build_error(),
+           "build_s": round(time.perf_counter() - t0, 3)}
+    if not ok:
+        out["path"] = "the SRN readers take the PIL path on this host"
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    out["pil_installed"] = have_pil
+    if ok:
+        rgb = np.random.default_rng(3).integers(0, 256, (64, 64, 3),
+                                                dtype=np.uint8)
+        d = os.path.join(WORKDIR + "_native")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "view.png")
+        write_png(path, rgb)
+        got = native.decode_image(path, 32)
+        pool = native.shared_pool().decode_batch([path] * 4, 32)
+        box = (rgb.astype(np.float64).reshape(32, 2, 32, 2, 3).mean((1, 3))
+               / 255.0 * 2.0 - 1.0)
+        out["max_abs_err_vs_box_mean"] = float(np.abs(got - box).max())
+        out["pool_equal"] = bool((pool == got[None]).all())
+        if have_pil:
+            pil = srn.load_view_image(path, 32, use_native=False)
+            out["max_abs_err_vs_pil"] = float(np.abs(got - pil).max())
+        else:
+            out["pil"] = ("PIL is not installed here: the non-native path "
+                          "cannot run on this host")
+        shutil.rmtree(d, ignore_errors=True)
+    elif not have_pil:
+        out["pil"] = ("neither the native decoder nor PIL can run on this "
+                      "host: SRN data cannot be read here")
+    emit(dict(phase="native", **out))
+    if ok and not (out["max_abs_err_vs_box_mean"] <= NATIVE_TOL
+                   and out["pool_equal"]
+                   and out.get("max_abs_err_vs_pil", 0.0) <= PIL_TOL):
+        raise AssertionError(f"native: {out}")
+    return out
 
 
 def phase_build():
@@ -2540,11 +2631,13 @@ def phase_train(accum):
     argv = ["--synthetic", "--config", "srn64", "--batch", str(TRAIN_BATCH),
             "--accum", str(accum), "--steps", str(TRAIN_STEPS),
             "--warmup_examples", str(10 * TRAIN_BATCH), "--ckpt_every",
-            str(TRAIN_STEPS), "--num_workers", "8", "--workdir", WORKDIR]
+            str(TRAIN_STEPS), "--num_workers", "8"]
 
-    def trainer_of(extra):
+    def trainer_of(extra, workdir=WORKDIR, preemption=False):
         trainer = train_cli.build_trainer(
-            train_cli.build_parser().parse_args(argv + extra))
+            train_cli.build_parser().parse_args(
+                argv + ["--workdir", workdir] + extra),
+            preemption=preemption)
         record = []
         inner = trainer.step_fn
         if not inner.cuda_graphs:
@@ -2588,10 +2681,11 @@ def phase_train(accum):
     # Resume: a fresh trainer restores the step-6 checkpoint; both take
     # step 7 (the first trainer's a replay, the second's eager before its
     # capture), which must agree bit for bit.
-    second, rec2, _ = trainer_of(["--transfer", "--steps",
-                                  str(TRAIN_STEPS + 1)])
+    second, rec2, second_step = trainer_of(["--transfer", "--steps",
+                                            str(TRAIN_STEPS + 1)])
     if second.state.step != TRAIN_STEPS:
         raise AssertionError(f"train: restored step {second.state.step}")
+    want6 = {k: v.cpu() for k, v in _state_tensors(first.state).items()}
     first.train(max_steps=TRAIN_STEPS + 1)
     want = {k: v.clone() for k, v in _state_tensors(first.state).items()}
     first.loader.close()
@@ -2601,10 +2695,14 @@ def phase_train(accum):
     torch.cuda.empty_cache()
     second.train()
     got = _state_tensors(second.state)
-    second.loader.close()
     differ = [k for k in want if not torch.equal(want[k], got[k])]
     same_metrics = (rec[-1]["loss"] == rec2[-1]["loss"]
                     and rec[-1]["grad_norm"] == rec2[-1]["grad_norm"])
+    _finish_trainer(second, second_step)
+    del second, second_step, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    preempted = _train_preempted(trainer_of, want6)
     out = {"config": "srn64", "global_batch": TRAIN_BATCH,
            "accum_steps": accum, "steps": TRAIN_STEPS,
            "first_step_s": float(times[0]), "s_per_step": s_per_step,
@@ -2620,7 +2718,8 @@ def phase_train(accum):
                                  for k, v in launches.items()},
            "resume_step_loss": [rec[-1]["loss"], rec2[-1]["loss"]],
            "resume_bit_exact": not differ and same_metrics,
-           "resume_tensors_compared": len(want)}
+           "resume_tensors_compared": len(want6),
+           "preemption_and_eval": preempted}
     emit(dict(phase="train", **out))
     if differ or not same_metrics:
         raise AssertionError(f"train: the resumed step differs "
@@ -2628,14 +2727,162 @@ def phase_train(accum):
     return out      # WORKDIR's checkpoints stay for the eval phase
 
 
+EVAL_EVERY = 3                  # the train phase's --eval_every
+PREEMPT_BATCH = 4               # SIGTERM at this batch of the second run
+VAL_TOL = 1e-2                  # val forward, kernels vs plain (bf16)
+
+
+def _finish_trainer(trainer, inner):
+    """Close the loader and drop the captured graphs before the next
+    trainer captures (one trainer's graphs hold most of the card)."""
+    trainer.loader.close()
+    inner.release()
+    trainer.step_fn = None
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+
+
+def _train_preempted(trainer_of, want6):
+    """The train phase's run again as a second and a third trainer, both
+    with ``--eval_every 3`` on the synthetic val set: a SIGTERM delivered
+    through ``wrap_iter`` at the 4th batch of the second (its preemption
+    handler installed as ``train_cli.main`` installs it) makes ``train()``
+    return at step 4 with ``preempt_observed_step == 4`` and the step-4
+    checkpoint on disk, and the handler uninstalls; the third resumes
+    (``--transfer``) to step 6.  Finite val losses at steps 3 and 6; the
+    state at step 6 bit-identical to the first trainer's, which neither
+    evaluated nor stopped; each eval's launches.  Then, with the graphs
+    released, the val forward through the kernels against the plain
+    versions on the step-6 EMA weights, one val batch and the same
+    injected draws (loss and denoiser output, relative 1e-2)."""
+    import torch
+
+    from diff3d_tpu_torch.diffusion import TrainDraws
+    from diff3d_tpu_torch.models.layers import set_kernels
+    from diff3d_tpu_torch.testing import FaultInjector, wrap_iter
+
+    workdir = WORKDIR + "_preempt"
+    shutil.rmtree(workdir, ignore_errors=True)
+    extra = ["--eval_every", str(EVAL_EVERY)]
+    evals = []
+
+    def counting(t):
+        score = t._eval_step
+
+        def counted(state, batch, draws):
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            loss = score(state, batch, draws)
+            value = float(loss)
+            after = _launch_counts()
+            evals.append({"step": state.step, "val_loss": value,
+                          "s": time.perf_counter() - t0,
+                          "launches": {k: after[k] - before[k]
+                                       for k in after}})
+            return loss
+
+        t._eval_step = counted
+
+    before = signal.getsignal(signal.SIGTERM)
+    t, _, inner = trainer_of(extra, workdir, preemption=True)
+    counting(t)
+    inj = FaultInjector()
+    inj.add("loader.next", kind="sigterm", at_calls=(PREEMPT_BATCH,))
+    t.loader = wrap_iter(t.loader, inj, "loader.next")
+    t0 = time.perf_counter()
+    t.train()
+    stop_s = time.perf_counter() - t0
+    stopped = (t.state.step, t.preempt_observed_step, t.ckpt.steps())
+    t.install_preemption_handler()()       # the installed one's uninstall
+    restored = signal.getsignal(signal.SIGTERM) is before
+    del t._eval_step                # no cycle keeps the trainer alive
+    _finish_trainer(t, inner)
+    del t
+    r, _, inner = trainer_of(extra + ["--transfer"], workdir)
+    counting(r)
+    resumed_at = r.state.step
+    _launch_counts(reset=True)
+    r.train()
+    launches = _launch_counts(graphs=inner.graphs)
+    got = _state_tensors(r.state)
+    differ = [k for k in want6 if not torch.equal(want6[k], got[k].cpu())]
+    del got
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        vals = {r_["step"]: r_["val_loss"] for r_ in map(json.loads, f)
+                if "val_loss" in r_}
+    # The comparison needs no graph: free their pool first (the plain
+    # path's val forward at batch 128 does not fit beside it).
+    del r._eval_step
+    r.loader.close()
+    inner.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, vb = r.state.model, r.val_loader.batch(0)
+    paths = {}
+    for impl in ("cuda", "torch"):
+        set_kernels(model, impl)
+        outs = []
+        hook = model.register_forward_hook(
+            lambda m, a, o: outs.append(o.detach().float()))
+        _launch_counts(reset=True)
+        loss = float(r._eval_step(r.state, vb, TrainDraws(
+            torch.Generator("cuda").manual_seed(11))))
+        hook.remove()
+        paths[impl] = (loss, outs[0], _launch_counts())
+    set_kernels(model, "cuda")
+    (lk, ok, nk), (lp, op, npl) = paths["cuda"], paths["torch"]
+    val_fwd = {"loss_kernel": lk, "loss_plain": lp,
+               "loss_rel_err": abs(lk - lp) / abs(lp),
+               "out_rel_l2": float((ok - op).norm() / op.norm()),
+               "launches_kernel": nk, "launches_plain": npl,
+               "tolerance": f"bf16: loss and denoiser output {VAL_TOL} "
+                            "relative (L2), as the train step's check"}
+    del model, ok, op, paths
+    r.step_fn = None
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    out = {"stopped_at": stopped[0], "preempt_observed_step": stopped[1],
+           "checkpoints": stopped[2], "train_s": stop_s,
+           "handler_uninstalled": restored, "resumed_at": resumed_at,
+           "resume_launches": launches, "val_loss": vals, "evals": evals,
+           "state_bit_identical_to_uninterrupted_no_eval": not differ,
+           "tensors_compared": len(want6), "val_forward": val_fwd}
+    if stopped[:2] != (PREEMPT_BATCH, PREEMPT_BATCH) \
+            or PREEMPT_BATCH not in stopped[2] or not restored \
+            or resumed_at != PREEMPT_BATCH:
+        raise AssertionError(f"train: preemption {out}")
+    if sorted(vals) != [EVAL_EVERY, TRAIN_STEPS] or not all(
+            math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"train: val losses {vals}")
+    if differ:
+        raise AssertionError(f"train: the evaluated run resumed after "
+                             f"SIGTERM differs from the plain run "
+                             f"({len(differ)} tensors, e.g. {differ[:3]})")
+    if not (val_fwd["loss_rel_err"] <= VAL_TOL
+            and val_fwd["out_rel_l2"] <= VAL_TOL):
+        raise AssertionError(f"train: val forward kernels vs plain "
+                             f"{val_fwd}")
+    for name in ("fused_groupnorm", "flash_attention"):
+        if len(evals) != 2 or not all(e["launches"][name] > 0
+                                      for e in evals) \
+                or nk[name] == 0 or npl[name] != 0:
+            raise AssertionError(f"train: {name} in the val forward "
+                                 f"{evals} {nk} {npl}")
+    return out
+
+
 # ---- srn128: the paper's configuration, every UNet block rematerialised --
 
 SRN128_WORKDIR = WORKDIR + "_srn128"
 SRN128_SMALL_BATCH = 4          # remat against no remat: fits without remat
-SRN128_STEPS = 3                # Trainer steps under "nothing" (the path)
+SRN128_STEPS = 2                # Trainer steps under "nothing" (the path)
 SRN128_DOTS_STEPS = 2           # and under "dots" (first + one replayed)
 SRN128_VIEW_STEPS = 64          # the srn128 sampling path's view
-SRN128_SAMPLE_STEPS = 32        # sample_cli's schedule on the trained model
+SRN128_SAMPLE_STEPS = 16        # sample_cli's schedule on the trained model
 HEADROOM_BYTES = 8 * 2 ** 30    # what --accum must leave free of the card
 GRAPH_MARGIN = 2 * 2 ** 30      # the prediction's allowance for the CUDA
                                 # graphs' private pool
@@ -3248,7 +3495,7 @@ def phase_eval():
 # ---- distillation, conversion, 64^2 -> 128^2 transfer --------------------
 
 DISTILL_BATCH = 128             # the reference's batch, one microbatch
-DISTILL_START, DISTILL_FINAL, DISTILL_ROUND_STEPS = 8, 2, 3
+DISTILL_START, DISTILL_FINAL, DISTILL_ROUND_STEPS = 8, 2, 2
 DISTILL_WORKDIR = WORKDIR + "_distill"
 CONVERT_WORKDIR = WORKDIR + "_convert"
 CONVERT_STEP = 100_000
@@ -3394,7 +3641,7 @@ def _distill_kernel_vs_plain(cfg, teacher):
 def phase_distill():
     """Progressive distillation at srn64 full width: the teacher is the
     train phase's checkpoint EMA.  The main path: ``distill(start_steps=8,
-    final_steps=2, round_steps=3)`` on the 256-step grid (rounds k = 4 and
+    final_steps=2, round_steps=2)`` on the 256-step grid (rounds k = 4 and
     2) at batch ``DISTILL_BATCH`` as one CUDA graph for every round, the
     launch counts set to 0 before and read after; every round's
     ``full_sliced`` checkpoint.  Then: the same run eagerly (per-step
@@ -3789,6 +4036,7 @@ def main() -> None:
 
     phase_device()
     ptxas = phase_build()
+    phase_native()
     cfg, model = srn64_model()
     batch, cond_mask = model_batch(cfg, 2 * len(cfg.diffusion.guidance_weights),
                                    seed=5)
@@ -3842,6 +4090,9 @@ def main() -> None:
     phase_train_graph(TRAIN_ACCUM)
     train = phase_train(TRAIN_ACCUM)
     tl = train["launches"]
+    vl = {k: sum(e["launches"][k]
+                 for e in train["preemption_and_eval"]["evals"])
+          for k in ("fused_groupnorm", "flash_attention")}
     phase_eval()
 
     # Distillation from the train phase's checkpoint (its student step is
@@ -3923,6 +4174,11 @@ def main() -> None:
                    "the teacher's two forwards, summed over sites; "
                    "launches: every forward launch of the wrapper (teacher "
                    "and student)")
+    val_per = (f"one val forward of the Trainer's --eval_every (batch "
+               f"{TRAIN_BATCH}, EMA weights, no grad) at srn64: the train "
+               "sites without statistics, summed over sites; launches: the "
+               f"{len(train['preemption_and_eval']['evals'])} evals of "
+               "the train phase's run with --eval_every")
     student_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
                    "the student's forward and backward (a train step's "
                    "sites), summed over sites; launches of the wrapper")
@@ -4000,7 +4256,11 @@ def main() -> None:
         ("attention_backward_dkdv@distill", att, dkdv_at,
          dl["attention_backward_dkdv"], attn_rows["dkdv"], student_per),
         ("attention_backward_dq@distill", att, dq_at,
-         dl["attention_backward_dq"], attn_rows["dq"], student_per)],
+         dl["attention_backward_dq"], attn_rows["dq"], student_per),
+        ("fused_groupnorm@val", film, gn_fwd_at, vl["fused_groupnorm"],
+         gn_teacher, val_per),
+        ("flash_attention@val", att, fa_at, vl["flash_attention"],
+         attn_teacher, val_per)],
         design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

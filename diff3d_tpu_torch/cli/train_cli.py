@@ -12,9 +12,13 @@ modes of ``train/checkpoint.py``), ``--init_from`` / ``--init_res``
 (seed the parameters and the EMA from a checkpoint trained at another
 resolution, ``convert/progressive.py``), the model widths (``--ch``,
 ``--emb_ch``, ``--num_res_blocks``, ``--imgsize``, as ``sample_cli``
-takes them), ``--device`` (the card unless another is named) and
-``--eager`` (the train step eagerly instead of as CUDA graphs, for
-comparison).
+takes them), ``--eval_every`` / ``--val_data`` (the val loss of the EMA
+weights every N steps, on held-out scenes or objects: ``--val_data`` in
+full, else the val split of ``--train_data``), ``--device`` (the card
+unless another is named) and ``--eager`` (the train step eagerly instead
+of as CUDA graphs, for comparison).  SIGTERM or SIGINT stops a run
+gracefully: the step it reached is checkpointed, and ``--transfer``
+resumes there.
 The JAX package's other flags wait for later slices of the port; the
 parser rejects them as unknown (exit code 2).
 
@@ -23,6 +27,10 @@ Usage:
         --warmup_examples 1280 --workdir runs/port_train
     python -m diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
         --synthetic --steps 2 --workdir /tmp/port_train
+    python -m diff3d_tpu_torch.cli.train_cli --synthetic_scenes \\
+        --config srn64 --ch 64 --emb_ch 512 --num_res_blocks 2 --batch 32 \\
+        --steps 6000 --warmup_examples 20000 --eval_every 1000 \\
+        --workdir runs/port_quality_r2
     python -m diff3d_tpu_torch.cli.train_cli --config srn128 --accum 4 \\
         --synthetic_scenes --steps 10 --warmup_examples 1280 \\
         --workdir runs/port_train128
@@ -48,13 +56,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog="Not in this slice of the port (see ROADMAP.md): --val_data, "
+        epilog="Not in this slice of the port (see ROADMAP.md): "
                "--param_sharding, --model_parallel, --context_parallel, "
-               "--attn_impl, --pallas, --eval_every, "
-               "--elastic, --elastic_max_remesh.")
+               "--attn_impl, --pallas, --elastic, --elastic_max_remesh.")
     p.add_argument("--transfer", action="store_true",
                    help="resume from the latest checkpoint in --workdir")
     p.add_argument("--train_data", default="./data/SRN/cars_train")
+    p.add_argument("--val_data", default=None,
+                   help="directory of held-out objects for --eval_every's "
+                        "in-training validation (used in full); without it, "
+                        "the val split of --train_data is used")
     p.add_argument("--picklefile", default=None,
                    help="object index pickle; regenerated by globbing when "
                         "absent")
@@ -83,6 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="what a rematerialised block keeps: its input "
                         "only, or also every conv / matmul output")
     p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--eval_every", type=int, default=None,
+                   help="score the EMA weights on a held-out batch every N "
+                        "steps (val split of --train_data, or --val_data "
+                        "when given); logged as val_loss in metrics.jsonl")
     p.add_argument("--warmup_examples", type=int, default=None,
                    help="linear lr warmup span in examples (default: 10M; "
                         "shorten it for short runs or the lr stays ~0)")
@@ -135,7 +150,8 @@ def config_from_args(args):
         ("accum_steps", args.accum),
         ("warmup_examples", args.warmup_examples),
         ("ema_halflife_examples", args.ema_halflife_examples),
-        ("ckpt_every", args.ckpt_every), ("ckpt_mode", args.ckpt_mode),
+        ("ckpt_every", args.ckpt_every), ("eval_every", args.eval_every),
+        ("ckpt_mode", args.ckpt_mode),
         ("ckpt_async", args.ckpt_async)) if v is not None}
     if over:
         cfg = dataclasses.replace(
@@ -149,15 +165,47 @@ def config_from_args(args):
     return apply_model_width_overrides(cfg, args)
 
 
-def build_trainer(args):
+def datasets(args, cfg):
+    """``(train, val)`` datasets of ``args``; ``val`` is None without
+    ``eval_every``.  Synthetic val sets are 8 objects from another seed
+    (entirely different scenes); ``--val_data`` is used in full."""
+    from diff3d_tpu_torch.data import (SRNDataset, SyntheticDataset,
+                                       SyntheticScenesDataset)
+
+    evals = bool(cfg.train.eval_every)
+    H = cfg.model.H
+    if args.synthetic_scenes:
+        ds = SyntheticScenesDataset(num_objects=args.scene_objects,
+                                    num_views=24, imgsize=H)
+        val = (SyntheticScenesDataset(num_objects=8, num_views=24,
+                                      imgsize=H, seed=1) if evals else None)
+        return ds, val
+    if args.synthetic:
+        ds = SyntheticDataset(num_objects=64, num_views=32, imgsize=H)
+        val = (SyntheticDataset(num_objects=8, num_views=32, imgsize=H,
+                                seed=1) if evals else None)
+        return ds, val
+    split = dict(imgsize=H, split_seed=cfg.data.split_seed)
+    ds = SRNDataset("train", args.train_data, args.picklefile,
+                    train_fraction=cfg.data.train_fraction, **split)
+    if not evals:
+        return ds, None
+    if args.val_data:
+        return ds, SRNDataset("train", args.val_data, None,
+                              train_fraction=1.0, **split)
+    return ds, SRNDataset("val", args.train_data, args.picklefile,
+                          train_fraction=cfg.data.train_fraction, **split)
+
+
+def build_trainer(args, preemption: bool = False):
     """The :class:`~diff3d_tpu_torch.train.Trainer` of ``args``, with its
-    loader attached and seeked to the (restored) step."""
+    loader attached and seeked to the (restored) step and its val loader
+    (``--eval_every``); ``preemption`` installs its SIGTERM / SIGINT
+    handler first (``main`` does; ``trainer.install_preemption_handler()``
+    then returns the uninstaller, which the caller runs when done)."""
     import torch
 
-    from diff3d_tpu_torch.data import (InfiniteLoader, SRNDataset,
-                                       SyntheticDataset,
-                                       SyntheticScenesDataset,
-                                       prefetch_to_device)
+    from diff3d_tpu_torch.data import InfiniteLoader, prefetch_to_device
     from diff3d_tpu_torch.device import resolve_device
     from diff3d_tpu_torch.train import Trainer
 
@@ -171,25 +219,25 @@ def build_trainer(args):
         # own kernels use no float atomics).
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    if args.synthetic_scenes:
-        ds = SyntheticScenesDataset(num_objects=args.scene_objects,
-                                    num_views=24, imgsize=cfg.model.H)
-    elif args.synthetic:
-        ds = SyntheticDataset(num_objects=64, num_views=32,
-                              imgsize=cfg.model.H)
-    else:
-        ds = SRNDataset("train", args.train_data, args.picklefile,
-                        imgsize=cfg.model.H, split_seed=cfg.data.split_seed,
-                        train_fraction=cfg.data.train_fraction)
+    ds, val_ds = datasets(args, cfg)
     trainer = Trainer(cfg, workdir=args.workdir, transfer=args.transfer,
                       device=device,
                       cuda_graphs=False if args.eager else None)
     if args.init_from:
         seed_from_checkpoint(trainer, args.init_from, args.init_res)
+    if preemption:
+        trainer.install_preemption_handler()
+    # The loader is built after the restore, so a --transfer run seeks the
+    # data stream to the restored step.  The val loader is not seeked (as
+    # the JAX package's): a resumed run scores other val batches.
     loader = InfiniteLoader(ds, cfg.train.global_batch, seed=cfg.train.seed,
                             num_workers=args.num_workers,
                             start_step=trainer.state.step)
     trainer.loader = prefetch_to_device(loader, device)
+    if val_ds is not None:
+        trainer.val_loader = InfiniteLoader(
+            val_ds, cfg.train.global_batch, seed=cfg.train.seed + 1,
+            num_workers=0, sample_mode="permute")
     return trainer
 
 
@@ -233,11 +281,13 @@ def seed_from_checkpoint(trainer, path: str, init_res: int) -> None:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    trainer = build_trainer(args)
+    trainer = build_trainer(args, preemption=True)
+    uninstall = trainer.install_preemption_handler()    # the one installed
     try:
         trainer.train()
     finally:
         trainer.loader.close()
+        uninstall()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ An own copy of the model, diffusion, train, data and serving settings the
 ported slices act on, with the JAX package's values.  Left out until a
 slice acts on them: ``attn_impl`` / ``attn_impl_levels`` and ``kernels``
 (the port runs one implementation per device, see
-:mod:`diff3d_tpu_torch.ops.dispatch`); ``eval_every``; the mesh section;
+:mod:`diff3d_tpu_torch.ops.dispatch`); the mesh section;
 and the serving fields of the cross-process fleet (heartbeats, the
 transport's frame ceiling).
 """
@@ -103,6 +103,10 @@ class TrainConfig:
     # Each optimizer step runs `accum_steps` microbatches of
     # global_batch / accum_steps examples, gradients and loss averaged.
     accum_steps: int = 1
+    # Validation-loss cadence in steps (0 disables): with a val loader
+    # attached (``Trainer.val_loader``), the EMA weights are scored on a
+    # held-out batch every ``eval_every`` steps and at the last step.
+    eval_every: int = 0
     seed: int = 0
     checkpoint_dir: str = "checkpoints"
     keep_checkpoints: int = 3

@@ -5,15 +5,16 @@
     ``(seed, n)``: one ``SeedSequence(entropy=seed, spawn_key=(n,))``
     spawned once per slot picks each slot's object and views, so resume
     seeks to any step by number (``start_step``) with no loader state.  A
-    thread pool overlaps sample decoding.
+    thread pool overlaps sample decoding.  ``sample_mode="permute"`` (the
+    val loaders) takes the objects from per-epoch permutations instead.
   * :func:`prefetch_to_device` runs the loader in a background thread,
     ``depth`` batches ahead: each batch is copied into pinned host memory
     and sent to the card with ``non_blocking=True`` on a side CUDA stream;
     the consumer's stream waits on that copy's event (in place of the JAX
     package's ``jax.device_put`` prefetch, ``loader.py:158``).
 
-The per-host slicing and the ``permute`` sample mode (val loaders) wait
-for the data-parallel and evaluation slices.
+The per-host slicing (``host_id`` / ``num_hosts``) waits for the
+data-parallel slice (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -36,35 +37,69 @@ def _collate(samples) -> Dict[str, np.ndarray]:
 class InfiniteLoader:
     """Yields ``{'imgs': [B, V, H, W, 3], 'R': [B, V, 3, 3], 'T': [B, V, 3],
     'K': [B, 3, 3]}`` numpy batches forever (``imgs`` uint8); batch ``n``
-    depends on ``(seed, n)`` only."""
+    depends on ``(seed, n)`` only.
+
+    ``sample_mode``: ``"iid"`` (training) draws each slot's object
+    independently, with replacement; ``"permute"`` (the val loaders) reads
+    draw ``g = n * batch_size + slot`` from a per-epoch permutation of the
+    dataset, so every object is seen once per ``len(dataset)`` consecutive
+    draws, still a pure function of ``(seed, n, slot)``."""
 
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
-                 num_workers: int = 8, start_step: int = 0):
+                 num_workers: int = 8, start_step: int = 0,
+                 sample_mode: str = "iid"):
+        if sample_mode not in ("iid", "permute"):
+            raise ValueError(f"unknown sample_mode {sample_mode!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.sample_mode = sample_mode
         self._step = start_step
         self._quant_warn: Dict[str, bool] = {}
+        self._perm_cache: Dict[int, np.ndarray] = {}
         self._pool = (ThreadPoolExecutor(num_workers)
                       if num_workers > 0 else None)
+
+    def _epoch_perm(self, epoch: int) -> np.ndarray:
+        """The permutation of epoch ``epoch``: its own entropy
+        ``(seed, 0x7065726D)``, disjoint from the per-slot streams, which
+        spawn from ``entropy=seed``.  The last 4 epochs are kept."""
+        perm = self._perm_cache.get(epoch)
+        if perm is None:
+            rng = np.random.default_rng(np.random.SeedSequence(
+                entropy=(self.seed, 0x7065726D), spawn_key=(epoch,)))
+            perm = rng.permutation(len(self.dataset))
+            self._perm_cache[epoch] = perm
+            for old in sorted(self._perm_cache)[:-4]:
+                del self._perm_cache[old]
+        return perm
 
     def batch(self, step: int) -> Dict[str, np.ndarray]:
         """Global batch ``step``."""
         root = np.random.SeedSequence(entropy=self.seed, spawn_key=(step,))
         seqs = root.spawn(self.batch_size)
         n = len(self.dataset)
+        if self.sample_mode == "permute":
+            g0 = step * self.batch_size
+            idxs = [int(self._epoch_perm((g0 + b) // n)[(g0 + b) % n])
+                    for b in range(self.batch_size)]
+        else:
+            idxs = [None] * self.batch_size
 
-        def one(seq):
+        def one(args):
+            idx, seq = args
             rng = np.random.default_rng(seq)
-            s = self.dataset.sample(int(rng.integers(n)), rng)
+            if idx is None:
+                idx = int(rng.integers(n))
+            s = self.dataset.sample(idx, rng)
             if s["imgs"].dtype != np.uint8:
                 s = dict(s, imgs=quantize_uint8(s["imgs"], self._quant_warn))
             return s
 
         if self._pool is not None:
-            samples = list(self._pool.map(one, seqs))
+            samples = list(self._pool.map(one, zip(idxs, seqs)))
         else:
-            samples = [one(q) for q in seqs]
+            samples = [one(a) for a in zip(idxs, seqs)]
         return _collate(samples)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

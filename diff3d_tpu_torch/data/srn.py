@@ -3,10 +3,13 @@ training dataset (counterpart: ``diff3d_tpu/data/srn.py:41-204``).
 
 An own copy of the index (``build_index``: the reference pickle, or a
 glob of ``<path>/<obj>/rgb/*.png``), the seeded 90/10 split, the pose /
-intrinsics readers and the PIL decode (BOX resampling, [-1, 1], first 3
-channels).  PIL is imported where an image is decoded, not at module
-import.  The JAX package's native C++ decoder is not ported: the port
-takes its PIL path.
+intrinsics readers and the two image decoders: the native C++ one
+(:mod:`diff3d_tpu_torch.native`, built on first use), taken when it is
+available unless ``use_native=False``, and the PIL one (BOX resampling,
+[-1, 1], first 3 channels) otherwise.  The two differ by up to a few
+uint8 steps (PIL resizes in uint8 fixed point); ``native.available()``
+tells which one ran.  PIL is imported where an image is decoded, not at
+module import.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from diff3d_tpu_torch import native
 
 
 def build_index(path: str, picklefile: Optional[str] = None,
@@ -81,12 +86,40 @@ def decode_image(img, imgsize: int) -> np.ndarray:
     return arr[..., :3]
 
 
-def load_view_image(path: str, imgsize: int) -> np.ndarray:
-    """One view png -> ``[s, s, 3] float32`` in [-1, 1]."""
+def _have_pil() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def load_view_image(path: str, imgsize: int,
+                    use_native: bool = True) -> np.ndarray:
+    """One view png -> ``[s, s, 3] float32`` in [-1, 1], through the native
+    decoder when it is available (ctypes releases the GIL for the call, so
+    loader threads decode in parallel), else through PIL."""
+    if use_native and native.available():
+        return native.decode_image(path, imgsize)
+    if not _have_pil():
+        raise RuntimeError("neither the native decoder nor PIL is available")
     from PIL import Image
 
     with Image.open(path) as img:
         return decode_image(img, imgsize)
+
+
+def decode_view_batch(paths: Sequence[str], imgsize: int,
+                      use_native: bool = True) -> np.ndarray:
+    """``[N, s, s, 3]`` for N view pngs: one call into the shared native
+    worker pool (GIL-free, in parallel) when it is available, else a PIL
+    loop."""
+    if use_native:
+        pool = native.shared_pool()
+        if pool is not None:
+            return pool.decode_batch(list(paths), imgsize)
+    return np.stack([load_view_image(p, imgsize, use_native=False)
+                     for p in paths])
 
 
 def load_object_views(object_dir: str, imgsize: int = 64
@@ -98,8 +131,7 @@ def load_object_views(object_dir: str, imgsize: int = 64
     views = sorted(f for f in os.listdir(rgb) if f.endswith(".png"))
     if not views:
         raise FileNotFoundError(f"no views under {rgb}")
-    imgs = np.stack([load_view_image(os.path.join(rgb, v), imgsize)
-                     for v in views])
+    imgs = decode_view_batch([os.path.join(rgb, v) for v in views], imgsize)
     Rs, Ts = [], []
     for v in views:
         R, T = load_pose(os.path.join(object_dir, "pose", v[:-4] + ".txt"))
@@ -115,15 +147,19 @@ class SRNDataset:
     """Map-style two-view dataset over SRN objects: ``sample(idx, rng)``
     returns ``imgs [V, s, s, 3]`` f32 in [-1, 1], ``R [V, 3, 3]``,
     ``T [V, 3]`` and the object's first view's ``K [3, 3]``, all f32, for
-    ``V = num_views`` views drawn without replacement."""
+    ``V = num_views`` views drawn without replacement.  ``use_native``:
+    decode through the native pool when it is available."""
 
     def __init__(self, split: str, path: str,
                  picklefile: Optional[str] = None, imgsize: int = 64,
                  split_seed: int = 0, train_fraction: float = 0.9,
-                 num_views: int = 2):
+                 num_views: int = 2, use_native: bool = True):
+        if not _have_pil() and not (use_native and native.available()):
+            raise RuntimeError("PIL required for SRNDataset image loading")
         self.path = path
         self.imgsize = imgsize
         self.num_views = num_views
+        self.use_native = use_native
         self.index = build_index(path, picklefile)
         self.ids = split_ids(list(self.index.keys()), split, split_seed,
                              train_fraction)
@@ -135,9 +171,9 @@ class SRNDataset:
 
     def _load_views(self, obj: str, names: Sequence[str]
                     ) -> Dict[str, np.ndarray]:
-        imgs = np.stack([load_view_image(
-            os.path.join(self.path, obj, "rgb", v), self.imgsize)
-            for v in names])
+        imgs = decode_view_batch(
+            [os.path.join(self.path, obj, "rgb", v) for v in names],
+            self.imgsize, use_native=self.use_native)
         Rs, Ts = zip(*(load_pose(
             os.path.join(self.path, obj, "pose", v[:-4] + ".txt"))
             for v in names))
@@ -147,6 +183,10 @@ class SRNDataset:
                 "R": np.stack(Rs).astype(np.float32),
                 "T": np.stack(Ts).astype(np.float32),
                 "K": K.astype(np.float32)}
+
+    def all_views(self, obj: str) -> Dict[str, np.ndarray]:
+        """Every view of one object (what ``eval_cli`` scores on)."""
+        return self._load_views(obj, self.index[obj])
 
     def sample(self, idx: int,
                rng: np.random.Generator) -> Dict[str, np.ndarray]:

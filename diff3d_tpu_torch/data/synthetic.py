@@ -11,7 +11,7 @@ views of one "object" are consistent enough to overfit.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -141,7 +141,10 @@ class SyntheticScenesDataset:
 
     Each object draws from its own generator keyed ``(seed, obj)``, so
     object i's scene does not depend on ``num_objects``: evaluation sets
-    of different sizes score the same scenes."""
+    of different sizes score the same scenes.  A view is a pure function
+    of ``(object, view)``, so each is rendered once and kept
+    (``num_objects * num_views`` images): re-rendering every sampled view
+    on the host would set the pace of a small-batch run (``PERF.md``)."""
 
     def __init__(self, num_objects: int = 16, num_views: int = 24,
                  imgsize: int = 64, seed: int = 0, sample_views: int = 2,
@@ -165,11 +168,18 @@ class SyntheticScenesDataset:
         self._colors = np.stack(
             [r.uniform(-0.2, 1.0, (n_sph, 3)) for r in per_obj])
         self._phase = np.array([r.uniform(0, 2 * np.pi) for r in per_obj])
+        self._views: Dict[Tuple[int, int], tuple] = {}
 
     def __len__(self) -> int:
         return self.num_objects
 
     def _view(self, obj: int, view: int):
+        got = self._views.get((obj, view))
+        if got is None:
+            got = self._views[obj, view] = self._render(obj, view)
+        return got
+
+    def _render(self, obj: int, view: int):
         theta = 2 * np.pi * view / self.num_views + self._phase[obj]
         phi = 0.25 + 0.2 * np.sin(self._phase[obj] + 2.1 * view)
         cam = 2.6 * np.array([np.cos(theta) * np.cos(phi),

@@ -1,7 +1,6 @@
 """Deterministic, seedable fault injection for chaos testing (counterpart:
-``diff3d_tpu/testing/faults.py``: ``FaultInjector``, ``wrap_sampler`` and
-the fleet's ``arm_replica``, copied; the trainer's ``wrap_iter`` comes
-with its slice).
+``diff3d_tpu/testing/faults.py``: ``FaultInjector``, ``wrap_iter``,
+``wrap_sampler`` and the fleet's ``arm_replica``, copied).
 
 A :class:`FaultInjector` owns a set of named *sites* — instrumentation
 points such as ``"engine.step"`` or the checkpoint writer's ``"commit"``
@@ -205,6 +204,32 @@ class FaultInjector:
 
         wrapped.__name__ = getattr(fn, "__name__", "wrapped")
         return wrapped
+
+
+def wrap_iter(it, injector: FaultInjector, site: str):
+    """Instrument an iterator so every ``__next__`` fires ``site`` first.
+
+    Wrapping a trainer's loader makes each batch fetch a fault site, so a
+    ``kind="sigterm"`` spec at call number ``n`` delivers the preemption
+    signal at the boundary before step ``n``'s batch (the loop then stops
+    after that step).  ``close()`` passes through when the inner iterator
+    has one.
+    """
+
+    class _FaultyIter:
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            injector.fire(site)
+            return next(it)
+
+        def close(self):
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    return _FaultyIter()
 
 
 class _FaultySampler:

@@ -30,6 +30,13 @@ generator registered with the micro graph and reseeded before each step,
 which gives the eager step's draws bit for bit.  Tests pass their own
 draws instead (:class:`~diff3d_tpu_torch.diffusion.TrainDraws`); such a
 step runs eagerly.
+
+``retry`` (a :class:`~diff3d_tpu_torch.runtime.retry.RetryPolicy`, the
+``Trainer``'s ``_STEP_RETRY``) wraps the microbatch phase only: it zeroes
+the gradient sums, reseeds the draws and refills the static inputs before
+anything else, so running it again gives the same bits, while the update
+writes the state in place and is never retried (the JAX package retries
+its step at dispatch, before the donated buffers are consumed).
 """
 
 from __future__ import annotations
@@ -50,9 +57,17 @@ from diff3d_tpu_torch.train.state import (TrainState, ema_decay_per_step,
 INPUTS = ("imgs", "R", "T", "K")
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The 63-bit seed of step ``step``'s generator."""
-    hi, lo = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+#: The eval stream's tag: the JAX package folds it into the step's key
+#: (``fold_in(fold_in(rng, step), 0xE7A1)``) so that the val draws are
+#: not the train step's.
+EVAL_TAG = 0xE7A1
+
+
+def step_seed(seed: int, step: int, *tags: int) -> int:
+    """The 63-bit seed of step ``step``'s generator (with ``tags``: of
+    another stream of that step, e.g. ``EVAL_TAG``)."""
+    hi, lo = np.random.SeedSequence([seed, step, *tags]).generate_state(
+        2, np.uint32)
     return ((int(hi) << 32) | int(lo)) & ((1 << 63) - 1)
 
 
@@ -134,12 +149,20 @@ class TrainStep:
     copies of the graph's outputs).  ``graphs`` holds the captured micro
     and update graphs (None before the first graph step)."""
 
-    def __init__(self, cfg: Config, cuda_graphs: bool = False):
+    def __init__(self, cfg: Config, cuda_graphs: bool = False,
+                 retry=None):
         self.cfg = cfg
         self.cuda_graphs = cuda_graphs
+        self.retry = retry
         self.sched = warmup_schedule(cfg.train)
         self._gen: Optional[torch.Generator] = None
         self._captured = None
+
+    def _accumulate(self, fn, step: int):
+        """Run the microbatch phase ``fn`` under ``self.retry``."""
+        if self.retry is None:
+            return fn()
+        return self.retry.call(fn, describe=f"train step {step + 1}")
 
     @property
     def graphs(self):
@@ -170,19 +193,26 @@ class TrainStep:
         device = batch["imgs"].device
         if draws is None:
             gen = torch.Generator(device) if gen is None else gen
-            gen.manual_seed(step_seed(cfg.train.seed, state.step))
             draws = [TrainDraws(gen)] * accum
-        grads = _zeroed_grads(params)
-        total = torch.zeros((), device=device)
         mb = batch["imgs"].shape[0] // accum
-        for i, d in enumerate(draws):
-            micro_step(cfg, state.model, params,
-                       {k: batch[k][i * mb:(i + 1) * mb] for k in INPUTS},
-                       d, grads, total)
-            if cfg.model.remat:
-                # torch.utils.checkpoint's frames leave reference cycles
-                # that hold the microbatch's activations until collected.
-                gc.collect()
+
+        def accumulate():
+            if gen is not None:
+                gen.manual_seed(step_seed(cfg.train.seed, state.step))
+            grads = _zeroed_grads(params)
+            total = torch.zeros((), device=device)
+            for i, d in enumerate(draws):
+                micro_step(cfg, state.model, params,
+                           {k: batch[k][i * mb:(i + 1) * mb]
+                            for k in INPUTS}, d, grads, total)
+                if cfg.model.remat:
+                    # torch.utils.checkpoint's frames leave reference
+                    # cycles that hold the microbatch's activations until
+                    # collected.
+                    gc.collect()
+            return grads, total
+
+        grads, total = self._accumulate(accumulate, state.step)
         lr = self.sched(state.step)
         loss, grad_norm = update_step(cfg, state, names, params, grads, total)
         state.scheduler.step()
@@ -220,14 +250,18 @@ class TrainStep:
             metrics = self._eager(state, batch, None, gen=self._gen)
             self._capture(state, batch, names, params)
             return metrics
-        self._gen.manual_seed(step_seed(cfg.train.seed, state.step))
-        torch._foreach_zero_(c["grads"])
-        c["total"].zero_()
         mb = batch["imgs"].shape[0] // accum
-        for i in range(accum):
-            for k, buf in c["inputs"].items():
-                buf.copy_(batch[k][i * mb:(i + 1) * mb])
-            c["micro"].replay()
+
+        def accumulate():
+            self._gen.manual_seed(step_seed(cfg.train.seed, state.step))
+            torch._foreach_zero_(c["grads"])
+            c["total"].zero_()
+            for i in range(accum):
+                for k, buf in c["inputs"].items():
+                    buf.copy_(batch[k][i * mb:(i + 1) * mb])
+                c["micro"].replay()
+
+        self._accumulate(accumulate, state.step)
         lr = self.sched(state.step)
         c["update"].replay()
         state.scheduler.step()
@@ -256,7 +290,9 @@ class TrainStep:
                           "inputs": inputs, "grads": grads, "total": total}
 
 
-def make_train_step(cfg: Config, cuda_graphs: bool = False) -> TrainStep:
+def make_train_step(cfg: Config, cuda_graphs: bool = False,
+                    retry=None) -> TrainStep:
     """The train step of ``cfg`` (:class:`TrainStep`); ``cuda_graphs``
-    captures it as CUDA graphs (a CUDA device only)."""
-    return TrainStep(cfg, cuda_graphs=cuda_graphs)
+    captures it as CUDA graphs (a CUDA device only); ``retry`` retries
+    its microbatch phase."""
+    return TrainStep(cfg, cuda_graphs=cuda_graphs, retry=retry)

@@ -339,22 +339,26 @@ def _srn_object(root, n=3, size=20, seed=9):
 
 
 def test_load_object_views_matches_jax(tmp_path):
-    """The port's own copy of the SRN readers (PIL BOX decode, [-1, 1],
-    alpha dropped) against the JAX package's PIL path, exactly (the
-    native decoder is not ported)."""
+    """The port's own copy of the SRN readers against the JAX package's,
+    exactly: ``load_object_views`` decodes through the native decoder
+    where both packages have it (PIL otherwise, in both), and the PIL path
+    (BOX decode, [-1, 1], alpha dropped) matches the JAX package's PIL
+    path."""
     from diff3d_tpu.data import srn as jsrn
     from diff3d_tpu_torch.data import load_object_views
+    from diff3d_tpu_torch.data import srn as psrn
 
     obj = _srn_object(tmp_path / "obj")
     ref = jsrn.load_object_views(str(obj), 8)
-    ref["imgs"] = jsrn.decode_view_batch(
-        sorted(str(f) for f in (obj / "rgb").iterdir()), 8,
-        use_native=False)
     out = load_object_views(str(obj), 8)
     assert out["imgs"].shape == (3, 8, 8, 3)
     for k in ("imgs", "R", "T", "K"):
         assert out[k].dtype == np.float32
         np.testing.assert_array_equal(out[k], ref[k])
+    paths = sorted(str(f) for f in (obj / "rgb").iterdir())
+    np.testing.assert_array_equal(
+        psrn.decode_view_batch(paths, 8, use_native=False),
+        jsrn.decode_view_batch(paths, 8, use_native=False))
 
 
 @pytest.mark.parametrize("fmt", ["pt", "npz"])

@@ -463,8 +463,9 @@ def _srn_tree(root, n_objects=12, n_views=4, size=12, seed=3):
 
 def test_srn_dataset_matches_jax(tmp_path):
     """The index, the seeded split and ``SRNDataset.sample`` against the
-    JAX package's PIL path (its native decoder is not ported), exactly,
-    for the same numpy generator; the index pickle round-trips."""
+    JAX package's, exactly, for the same numpy generator, on the native
+    decode path (PIL in both where the decoder cannot build) and on the
+    PIL path; the index pickle round-trips."""
     from diff3d_tpu.data import srn as jsrn
     from diff3d_tpu_torch.data import srn as psrn
 
@@ -477,16 +478,19 @@ def test_srn_dataset_matches_jax(tmp_path):
         assert psrn.split_ids(list(index), split, seed=1) \
             == jsrn.split_ids(list(index), split, seed=1)
     kw = dict(imgsize=8, split_seed=1)
-    port = psrn.SRNDataset("train", str(root), **kw)
-    ref = jsrn.SRNDataset("train", str(root), use_native=False, **kw)
-    assert len(port) == len(ref) == 10
-    for idx in (0, 7):
-        a = port.sample(idx, np.random.default_rng(idx))
-        b = ref.sample(idx, np.random.default_rng(idx))
-        assert a["imgs"].shape == (2, 8, 8, 3)
-        for k in b:
-            assert a[k].dtype == b[k].dtype == np.float32
-            np.testing.assert_array_equal(a[k], b[k])
+    for use_native in (True, False):
+        port = psrn.SRNDataset("train", str(root), use_native=use_native,
+                               **kw)
+        ref = jsrn.SRNDataset("train", str(root), use_native=use_native,
+                              **kw)
+        assert len(port) == len(ref) == 10
+        for idx in (0, 7):
+            a = port.sample(idx, np.random.default_rng(idx))
+            b = ref.sample(idx, np.random.default_rng(idx))
+            assert a["imgs"].shape == (2, 8, 8, 3)
+            for k in b:
+                assert a[k].dtype == b[k].dtype == np.float32
+                np.testing.assert_array_equal(a[k], b[k])
 
 
 @pytest.mark.parametrize("data", ["synthetic", "srn"])
