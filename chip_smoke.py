@@ -36,7 +36,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      are set to 0 just before it and read after; what ran is the eager
      launches (the first step, before the capture) plus each graph's
      captured launches x its replays.
-  6b. sampler_graph — one srn64 view through the graph path and through
+  6b. sampler_graph — one srn64 view (64 steps, cut from 256) through the
+     graph path and through
      the eager path (``cuda_graphs=False``) from the same generator seed,
      in the order eager, graph, graph, eager: bit-identical views; wall
      ms per step of each, the capture's seconds, launches (captured x
@@ -48,8 +49,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      outputs.
  6d. serve — the single-engine service at srn64 full width through
      ``cli/serve_cli.py``'s ``build_service`` (chip_smoke's random weights
-     as a state dict, ``--sampler_steps 64 --schedules ddim:16
-     --max_batch 4 --warmup``) and HTTP on an ephemeral port: the serving
+     as a state dict, ``--sampler_steps 32`` (cut from 64), ``--schedules
+     ddim:16 --max_batch 4 --warmup``) and HTTP on an ephemeral port: the serving
      path, counts set to 0 before ``build_service`` and read after.
      Three concurrent requests (4 lanes, one padding) bit-identical to
      ``synthesize_many`` on the same sampler over the same lanes; a
@@ -63,8 +64,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      serve_groupnorm / serve_attention: rows 1 and 3 at the 4-lane view
      step's sites, checked and timed.
  6e. serve_fleet — two srn64 replicas behind the fleet router
-     (``serve_cli --replicas 2 --sampler_steps 64 --schedules
-     ancestral:64,1@ddim:16 --max_batch 2 --warmup``, each replica with
+     (``serve_cli --replicas 2 --sampler_steps 32 --schedules
+     ancestral:32,1@ddim:16 --max_batch 2 --warmup``, each replica with
      its own weights, samplers and graphs) over HTTP: four sticky
      sessions, two owned by each replica by rendezvous, posted 0.1 s apart
      so both replicas meet their first 2-lane use at once; each replica's
@@ -131,7 +132,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      versions (loss and denoiser output, relative 1e-2).  Each trainer's
      graphs are released before the next captures.
  11. eval — ``cli/eval_cli.py`` on that checkpoint (EMA) on synthetic
-     scenes: 2 objects, 3 views, DDIM at 32 steps, ``--w_select 1
+     scenes: 2 objects, 3 views, a 64-step dense grid (the parity
+     oracle's, cut from 256), DDIM at 16 steps (cut from 32), ``--w_select 1
      --parity_objects 1 --orbit 4``; finite PSNR / SSIM / fid_randfeat per
      w, the parity and orbit fields, s per object; run again, it
      re-synthesises nothing and prints the same line.
@@ -145,7 +147,7 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      per step, s per view, peak memory; then a 16-step view graph against
      eager, bit-identical.
  13b. serve_cascade — ``serve_cli --config srn128 --cascade
-     draft=64:ddim:8,refine=128:ancestral:64@t0.40625 --max_batch 2`` on
+     draft=64:ddim:8,refine=128:ancestral:32@t0.40625 --max_batch 2`` on
      the srn128 weights over HTTP: two concurrent 3-view cascades walked
      through ``?from=K`` (4 events each, each view's draft before its
      refine, a gapless cursor, finite views); one cascade alone
@@ -160,7 +162,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      bit-identical, peak memory of each; the peaks of an eager Trainer
      step at two batches under each remat policy predict the smallest
      ``--accum`` that leaves 8 GiB of the card free, and under "nothing"
-     that accum is tried on the graph path in a child process (doubled if
+     that accum is tried on the graph path in a child process, on one
+     microbatch of its size (doubled if
      it does not fit there: a capture needs more); then the ``Trainer``
      built by
      ``train_cli --config srn128 --remat --synthetic_scenes`` at global
@@ -183,6 +186,31 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      128; finite losses; s/step.
 
 Between 11 and 12 (after eval, on the srn64 train checkpoint):
+ 11a. parallel — data parallelism at srn64 full width, global batch 128:
+     (a) the replicated ``Trainer`` (``train_cli``'s) over an NCCL group
+     of world size 1 made in this process (rendezvous on a free local
+     port; a failed init raises), 3 steps as CUDA graphs with the
+     gradient all-reduce captured in the update graph, bit-identical to
+     the same Trainer without a group (train_graph's graph run: the same
+     argv and seeds); ms per step of both and the
+     all-reduce's own ms and share; (b) the ``--param_sharding fsdp``
+     Trainer on that group, 2 eager steps, its loss and state against
+     (a)'s after 2 steps (relative 1e-2; at world size 1 the reference's
+     rule replicates every leaf); (c) two processes sharing the card over
+     gloo (``testing.distributed.spawn``; gloo takes no CUDA tensor for
+     point-to-point or all-to-all, so those transfers are staged through
+     pinned host memory): ``ring_sdpa`` and ``ulysses_sdpa`` at srn128's
+     L = 1024 site split in 2 (bf16, 32 x 1024 x 4 x 128), forward and
+     gradients against the unsharded kernel and the plain version within
+     ``_tol``, rows 4, 5 and 6 launched on each rank; the whole calls
+     timed beside the plain engines and ``F.scaled_dot_product_attention``,
+     and the kernels alone, the ranks in turn (rows 4-6 on one 512 x 512
+     ring block, the backward with a non-zero lse cotangent; row 3 on
+     Ulysses' local heads), beside the same; (d) ``torchrun
+     --standalone --nproc_per_node 1 -m diff3d_tpu_torch.cli.train_cli
+     --param_sharding fsdp`` (2 steps) and ``eval_cli --mesh`` on its
+     checkpoint (2 objects, DDIM 8): exit 0, the checkpoint's manifest
+     carries the topology, finite PSNR; the torchrun start-up seconds.
  11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
      (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
@@ -1315,11 +1343,14 @@ def _rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
+SAMPLER_GRAPH_STEPS = 64        # graph against eager (cut from 256)
+
+
 def phase_sampler_graph(cfg, model):
-    """One srn64 view (256 ancestral steps, w = 0..7) through the graph
-    path and the eager path from the same generator seed, in the order
-    eager, graph (its first view: one eager step, the capture, 255
-    replays), graph (256 replays), eager.  The views must be
+    """One srn64 view (``SAMPLER_GRAPH_STEPS`` ancestral steps, w = 0..7)
+    through the graph path and the eager path from the same generator
+    seed, in the order eager, graph (its first view: one eager step, the
+    capture, the replays), graph (replays only), eager.  The views must be
     bit-identical."""
     import torch
 
@@ -1327,7 +1358,8 @@ def phase_sampler_graph(cfg, model):
 
     views = orbit_views(2, cfg.model.H, seed=4)
     runs, outs = [], {}
-    samplers = {g: Sampler(model, cfg, device="cuda", cuda_graphs=g)
+    samplers = {g: Sampler(model, cfg, device="cuda", cuda_graphs=g,
+                           steps=SAMPLER_GRAPH_STEPS)
                 for g in (False, True)}
     for graphs in (False, True, True, False):
         sampler = samplers[graphs]
@@ -1361,7 +1393,8 @@ def phase_sampler_graph(cfg, model):
     rel = max(_rel_l2(o, ref) for o in outs[True])
     eager_ms = [r["ms_per_step"] for r in runs if not r["cuda_graphs"]]
     graph_ms = [r["ms_per_step"] for r in runs if r["cuda_graphs"]]
-    out = {"config": "srn64", "steps_per_view": 256, "guidance_weights":
+    out = {"config": "srn64", "steps_per_view": SAMPLER_GRAPH_STEPS,
+           "guidance_weights":
            len(cfg.diffusion.guidance_weights), "runs": runs,
            "eager_ms_per_step": eager_ms,
            "graph_ms_per_step_first_view": graph_ms[0],
@@ -1460,7 +1493,9 @@ def phase_sampler_many(cfg, model):
 
 
 SERVE_WORKDIR = WORKDIR + "_serve"
-SERVE_ARGV = ["--config", "srn64", "--port", "0", "--sampler_steps", "64",
+SERVE_STEPS = 32                # steps of a served view (cut from 64)
+SERVE_ARGV = ["--config", "srn64", "--port", "0", "--sampler_steps",
+              str(SERVE_STEPS),
               "--schedules", "ddim:16", "--max_batch", "4", "--max_wait_ms",
               "500", "--warmup"]
 SERVE_WAIT_S = 600.0            # every HTTP wait's limit
@@ -1519,7 +1554,7 @@ def phase_serve(cfg, model):
     """The single-engine service at srn64 full width, built by
     ``serve_cli``'s own ``build_service`` from chip_smoke's seeded random
     weights (a state dict, ``--model``) and driven over HTTP on an
-    ephemeral port: ``--sampler_steps 64 --schedules ddim:16 --max_batch
+    ephemeral port: ``--sampler_steps 32 --schedules ddim:16 --max_batch
     4 --warmup``.  Three concurrent requests (4 lanes, one padding) must
     be bit-identical to ``synthesize_many`` on the same sampler over the
     three objects plus a fourth repeating object 0 under another seed; a
@@ -1552,7 +1587,7 @@ def phase_serve(cfg, model):
         argv))
     build_s = time.perf_counter() - t0
     eng = service.engine
-    sampler = eng.samplers[("ancestral", 64)]
+    sampler = eng.samplers[("ancestral", SERVE_STEPS)]
 
     def graphs():
         return [g for s in eng.samplers.values() for g in s.graphs.values()]
@@ -1682,7 +1717,8 @@ def phase_serve(cfg, model):
 
     def steady(lanes):
         s = [r["s"] for r in steps_log if r["lanes"] == lanes
-             and r["schedule"] == "ancestral:64" and not r["first_use"]]
+             and r["schedule"] == f"ancestral:{SERVE_STEPS}"
+             and not r["first_use"]]
         return round(float(np.median(s)), 4) if s else None
 
     per_lanes = {f"lanes_{n}": steady(n) for n in (1, 2, 4)}
@@ -1690,7 +1726,8 @@ def phase_serve(cfg, model):
            "build_and_warmup_s": round(build_s, 3),
            "s_per_view_step": per_lanes,
            "ms_per_denoise_step": {k: (None if v is None
-                                       else round(1e3 * v / 64, 3))
+                                       else round(1e3 * v / SERVE_STEPS,
+                                                  3))
                                    for k, v in per_lanes.items()},
            "lanes4_over_4x_lanes1": (
                None if None in (per_lanes["lanes_1"], per_lanes["lanes_4"])
@@ -1741,8 +1778,8 @@ def phase_serve(cfg, model):
 
 
 FLEET_ARGV = ["--config", "srn64", "--port", "0", "--replicas", "2",
-              "--sampler_steps", "64", "--schedules",
-              "ancestral:64,1@ddim:16", "--max_batch", "2",
+              "--sampler_steps", str(SERVE_STEPS), "--schedules",
+              f"ancestral:{SERVE_STEPS},1@ddim:16", "--max_batch", "2",
               "--max_wait_ms", "500", "--warmup"]
 
 
@@ -1829,8 +1866,8 @@ def _sessions_by_owner(replicas, per):
 
 def phase_serve_fleet(cfg, model):
     """Two srn64 replicas behind the fleet router, built by ``serve_cli``'s
-    ``build_service`` (``--replicas 2 --sampler_steps 64 --schedules
-    ancestral:64,1@ddim:16 --max_batch 2 --warmup``) and driven over HTTP:
+    ``build_service`` (``--replicas 2 --sampler_steps 32 --schedules
+    ancestral:32,1@ddim:16 --max_batch 2 --warmup``) and driven over HTTP:
     four sticky sessions posted 0.1 s apart (two owned by each replica by
     rendezvous) meet both replicas' first use of their 2-lane graph at
     once; each replica's views bit-identical to ``synthesize_many`` on its
@@ -2056,8 +2093,8 @@ def phase_serve_fleet(cfg, model):
     return out
 
 
-WORKER_SERVE = ["--config", "srn64", "--sampler_steps", "64", "--max_batch",
-                "2"]
+WORKER_SERVE = ["--config", "srn64", "--sampler_steps", str(SERVE_STEPS),
+                "--max_batch", "2"]
 WORKER_ARGV = WORKER_SERVE + ["--max_views", "3", "--devices", "0",
                               "--port", "0"]
 WORKER_BOOT_S = 600.0
@@ -2106,7 +2143,7 @@ def _sigterm(proc):
 
 
 def phase_serve_workers(cfg, model):
-    """``worker_cli --devices 0 --port 0`` (``--sampler_steps 64
+    """``worker_cli --devices 0 --port 0`` (``--sampler_steps 32
     --max_batch 2 --max_views 3``) as a process on the card, on a state
     dict of the same weights, fronted by ``serve_cli --workers`` with no
     engine of its own (the front door allocates no device memory): its
@@ -2238,7 +2275,9 @@ def phase_serve_workers(cfg, model):
     return out
 
 
-CASCADE_PLAN = "draft=64:ddim:8,refine=128:ancestral:64@t0.40625"
+# The refine on a 32-step schedule (cut from 64): t0.40625 is its grid
+# point 13 (26 of 64 before).
+CASCADE_PLAN = "draft=64:ddim:8,refine=128:ancestral:32@t0.40625"
 CASCADE_ARGV = ["--config", "srn128", "--port", "0", "--cascade",
                 CASCADE_PLAN, "--max_batch", "2", "--max_wait_ms", "500"]
 
@@ -2264,7 +2303,7 @@ def _poll_cascade(port, rid):
 
 def phase_serve_cascade(cfg, model):
     """The served cascade at srn128 full width (ch 256), built by
-    ``serve_cli --cascade draft=64:ddim:8,refine=128:ancestral:64@t0.40625
+    ``serve_cli --cascade draft=64:ddim:8,refine=128:ancestral:32@t0.40625
     --max_batch 2`` on a state dict of the srn128 phases' seeded random
     weights, over HTTP: two concurrent 3-view cascades (posted 0.1 s
     apart, ``block=false``) walked through ``?from=K``: 4 events each,
@@ -2608,7 +2647,8 @@ def phase_train_graph(accum):
         raise AssertionError(f"train_graph: graph and eager differ "
                              f"(metrics {g['metrics']} vs {e['metrics']}, "
                              f"{len(differ)} tensors, e.g. {differ[:3]})")
-    return out
+    # The graph run is phase parallel's trainer without a process group.
+    return dict(out, graph_tensors=g["tensors"])
 
 
 def _state_tensors(state):
@@ -2878,7 +2918,7 @@ def _train_preempted(trainer_of, want6):
 # ---- srn128: the paper's configuration, every UNet block rematerialised --
 
 SRN128_WORKDIR = WORKDIR + "_srn128"
-SRN128_SMALL_BATCH = 4          # remat against no remat: fits without remat
+SRN128_SMALL_BATCH = 2          # remat against no remat (cut from 4)
 SRN128_STEPS = 2                # Trainer steps under "nothing" (the path)
 SRN128_DOTS_STEPS = 2           # and under "dots" (first + one replayed)
 SRN128_VIEW_STEPS = 64          # the srn128 sampling path's view
@@ -3035,17 +3075,21 @@ def _srn128_step(cfg, weights, dtype, remat, policy="nothing"):
     return loss, grads, peak
 
 
-def _srn128_trainer(policy, accum, steps, workdir=SRN128_WORKDIR):
+def _srn128_trainer(policy, accum, steps, workdir=SRN128_WORKDIR,
+                    batch=TRAIN_BATCH):
     """A ``Trainer`` built by ``cli/train_cli.py --config srn128 --remat
-    --remat_policy <policy> --synthetic_scenes`` at global batch 128."""
+    --remat_policy <policy> --synthetic_scenes --ckpt_mode ema_bf16`` at
+    global batch ``batch`` (128): its checkpoint is what ``sample_cli``
+    reads, the bf16 EMA (0.96 GB, where ``full`` writes 7.7 GB)."""
     from diff3d_tpu_torch.cli import train_cli
 
     shutil.rmtree(workdir, ignore_errors=True)
     argv = ["--config", "srn128", "--remat", "--remat_policy", policy,
-            "--synthetic_scenes", "--batch", str(TRAIN_BATCH), "--accum",
+            "--synthetic_scenes", "--batch", str(batch), "--accum",
             str(accum), "--steps", str(steps), "--warmup_examples",
             str(10 * TRAIN_BATCH), "--ckpt_every", str(steps),
-            "--num_workers", "8", "--workdir", workdir]
+            "--ckpt_mode", "ema_bf16", "--num_workers", "8", "--workdir",
+            workdir]
     return train_cli.build_trainer(train_cli.build_parser().parse_args(argv))
 
 
@@ -3115,15 +3159,19 @@ def _run_srn128_trainer(policy, accum, steps, checkpoint):
 
 def graph_trial(policy, accum):
     """Two srn128 Trainer steps on the graph path (the eager warm-up, the
-    capture, one replay) at ``accum``; prints ``{"peak": bytes}``, or
-    ``{"oom": message}`` when the card runs out of memory.  Runs in its
-    own process (``--srn128-graph-trial``): an out-of-memory error inside
-    a capture would leave the caller's CUDA state unusable."""
+    capture, one replay) of one microbatch of ``accum``'s size (global
+    batch 128 / accum in one microbatch: the captured graphs and the
+    state are those of ``accum``, which replays the micro graph ``accum``
+    times over the same pool); prints ``{"peak": bytes}``, or ``{"oom":
+    message}`` when the card runs out of memory.  Runs in its own process
+    (``--srn128-graph-trial``): an out-of-memory error inside a capture
+    would leave the caller's CUDA state unusable."""
     import torch
 
     torch.backends.cudnn.deterministic = True
-    trainer = _srn128_trainer(policy, accum, 2,
-                              workdir=SRN128_WORKDIR + "_trial")
+    trainer = _srn128_trainer(policy, 1, 2,
+                              workdir=SRN128_WORKDIR + "_trial",
+                              batch=TRAIN_BATCH // accum)
     torch.cuda.reset_peak_memory_stats()
     try:
         for _ in range(2):
@@ -3430,7 +3478,7 @@ def phase_srn128_sites(cfg, accum, train_launches_per_step):
 
 def phase_eval():
     """``cli/eval_cli.py`` on the srn64 train phase's checkpoint (EMA) on
-    synthetic scenes: 2 objects, 3 views, DDIM at 32 steps, one
+    synthetic scenes: 2 objects, 3 views, a 64-step grid, DDIM at 16 steps, one
     guidance-selection object, a matched-seed oracle object and a 4-frame
     orbit; finite metrics per w, the parity and orbit fields; s per
     object.  Then the same command again: no object re-synthesised, the
@@ -3443,10 +3491,13 @@ def phase_eval():
     from diff3d_tpu_torch.cli import eval_cli
 
     out = os.path.join(WORKDIR, "eval.jsonl")
+    # A 64-step dense grid (the parity oracle's; cut from 256) and 16
+    # DDIM steps (cut from 32).
     argv = ["--model", os.path.join(WORKDIR, "checkpoints"), "--config",
             "srn64", "--synthetic_scenes", "--objects", "2", "--max_views",
-            "3", "--sampler", "ddim", "--sampler_steps", "32", "--w_select",
-            "1", "--parity_objects", "1", "--orbit", "4", "--out", out]
+            "3", "--steps", "64", "--sampler", "ddim", "--sampler_steps",
+            "16", "--w_select", "1", "--parity_objects", "1", "--orbit",
+            "4", "--out", out]
     lines, seconds, stamps = [], [], []
     objdir = out + ".objdir"
     for _ in range(2):
@@ -3489,6 +3540,473 @@ def phase_eval():
             and stamps[0] == stamps[1]
             and len(progress.splitlines()) == n_objects):
         raise AssertionError(f"eval: {out}")
+    return out
+
+
+# ---- data parallelism: the replicated and fsdp Trainers, ring / Ulysses --
+
+PARALLEL_WORKDIR = WORKDIR + "_parallel"
+PARALLEL_STEPS = 3              # (a): the first eager, then replays
+FSDP_STEPS = 2                  # (b): eager steps
+# srn128's L = 1024 attention site (level 2: 32 x 32 tokens, C = 512,
+# 4 heads of 128) at the sampler's N = 2B * F = 32 rows, bf16.
+RING_SHAPE = (32, 1024, 4, 128)
+RING_WORLD = 2
+
+
+def _parallel_argv(workdir, steps, *extra):
+    """``phase_train_graph``'s trainer (its graph run is (a)'s trainer
+    without a group)."""
+    return ["--synthetic", "--config", "srn64", "--batch", str(TRAIN_BATCH),
+            "--accum", str(TRAIN_ACCUM), "--steps", str(steps),
+            "--warmup_examples",
+            str(10 * TRAIN_BATCH), "--ckpt_every", "0", "--num_workers",
+            "8", "--workdir", workdir, *extra]
+
+
+def _dp_run(argv, steps, snapshot_at=None):
+    """A ``Trainer`` built by ``train_cli`` (on the mesh of whatever
+    process group is up) stepped ``steps`` times: per-step seconds,
+    losses, the state after the last step (and after ``snapshot_at``) on
+    the host, its step and mesh."""
+    import torch
+
+    from diff3d_tpu_torch.cli import train_cli
+
+    trainer = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        argv))
+    step = trainer.step_fn
+    times, losses, snap = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(trainer.state, next(trainer.loader))
+        losses.append(float(m["loss"]))            # waits for the card
+        times.append(time.perf_counter() - t0)
+        if snapshot_at == i + 1:
+            snap = {k: v.cpu() for k, v in
+                    _state_tensors(trainer.state).items()}
+    out = {"step_s": times, "losses": losses,
+           "tensors": {k: v.cpu() for k, v in
+                       _state_tensors(trainer.state).items()},
+           "snapshot": snap, "graphs": step.graphs is not None,
+           "topology": trainer.env.topology_summary(),
+           "grouped": trainer.env.group is not None,
+           "sharded_leaves": sum(hasattr(p, "full_tensor") for p in
+                                 trainer.state.model.parameters())}
+    if step.graphs is not None:
+        out["graph_summary"] = _graph_summary(step.graphs)
+    sync = getattr(step, "_sync", None)
+    if sync is not None:
+        # The step's one collective, alone, on its bucket (eager).
+        import torch.distributed as dist
+
+        out["allreduce_ms"] = cuda_ms(
+            lambda: dist.all_reduce(sync.flat, group=sync.group), iters=10)
+        out["bucket_bytes"] = sync.flat.numel() * 4
+    trainer.loader.close()
+    step.release()
+    del trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ring_rank(rank: int, world: int) -> dict:
+    """One rank of (c), on the card with the other rank over gloo: ring
+    attention and Ulysses at ``RING_SHAPE`` (the tokens split over the
+    ranks), the path run once with the launch counts from 0, then held
+    against the unsharded kernel and the plain version and timed."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from diff3d_tpu_torch.ops import cuda_attention as ca
+    from diff3d_tpu_torch.parallel import ring_sdpa, ulysses_sdpa
+
+    torch.cuda.set_device(0)
+    group = dist.group.WORLD
+    B, L, H, D = RING_SHAPE
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, w = (torch.randn(B, L, H, D, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    n = L // world
+    mine = slice(rank * n, (rank + 1) * n)
+
+    def local(t, grad=False):
+        t = t[:, mine].detach().contiguous()
+        return t.requires_grad_() if grad else t
+
+    def ring(impl, grad=True):
+        ql, kl, vl = (local(t, grad) for t in (q, k, v))
+        o = ring_sdpa(ql, kl, vl, group, impl=impl)
+        return o, (ql, kl, vl)
+
+    # The path: forward and backward through the ring (rows 4, 5, 6 on
+    # every block), then Ulysses' forward (row 3 on the local heads).
+    _launch_counts(reset=True)
+    o, ins = ring("cuda")
+    (o.float() * local(w).float()).sum().backward()
+    ring_launches = _launch_counts()
+    _launch_counts(reset=True)
+    with torch.no_grad():
+        ou = ulysses_sdpa(local(q), local(k), local(v), group)
+    torch.cuda.synchronize()
+    ulysses_launches = _launch_counts()
+    got = {"out": o.detach(), "dq": ins[0].grad, "dk": ins[1].grad,
+           "dv": ins[2].grad, "ulysses": ou}
+
+    # The references over the whole sequence: the unsharded kernel (its
+    # forward with the lse, its backward) and the plain version.
+    refs = {}
+    for name, fn in (("kernel", ca.flash_attention),
+                     ("plain", ca.attention_reference)):
+        qf, kf, vf = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        of = fn(qf, kf, vf)
+        (of.float() * w.float()).sum().backward()
+        with torch.no_grad():
+            oi = fn(q, k, v)
+        refs[name] = {"out": of[:, mine], "dq": qf.grad[:, mine],
+                      "dk": kf.grad[:, mine], "dv": vf.grad[:, mine],
+                      "ulysses": oi[:, mine]}
+    errs, ok = {}, True
+    for ref_name, ref in refs.items():
+        for key, t in got.items():
+            e = float((t.float() - ref[key].float()).abs().max())
+            tol = _tol(ref[key], torch.bfloat16)
+            errs[f"{key}_vs_{ref_name}"] = {"max_abs_err": e, "tol": tol}
+            ok &= e <= tol
+
+    # Times (this rank's share; the transfers staged through the host on
+    # gloo are inside them).
+    qa, ka, va = (local(t) for t in (q, k, v))
+    qh, kh, vh = (t.transpose(1, 2) for t in (qa, k, v))     # [B, H, L, D]
+
+    def fwd(impl):
+        with torch.no_grad():
+            ring_sdpa(qa, ka, va, group, impl=impl)
+
+    def bwd_of(impl):
+        o, ins = ring(impl)
+        loss = (o.float() * local(w).float()).sum()
+        return lambda: torch.autograd.grad(loss, ins, retain_graph=True)
+
+    def lib_bwd():
+        qq, kk, vv = (t.detach().clone().requires_grad_()
+                      for t in (qh, kh, vh))
+        o = F.scaled_dot_product_attention(qq, kk, vv)
+        return lambda: torch.autograd.grad(o, (qq, kk, vv), o,
+                                           retain_graph=True)
+
+    def uly(impl):
+        with torch.no_grad():
+            ulysses_sdpa(qa, ka, va, group, impl=impl)
+
+    Hn = H // world
+    ul = tuple(t[:, :, :Hn].contiguous().transpose(1, 2)
+               for t in (q, k, v))            # one rank's heads, all tokens
+    times = {
+        "ring_fwd_ms": cuda_ms(lambda: fwd("cuda"), iters=5),
+        "ring_fwd_plain_ms": cuda_ms(lambda: fwd("einsum"), iters=5),
+        "ring_fwd_library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5),
+        "ring_bwd_ms": cuda_ms(bwd_of("cuda"), iters=5),
+        "ring_bwd_plain_ms": cuda_ms(bwd_of("einsum"), iters=5),
+        "ring_bwd_library_ms": cuda_ms(lib_bwd(), iters=5),
+        "ulysses_ms": cuda_ms(lambda: uly("cuda"), iters=5),
+        "ulysses_plain_ms": cuda_ms(lambda: uly("torch"), iters=5),
+        "ulysses_library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(*ul), iters=5)}
+    # The block kernels alone, with no transfer in the window: rows 4-6 on
+    # this rank's q against one ring block of n keys (the shape every ring
+    # step gives them, the backward with a non-zero lse cotangent), and
+    # row 3 on Ulysses' local heads over every token.
+    with torch.no_grad():
+        bo, blse = ca.flash_attention_lse(qa, ka, va)
+        blse = blse.transpose(1, 2).contiguous()          # [B, H, n]
+        gen_c = torch.Generator(device="cuda").manual_seed(12)
+        bdo = torch.randn(bo.shape, generator=gen_c, device="cuda",
+                          dtype=bo.dtype)
+        bglse = 0.1 * torch.randn(blse.shape, generator=gen_c,
+                                  device="cuda")
+        kb, vb = (t.transpose(1, 2) for t in (ka, va))    # [B, H, n, D]
+
+    uln = tuple(t.transpose(1, 2) for t in ul)            # [B, L, H/n, D]
+
+    def blk_lib_bwd():
+        qq, kk, vv = (t.detach().clone().requires_grad_()
+                      for t in (qh, kb, vb))
+        o = F.scaled_dot_product_attention(qq, kk, vv)
+        g = bdo.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, (qq, kk, vv), g,
+                                           retain_graph=True)
+
+    def kernel_times():
+        with torch.no_grad():
+            got = {
+                "block_fwd_ms": cuda_ms(
+                    lambda: ca.flash_attention_lse(qa, ka, va), iters=10),
+                "block_fwd_plain_ms": cuda_ms(
+                    lambda: ca.attention_lse_reference(qa, ka, va),
+                    iters=10),
+                "block_fwd_library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kb, vb),
+                    iters=10),
+                "block_bwd_ms": cuda_ms(
+                    lambda: ca.attention_backward(qa, ka, va, bo, blse, bdo,
+                                                  bglse), iters=10),
+                "block_bwd_plain_ms": cuda_ms(
+                    lambda: ca.attention_backward_reference(
+                        qa, ka, va, bo, blse, bdo, bglse), iters=10),
+                "heads_fwd_ms": cuda_ms(lambda: ca.flash_attention(*uln),
+                                        iters=10),
+                "heads_fwd_plain_ms": cuda_ms(
+                    lambda: ca.attention_reference(*uln), iters=10),
+                "heads_fwd_library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(*ul), iters=10)}
+        got["block_bwd_library_ms"] = cuda_ms(blk_lib_bwd(), iters=10)
+        return got
+
+    # One rank at a time, so that the other rank's work does not share
+    # the card inside the window.
+    for turn in range(world):
+        dist.barrier(group)
+        if turn == rank:
+            times.update(kernel_times())
+        torch.cuda.synchronize()
+    dist.barrier(group)
+    return {"rank": rank, "ring_launches": ring_launches,
+            "ulysses_launches": ulysses_launches, "errors": errs,
+            "within_tol": bool(ok), "times": times,
+            "backend": dist.get_backend(group)}
+
+
+def _ring_stats(ranks, kernel_key, call_key, errs_keys, flops, nbytes):
+    """One ``kernels`` row's stats from the ranks' readings, the slowest
+    rank's times and the worst error: ``ms`` / ``plain_ms`` /
+    ``library_ms`` are the kernel alone (``<kernel_key>_ms`` ...), with
+    ``bound_ms`` from ``flops`` / ``nbytes``, the same work; ``call_*``
+    are the whole sequence-parallel call, transfers included
+    (``<call_key>_ms`` ...)."""
+    bound_f = flops / BF16_FLOPS * 1e3
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def slowest(key):
+        return max(r["times"][key] for r in ranks)
+
+    return {"ms": slowest(f"{kernel_key}_ms"),
+            "plain_ms": slowest(f"{kernel_key}_plain_ms"),
+            "library_ms": slowest(f"{kernel_key}_library_ms"),
+            "max_abs_err": max(r["errors"][k]["max_abs_err"]
+                               for r in ranks for k in errs_keys),
+            "bound_ms": max(bound_f, bound_b),
+            "bound_by": "operations" if bound_f >= bound_b else "bytes",
+            "call_ms": slowest(f"{call_key}_ms"),
+            "call_plain_ms": slowest(f"{call_key}_plain_ms"),
+            "call_library_ms": slowest(f"{call_key}_library_ms")}
+
+
+def phase_parallel(graph_run):
+    """Data parallelism on the card (see the module docstring, 11a), the
+    graph run of ``phase_train_graph`` standing for the trainer without a
+    process group:
+    (a) the replicated Trainer at world size 1 over NCCL, the step as CUDA
+    graphs with the gradient all-reduce captured, bit-identical to the
+    same Trainer without a process group; (b) the ``fsdp`` Trainer at
+    world size 1, eager, against (a); (c) ring and Ulysses attention over
+    2 processes sharing the card (gloo); (d) ``torchrun train_cli
+    --param_sharding fsdp`` and ``eval_cli --mesh`` on its checkpoint."""
+    import torch
+
+    from diff3d_tpu_torch.parallel import (maybe_initialize_distributed,
+                                           shutdown_distributed)
+    from diff3d_tpu_torch.testing.distributed import spawn
+
+    shutil.rmtree(PARALLEL_WORKDIR, ignore_errors=True)
+    wd = {k: os.path.join(PARALLEL_WORKDIR, k)
+          for k in ("group", "fsdp", "torchrun")}
+    # (a) Over NCCL at world size 1, against the same Trainer without a
+    # group (phase_train_graph's graph run: the same argv and seeds).
+    if TRAIN_GRAPH_STEPS != PARALLEL_STEPS:
+        raise AssertionError("parallel: (a) repeats train_graph's steps")
+    plain = {"tensors": graph_run["graph_tensors"],
+             "losses": [m[0] for m in graph_run["loss_grad_norm"]],
+             "step_s": graph_run["graph_step_s"]}
+    port = _free_port()
+    if not maybe_initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0,
+                                        backend="nccl"):
+        raise AssertionError("parallel: no NCCL group came up")
+    try:
+        grouped = _dp_run(_parallel_argv(wd["group"], PARALLEL_STEPS),
+                          PARALLEL_STEPS, snapshot_at=FSDP_STEPS)
+        # (b) fsdp over the same group, eager.
+        fsdp = _dp_run(_parallel_argv(wd["fsdp"], FSDP_STEPS,
+                                      "--param_sharding", "fsdp"),
+                       FSDP_STEPS)
+    finally:
+        shutdown_distributed()
+    differ = [k for k in plain["tensors"]
+              if not torch.equal(plain["tensors"][k], grouped["tensors"][k])]
+    same = not differ and plain["losses"] == grouped["losses"]
+    ref = grouped["snapshot"]
+    fsdp_rel = max(float((fsdp["tensors"][k].float() - ref[k].float()).norm()
+                         / max(float(ref[k].float().norm()), 1e-30))
+                   for k in ref)
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+                   zip(fsdp["losses"], grouped["losses"][:FSDP_STEPS]))
+    step_ms = {k: 1e3 * float(np.mean(r["step_s"][1:]))
+               for k, r in (("nogroup", plain), ("group", grouped))}
+    fsdp_s = float(np.mean(fsdp["step_s"][1:]))
+
+    # (c) Two processes on the card over gloo.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:ring_rank", RING_WORLD, timeout_s=600)
+    ring_s = time.perf_counter() - t0
+    launched = all(r["ring_launches"]["flash_attention"] > 0
+                   and r["ring_launches"]["attention_backward_dkdv"] > 0
+                   and r["ring_launches"]["attention_backward_dq"] > 0
+                   and r["ulysses_launches"]["flash_attention"] > 0
+                   for r in ranks)
+
+    # (d) The entry points under torchrun.
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m"]
+    ckpts = os.path.join(wd["torchrun"], "checkpoints")
+    cmds = {"train_cli": run + ["diff3d_tpu_torch.cli.train_cli"]
+            + _parallel_argv(wd["torchrun"], FSDP_STEPS, "--param_sharding",
+                             "fsdp"),
+            "eval_cli": run + ["diff3d_tpu_torch.cli.eval_cli", "--mesh",
+                               "--model", ckpts, "--synthetic_scenes",
+                               "--objects", "2", "--max_views", "3",
+                               "--sampler", "ddim", "--sampler_steps", "8"]}
+    entry = {}
+    for name, cmd in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=os.path.dirname(
+                                  os.path.abspath(__file__)))
+        entry[name] = {"rc": proc.returncode,
+                       "wall_s": round(time.perf_counter() - t0, 3)}
+        if proc.returncode:
+            raise AssertionError(f"parallel: torchrun {name} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        if name == "eval_cli":
+            entry[name]["line"] = json.loads(
+                proc.stdout.strip().splitlines()[-1])
+    with open(os.path.join(wd["torchrun"], "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    entry["train_cli"]["train_wall_s"] = recs[-1]["wall_s"]
+    entry["train_cli"]["startup_s"] = round(
+        entry["train_cli"]["wall_s"] - recs[-1]["wall_s"], 3)
+    saved = torch.load(os.path.join(ckpts, f"ckpt_{FSDP_STEPS}.pt"),
+                       map_location="cpu", weights_only=True)
+    manifest_mesh = saved.get("mesh")
+    del saved
+    shutil.rmtree(PARALLEL_WORKDIR, ignore_errors=True)
+    evalrec = entry["eval_cli"]["line"]
+    eval_ok = all(math.isfinite(evalrec[k]) for k in ("psnr", "ssim"))
+
+    out = {"config": "srn64", "global_batch": TRAIN_BATCH,
+           "replicated_world1_nccl": {
+               "steps": PARALLEL_STEPS, "losses": grouped["losses"],
+               "graphs_captured": grouped["graphs"],
+               "graph_summary": grouped.get("graph_summary"),
+               "topology": grouped["topology"],
+               "bit_identical_to_no_group": same,
+               "tensors_compared": len(plain["tensors"]),
+               "tensors_differing": len(differ),
+               "ms_per_step_group": step_ms["group"],
+               "ms_per_step_no_group": step_ms["nogroup"],
+               "allreduce_ms": grouped.get("allreduce_ms"),
+               "allreduce_share": (grouped["allreduce_ms"]
+                                   / step_ms["group"]
+                                   if "allreduce_ms" in grouped else None),
+               "bucket_bytes": grouped.get("bucket_bytes")},
+           "fsdp_world1": {
+               "steps": FSDP_STEPS, "eager": not fsdp["graphs"],
+               "losses": fsdp["losses"],
+               "sharded_leaves": fsdp["sharded_leaves"],
+               "s_per_step": fsdp_s,
+               "replicated_graph_s_per_step": step_ms["group"] / 1e3,
+               "max_rel_l2_vs_replicated": fsdp_rel,
+               "loss_rel_vs_replicated": loss_rel,
+               "tolerance": BF16_STEP_GRAD_TOL},
+           "ring_ulysses": {
+               "backend": "gloo, 2 ranks on one card",
+               "transport": "CUDA tensors staged through pinned host "
+                            "memory on the gloo group (the attention runs "
+                            "on the card)",
+               "shape": list(RING_SHAPE), "dtype": "bfloat16",
+               "ranks": [{k: r[k] for k in ("ring_launches",
+                                            "ulysses_launches", "errors",
+                                            "times", "backend")}
+                         for r in ranks],
+               "within_tol": all(r["within_tol"] for r in ranks),
+               "rows_4_5_6_launched_on_each_rank": launched,
+               "spawn_s": round(ring_s, 3)},
+           "torchrun": {k: {kk: vv for kk, vv in v.items() if kk != "line"}
+                        for k, v in entry.items()},
+           "manifest_mesh": manifest_mesh,
+           "eval_psnr": evalrec.get("psnr"), "eval_ok": eval_ok}
+    emit(dict(phase="parallel", **out))
+    if not (same and grouped["graphs"] and grouped["grouped"]
+            and "allreduce_ms" in grouped):
+        raise AssertionError(f"parallel: the NCCL trainer differs from the "
+                             f"one without a group ({len(differ)} tensors, "
+                             f"e.g. {differ[:3]})")
+    if not (fsdp_rel <= BF16_STEP_GRAD_TOL and loss_rel <= BF16_STEP_LOSS_TOL
+            and not fsdp["graphs"]):
+        raise AssertionError(f"parallel: fsdp off the replicated trainer: "
+                             f"{fsdp_rel}, {loss_rel}")
+    if not (out["ring_ulysses"]["within_tol"] and launched):
+        raise AssertionError(f"parallel: ring / Ulysses: {ranks}")
+    if not (manifest_mesh and manifest_mesh.get("param_sharding") == "fsdp"
+            and eval_ok):
+        raise AssertionError(f"parallel: torchrun: {manifest_mesh}, "
+                             f"{evalrec}")
+    # The bounds of the work the kernel rows time: one ring block (q of
+    # n rows against n keys; the lse and its cotangent in f32) and
+    # Ulysses' local heads over all L tokens.
+    B, L, H, D = RING_SHAPE
+    n = L // RING_WORLD
+    itm = 2
+    fwd_flops = 4.0 * B * H * n * n * D
+    fwd_bytes = itm * B * H * D * 4 * n + 4 * B * H * n
+    bwd_flops = 10.0 * B * H * n * n * D
+    bwd_bytes = itm * B * H * D * 8 * n + 2 * 4 * B * H * n
+    Hn = H // RING_WORLD
+    uly_flops = 4.0 * B * Hn * L * L * D
+    uly_bytes = itm * B * Hn * D * 4 * L
+    out["kernel_stats"] = {
+        "flash_attention_lse@ring": _ring_stats(
+            ranks, "block_fwd", "ring_fwd",
+            ("out_vs_kernel", "out_vs_plain"), fwd_flops, fwd_bytes),
+        "attention_backward@ring": _ring_stats(
+            ranks, "block_bwd", "ring_bwd",
+            tuple(f"{g}_vs_{r}" for g in ("dq", "dk", "dv")
+                  for r in ("kernel", "plain")), bwd_flops, bwd_bytes),
+        "flash_attention@ulysses": _ring_stats(
+            ranks, "heads_fwd", "ulysses",
+            ("ulysses_vs_kernel", "ulysses_vs_plain"), uly_flops,
+            uly_bytes)}
+    out["kernel_launches"] = {
+        "flash_attention_lse@ring": ranks[0]["ring_launches"][
+            "flash_attention"],
+        "attention_backward@ring": (
+            ranks[0]["ring_launches"]["attention_backward_dkdv"]
+            + ranks[0]["ring_launches"]["attention_backward_dq"]),
+        "flash_attention@ulysses": ranks[0]["ulysses_launches"][
+            "flash_attention"]}
     return out
 
 
@@ -4025,6 +4543,8 @@ def kernel_entries(rows, design):
         "ms": stats["ms"], "plain_ms": stats["plain_ms"],
         "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
         "library_ms": stats["library_ms"], "per": per,
+        **{k: stats[k] for k in ("call_ms", "call_plain_ms",
+                                 "call_library_ms") if k in stats},
         "launches_counted": "eager launches + captured x replays of "
                             "the path's CUDA graphs",
         "design": design[name.split("@")[0]]}
@@ -4087,13 +4607,15 @@ def main() -> None:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_graph(TRAIN_ACCUM)
+    graph_run = phase_train_graph(TRAIN_ACCUM)
     train = phase_train(TRAIN_ACCUM)
     tl = train["launches"]
     vl = {k: sum(e["launches"][k]
                  for e in train["preemption_and_eval"]["evals"])
           for k in ("fused_groupnorm", "flash_attention")}
     phase_eval()
+    par = phase_parallel(graph_run)
+    del graph_run
 
     # Distillation from the train phase's checkpoint (its student step is
     # one training microbatch's work; the teacher's two forwards run rows
@@ -4179,6 +4701,19 @@ def main() -> None:
                "sites without statistics, summed over sites; launches: the "
                f"{len(train['preemption_and_eval']['evals'])} evals of "
                "the train phase's run with --eval_every")
+    rb, rl, rh, rd = RING_SHAPE
+    ring_per = (f"one ring block at 2 ranks on one card (gloo) at srn128's "
+                f"L = {rl} site, {list(RING_SHAPE)} bf16: a rank's q "
+                f"[{rb}, {rl // RING_WORLD}, {rh}, {rd}] against one block "
+                f"of {rl // RING_WORLD} keys, the kernel alone, the slowest "
+                "rank; call_*: one rank's whole ring call, the transfers "
+                "staged through host memory included; launches: rank 0's "
+                "over one forward and backward")
+    ulysses_per = (f"Ulysses' core at 2 ranks on one card (gloo), "
+                   f"{list(RING_SHAPE)} bf16: one rank's {rh // RING_WORLD} "
+                   f"heads over all {rl} tokens, the kernel alone, the "
+                   "slowest rank; call_*: one rank's whole Ulysses "
+                   "forward, the all-to-alls included; launches: rank 0's")
     student_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
                    "the student's forward and backward (a train step's "
                    "sites), summed over sites; launches of the wrapper")
@@ -4195,7 +4730,12 @@ def main() -> None:
               "flash_attention[save_lse]": "mma.sync bf16",
               "attention_backward_dkdv": "mma.sync bf16",
               "attention_backward_dq": "mma.sync bf16",
-              "groupnorm_backward": cluster}
+              "groupnorm_backward": cluster,
+              "flash_attention_lse": "mma.sync bf16 (row 4) per ring "
+                                     "block, blocks merged by log-sum-exp",
+              "attention_backward": "mma.sync bf16 dK/dV and dQ (rows 5 "
+                                    "and 6) per ring block, with the "
+                                    "merge's lse cotangent"}
     kernels = kernel_entries([
         ("fused_groupnorm", film, gn_fwd_at, launches["fused_groupnorm"], gn,
          sample_per),
@@ -4260,7 +4800,14 @@ def main() -> None:
         ("fused_groupnorm@val", film, gn_fwd_at, vl["fused_groupnorm"],
          gn_teacher, val_per),
         ("flash_attention@val", att, fa_at, vl["flash_attention"],
-         attn_teacher, val_per)],
+         attn_teacher, val_per)]
+        + [(name, att, at, par["kernel_launches"][name],
+            par["kernel_stats"][name], per)
+           for name, at, per in (
+               ("flash_attention_lse@ring", fa_at, ring_per),
+               ("attention_backward@ring", f"{dkdv_at}, {dq_at}",
+                ring_per + " (the backward: rows 5 and 6)"),
+               ("flash_attention@ulysses", fa_at, ulysses_per))],
         design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,10 +22,12 @@ reference's compiled programs.
 __version__ = "0.1.0"
 
 from diff3d_tpu_torch.config import (Config, DataConfig, DiffusionConfig,
-                                     ModelConfig, ServingConfig, TrainConfig,
+                                     MeshConfig, ModelConfig, ServingConfig,
+                                     TrainConfig,
                                      srn64_config, srn128_config,
                                      test_config)
 
-__all__ = ["Config", "DataConfig", "DiffusionConfig", "ModelConfig",
+__all__ = ["Config", "DataConfig", "DiffusionConfig", "MeshConfig",
+           "ModelConfig",
            "ServingConfig", "TrainConfig", "srn64_config", "srn128_config",
            "test_config"]

@@ -42,9 +42,12 @@ ancestral sampler from the same streams (``sampler_parity``).
 and scores its reprojection consistency (``orbit_consistency``).
 
 Runs on the card unless ``--device`` names another; there the reverse
-step runs as a CUDA graph.  ``--mesh`` waits for the port's parallel
-layer.  Writes one JSON line to stdout and, with ``--out``, appends it
-there.
+step runs as a CUDA graph.  ``--mesh`` splits each object batch over the
+ranks of a ``torchrun`` job (``Sampler(mesh=...)``: each rank synthesises
+its objects, the views are all-gathered; ``--object_batch`` is rounded up
+to a multiple of the rank count); rank 0 writes the records, the images
+and the metrics.  Writes one JSON line to stdout and, with ``--out``,
+appends it there.
 
 Usage:
     python -m diff3d_tpu_torch.cli.eval_cli --model ./checkpoints \
@@ -52,6 +55,9 @@ Usage:
     python -m diff3d_tpu_torch.cli.eval_cli --device cpu --config test \
         --model /tmp/t/checkpoints --synthetic_scenes --objects 2 \
         --max_views 3 --steps 4
+    torchrun --standalone --nproc_per_node 2 -m \
+        diff3d_tpu_torch.cli.eval_cli --mesh --model ./checkpoints \
+        --synthetic_scenes
 """
 
 from __future__ import annotations
@@ -71,9 +77,7 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
-        formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog="Not in this slice of the port (see ROADMAP.md): --mesh "
-               "(waits for the parallel layer).")
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", required=True,
                    help="checkpoint directory, ckpt_<step>.pt, port state "
                         "dict (.pt) or Flax params (.npz)")
@@ -170,6 +174,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only when "
                         "named)")
+    p.add_argument("--mesh", action="store_true",
+                   help="split each object batch over the ranks of a "
+                        "torchrun job (NCCL on the card, gloo with "
+                        "--device cpu); rank 0 writes the results")
     return p
 
 
@@ -229,8 +237,26 @@ def view_draws(seed: int, obj_index: int, n_gen: int, device) -> list:
 
 
 def main(argv=None) -> None:
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    owned = False
+    if args.mesh and not dist.is_initialized():
+        # Before anything touches the card: NCCL takes LOCAL_RANK's card.
+        from diff3d_tpu_torch.parallel import maybe_initialize_distributed
+
+        owned = maybe_initialize_distributed(device=args.device)
+    try:
+        _main(args)
+    finally:
+        if owned:
+            from diff3d_tpu_torch.parallel import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _main(args) -> None:
 
     # Dataset-choice errors fire before the model is built.
     if args.synthetic_scenes and args.val_data:
@@ -266,6 +292,7 @@ def main(argv=None) -> None:
     from diff3d_tpu_torch.models import build_model
     from diff3d_tpu_torch.sampling import Sampler
 
+    mesh_env, primary = None, True
     device = resolve_device(args.device)
     cfg = {"srn64": config_lib.srn64_config,
            "srn128": config_lib.srn128_config,
@@ -294,11 +321,18 @@ def main(argv=None) -> None:
                         imgsize=cfg.model.H,
                         split_seed=cfg.data.split_seed,
                         train_fraction=cfg.data.train_fraction)
+    if args.mesh:
+        from diff3d_tpu_torch.parallel import is_primary, make_mesh
+
+        mesh_env = make_mesh(cfg.mesh)
+        primary = is_primary()
+        logging.info("sampling on mesh %s (object axis over '%s')",
+                     mesh_env.topology_summary()["axes"], cfg.mesh.data_axis)
     try:
         sampler = Sampler(model, cfg, device=device,
                           scan_chunks=args.scan_chunks,
                           sampler_kind=args.sampler,
-                          steps=args.sampler_steps)
+                          steps=args.sampler_steps, mesh=mesh_env)
     except ValueError as e:     # a step count that does not divide
         raise SystemExit(str(e))
 
@@ -308,6 +342,13 @@ def main(argv=None) -> None:
         args.object_batch = 8 if cfg.model.H <= 64 else 2
         logging.info("object_batch auto -> %d (H=%d)", args.object_batch,
                      cfg.model.H)
+    if args.object_batch % sampler.lane_multiple:
+        # synthesize_many pads, but the padding lanes' work is wasted in
+        # every view: round the batch itself.
+        args.object_batch = (-(-args.object_batch // sampler.lane_multiple)
+                             * sampler.lane_multiple)
+        logging.info("object_batch rounded -> %d (mesh data-axis size %d)",
+                     args.object_batch, sampler.lane_multiple)
 
     if args.resume_dir is None:
         if args.out:
@@ -394,6 +435,8 @@ def main(argv=None) -> None:
             # float16 in memory and on disk: a fresh and a resumed pass
             # score the same pixels.
             gens[obj] = np.asarray(out, np.float16)
+            if not primary:
+                continue
             _save_object_record(args.resume_dir, obj, gens[obj],
                                 expect_meta)
             with open(progress_path, "a") as f:
@@ -520,7 +563,7 @@ def main(argv=None) -> None:
 
         par_objs = eval_objs[: args.parity_objects]
         oracle = Sampler(model, cfg, device=device,
-                         scan_chunks=args.scan_chunks)
+                         scan_chunks=args.scan_chunks, mesh=mesh_env)
         oracle_outs = [oracle.synthesize(obj_views[o],
                                          max_views=args.max_views,
                                          draws=draws_of(o))
@@ -577,7 +620,7 @@ def main(argv=None) -> None:
                      "consistency_l1": score["consistency_l1"],
                      "consistency_psnr": score["consistency_psnr"],
                      "valid_frac": round(score["valid_frac"], 4)}
-            if args.save_dir:
+            if args.save_dir and primary:
                 from diff3d_tpu_torch.sampling.runtime import (
                     save_frame_sequence)
 
@@ -601,6 +644,8 @@ def main(argv=None) -> None:
             "per_object": per_orbit,
         }
 
+    if not primary:
+        return
     if args.save_dir:
         from diff3d_tpu_torch.sampling.runtime import save_image
 

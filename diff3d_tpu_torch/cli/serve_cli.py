@@ -48,10 +48,13 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           apply_model_width_overrides,
                                           load_eval_params)
 
-_WAITING = ("Not in the port (see ROADMAP.md): --mesh (A10: the parallel "
-            "layer) is not a flag here, so it is refused; --pallas has no "
-            "counterpart: the port runs one implementation per device "
-            "(ops/dispatch.py).")
+_WAITING = ("Not in the port (see ROADMAP.md): --mesh is refused (serving "
+            "over several cards rides on tensor parallelism, ROADMAP "
+            "A10b); --pallas has no counterpart: the port runs one "
+            "implementation per device (ops/dispatch.py).")
+
+_MESH_REFUSED = ("--mesh: serving over a mesh of cards waits for ROADMAP "
+                 "A10b (tensor parallelism); one engine serves one card")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog=_WAITING)
+    p.add_argument("--mesh", action="store_true",
+                   help="refused: serving over a mesh of cards waits for "
+                        "ROADMAP A10b")
     p.add_argument("--model", default=None,
                    help="checkpoint directory, ckpt_<step>.pt, port state "
                         "dict (.pt) or Flax params (.npz); omit with "
@@ -251,6 +257,8 @@ def build_service(args):
     ``max_views`` bucket are already captured."""
     from diff3d_tpu_torch.serving import FleetService
 
+    if args.mesh:
+        raise SystemExit(_MESH_REFUSED)
     try:
         cfg = _config(args)
     except ValueError as e:

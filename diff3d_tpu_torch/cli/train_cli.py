@@ -19,8 +19,18 @@ unless another is named) and ``--eager`` (the train step eagerly instead
 of as CUDA graphs, for comparison).  SIGTERM or SIGINT stops a run
 gracefully: the step it reached is checkpointed, and ``--transfer``
 resumes there.
-The JAX package's other flags wait for later slices of the port; the
-parser rejects them as unknown (exit code 2).
+
+Data parallelism: launched by ``torchrun``, every rank trains
+``global_batch / world`` rows of each global batch (NCCL on the card,
+gloo with ``--device cpu``); ``--param_sharding`` picks ``replicated``
+(DDP: gradients all-reduced, the step a CUDA graph) or ``fsdp`` (FSDP2,
+eager); rank 0 writes metrics and checkpoints.  ``--elastic`` runs under
+the elastic supervisor (re-mesh and resume after a preemption or a
+transient fault; ``--elastic_max_remesh`` cycles in a row without
+progress give up).  Refused until ROADMAP A10b: ``--model_parallel``,
+``--context_parallel``, ``--param_sharding tp|fsdp+tp``, ``--attn_impl``
+and ``--pallas``.  The JAX package's other flags are unknown here (exit
+code 2).
 
 Usage:
     python -m diff3d_tpu_torch.cli.train_cli --synthetic --steps 10 \\
@@ -37,6 +47,12 @@ Usage:
     python -m diff3d_tpu_torch.cli.train_cli --config srn128 --ch 128 \\
         --accum 4 --synthetic_scenes --init_from runs/port_train/checkpoints \\
         --init_res 64 --workdir runs/port_train128_seeded
+    torchrun --standalone --nproc_per_node 8 -m \\
+        diff3d_tpu_torch.cli.train_cli --synthetic_scenes \\
+        --param_sharding fsdp --workdir runs/port_train_dp
+    torchrun --standalone --nproc_per_node 2 -m \\
+        diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
+        --synthetic --steps 2 --workdir /tmp/port_train_dp
 
 (``--init_from`` keeps every width: srn64 is ch 128, srn128 ch 256, so a
 64^2 -> 128^2 transfer takes ``--ch 128``.)
@@ -51,14 +67,16 @@ import logging
 from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           apply_model_width_overrides)
 
+_A10B = ("Refused until tensor parallelism is ported (ROADMAP A10b): "
+         "--model_parallel, --context_parallel, --param_sharding tp / "
+         "fsdp+tp, --attn_impl and --pallas.")
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog="Not in this slice of the port (see ROADMAP.md): "
-               "--param_sharding, --model_parallel, --context_parallel, "
-               "--attn_impl, --pallas, --elastic, --elastic_max_remesh.")
+        epilog=_A10B)
     p.add_argument("--transfer", action="store_true",
                    help="resume from the latest checkpoint in --workdir")
     p.add_argument("--train_data", default="./data/SRN/cars_train")
@@ -135,8 +153,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eager", action="store_true",
                    help="run the train step eagerly instead of as CUDA "
                         "graphs (the comparison path)")
+    p.add_argument("--param_sharding",
+                   choices=["replicated", "fsdp", "tp", "fsdp+tp"],
+                   default=None,
+                   help="'replicated' (every rank the whole state, the "
+                        "gradients all-reduced) or 'fsdp' (FSDP2, the step "
+                        "eager); tp / fsdp+tp are refused (ROADMAP A10b)")
+    p.add_argument("--model_parallel", type=int, default=None,
+                   help="refused: the model axis waits for ROADMAP A10b")
+    p.add_argument("--context_parallel", action="store_true",
+                   help="refused: waits for ROADMAP A10b")
+    p.add_argument("--attn_impl", default=None,
+                   help="refused: the port runs one attention "
+                        "implementation per device (ROADMAP A10b maps the "
+                        "reference's names)")
+    p.add_argument("--pallas", action="store_true",
+                   help="refused: the port runs one implementation per "
+                        "device (ROADMAP A10b)")
+    p.add_argument("--elastic", action="store_true",
+                   help="train under the elastic supervisor: after a "
+                        "preemption (SIGTERM) or a transient backend fault, "
+                        "re-initialise the process group, rebuild the "
+                        "mesh, restore the latest checkpoint and resume "
+                        "the data stream at its step.  Resumes from the "
+                        "latest checkpoint; --eval_every is not wired here")
+    p.add_argument("--elastic_max_remesh", type=int, default=8,
+                   help="give up after this many re-mesh cycles in a row "
+                        "without progress (a cycle that advances the step "
+                        "refills the budget)")
     add_model_width_args(p)
     return p
+
+
+def refuse_unported(args) -> None:
+    """Exit naming ROADMAP A10b for the flags of tensor parallelism."""
+    bad = [f for f, on in (
+        ("--model_parallel", args.model_parallel is not None),
+        ("--context_parallel", args.context_parallel),
+        (f"--param_sharding {args.param_sharding}",
+         args.param_sharding in ("tp", "fsdp+tp")),
+        ("--attn_impl", args.attn_impl is not None),
+        ("--pallas", args.pallas)) if on]
+    if bad:
+        raise SystemExit(f"{', '.join(bad)}: {_A10B}")
 
 
 def config_from_args(args):
@@ -156,6 +215,9 @@ def config_from_args(args):
     if over:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **over))
+    if getattr(args, "param_sharding", None) is not None:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, param_sharding=args.param_sharding))
     model_over = {k: v for k, v in (("remat", args.remat),
                                     ("remat_policy", args.remat_policy))
                   if v is not None}
@@ -197,18 +259,15 @@ def datasets(args, cfg):
                           train_fraction=cfg.data.train_fraction, **split)
 
 
-def build_trainer(args, preemption: bool = False):
-    """The :class:`~diff3d_tpu_torch.train.Trainer` of ``args``, with its
-    loader attached and seeked to the (restored) step and its val loader
-    (``--eval_every``); ``preemption`` installs its SIGTERM / SIGINT
-    handler first (``main`` does; ``trainer.install_preemption_handler()``
-    then returns the uninstaller, which the caller runs when done)."""
+def _setup(args):
+    """``(cfg, device, env)`` of ``args``: the refusals first, then the
+    mesh over the process group (if any) and the per-rank batch check."""
     import torch
 
-    from diff3d_tpu_torch.data import InfiniteLoader, prefetch_to_device
     from diff3d_tpu_torch.device import resolve_device
-    from diff3d_tpu_torch.train import Trainer
+    from diff3d_tpu_torch.parallel import make_mesh
 
+    refuse_unported(args)
     if args.synthetic and args.synthetic_scenes:
         raise SystemExit(
             "--synthetic and --synthetic_scenes are mutually exclusive")
@@ -219,10 +278,40 @@ def build_trainer(args, preemption: bool = False):
         # own kernels use no float atomics).
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    env = make_mesh(cfg.mesh)
+    if cfg.train.global_batch % env.data_size:
+        raise SystemExit(f"global batch {cfg.train.global_batch} does not "
+                         f"split over {env.data_size} ranks")
+    return cfg, device, env
+
+
+def rank_loader(ds, cfg, env, *, seed: int, start_step: int = 0,
+                num_workers: int = 0, sample_mode: str = "iid"):
+    """This rank's :class:`InfiniteLoader`: ``global_batch / world`` rows,
+    the rank's slots of each global batch."""
+    from diff3d_tpu_torch.data import InfiniteLoader
+
+    return InfiniteLoader(ds, cfg.train.global_batch // env.data_size,
+                          seed=seed, host_id=env.data_rank,
+                          num_hosts=env.data_size, num_workers=num_workers,
+                          start_step=start_step, sample_mode=sample_mode)
+
+
+def build_trainer(args, preemption: bool = False):
+    """The :class:`~diff3d_tpu_torch.train.Trainer` of ``args`` on the
+    mesh of the process group (one process: the no-group mesh), with this
+    rank's loader attached and seeked to the (restored) step and its val
+    loader (``--eval_every``); ``preemption`` installs its SIGTERM / SIGINT
+    handler first (``main`` does; ``trainer.install_preemption_handler()``
+    then returns the uninstaller, which the caller runs when done)."""
+    from diff3d_tpu_torch.data import prefetch_to_device
+    from diff3d_tpu_torch.train import Trainer
+
+    cfg, device, env = _setup(args)
     ds, val_ds = datasets(args, cfg)
     trainer = Trainer(cfg, workdir=args.workdir, transfer=args.transfer,
                       device=device,
-                      cuda_graphs=False if args.eager else None)
+                      cuda_graphs=False if args.eager else None, env=env)
     if args.init_from:
         seed_from_checkpoint(trainer, args.init_from, args.init_res)
     if preemption:
@@ -230,15 +319,45 @@ def build_trainer(args, preemption: bool = False):
     # The loader is built after the restore, so a --transfer run seeks the
     # data stream to the restored step.  The val loader is not seeked (as
     # the JAX package's): a resumed run scores other val batches.
-    loader = InfiniteLoader(ds, cfg.train.global_batch, seed=cfg.train.seed,
-                            num_workers=args.num_workers,
-                            start_step=trainer.state.step)
+    loader = rank_loader(ds, cfg, env, seed=cfg.train.seed,
+                         num_workers=args.num_workers,
+                         start_step=trainer.state.step)
     trainer.loader = prefetch_to_device(loader, device)
     if val_ds is not None:
-        trainer.val_loader = InfiniteLoader(
-            val_ds, cfg.train.global_batch, seed=cfg.train.seed + 1,
-            num_workers=0, sample_mode="permute")
+        trainer.val_loader = rank_loader(val_ds, cfg, env,
+                                         seed=cfg.train.seed + 1,
+                                         sample_mode="permute")
     return trainer
+
+
+def build_supervisor(args):
+    """The :class:`~diff3d_tpu_torch.train.ElasticSupervisor` of
+    ``args``: each cycle's loader is this rank's, seeked to the restored
+    step."""
+    from diff3d_tpu_torch.data import prefetch_to_device
+    from diff3d_tpu_torch.runtime.retry import (RetryPolicy,
+                                                is_transient_backend_error)
+    from diff3d_tpu_torch.train import ElasticSupervisor
+
+    if args.init_from:
+        raise SystemExit(
+            "--elastic and --init_from are mutually exclusive: seed the "
+            "workdir with a plain --init_from run first, then relaunch "
+            "--elastic (it resumes from the latest checkpoint)")
+    cfg, device, _ = _setup(args)
+    ds, _ = datasets(args, cfg)
+
+    def make_loader(step, env):
+        return prefetch_to_device(
+            rank_loader(ds, cfg, env, seed=cfg.train.seed, start_step=step,
+                        num_workers=args.num_workers), device)
+
+    return ElasticSupervisor(
+        cfg, make_loader, workdir=args.workdir,
+        retry=RetryPolicy(max_attempts=args.elastic_max_remesh,
+                          base_delay_s=2.0, max_delay_s=60.0,
+                          classify=is_transient_backend_error),
+        device=device, cuda_graphs=False if args.eager else None)
 
 
 def seed_from_checkpoint(trainer, path: str, init_res: int) -> None:
@@ -281,13 +400,31 @@ def seed_from_checkpoint(trainer, path: str, init_res: int) -> None:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    trainer = build_trainer(args, preemption=True)
-    uninstall = trainer.install_preemption_handler()    # the one installed
+    import torch.distributed as dist
+
+    from diff3d_tpu_torch.parallel import (maybe_initialize_distributed,
+                                           shutdown_distributed)
+
+    refuse_unported(args)
+    # First: under torchrun this joins the group (NCCL takes LOCAL_RANK's
+    # card before anything else touches CUDA).  A group the caller made
+    # is used as it is and left up.
+    owned = not dist.is_initialized() and maybe_initialize_distributed(
+        device=args.device)
     try:
-        trainer.train()
+        if args.elastic:
+            build_supervisor(args).run()
+            return
+        trainer = build_trainer(args, preemption=True)
+        uninstall = trainer.install_preemption_handler()  # the one installed
+        try:
+            trainer.train()
+        finally:
+            trainer.loader.close()
+            uninstall()
     finally:
-        trainer.loader.close()
-        uninstall()
+        if owned:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -4,8 +4,7 @@ An own copy of the model, diffusion, train, data and serving settings the
 ported slices act on, with the JAX package's values.  Left out until a
 slice acts on them: ``attn_impl`` / ``attn_impl_levels`` and ``kernels``
 (the port runs one implementation per device, see
-:mod:`diff3d_tpu_torch.ops.dispatch`); the mesh section;
-and the serving fields of the cross-process fleet (heartbeats, the
+:mod:`diff3d_tpu_torch.ops.dispatch`) and the serving fields of the cross-process fleet (heartbeats, the
 transport's frame ceiling).
 """
 
@@ -130,6 +129,50 @@ class DataConfig:
     train_fraction: float = 0.9
 
 
+#: Parameter placements the port takes.  The tensor-parallel policies
+#: (``tp``, ``fsdp+tp``) and the model axis wait for ROADMAP A10b.
+PARAM_SHARDINGS = ("replicated", "fsdp")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The process mesh (reference ``diff3d_tpu/config.py:186-215``): a
+    ``(data, model)`` grid of ranks.  ``param_sharding`` places the
+    parameters, Adam's moments and the EMA: ``'replicated'`` keeps a whole
+    copy on every rank and all-reduces the gradients (DDP); ``'fsdp'``
+    shards each parameter's largest divisible dim over the data axis
+    (FSDP2).  The model axis, ``tp`` / ``fsdp+tp`` and
+    ``context_parallel`` are carried field for field but refused by
+    :meth:`validate` until ROADMAP A10b."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1           # -1: every rank
+    model_parallel: int = 1
+    param_sharding: str = "replicated"
+    context_parallel: bool = False
+
+    def validate(self) -> None:
+        if self.context_parallel and self.model_parallel <= 1:
+            raise ValueError(
+                "context_parallel shards the spatial axis over the model "
+                f"axis, but model_parallel={self.model_parallel} makes "
+                "that a no-op — set model_parallel > 1")
+        if self.param_sharding in ("tp", "fsdp+tp"):
+            raise ValueError(
+                f"param_sharding={self.param_sharding!r}: the tensor-"
+                "parallel policies are not ported yet (ROADMAP A10b); "
+                f"take one of {PARAM_SHARDINGS}")
+        if self.param_sharding not in PARAM_SHARDINGS:
+            raise ValueError(f"param_sharding={self.param_sharding!r} not "
+                             f"in {PARAM_SHARDINGS}")
+        if self.model_parallel > 1 or self.context_parallel:
+            raise ValueError(
+                f"model_parallel={self.model_parallel}, context_parallel="
+                f"{self.context_parallel}: the model axis is not ported "
+                "yet (ROADMAP A10b); the port runs data parallelism only")
+
+
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """The inference service (:mod:`diff3d_tpu_torch.serving`), with the
@@ -244,12 +287,14 @@ class Config:
         default_factory=DiffusionConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     serving: ServingConfig = dataclasses.field(
         default_factory=ServingConfig)
 
     def validate(self) -> None:
         self.model.validate()
         self.serving.validate()
+        self.mesh.validate()
         if self.diffusion.loss_type not in ("l1", "l2", "huber"):
             raise ValueError(f"loss_type={self.diffusion.loss_type!r} not "
                              "in ('l1', 'l2', 'huber')")

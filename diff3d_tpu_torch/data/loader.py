@@ -3,18 +3,19 @@
 
   * :class:`InfiniteLoader` draws global batch ``n`` as a pure function of
     ``(seed, n)``: one ``SeedSequence(entropy=seed, spawn_key=(n,))``
-    spawned once per slot picks each slot's object and views, so resume
-    seeks to any step by number (``start_step``) with no loader state.  A
-    thread pool overlaps sample decoding.  ``sample_mode="permute"`` (the
-    val loaders) takes the objects from per-epoch permutations instead.
+    spawned once per global slot picks each slot's object and views, so
+    resume seeks to any step by number (``start_step``) with no loader
+    state.  Rank ``r`` of ``n`` (``host_id`` / ``num_hosts``) takes slots
+    ``[r B, r B + B)`` of that global batch, so any partition concatenates
+    to the same global stream (an elastic re-mesh neither replays nor
+    skips).  A thread pool overlaps sample decoding.
+    ``sample_mode="permute"`` (the val loaders) takes the objects from
+    per-epoch permutations instead.
   * :func:`prefetch_to_device` runs the loader in a background thread,
     ``depth`` batches ahead: each batch is copied into pinned host memory
     and sent to the card with ``non_blocking=True`` on a side CUDA stream;
     the consumer's stream waits on that copy's event (in place of the JAX
     package's ``jax.device_put`` prefetch, ``loader.py:158``).
-
-The per-host slicing (``host_id`` / ``num_hosts``) waits for the
-data-parallel slice (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -36,23 +37,31 @@ def _collate(samples) -> Dict[str, np.ndarray]:
 
 class InfiniteLoader:
     """Yields ``{'imgs': [B, V, H, W, 3], 'R': [B, V, 3, 3], 'T': [B, V, 3],
-    'K': [B, 3, 3]}`` numpy batches forever (``imgs`` uint8); batch ``n``
-    depends on ``(seed, n)`` only.
+    'K': [B, 3, 3]}`` numpy batches forever (``imgs`` uint8), ``B`` the
+    per-rank batch; batch ``n`` depends on ``(seed, n)`` only, rank
+    ``host_id`` taking global slots ``[host_id B, host_id B + B)`` of
+    ``B * num_hosts``.
 
     ``sample_mode``: ``"iid"`` (training) draws each slot's object
     independently, with replacement; ``"permute"`` (the val loaders) reads
-    draw ``g = n * batch_size + slot`` from a per-epoch permutation of the
-    dataset, so every object is seen once per ``len(dataset)`` consecutive
-    draws, still a pure function of ``(seed, n, slot)``."""
+    draw ``g = n * global_batch + global_slot`` from a per-epoch
+    permutation of the dataset (shared by every rank), so every object is
+    seen once per ``len(dataset)`` consecutive draws, still a pure function
+    of ``(seed, n, global_slot)``."""
 
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
+                 host_id: int = 0, num_hosts: int = 1,
                  num_workers: int = 8, start_step: int = 0,
                  sample_mode: str = "iid"):
         if sample_mode not in ("iid", "permute"):
             raise ValueError(f"unknown sample_mode {sample_mode!r}")
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id={host_id} not in [0, {num_hosts})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.sample_mode = sample_mode
         self._step = start_step
         self._quant_warn: Dict[str, bool] = {}
@@ -75,12 +84,14 @@ class InfiniteLoader:
         return perm
 
     def batch(self, step: int) -> Dict[str, np.ndarray]:
-        """Global batch ``step``."""
+        """This rank's slots of global batch ``step``."""
+        global_batch = self.batch_size * self.num_hosts
+        lo = self.host_id * self.batch_size
         root = np.random.SeedSequence(entropy=self.seed, spawn_key=(step,))
-        seqs = root.spawn(self.batch_size)
+        seqs = root.spawn(global_batch)[lo:lo + self.batch_size]
         n = len(self.dataset)
         if self.sample_mode == "permute":
-            g0 = step * self.batch_size
+            g0 = step * global_batch + lo
             idxs = [int(self._epoch_perm((g0 + b) // n)[(g0 + b) % n])
                     for b in range(self.batch_size)]
         else:

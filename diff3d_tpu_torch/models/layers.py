@@ -21,7 +21,7 @@ pool and upsampling nearest.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,14 +163,36 @@ class FiLM(nn.Module):
         return e[..., :self.features], e[..., self.features:]
 
 
-def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
+class RowShard(NamedTuple):
+    """A data-parallel rank's dropout source, passed where the model takes
+    its ``generator``: each mask is drawn from ``generator`` at the global
+    batch's size (``world`` ranks' rows, rank-major) and rank ``rank``
+    keeps its rows, so that ``world`` ranks draw what one process training
+    the global batch draws (the property of ``jax.random`` under
+    sharding)."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+def dropout_keep(shape, rate: float,
+                 generator: Optional[torch.Generator | RowShard],
                  device: torch.device) -> torch.Tensor:
     """The keep mask of :func:`dropout`: a uniform draw from ``generator``
-    below ``1 - rate``."""
+    (a ``torch.Generator``, or a :class:`RowShard`: this rank's rows of the
+    global batch's draw) below ``1 - rate``."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    return torch.rand(tuple(shape), generator=generator, device=device) \
-        < 1.0 - rate
+    shape = tuple(shape)
+    if isinstance(generator, RowShard):
+        gen, rank, world = generator
+        n = shape[0]
+        u = torch.rand((n * world,) + shape[1:], generator=gen,
+                       device=device)[rank * n:(rank + 1) * n]
+    else:
+        u = torch.rand(shape, generator=generator, device=device)
+    return u < 1.0 - rate
 
 
 def dropout(h: torch.Tensor, rate: float, training: bool,

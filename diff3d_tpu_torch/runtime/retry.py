@@ -1,5 +1,5 @@
 """Bounded retry with capped exponential backoff (counterpart:
-``diff3d_tpu/runtime/retry.py``, its ``RetryPolicy``,
+``diff3d_tpu/runtime/retry.py``, its ``RetryPolicy``, ``RetryBudget``,
 ``is_transient_io_error`` and ``is_transient_backend_error``).
 
 The checkpoint writer (:mod:`diff3d_tpu_torch.train.checkpoint`) retries
@@ -8,7 +8,12 @@ checkpoint under a policy; the serving engine retries a view step under
 one that classifies with :func:`is_transient_backend_error`.  CUDA's
 sticky errors (an illegal memory access, a launch failure, a device-side
 assert, a launch timeout) poison the context, so they are never
-transient: a retry in the same process can only repeat them.
+transient: a retry in the same process can only repeat them.  Of
+``torch.distributed``'s faults, a rendezvous or store timeout
+(``DistNetworkError``, ``DistStoreError``), a peer that reset or closed
+its connection and NCCL's remote and system errors are transient (the
+process group can be rebuilt: ``parallel.multihost``); NCCL's internal
+and invalid-usage errors are bugs, never retried.
 """
 
 from __future__ import annotations
@@ -48,6 +53,16 @@ _TRANSIENT_MARKERS = (
     "transport closed",
     "failed to connect",
     "temporarily",
+    # torch.distributed: the rendezvous and the store, a lost peer.
+    "connection closed by peer",
+    "connection reset by peer",
+    "socket timeout",
+    "timed out",
+    # NCCL's result codes of a fault outside the program.
+    "ncclremoteerror",
+    "ncclsystemerror",
+    "remote process exited or there was a network error",
+    "unhandled system error",
 )
 
 #: Lower-cased substrings of CUDA's sticky errors: each leaves the
@@ -60,15 +75,41 @@ _STICKY_CUDA_MARKERS = (
     "cudaerrorlaunchtimeout",
 )
 
+#: NCCL's errors of the program itself: retrying repeats them.
+_NCCL_BUG_MARKERS = (
+    "ncclinternalerror",
+    "ncclinvalidusage",
+    "ncclinvalidargument",
+    "internal check failed",
+    "invalid usage",
+)
+
+
+def _dist_transient_types() -> tuple:
+    """``torch.distributed``'s rendezvous and store errors, where this
+    build of torch has them."""
+    try:
+        import torch.distributed as dist
+    except ImportError:  # pragma: no cover - torch without distributed
+        return ()
+    return tuple(t for t in (getattr(dist, "DistNetworkError", None),
+                             getattr(dist, "DistStoreError", None))
+                 if isinstance(t, type))
+
 
 def is_transient_backend_error(exc: BaseException) -> bool:
     """True if ``exc`` looks like a transient backend or transport fault:
-    a :class:`RetryableError`, a ``ConnectionError``, or a message with
-    one of the transport markers, unless it names a sticky CUDA error."""
+    a :class:`RetryableError`, a ``ConnectionError``, a
+    ``torch.distributed`` rendezvous or store error, or a message with one
+    of the transport markers, unless it names a sticky CUDA error or an
+    NCCL error of the program itself."""
     msg = str(exc).lower()
     if any(marker in msg for marker in _STICKY_CUDA_MARKERS):
         return False
-    if isinstance(exc, (RetryableError, ConnectionError)):
+    if any(marker in msg for marker in _NCCL_BUG_MARKERS):
+        return False
+    if isinstance(exc, (RetryableError, ConnectionError)
+                  + _dist_transient_types()):
         return True
     return any(marker in msg for marker in _TRANSIENT_MARKERS)
 
@@ -131,3 +172,30 @@ class RetryPolicy:
                             exc, delay)
                 self.sleep(delay)
         raise AssertionError("unreachable")  # pragma: no cover
+
+
+class RetryBudget:
+    """A failure budget that progress refills, for supervision loops
+    (the elastic supervisor): give up after ``max_failures`` failures in a
+    row *without forward progress*, never because a long run was
+    preempted many times.  ``spend()`` takes one unit and returns True
+    while some remain; ``reset()`` refills it.  One owner, no locking."""
+
+    def __init__(self, max_failures: int):
+        if max_failures < 1:
+            raise ValueError(f"max_failures must be >= 1, got {max_failures}")
+        self.max_failures = max_failures
+        self.spent = 0
+
+    def spend(self) -> bool:
+        """Take one failure; True while the budget is not exhausted."""
+        self.spent += 1
+        return self.spent < self.max_failures
+
+    def reset(self) -> None:
+        """Forward progress: the budget is whole again."""
+        self.spent = 0
+
+    @property
+    def remaining(self) -> int:
+        return max(0, self.max_failures - self.spent)

@@ -27,9 +27,18 @@ time on one stream, and a step writes its results only into buffers
 allocated outside the capture.  The per-call ``params=`` swap of the JAX
 package becomes an in-place copy into the model's parameters
 (:class:`~diff3d_tpu_torch.serving.ParamsRegistry`), which the captured
-graphs read at fixed addresses.  The mesh waits for a later slice
-(``lane_multiple`` is 1, the JAX package's no-mesh case), and so does
-``lower_step_many``.
+graphs read at fixed addresses.
+
+With a mesh (``Sampler(mesh=env)``, a :class:`~diff3d_tpu_torch.parallel.
+MeshEnv` whose data axis spans ``n`` ranks) the object axis of
+:meth:`Sampler.step_many` and :meth:`Sampler.synthesize_many` is split
+over the ranks: rank ``r`` runs objects ``[r N/n, (r+1) N/n)`` in its own
+loop (its own CUDA graph), and the views are all-gathered, so every rank
+returns all ``N`` objects' views and keeps the same records.
+:attr:`Sampler.lane_multiple` becomes ``n``: ``step_many`` refuses an
+object count that is not a multiple of it, ``synthesize_many`` pads.
+``lower_step_many`` (the JAX package's StableHLO hook) waits for ROADMAP
+A11.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.device import resolve_device
@@ -126,23 +136,27 @@ class Sampler:
         The first view of a shape runs its first step eagerly, then
         captures the step; a failed capture raises.
 
+      mesh: a :class:`~diff3d_tpu_torch.parallel.MeshEnv` to split the
+        object axis of the batched entry points over (its data axis);
+        :attr:`lane_multiple` is then its data size.  Every rank holds the
+        whole model (the parameters are not sharded for sampling).
+
     :attr:`graph_pool` (None: each graph gets a pool of its own) may be
     set to a CUDA-graph memory pool handle
     (``torch.cuda.graph_pool_handle()``) that every later capture goes
     into; only one graph of a shared pool may run at a time.
     """
 
-    #: Object-axis quantum of the lane count; the mesh, which would make
-    #: it the data-axis size, waits for the parallel layer.
-    lane_multiple = 1
-
     def __init__(self, model: torch.nn.Module, cfg: Config, *,
                  device: Optional[Union[str, torch.device]] = None,
                  sampler_kind: str = "ancestral",
                  steps: Optional[int] = None, scan_chunks: int = 1,
                  start_t: Optional[float] = None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None, mesh=None):
         cfg.validate()
+        self.mesh = mesh
+        #: The object axis's quantum: the mesh's data size (1 without).
+        self.lane_multiple = 1 if mesh is None else mesh.data_size
         self.device = resolve_device(device)
         self.cuda_graphs = use_cuda_graphs(cuda_graphs, self.device)
         self.model = model.to(self.device).eval()
@@ -246,17 +260,48 @@ class Sampler:
         own first ``steps[n]`` entries and its target pose is its entry
         ``steps[n]``.  ``draws`` holds one draw source per object.
         Returns ``(out [N, B, H, W, 3], record_imgs, steps + 1)`` with the
-        records updated in place.
+        records updated in place.  On a mesh N must be a multiple of
+        :attr:`lane_multiple`; each rank runs its share of the objects and
+        the views are all-gathered.
         """
         self._check_draft(drafts, batched=True)
         lens = [int(s) for s in steps]
         n = int(record_imgs.shape[0])
+        if n % self.lane_multiple:
+            raise ValueError(
+                f"step_many: {n} objects is not a multiple of the mesh's "
+                f"data-axis size {self.lane_multiple} — pad the batch "
+                "(repeat a live lane; padded outputs are discarded) or "
+                "use synthesize_many, which pads internally")
         if len(lens) != n or len(draws) != n:
             raise ValueError(f"step_many: {n} objects need {n} steps and "
                              f"{n} draw sources, got {len(lens)} and "
                              f"{len(draws)}")
-        return self._view(record_imgs, record_R, record_T, lens, K, draws,
-                          drafts)
+        if self.lane_multiple == 1:
+            return self._view(record_imgs, record_R, record_T, lens, K,
+                              draws, drafts)
+        return self._view_split(record_imgs, record_R, record_T, lens, K,
+                                draws, drafts)
+
+    def _view_split(self, record_imgs, record_R, record_T, lens, K, draws,
+                    drafts) -> tuple:
+        """:meth:`_view` of this rank's objects, then the views of all
+        ranks all-gathered and written into every rank's records."""
+        world, rank = self.lane_multiple, self.mesh.data_rank
+        m = int(record_imgs.shape[0]) // world
+        mine = slice(rank * m, (rank + 1) * m)
+        rec = record_imgs[mine].clone()
+        out, _, _ = self._view(
+            rec, record_R[mine], record_T[mine], lens[mine], K[mine],
+            draws[mine], None if drafts is None else drafts[mine])
+        full = torch.empty((world * m,) + tuple(out.shape[1:]),
+                           dtype=out.dtype, device=out.device)
+        dist.all_gather_into_tensor(full, out.contiguous(),
+                                    group=self.mesh.group)
+        at = torch.arange(world * m, device=record_imgs.device)
+        record_imgs[at, torch.tensor(lens, device=record_imgs.device)] = \
+            full.to(record_imgs.dtype)
+        return full, record_imgs, [s + 1 for s in lens]
 
     def _loop(self, N: int, capacity: int, H: int, W: int,
               dtype: torch.dtype) -> tuple:
@@ -415,7 +460,9 @@ class Sampler:
         convolution and matmul algorithms).  Every object contributes
         ``n_views = min(min_i views_i, max_views)`` views.  The records
         stay on the device; one fetch at the end.  Returns ``[N,
-        n_views-1, B, H, W, 3]``.
+        n_views-1, B, H, W, 3]``.  On a mesh N is padded to a multiple of
+        :attr:`lane_multiple` by repeating object 0's views (live data),
+        with draws of their own; the padded outputs are discarded.
         """
         self._check_no_truncation("synthesize_many")
         N = len(views_list)
@@ -437,6 +484,10 @@ class Sampler:
         per_object = [self._view_draws(
             n_views - 1, None if generators is None else generators[n],
             draws[n], f"draws[{n}]") for n in range(N)]
+        n_pad = -N % self.lane_multiple
+        per_object += [self._view_draws(n_views - 1, None, None, "")
+                       for _ in range(n_pad)]
+        views_list = list(views_list) + [views_list[0]] * n_pad
         recs = [self._record_init(
             np.asarray(v["imgs"][0], np.float32),
             np.asarray(v["R"], np.float32), np.asarray(v["T"], np.float32),
@@ -446,9 +497,9 @@ class Sampler:
             for j in range(3))
         K = torch.from_numpy(np.stack([np.asarray(v["K"], np.float32)
                                        for v in views_list])).to(self.device)
-        steps = [1] * N
+        steps = [1] * len(views_list)
         for v in range(n_views - 1):
             _, rec_i, steps = self.step_many(
                 rec_i, rec_R, rec_T, steps, K,
-                [per_object[n][v] for n in range(N)])
-        return rec_i[:, 1:n_views].cpu().numpy()
+                [per_object[n][v] for n in range(len(views_list))])
+        return rec_i[:N, 1:n_views].cpu().numpy()

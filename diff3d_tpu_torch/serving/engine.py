@@ -703,16 +703,18 @@ class Engine:
         while not self._stop.wait(poll):
             deadline = self._step_deadline
             if deadline is not None and time.monotonic() > deadline:
-                # Clear the deadline first so one stuck step trips once.
+                # Clear the deadline first so one stuck step trips once;
+                # degrade before failing the in-flight requests, so a
+                # client woken by the failure sees the degraded state.
                 self._step_deadline = None
                 self._watchdog_trips.inc()
+                self._note_fault("stuck view step")
                 n = self._reject_inflight(EngineStepError(
                     f"view step stuck > {self.cfg.watchdog_timeout_s}s "
                     "(watchdog); retry later",
                     retry_after_s=self.cfg.retry_after_s))
                 log.error("watchdog: stuck view step; failed %d "
                           "in-flight requests", n)
-                self._note_fault("stuck view step")
             thread = self._thread
             if (thread is not None and not thread.is_alive()
                     and not self._stop.is_set()):

@@ -29,6 +29,19 @@ naming a mode other than ``full``; an unmarked directory is ``full`` (so
 every checkpoint written before the marker existed stays readable), and a
 mode that disagrees with the marker is refused.
 
+Under a process group (:mod:`diff3d_tpu_torch.parallel`) only rank 0
+writes ``full`` and ``ema_bf16`` files and the marker; every rank calls
+:meth:`CheckpointManager.save` at the same steps (the directory must be
+one every rank sees), and under ``fsdp`` the full state is gathered first
+(``torch.distributed.checkpoint.state_dict.get_state_dict`` with full
+state dicts), so the files keep the one-process format.  ``full_sliced``
+is one process's format and is refused in a group of more than one rank.
+:attr:`CheckpointManager.mesh_info` (the trainer's
+``MeshEnv.topology_summary()``) is stamped into every checkpoint; a
+restore into another topology records ``{"step", "from", "to"}`` in
+:attr:`CheckpointManager.last_restore_reshard` (a reshard, the elastic
+loop's normal resume, not an error).
+
 A restore first compares every tensor's name, shape and dtype on disk
 with the target's and raises :class:`CheckpointMismatchError` naming the
 first that differs, before anything is copied.  ``full`` replaces Adam's
@@ -54,6 +67,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from diff3d_tpu_torch.parallel.multihost import is_primary, world_size
 from diff3d_tpu_torch.runtime.retry import RetryPolicy, is_transient_io_error
 from diff3d_tpu_torch.train.state import (TrainState, set_schedule_step,
                                           settle_lr)
@@ -98,6 +112,52 @@ class CheckpointMismatchError(ValueError):
 
 def _meta(t: torch.Tensor) -> Tuple[tuple, str]:
     return tuple(t.shape), str(t.dtype).replace("torch.", "")
+
+
+def _sharded(t) -> bool:
+    """Whether ``t`` is an FSDP-sharded tensor (a DTensor)."""
+    return hasattr(t, "full_tensor")
+
+
+def _copy_into(target: torch.Tensor, src: torch.Tensor) -> None:
+    """``target.copy_(src)`` for a whole ``src``; a sharded ``target``
+    takes its own chunk (FSDP2's ``torch.chunk`` layout)."""
+    if not _sharded(target):
+        target.copy_(src)
+        return
+    (place,) = target.placements
+    mesh = target.device_mesh
+    chunks = src.chunk(mesh.size(), dim=place.dim)
+    rank = mesh.get_local_rank()
+    local = target.to_local()
+    if rank < len(chunks):
+        local.copy_(chunks[rank])
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a sharded ``t`` (a collective: every rank
+    calls it), on the host; ``t`` itself otherwise."""
+    return t.full_tensor().cpu() if _sharded(t) else t
+
+
+def _gathered_payload(state) -> Tuple[dict, dict]:
+    """``(model, optim)`` state dicts of an FSDP state, whole, in the
+    one-process format (Adam's state keyed by parameter index): every
+    rank calls it, rank 0 gets the tensors (the others empty dicts)."""
+    from torch.distributed.checkpoint.state_dict import (StateDictOptions,
+                                                         get_state_dict)
+
+    msd, osd = get_state_dict(state.model, state.optimizer,
+                              options=StateDictOptions(
+                                  full_state_dict=True, cpu_offload=True))
+    index = {n: i for i, (n, _) in
+             enumerate(state.model.named_parameters())}
+    optim = {"state": {index[k]: v for k, v in
+                       osd.get("state", {}).items()},
+             "param_groups": [dict(g, params=[index[k] for k in
+                                              g["params"]])
+                              for g in osd.get("param_groups", [])]}
+    return msd, optim
 
 
 def _adam_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
@@ -202,6 +262,12 @@ class CheckpointManager:
             raise ValueError(f"mode={mode!r} not in {MODES}")
         self.directory = directory
         self.keep = keep
+        #: ``MeshEnv.topology_summary()`` of the state's mesh (set by the
+        #: trainer before any restore); stamped into each checkpoint.
+        self.mesh_info: Optional[dict] = None
+        #: After a restore whose saved mesh differs from ``mesh_info``:
+        #: ``{"step", "from", "to"}``; None otherwise.
+        self.last_restore_reshard: Optional[dict] = None
         marker = os.path.join(directory, _MARKER)
         if os.path.exists(marker):
             with open(marker) as f:
@@ -217,7 +283,7 @@ class CheckpointManager:
             self.mode = marked
         else:
             self.mode = mode or "full"
-            if self.mode != "full":
+            if self.mode != "full" and is_primary():
                 # An unmarked directory that holds checkpoints holds full
                 # ones: stamping it with another mode would wedge them.
                 if self._files() or self._sliced_steps():
@@ -228,6 +294,10 @@ class CheckpointManager:
                 os.makedirs(directory, exist_ok=True)
                 with open(marker, "w") as f:
                     json.dump({"mode": self.mode}, f)
+        if self.mode == "full_sliced" and world_size() > 1:
+            raise ValueError(
+                "ckpt mode 'full_sliced' is single-host only "
+                f"(process_count={world_size()}); use 'full'")
         self._write_retry = write_retry or _DEFAULT_WRITE_RETRY
         self._async = bool(async_writes) and self.mode == "full_sliced"
         self._lock = threading.Lock()
@@ -291,15 +361,24 @@ class CheckpointManager:
         path = self.path(state.step)
         if os.path.exists(path) and not force:
             return False
+        ema = {k: _full(v) for k, v in state.ema.items()}
         if self.mode == "ema_bf16":
             payload = {"ema": {k: v.detach().to("cpu", torch.bfloat16)
-                               for k, v in state.ema.items()},
+                               for k, v in ema.items()},
                        "step": state.step}
         else:
-            payload = {"model": state.model.state_dict(), "ema": state.ema,
-                       "optim": state.optimizer.state_dict(),
+            if any(_sharded(p) for p in state.model.parameters()):
+                model, optim = _gathered_payload(state)
+            else:
+                model = state.model.state_dict()
+                optim = state.optimizer.state_dict()
+            payload = {"model": model, "ema": ema, "optim": optim,
                        "sched": state.scheduler.state_dict(),
                        "step": state.step}
+        if self.mesh_info is not None and self.mode == "full":
+            payload["mesh"] = self.mesh_info
+        if not is_primary():
+            return True
         os.makedirs(self.directory, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -326,10 +405,12 @@ class CheckpointManager:
             arrays.append(host.numpy())
             meta.append({"name": name, "shape": list(shape),
                          "dtype": dtype})
-        return _Snapshot(step=state.step, arrays=arrays, manifest={
-            "step": state.step,
-            "schedule_step": int(state.scheduler.last_epoch),
-            "leaves": meta})
+        manifest = {"step": state.step,
+                    "schedule_step": int(state.scheduler.last_epoch),
+                    "leaves": meta}
+        if self.mesh_info is not None:
+            manifest["mesh"] = self.mesh_info
+        return _Snapshot(step=state.step, arrays=arrays, manifest=manifest)
 
     def _commit(self, snap: _Snapshot) -> None:
         """Write one snapshot and publish it by a rename; safe to retry
@@ -434,6 +515,15 @@ class CheckpointManager:
         t = torch.from_numpy(arr)
         return t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
 
+    def _note_reshard(self, step: int, saved: Optional[dict]) -> None:
+        self.last_restore_reshard = None
+        if saved is not None and self.mesh_info is not None \
+                and saved != self.mesh_info:
+            self.last_restore_reshard = {"step": step, "from": saved,
+                                         "to": self.mesh_info}
+            log.info("resharding checkpoint step %d: saved on %s -> "
+                     "restoring into %s", step, saved, self.mesh_info)
+
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> Optional[int]:
         """Load checkpoint ``step`` (the latest when None) into ``state``
@@ -460,6 +550,9 @@ class CheckpointManager:
         _preflight(found, _expected(state, any(
             n.startswith("adam.") for n, _, _ in found)), self.path(step),
             step)
+        self._note_reshard(step, ckpt.get("mesh"))
+        if any(_sharded(p) for p in state.model.parameters()):
+            return self._restore_sharded(state, ckpt, step)
         state.model.load_state_dict(ckpt["model"])
         # The optimizer keeps its own kind (``capturable`` on the card):
         # a loaded state dict brings the saving optimizer's flags.
@@ -481,6 +574,31 @@ class CheckpointManager:
         state.step = int(ckpt["step"])
         return state.step
 
+    def _restore_sharded(self, state: TrainState, ckpt: dict,
+                         step: int) -> int:
+        """``full`` into an FSDP state: every tensor copied into this
+        rank's chunk, Adam's state made as Adam makes it."""
+        opt = state.optimizer
+        with torch.no_grad():
+            for name, t in state.model.state_dict().items():
+                _copy_into(t, ckpt["model"][name])
+            for name, t in ckpt["ema"].items():
+                _copy_into(state.ema[name], t)
+            saved = ckpt["optim"]["state"]
+            for i, p in enumerate(state.model.parameters()):
+                st = saved.get(i, saved.get(str(i)))
+                if not st:
+                    continue
+                opt.state[p] = {"step": st["step"].detach().clone().float()}
+                for key in ("exp_avg", "exp_avg_sq"):
+                    buf = torch.zeros_like(p)
+                    _copy_into(buf, st[key])
+                    opt.state[p][key] = buf
+        settle_lr(opt)
+        state.scheduler.load_state_dict(ckpt["sched"])
+        state.step = int(ckpt["step"])
+        return state.step
+
     def _restore_sliced(self, state: TrainState, step: int) -> int:
         manifest = self._manifest(step)
         found = [(m["name"], tuple(m["shape"]), m["dtype"])
@@ -488,6 +606,7 @@ class CheckpointManager:
         with_adam = any(n.startswith("adam.") for n, _, _ in found)
         _preflight(found, _expected(state, with_adam), self.path(step),
                    step)
+        self._note_reshard(step, manifest.get("mesh"))
         targets = dict(state_leaves(state))
         opt = state.optimizer
         params = dict(state.model.named_parameters())
@@ -548,5 +667,5 @@ class CheckpointManager:
                        want, self.path(step), step)
         with torch.no_grad():
             for name, t in tensors.items():
-                params[name].copy_(t)
+                _copy_into(params[name], t)
         return step

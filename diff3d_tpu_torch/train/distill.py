@@ -26,6 +26,13 @@ is bit-identical to a fresh state and keeps every address the graph
 reads.  The step's draws are taken before the replay, never inside it,
 and can be passed in (:class:`DistillDraws`), so a test replays the JAX
 package's ``randint`` and ``normal`` draws.
+
+With a data-parallel ``env`` (a ``MeshEnv`` with a process group, the
+replicated policy) each rank distils its ``batch / world`` rows: the draws
+are taken at the global batch's size and the rank keeps its rows, and the
+gradients and the loss are all-reduced over the data group before the
+update (inside the captured graph on the card), as in
+:mod:`~diff3d_tpu_torch.train.step`.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from diff3d_tpu_torch.train.checkpoint import CheckpointManager
 from diff3d_tpu_torch.train.state import (TrainState, create_train_state,
                                           set_schedule_step,
                                           warmup_schedule)
-from diff3d_tpu_torch.train.step import (INPUTS, _zeroed_grads, step_seed,
+from diff3d_tpu_torch.train.step import (INPUTS, GradSync, step_seed,
                                          update_step)
 
 log = logging.getLogger(__name__)
@@ -158,16 +165,21 @@ def distill_loss(cfg: Config, student: torch.nn.Module,
 def _step_body(cfg: Config, state: TrainState, teacher: torch.nn.Module,
                names: Sequence[str], params: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor],
-               u: torch.Tensor, noise: torch.Tensor, k: torch.Tensor):
-    """Loss, its gradients into ``grads`` (the parameters' ``.grad``), then
-    the train step's update (global norm, clipping, Adam, EMA).  Returns
-    ``(loss, grad_norm)``; reads no host value."""
+               u: torch.Tensor, noise: torch.Tensor, k: torch.Tensor,
+               sync: GradSync):
+    """Loss, its gradients into ``grads`` (the parameters' ``.grad``, views
+    of ``sync``'s bucket), the bucket with the loss all-reduced over the
+    data group (a no-op without one), then the train step's update (global
+    norm, clipping, Adam, EMA).  Returns ``(loss, grad_norm)``; reads no
+    host value."""
     torch._foreach_zero_(list(grads))
     loss = distill_loss(cfg, state.model, teacher, batch, u, noise, k)
     got = torch.autograd.grad(loss, params, allow_unused=True)
     used = [(a, g) for a, g in zip(grads, got) if g is not None]
     torch._foreach_add_([a for a, _ in used], [g for _, g in used])
-    return update_step(cfg, state, names, params, grads, loss.detach())
+    sync.total.copy_(loss.detach())
+    sync.reduce()
+    return update_step(cfg, state, names, params, grads, sync.total)
 
 
 class DistillStep:
@@ -188,7 +200,7 @@ class DistillStep:
     while the state, the teacher and the batch shapes keep their
     addresses (:attr:`graph`)."""
 
-    def __init__(self, cfg: Config, cuda_graphs: bool = False):
+    def __init__(self, cfg: Config, cuda_graphs: bool = False, env=None):
         # One microbatch: update_step divides by accum_steps.
         self.cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, accum_steps=1))
@@ -196,6 +208,13 @@ class DistillStep:
         self.sched = warmup_schedule(cfg.train)
         self._gen: Optional[torch.Generator] = None
         self._captured: Optional[dict] = None
+        if env is not None and env.cfg.param_sharding != "replicated":
+            raise ValueError("distillation is data-parallel under the "
+                             "replicated policy only")
+        self.group = None if env is None else env.group
+        self.world = 1 if env is None else env.data_size
+        self.rank = 0 if env is None else env.data_rank
+        self._sync: Optional[GradSync] = None
 
     @property
     def graph(self) -> Optional[StepGraph]:
@@ -218,9 +237,13 @@ class DistillStep:
                                             state.step))
             draws = DistillDraws(self._gen)
         B = imgs.shape[0]
-        u = draws.u(B, device)
-        noise = draws.noise((B,) + tuple(imgs.shape[2:]), device)
+        rows = slice(self.rank * B, (self.rank + 1) * B)
+        # The global batch's draws; this rank keeps its rows.
+        u = draws.u(B * self.world, device)[rows]
+        noise = draws.noise((B * self.world,) + tuple(imgs.shape[2:]),
+                            device)[rows]
         names, params = zip(*state.model.named_parameters())
+        sync = self._bucket(params)
         lr = self.sched(state.step)
         c = self._captured
         if self.cuda_graphs and c is not None \
@@ -236,17 +259,25 @@ class DistillStep:
             # The eager step; on the graph path also the warm-up (kernel
             # attributes, library plans, Adam's state) before a capture.
             self.release()
-            grads = _zeroed_grads(params)
+            sync.zero()
+            grads = sync.grads
             k = torch.full((), float(student_steps), dtype=torch.float32,
                            device=device)
             loss, grad_norm = _step_body(self.cfg, state, teacher, names,
-                                         params, grads, batch, u, noise, k)
+                                         params, grads, batch, u, noise, k,
+                                         sync)
+            loss = loss.clone()
             if self.cuda_graphs:
                 self._capture(state, teacher, batch, names, params, u,
                               noise)
         state.scheduler.step()
         state.step += 1
         return {"distill_loss": loss, "lr": lr, "grad_norm": grad_norm}
+
+    def _bucket(self, params) -> GradSync:
+        if self._sync is None or self._sync.key != tuple(map(id, params)):
+            self._sync = GradSync(params, self.group)
+        return self._sync
 
     @staticmethod
     def _key(state, teacher, batch, params) -> tuple:
@@ -276,16 +307,18 @@ class DistillStep:
         grads = [p.grad for p in params]
         graph = StepGraph(lambda: _step_body(
             cfg, state, teacher, names, params, grads, inputs, u_buf,
-            noise_buf, k_buf))
+            noise_buf, k_buf, self._sync))
         self._captured = {"key": self._key(state, teacher, batch, params),
                           "graph": graph, "inputs": inputs, "u": u_buf,
                           "noise": noise_buf, "k": k_buf}
 
 
-def make_distill_step(cfg: Config, cuda_graphs: bool = False) -> DistillStep:
+def make_distill_step(cfg: Config, cuda_graphs: bool = False,
+                      env=None) -> DistillStep:
     """The distill step of ``cfg`` (:class:`DistillStep`); ``cuda_graphs``
-    captures it as one CUDA graph (a CUDA device only)."""
-    return DistillStep(cfg, cuda_graphs=cuda_graphs)
+    captures it as one CUDA graph (a CUDA device only); ``env`` (a
+    ``MeshEnv`` with a process group) makes it data-parallel."""
+    return DistillStep(cfg, cuda_graphs=cuda_graphs, env=env)
 
 
 def start_round(state: TrainState, teacher: torch.nn.Module) -> None:
@@ -314,7 +347,7 @@ def distill(model: torch.nn.Module, cfg: Config,
             start_steps: Optional[int] = None, final_steps: int = 16,
             round_steps: int = 2000, workdir: Optional[str] = None,
             log_every: int = 100,
-            step_fn: Optional[DistillStep] = None):
+            step_fn: Optional[DistillStep] = None, env=None):
     """Run the halving rounds; returns ``(params, history)``: the last
     round's EMA (parameter name -> tensor) and one record per round.
 
@@ -330,7 +363,8 @@ def distill(model: torch.nn.Module, cfg: Config,
     checkpoint path, saved and awaited before the next round starts, so a
     run cut short restarts from the last finished round.  ``step_fn``: the
     step to run (default :func:`make_distill_step` on the graph path on a
-    CUDA device, eager elsewhere); its draws come from
+    CUDA device, eager elsewhere, data-parallel over ``env``'s group, whose
+    ranks each pass their rows of every batch); its draws come from
     ``cfg.train.seed``."""
     from diff3d_tpu_torch.models.xunet import XUNet
 
@@ -341,7 +375,7 @@ def distill(model: torch.nn.Module, cfg: Config,
     device = next(model.parameters()).device
     if step_fn is None:
         step_fn = make_distill_step(
-            cfg, cuda_graphs=use_cuda_graphs(None, device))
+            cfg, cuda_graphs=use_cuda_graphs(None, device), env=env)
     teacher = XUNet(model.cfg).to(device).eval().requires_grad_(False)
     state = create_train_state(model.eval(), cfg.train)
     history = []

@@ -14,7 +14,7 @@ optimizer, so the two paths compute the same bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -54,14 +54,19 @@ def warmup_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return lambda step: cfg.lr * frac(step)
 
 
-def make_optimizer(params, cfg: TrainConfig):
+def make_optimizer(params, cfg: TrainConfig,
+                   capturable: Optional[bool] = None):
     """``(Adam, LambdaLR)``: Adam over ``params`` with ``cfg.betas`` and
     eps 1e-8, its lr ``cfg.lr`` scaled by the warmup fraction of the
     scheduler's step.  Parameters on a CUDA device get a ``capturable``
-    Adam whose lr is a device tensor.  (Global-norm clipping,
-    ``cfg.grad_clip``, happens in the train step, before the update.)"""
+    Adam whose lr is a device tensor (``capturable=False``: the plain one,
+    for a step that is never captured, the FSDP one).  (Global-norm
+    clipping, ``cfg.grad_clip``, happens in the train step, before the
+    update.)"""
     params = list(params)
-    if params and params[0].is_cuda:
+    if capturable is None:
+        capturable = bool(params) and params[0].is_cuda
+    if capturable:
         opt = torch.optim.Adam(
             params, lr=torch.tensor(cfg.lr, device=params[0].device),
             betas=tuple(cfg.betas), eps=ADAM_EPS, capturable=True,
@@ -110,10 +115,11 @@ def ema_decay_per_step(cfg: TrainConfig) -> float:
     return float(0.5 ** (cfg.global_batch / cfg.ema_halflife_examples))
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
+def create_train_state(model: nn.Module, cfg: TrainConfig,
+                       capturable: Optional[bool] = None) -> TrainState:
     """Step 0: fresh Adam moments, the schedule at 0, the EMA a copy of
-    the parameters."""
-    opt, sched = make_optimizer(model.parameters(), cfg)
+    the parameters (sharded like them under FSDP)."""
+    opt, sched = make_optimizer(model.parameters(), cfg, capturable)
     ema = {name: p.detach().clone().float()
            for name, p in model.named_parameters()}
     return TrainState(step=0, model=model, optimizer=opt, scheduler=sched,

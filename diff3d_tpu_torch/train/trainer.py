@@ -1,6 +1,6 @@
 """Trainer: model, train state, step, checkpoints, metrics, in-training
-evaluation and graceful preemption (counterpart:
-``diff3d_tpu/train/trainer.py``, ``init_params`` and ``Trainer`` :75-452).
+evaluation, graceful preemption, data parallelism and the elastic
+supervisor (counterpart: ``diff3d_tpu/train/trainer.py``).
 
 JSONL metrics (loss, lr, grad_norm, steps/s, examples/s, wall seconds) at
 the log cadence; checkpoints at the checkpoint cadence and the last step;
@@ -20,8 +20,19 @@ Checkpoints are written in ``cfg.train.ckpt_mode``
 they are on disk.  ``transfer=True`` on an ``ema_bf16`` directory is a
 warm restart: parameters and EMA from the checkpoint's EMA, fresh Adam
 moments, the schedule at its step.
-The elastic supervisor, the multi-process stop agreement and data
-parallelism wait for the parallel slice (ROADMAP A10).
+
+``env`` (a :class:`~diff3d_tpu_torch.parallel.MeshEnv`; default
+``make_mesh(cfg.mesh)``, the one-process mesh without a process group)
+makes it data-parallel: each rank's loader yields its ``global_batch /
+world`` rows (``InfiniteLoader(host_id=rank, num_hosts=world)``), the
+step all-reduces the gradients (:mod:`~diff3d_tpu_torch.train.step`),
+metrics and checkpoint files are written by rank 0 only, an evaluation
+scores one global val batch (each rank its rows, the losses averaged),
+and the stop flag is an agreement: at every step boundary the local flags
+are all-reduced with MAX over a gloo group of the same ranks (a host op,
+no device synchronisation), so every rank stops and saves at the same
+step.  :class:`ElasticSupervisor` re-meshes and resumes around
+:meth:`Trainer.train` after preemptions and transient faults.
 
 Runs on the card unless ``device`` names another; there the train step
 runs as CUDA graphs (``cuda_graphs=False`` runs it eagerly, for
@@ -32,16 +43,19 @@ use no float atomics.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
 import os
+import random
 import signal
 import threading
 import time
-from typing import Iterator, Optional, Union
+from typing import Callable, Iterator, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.data.images import dequantize
@@ -49,13 +63,17 @@ from diff3d_tpu_torch.device import resolve_device
 from diff3d_tpu_torch.diffusion import TrainDraws, p_losses
 from diff3d_tpu_torch.graphs import use_cuda_graphs
 from diff3d_tpu_torch.models import xunet
-from diff3d_tpu_torch.runtime.retry import (RetryPolicy,
+from diff3d_tpu_torch.parallel.mesh import MeshEnv, make_mesh
+from diff3d_tpu_torch.parallel.multihost import (is_primary,
+                                                 reinitialize_distributed,
+                                                 shard_host_local)
+from diff3d_tpu_torch.runtime.retry import (RetryBudget, RetryPolicy,
                                             is_transient_backend_error)
 from diff3d_tpu_torch.train.checkpoint import CheckpointManager
 from diff3d_tpu_torch.train.state import (TrainState, create_train_state,
                                           set_schedule_step)
-from diff3d_tpu_torch.train.step import (EVAL_TAG, INPUTS, make_train_step,
-                                         step_seed)
+from diff3d_tpu_torch.train.step import (EVAL_TAG, INPUTS, RankDraws,
+                                         _local, make_train_step, step_seed)
 
 log = logging.getLogger(__name__)
 
@@ -81,27 +99,41 @@ class Trainer:
     def __init__(self, cfg: Config, loader: Optional[Iterator] = None,
                  workdir: str = ".", transfer: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
-                 cuda_graphs: Optional[bool] = None):
-        """``loader`` yields batches on the trainer's device; it may be
-        attached after construction (``self.loader``), so a resuming
-        caller can seek it to ``self.state.step``.  ``cuda_graphs``: None
-        captures the step on a CUDA device and runs it eagerly elsewhere,
-        False runs it eagerly, True off a CUDA device raises."""
+                 cuda_graphs: Optional[bool] = None,
+                 env: Optional[MeshEnv] = None):
+        """``loader`` yields batches on the trainer's device (this rank's
+        rows under data parallelism); it may be attached after
+        construction (``self.loader``), so a resuming caller can seek it to
+        ``self.state.step``.  ``cuda_graphs``: None captures the step on a
+        CUDA device and runs it eagerly elsewhere, False runs it eagerly,
+        True off a CUDA device raises; under ``fsdp`` the step always runs
+        eagerly (True raises).  ``env``: the mesh (default
+        ``make_mesh(cfg.mesh)``)."""
         cfg.validate()
         self.cfg = cfg
         self.loader = loader
         self.workdir = workdir
+        self.env = env if env is not None else make_mesh(cfg.mesh)
         self.device = resolve_device(device)
+        fsdp = self.env.cfg.param_sharding == "fsdp"
+        if fsdp and cuda_graphs is None and self.device.type == "cuda":
+            log.info("param_sharding='fsdp': the train step runs eagerly "
+                     "(FSDP2's all-gathers cannot be captured)")
+            cuda_graphs = False
         graphs = use_cuda_graphs(cuda_graphs, self.device)
         model = init_params(xunet.XUNet(cfg.model), cfg)
-        model = model.to(self.device).train()
+        model = self.env.params(model.to(self.device).train())
         log.info("XUNet: %.1fM params",
                  sum(p.numel() for p in model.parameters()) / 1e6)
-        self.state: TrainState = create_train_state(model, cfg.train)
+        self.state: TrainState = create_train_state(
+            model, cfg.train, capturable=False if fsdp else None)
         self.ckpt = CheckpointManager(
             os.path.join(workdir, cfg.train.checkpoint_dir),
             keep=cfg.train.keep_checkpoints, mode=cfg.train.ckpt_mode,
             async_writes=cfg.train.ckpt_async)
+        # Stamped before any restore: a restore into another topology is
+        # then a recognised reshard.
+        self.ckpt.mesh_info = self.env.topology_summary()
         if transfer and self.ckpt.mode == "ema_bf16":
             # Warm restart: the checkpoint holds the EMA only, so the
             # parameters and the EMA both start from it, Adam's moments
@@ -110,14 +142,15 @@ class Trainer:
             if step is not None:
                 with torch.no_grad():
                     for name, p in model.named_parameters():
-                        p.copy_(self.state.ema[name])
+                        _local(p).copy_(_local(self.state.ema[name]))
                 set_schedule_step(self.state, step)
                 self.state.step = step
                 log.info("warm-restarted (ema_bf16) at step %d", step)
         elif transfer and self.ckpt.restore(self.state) is not None:
             log.info("resumed at step %d", self.state.step)
-        self.step_fn = make_train_step(cfg, cuda_graphs=graphs,
-                                       retry=_STEP_RETRY)
+        self.step_fn = make_train_step(
+            cfg, cuda_graphs=graphs, retry=_STEP_RETRY,
+            env=self.env if self.env.group is not None else None)
         self._metrics_path = os.path.join(workdir, "metrics.jsonl")
         self._preempted = threading.Event()
         self.preempt_observed_step: Optional[int] = None
@@ -177,9 +210,18 @@ class Trainer:
         return uninstall
 
     def _stop_requested(self, step: int) -> bool:
-        """Whether a preemption signal arrived (one process: the local
-        flag; the agreement across processes comes with ROADMAP A10)."""
-        return self._preempted.is_set()
+        """Whether to stop at this step boundary.  One process: the local
+        flag.  Several: an agreement, the MAX of every rank's flag over
+        the mesh's gloo group (a host op), so a signal seen by any rank
+        stops every rank at the same step (a local flag alone would split
+        the ranks between a collective save and a collective step)."""
+        local = self._preempted.is_set()
+        if self.env.data_size == 1:
+            return local
+        flag = torch.tensor([1 if local else 0], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                        group=self.env.cpu_group)
+        return bool(flag.item())
 
     def eval_draws(self, step: int) -> TrainDraws:
         """The val draws of step ``step``: the trainer's eval generator
@@ -195,28 +237,53 @@ class Trainer:
         on the dequantized images with ``draws``, dropout off, no grad.
         The EMA tensors stand in for the parameters for the one call
         (``torch.func.functional_call``): no copy of the model, and no
-        parameter of the train state moves."""
+        parameter of the train state moves.  Under data parallelism
+        ``batch`` is this rank's rows of one global val batch: the draws
+        are the global batch's (:class:`RankDraws`) and the ranks' losses
+        are averaged.  An FSDP state swaps the EMA's shards into the
+        parameters' for the call (FSDP2 gathers from its own shards)."""
         model = state.model
         dcfg = self.cfg.diffusion
-        batch = {k: torch.as_tensor(batch[k], device=self.device)
-                 for k in INPUTS}
+        batch = shard_host_local({k: batch[k] for k in INPUTS}, self.device)
+        world, group = self.env.data_size, self.env.group
+        if world > 1:
+            draws = RankDraws(draws, self.env.data_rank, world)
+        sharded = self.env.sharded(model)
 
         def denoise(model_batch, cond_mask):
+            if sharded:
+                return model(model_batch, cond_mask)
             return torch.func.functional_call(model, state.ema,
                                               (model_batch, cond_mask))
 
         model.eval()
+        stash = None
         try:
             with torch.no_grad():
-                return p_losses(
+                if sharded:
+                    stash = {n: p.detach().clone()
+                             for n, p in model.named_parameters()}
+                    for n, p in model.named_parameters():
+                        _local(p).copy_(_local(state.ema[n]))
+                loss = p_losses(
                     denoise, dequantize(batch["imgs"]), batch["R"],
                     batch["T"], batch["K"], draws, cond_prob=dcfg.cond_prob,
                     loss_type=dcfg.loss_type, logsnr_min=dcfg.logsnr_min,
                     logsnr_max=dcfg.logsnr_max)
+                if world > 1:
+                    dist.all_reduce(loss, group=group)
+                    loss = loss / world
+                return loss
         finally:
+            if stash is not None:
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        _local(p).copy_(_local(stash[n]))
             model.train()
 
     def _log(self, record: dict) -> None:
+        if not is_primary():
+            return
         os.makedirs(self.workdir, exist_ok=True)
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -296,7 +363,11 @@ class Trainer:
             raise
         except BaseException:
             # Keep the last state so transfer=True loses at most the
-            # interrupted step.
+            # interrupted step.  A sharded state's save gathers over every
+            # rank, which a rank failing alone cannot do.
+            if self.env.data_size > 1 and self.env.sharded(self.state.model):
+                log.error("no emergency checkpoint of a sharded state")
+                raise
             try:
                 self.ckpt.save(self.state, force=True)
                 self.ckpt.wait_until_finished()
@@ -337,3 +408,209 @@ class Trainer:
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             out, f"trace_{start}_{stop}.json"))
+
+
+# ---- elasticity -----------------------------------------------------
+
+#: The elastic loop's states (the JAX package's ``ELASTIC_*``): they go
+#: into the log and ``metrics.jsonl`` as ``{"elastic": <state>, ...}``.
+ELASTIC_RUNNING = "RUNNING"
+ELASTIC_REMESHING = "REMESHING"
+ELASTIC_RESUMED = "RESUMED"
+ELASTIC_GAVE_UP = "GAVE_UP"
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticEvent:
+    """One transition of the elastic loop."""
+
+    state: str          # one of the ELASTIC_* constants
+    cycle: int          # 1-based re-mesh cycle
+    step: int           # the trainer's step at the transition
+    n_devices: int      # devices of the cycle's mesh (0: unknown)
+    reason: str = ""
+    wall_s: float = 0.0
+
+    def record(self) -> dict:
+        return {"elastic": self.state, "cycle": self.cycle,
+                "step": self.step, "n_devices": self.n_devices,
+                "reason": self.reason, "wall_s": round(self.wall_s, 3)}
+
+
+class ElasticityGaveUp(RuntimeError):
+    """The supervisor spent its no-progress budget; ``events`` is the whole
+    history."""
+
+    def __init__(self, msg: str, events: List[ElasticEvent]):
+        super().__init__(msg)
+        self.events = list(events)
+
+
+class ElasticSupervisor:
+    """Re-mesh-and-resume loop around :meth:`Trainer.train` (reference
+    ``trainer.py:496-668``).
+
+    On a preemption (the trainer's handler saw SIGTERM / SIGINT and
+    ``train()`` returned early) or a transient backend fault (a failed
+    collective, a reset connection), the cycle is torn down, the process
+    group re-initialised (``destroy_process_group`` then
+    :func:`~diff3d_tpu_torch.parallel.multihost.reinitialize_distributed`),
+    the mesh rebuilt, the latest durable checkpoint restored (a restore
+    into another topology is recorded as a reshard) and the input stream
+    resumed at the restored step (``make_loader(step, env)``: the loader's
+    global stream is a pure function of ``(seed, step)``, so a new
+    partition neither replays nor skips).  Under torchrun, a change of
+    the rank set itself comes from the elastic agent
+    (``torchrun --nnodes MIN:MAX --max-restarts K``), which restarts the
+    workers; the restarted run resumes here with the reshard recorded.
+
+    Give-up: ``retry.max_attempts`` cycles in a row without progress (the
+    step never advanced) spend the :class:`RetryBudget` and raise
+    :class:`ElasticityGaveUp`; a cycle that advanced refills it.
+
+    Seams: ``make_loader(step, env)`` builds the cycle's iterator;
+    ``topology_fn()`` returns the cycle's :class:`MeshEnv` (default
+    ``make_mesh(cfg.mesh)``); ``reinit_fn()`` re-dials the process group
+    (default: :func:`reinitialize_distributed` from the second cycle on,
+    where a group is up); ``fault_hook(site)`` fires at
+    ``"elastic.cycle"`` each bring-up (``testing.faults``).
+    """
+
+    def __init__(self, cfg: Config,
+                 make_loader: Callable[[int, MeshEnv], Iterator],
+                 workdir: str = ".",
+                 topology_fn: Optional[Callable[[], MeshEnv]] = None,
+                 reinit_fn: Optional[Callable[[], object]] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 fault_hook: Optional[Callable[[str], None]] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 cuda_graphs: Optional[bool] = None):
+        self.cfg = cfg
+        self.make_loader = make_loader
+        self.workdir = workdir
+        self.topology_fn = topology_fn
+        self.reinit_fn = reinit_fn
+        self.device = device
+        self.cuda_graphs = cuda_graphs
+        self.retry = retry or RetryPolicy(
+            max_attempts=8, base_delay_s=2.0, max_delay_s=60.0,
+            classify=is_transient_backend_error)
+        self._budget = RetryBudget(self.retry.max_attempts)
+        self._fire = fault_hook or (lambda site: None)
+        self._metrics_path = os.path.join(workdir, "metrics.jsonl")
+        self._lock = threading.Lock()
+        self._events: List[ElasticEvent] = []  # guarded by _lock
+        self.trainer: Optional[Trainer] = None
+
+    @property
+    def events(self) -> List[ElasticEvent]:
+        with self._lock:
+            return list(self._events)
+
+    def _emit(self, ev: ElasticEvent) -> None:
+        with self._lock:
+            self._events.append(ev)
+        log.warning("elastic %s: cycle %d step %d on %d devices%s",
+                    ev.state, ev.cycle, ev.step, ev.n_devices,
+                    f" ({ev.reason})" if ev.reason else "")
+        if is_primary():
+            os.makedirs(self.workdir, exist_ok=True)
+            with open(self._metrics_path, "a") as f:
+                f.write(json.dumps(ev.record()) + "\n")
+
+    def _give_up(self, cycle: int, step: int, n_dev: int, reason: str,
+                 t0: float) -> None:
+        self._emit(ElasticEvent(ELASTIC_GAVE_UP, cycle, step, n_dev,
+                                reason, time.monotonic() - t0))
+        raise ElasticityGaveUp(
+            f"elasticity budget exhausted: {self._budget.spent} "
+            f"consecutive no-progress cycles (last: {reason})", self.events)
+
+    def _bring_up(self, cycle: int) -> MeshEnv:
+        if self.reinit_fn is not None:
+            self.reinit_fn()
+        elif cycle > 1 and dist.is_initialized():
+            reinitialize_distributed(
+                device=None if self.device is None else str(self.device))
+        if self.topology_fn is not None:
+            return self.topology_fn()
+        return make_mesh(self.cfg.mesh)
+
+    def run(self, max_steps: Optional[int] = None) -> TrainState:
+        """Train to ``max_steps`` (default ``cfg.train.max_steps``),
+        surviving preemptions and transient faults by re-meshing; returns
+        the final state."""
+        max_steps = (max_steps if max_steps is not None
+                     else self.cfg.train.max_steps)
+        t0 = time.monotonic()
+        rng = random.Random(self.retry.seed)
+        cycle = 0
+        while True:
+            cycle += 1
+            trainer = loader = uninstall = None
+            step0, n_dev = -1, 0
+            try:
+                self._fire("elastic.cycle")
+                env = self._bring_up(cycle)
+                n_dev = int(env.topology_summary()["n_devices"])
+                trainer = Trainer(self.cfg, env=env, workdir=self.workdir,
+                                  transfer=True, device=self.device,
+                                  cuda_graphs=self.cuda_graphs)
+                self.trainer = trainer
+                step0 = trainer.state.step
+                reshard = trainer.ckpt.last_restore_reshard
+                reason = ""
+                if reshard is not None:
+                    reason = (f"resharded step {reshard['step']}: "
+                              f"{reshard['from']['n_devices']} -> "
+                              f"{reshard['to']['n_devices']} devices")
+                loader = self.make_loader(step0, env)
+                trainer.loader = loader
+                self._emit(ElasticEvent(
+                    ELASTIC_RESUMED if cycle > 1 else ELASTIC_RUNNING,
+                    cycle, step0, n_dev, reason, time.monotonic() - t0))
+                uninstall = trainer.install_preemption_handler()
+                state = trainer.train(max_steps)
+                step = state.step
+                if step >= max_steps:
+                    return state
+                # Returned early: a graceful preemption.  Progress refills
+                # the budget; a storm pinning the run to one step spends it.
+                if step > step0:
+                    self._budget.reset()
+                elif not self._budget.spend():
+                    self._give_up(cycle, step, n_dev,
+                                  "preempted without progress", t0)
+                self._emit(ElasticEvent(
+                    ELASTIC_REMESHING, cycle, step, n_dev, "preemption",
+                    time.monotonic() - t0))
+            except (FloatingPointError, ElasticityGaveUp):
+                raise   # a poisoned state or a spent budget: not elastic
+            except Exception as exc:
+                if not is_transient_backend_error(exc):
+                    raise
+                fail_step = step0 if trainer is None else trainer.state.step
+                if trainer is not None and fail_step > step0 >= 0:
+                    self._budget.reset()
+                elif not self._budget.spend():
+                    self._give_up(cycle, max(fail_step, 0), n_dev,
+                                  f"{type(exc).__name__}: {exc}", t0)
+                self._emit(ElasticEvent(
+                    ELASTIC_REMESHING, cycle, max(fail_step, 0), n_dev,
+                    f"{type(exc).__name__}: {exc}", time.monotonic() - t0))
+                self.retry.sleep(self.retry.delay_for(
+                    max(1, self._budget.spent), rng))
+            finally:
+                if uninstall is not None:
+                    uninstall()
+                if loader is not None and hasattr(loader, "close"):
+                    try:
+                        loader.close()
+                    except Exception:  # best effort
+                        log.exception("loader close failed during re-mesh")
+                if trainer is not None:
+                    trainer.step_fn.release()
+                    try:
+                        trainer.ckpt.close()
+                    except Exception:  # best effort
+                        log.exception("ckpt close failed during re-mesh")

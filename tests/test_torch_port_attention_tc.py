@@ -30,6 +30,9 @@ SHAPES = [(2, 256, 256, 4, 64), (2, 64, 64, 4, 128),
           (1, 200, 200, 2, 32), (1, 96, 160, 2, 64)]
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16, kept in f32."""
     return t.to(torch.bfloat16).float()

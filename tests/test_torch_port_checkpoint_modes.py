@@ -43,6 +43,9 @@ from diff3d_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
 H = 8
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _cfg(**train_kw):
     c = port_tiny_config(imgsize=H, ch=8, shallow=True)
     return dataclasses.replace(c, train=dataclasses.replace(

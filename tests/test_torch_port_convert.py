@@ -43,6 +43,9 @@ from diff3d_tpu_torch.train import warmup_schedule  # noqa: E402
 from test_torch_port_sampler import _srn_object  # noqa: E402
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def reference():
     """A randomised ``TXUNet`` at ``test_config(imgsize=16, ch=8)`` (every

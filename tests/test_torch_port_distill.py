@@ -51,6 +51,9 @@ from diff3d_tpu_torch.train import (CheckpointManager,  # noqa: E402
 H = 8
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _cfgs(**train_kw):
     j = jax_tiny_config(imgsize=H, ch=8, shallow=True)
     p = port_tiny_config(imgsize=H, ch=8, shallow=True)

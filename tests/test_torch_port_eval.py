@@ -40,6 +40,9 @@ from diff3d_tpu_torch.trajectory import paths as ppaths  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 @pytest.mark.parametrize("seed,size", [(0, 16), (1, 16), (0, 24), (1, 24)])
 def test_synthetic_scenes_match_the_jax_package(seed, size):
     port = psynth.SyntheticScenesDataset(num_objects=3, num_views=5,
@@ -352,6 +355,7 @@ def test_eval_cli_rejects_bad_flags(tmp_path):
     with pytest.raises(SystemExit):
         eval_cli.main(["--device", "cpu", "--model", str(tmp_path),
                        "--synthetic_scenes", "--orbit", "1"])
-    with pytest.raises(SystemExit):      # waits for the parallel layer
+    with pytest.raises(SystemExit):      # --mesh is taken, object_batch 0 not
         eval_cli.main(["--device", "cpu", "--model", str(tmp_path),
-                       "--synthetic_scenes", "--mesh"])
+                       "--synthetic_scenes", "--mesh",
+                       "--object_batch", "0"])

@@ -19,6 +19,9 @@ from diff3d_tpu import geometry as jgeo  # noqa: E402
 from diff3d_tpu_torch import geometry as tgeo  # noqa: E402
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _K(B):
     K = np.array([[65.625, 0, 32.0], [0, 65.625, 32.0], [0, 0, 1]],
                  np.float32)

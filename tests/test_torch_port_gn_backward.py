@@ -29,6 +29,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SUM_TOL = 1e-4
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _in_order(parts):
     """Sum a list of tensors left to right."""
     total = torch.zeros_like(parts[0])

@@ -39,6 +39,9 @@ JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 SHAPES = [(2, 255, 128, 32), (1, 100, 144, 24)]
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _in_order(parts):
     """Sum a list of tensors left to right."""
     total = torch.zeros_like(parts[0])

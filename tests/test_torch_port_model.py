@@ -29,6 +29,9 @@ from diff3d_tpu_torch.models import conditioning as tcond  # noqa: E402
 from diff3d_tpu_torch.models import layers as tlayers  # noqa: E402
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def random_flax_params(module: nn.Module, *args, seed=0, scale=0.3,
                        **kwargs):
     """``{'a/b/c': float32 array}`` with ``module``'s parameter shapes,

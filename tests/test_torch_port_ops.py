@@ -42,6 +42,9 @@ GN_SHAPES = [(2, 64, 96, 32), (1, 100, 144, 24)]   # (N, L, C, groups)
 MODES = ["gn", "gn_silu", "gn_film", "gn_film_silu"]
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _gn_inputs(shape, film, seed=0):
     rng = np.random.RandomState(seed)
     N, L, C, G = shape
@@ -445,7 +448,11 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((REPO / "diff3d_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    assert {"mesh.py", "multihost.py", "ring_attention.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
+    # The spawned ranks of the parallel tests import only the port.
+    files += [REPO / "chip_smoke.py",
+              REPO / "tests" / "_torch_port_parallel_worker.py"]
     assert len(files) > 15
     for path in files:
         for mod in _imports(path):

@@ -36,6 +36,9 @@ from diff3d_tpu_torch.train import CheckpointManager  # noqa: E402
 POS = "conditioningprocessor.pos_emb"
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 @pytest.mark.parametrize("src,dst", [(16, 32), (32, 16), (16, 8)])
 def test_adapt_matches_jax_image_resize(src, dst):
     rng = np.random.default_rng(src + dst)

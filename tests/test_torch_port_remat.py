@@ -31,6 +31,9 @@ from diff3d_tpu_torch.convert import (convert_params,  # noqa: E402
 from diff3d_tpu_torch.models import build_model, xunet  # noqa: E402
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _fields_equal(port, ref, where):
     for f in dataclasses.fields(port):
         a, b = getattr(port, f.name), getattr(ref, f.name)

@@ -32,6 +32,9 @@ from diff3d_tpu_torch.models import build_model  # noqa: E402
 from diff3d_tpu_torch.sampling import Sampler, record_capacity  # noqa: E402
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 class ReplayDraws:
     """The port's draw interface, answered from arrays made elsewhere."""
 

@@ -37,6 +37,9 @@ from test_torch_port_sampler import _views, jax_view_draws  # noqa: E402
 H = 8
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """The tiny X-UNet at 8x8 with random weights in both packages."""

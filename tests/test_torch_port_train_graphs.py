@@ -44,6 +44,9 @@ from test_torch_port_sampler import _srn_object  # noqa: E402
 H = 8
 
 
+from _torch_port_threads import one_thread  # noqa: E402,F401
+
+
 def _parent_make_train_step(cfg):
     """The port's train step before it was split into micro and update
     bodies, verbatim."""
