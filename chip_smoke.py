@@ -29,27 +29,26 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
   5. model   — the srn64 full-width X-UNet, bf16, batch 2B=16, seeded
      random weights: kernel path against plain path, ms per forward and
      launches per forward.
-  6. sampler — ``Sampler.synthesize`` on one seeded synthetic object (three
-     views, orbit poses, SRN-like K): two views on the 256-step ancestral
-     schedule with guidance weights 0..7, the reverse step replayed as a
-     CUDA graph.  This is the sampling path: the kernels' launch counts
+  6. sampler — ``Sampler.synthesize`` on one seeded synthetic object (two
+     views, orbit poses, SRN-like K): one view on the 256-step
+     ancestral schedule with guidance weights 0..7, the reverse step
+     replayed as a CUDA graph.  This is the sampling path: the kernels' launch counts
      are set to 0 just before it and read after; what ran is the eager
      launches (the first step, before the capture) plus each graph's
      captured launches x its replays.
-  6b. sampler_graph — one srn64 view (64 steps, cut from 256) through the
-     graph path and through
-     the eager path (``cuda_graphs=False``) from the same generator seed,
+  6b. sampler_graph — one srn64 view (32 steps, cut from 256) through
+     the graph path and through the eager path (``cuda_graphs=False``) from the same generator seed,
      in the order eager, graph, graph, eager: bit-identical views; wall
      ms per step of each, the capture's seconds, launches (captured x
      replays) and peak memory.
   6c. sampler_many — ``step_many`` over N = 4 objects at record lengths
      1-4: on an f32 copy of the model at 16 steps against ``step`` per
      object (rel. L2 1e-3); ``synthesize_many`` of one view of 4 objects
-     at 64 steps (cut from 256 in PR 10) in bf16 timed, with finite
-     outputs.
+     at 32 steps (cut from 256; the f32 comparison at 8 steps) in bf16
+     timed, with finite outputs.
  6d. serve — the single-engine service at srn64 full width through
      ``cli/serve_cli.py``'s ``build_service`` (chip_smoke's random weights
-     as a state dict, ``--sampler_steps 32`` (cut from 64), ``--schedules
+     as a state dict, ``--sampler_steps 16`` (cut from 64), ``--schedules
      ddim:16 --max_batch 4 --warmup``) and HTTP on an ephemeral port: the serving
      path, counts set to 0 before ``build_service`` and read after.
      Three concurrent requests (4 lanes, one padding) bit-identical to
@@ -132,8 +131,9 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      versions (loss and denoiser output, relative 1e-2).  Each trainer's
      graphs are released before the next captures.
  11. eval — ``cli/eval_cli.py`` on that checkpoint (EMA) on synthetic
-     scenes: 2 objects, 3 views, a 64-step dense grid (the parity
-     oracle's, cut from 256), DDIM at 16 steps (cut from 32), ``--w_select 1
+     scenes: 2 objects, 3 views, a 32-step dense grid (the parity
+     oracle's, cut from 256), DDIM at 8 steps (cut from 32),
+     ``--w_select 1
      --parity_objects 1 --orbit 4``; finite PSNR / SSIM / fid_randfeat per
      w, the parity and orbit fields, s per object; run again, it
      re-synthesises nothing and prints the same line.
@@ -141,8 +141,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      2B = 16: kernel path against plain path (rel. L2 3e-2, as srn64), ms
      and launches per forward, and the ptxas registers and spill bytes of
      every kernel instance its path launches (reported, not gated).
- 13. srn128_sampler — one srn128 view, 64 ancestral steps (cut from 256:
-     the step is the same), w = 0..7, the reverse step as a CUDA graph:
+ 13. srn128_sampler — one srn128 view, 32 ancestral steps (cut from
+     256: the step is the same), w = 0..7, the reverse step as a CUDA graph:
      the srn128 sampling path, counts set to 0 before and read after; ms
      per step, s per view, peak memory; then a 16-step view graph against
      eager, bit-identical.
@@ -172,7 +172,7 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      recompute launches every block's forward kernels again) and 2 under
      "dots" (cut from 4 each, then "nothing" to 2); s/step, examples/s, peak memory, loss and grad_norm per step;
      then ``sample_cli --config srn128`` on the "nothing" checkpoint (EMA)
-     at 16 steps (cut from 32): finite views.
+     at 8 steps (cut from 32): finite views.
  15. srn128_sites — every GroupNorm and attention site of a srn128
      sampler step and of one training microbatch: each kernel against
      its plain version, the forward's cluster plans fit the card; per
@@ -209,8 +209,45 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      Ulysses' local heads), beside the same; (d) ``torchrun
      --standalone --nproc_per_node 1 -m diff3d_tpu_torch.cli.train_cli
      --param_sharding fsdp`` (2 steps) and ``eval_cli --mesh`` on its
-     checkpoint (2 objects, DDIM 8): exit 0, the checkpoint's manifest
+     checkpoint (1 object, DDIM 4): exit 0, the checkpoint's manifest
      carries the topology, finite PSNR; the torchrun start-up seconds.
+     (c) runs after (d).
+ 11a'. tensor_parallel — the ``tp`` placement over a model axis of two
+     processes sharing the card (gloo; its collectives staged through
+     pinned host memory; the two processes of 11a (c), which run this
+     phase's ranks after their ring and Ulysses work, the one-rank
+     references computed before them), srn64 at full width, dp1 x mp2:
+     (a) one X-UNet
+     forward at 2B = 16 (seeded random weights, placed: each rank its
+     blocks) against the one-rank forward on the card (rel. L2 3e-2);
+     (b) ``Sampler(mesh)`` on a float32 copy (TF32 off): one view of 2
+     DDIM steps against the one-rank ``Sampler`` from the same generator
+     seed (rel. L2 3e-2);
+     (c) the ``Trainer`` built by ``train_cli --param_sharding tp
+     --model_parallel 2`` from the train phase's checkpoint (the lr put on
+     the batch-8 schedule at its step), 2 eager steps at global batch 8,
+     against one rank's eager steps from the same checkpoint: losses,
+     gradient norms and lrs within 1e-3, and every parameter's update
+     (its change over the 2 steps) within 3e-2 rel. L2 of one rank's, or
+     every element of it within 2 float32 spacings of the parameter plus
+     1e-8 (a leaf that barely moves differs by the rounding of ``p + u``;
+     the k_proj biases, whose exact gradient is zero, by bf16's summation
+     noise); then the control, which the same gate must refuse:
+     the tp state restored to the checkpoint and the first step retaken on
+     the same batch with the model axis's ``copy`` not summing its
+     gradient over the ranks (its backward the identity), against one
+     rank's first update; the
+     launch counts set to 0 before (a) + (b) and before (c), read after
+     each: rows 1 and 3 in the first window, rows 1 (with statistics),
+     2, 4, 5 and 6 in the second, on each rank; (d) the tp checkpoint
+     (gathered, written by rank 0) restored at world 1 (into the one-rank
+     trainer of (c)): each rank's blocks of every tensor (parameters, EMA, Adam's moments) cut from
+     the restored whole tensors bit-identical to the rank's own; (e) on
+     each rank, the ranks in turn, rows 1-6 at the shapes the model axis
+     gives them there (C/2 channels, G/2 groups, 2 of 4 heads), held
+     against their plain versions and timed beside their bounds (the
+     site phases' functions, run without the extra shapes); the staged
+     collectives' ms per forward and per train step.
  11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
      (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
@@ -1295,7 +1332,7 @@ def phase_sampler(cfg, model):
 
     from diff3d_tpu_torch.sampling import Sampler
 
-    views = orbit_views(3, cfg.model.H, seed=3)
+    views = orbit_views(2, cfg.model.H, seed=3)   # one view generated
     sampler = Sampler(model, cfg, device="cuda")
     if not sampler.cuda_graphs:
         raise AssertionError("sampler: the card's path is not the graph")
@@ -1343,7 +1380,7 @@ def _rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-SAMPLER_GRAPH_STEPS = 64        # graph against eager (cut from 256)
+SAMPLER_GRAPH_STEPS = 32        # graph against eager (cut from 256)
 
 
 def phase_sampler_graph(cfg, model):
@@ -1412,12 +1449,14 @@ def phase_sampler_graph(cfg, model):
     return out
 
 
-SAMPLER_MANY_STEPS = 64         # the timed batched view (cut from 256)
+SAMPLER_MANY_STEPS = 32         # the timed batched view (cut from 256)
+SAMPLER_MANY_F32_STEPS = 8      # step_many vs step
 
 
 def phase_sampler_many(cfg, model):
     """``step_many`` over N = 4 objects at record lengths 1-4 against
-    ``step`` per object on an f32 copy of the model at 16 steps (rel. L2
+    ``step`` per object on an f32 copy of the model at
+    ``SAMPLER_MANY_F32_STEPS`` steps (rel. L2
     1e-3: the batched convolutions and matmuls may take other algorithms);
     then ``synthesize_many`` of one view of 4 objects at
     ``SAMPLER_MANY_STEPS`` steps in bf16, timed."""
@@ -1443,7 +1482,7 @@ def phase_sampler_many(cfg, model):
     R, T, K = (t([o[k] for o in objs]) for k in ("R", "T", "K"))
     m32 = XUNet(dataclasses.replace(cfg.model, dtype="float32")).cuda()
     m32.load_state_dict(model.state_dict())
-    sampler = Sampler(m32, cfg, device="cuda", steps=16)
+    sampler = Sampler(m32, cfg, device="cuda", steps=SAMPLER_MANY_F32_STEPS)
 
     def draws():
         return [Draws(torch.Generator("cuda").manual_seed(20 + n))
@@ -1493,7 +1532,7 @@ def phase_sampler_many(cfg, model):
 
 
 SERVE_WORKDIR = WORKDIR + "_serve"
-SERVE_STEPS = 32                # steps of a served view (cut from 64)
+SERVE_STEPS = 16                # steps of a served view (cut from 64)
 SERVE_ARGV = ["--config", "srn64", "--port", "0", "--sampler_steps",
               str(SERVE_STEPS),
               "--schedules", "ddim:16", "--max_batch", "4", "--max_wait_ms",
@@ -2921,8 +2960,8 @@ SRN128_WORKDIR = WORKDIR + "_srn128"
 SRN128_SMALL_BATCH = 2          # remat against no remat (cut from 4)
 SRN128_STEPS = 2                # Trainer steps under "nothing" (the path)
 SRN128_DOTS_STEPS = 2           # and under "dots" (first + one replayed)
-SRN128_VIEW_STEPS = 64          # the srn128 sampling path's view
-SRN128_SAMPLE_STEPS = 16        # sample_cli's schedule on the trained model
+SRN128_VIEW_STEPS = 32          # the srn128 sampling path's view
+SRN128_SAMPLE_STEPS = 8         # sample_cli's schedule on the trained model
 HEADROOM_BYTES = 8 * 2 ** 30    # what --accum must leave free of the card
 GRAPH_MARGIN = 2 * 2 ** 30      # the prediction's allowance for the CUDA
                                 # graphs' private pool
@@ -2973,7 +3012,7 @@ def phase_srn128_model(ptxas):
 
 
 def phase_srn128_sampler(cfg, model):
-    """One srn128 view (``SRN128_VIEW_STEPS`` = 64 ancestral steps, w =
+    """One srn128 view (``SRN128_VIEW_STEPS`` = 32 ancestral steps, w =
     0..7) from ``Sampler.synthesize`` on the graph path: the srn128
     sampling path,
     counts set to 0 just before and read after.  Then one view at 16
@@ -3478,7 +3517,7 @@ def phase_srn128_sites(cfg, accum, train_launches_per_step):
 
 def phase_eval():
     """``cli/eval_cli.py`` on the srn64 train phase's checkpoint (EMA) on
-    synthetic scenes: 2 objects, 3 views, a 64-step grid, DDIM at 16 steps, one
+    synthetic scenes: 2 objects, 3 views, a 32-step grid, DDIM at 8 steps, one
     guidance-selection object, a matched-seed oracle object and a 4-frame
     orbit; finite metrics per w, the parity and orbit fields; s per
     object.  Then the same command again: no object re-synthesised, the
@@ -3491,12 +3530,12 @@ def phase_eval():
     from diff3d_tpu_torch.cli import eval_cli
 
     out = os.path.join(WORKDIR, "eval.jsonl")
-    # A 64-step dense grid (the parity oracle's; cut from 256) and 16
-    # DDIM steps (cut from 32).
+    # A 32-step dense grid (the parity oracle's; cut from 256) and 8 DDIM
+    # steps (cut from 32).
     argv = ["--model", os.path.join(WORKDIR, "checkpoints"), "--config",
             "srn64", "--synthetic_scenes", "--objects", "2", "--max_views",
-            "3", "--steps", "64", "--sampler", "ddim", "--sampler_steps",
-            "16", "--w_select", "1", "--parity_objects", "1", "--orbit",
+            "3", "--steps", "32", "--sampler", "ddim", "--sampler_steps",
+            "8", "--w_select", "1", "--parity_objects", "1", "--orbit",
             "4", "--out", out]
     lines, seconds, stamps = [], [], []
     objdir = out + ".objdir"
@@ -3823,7 +3862,10 @@ def phase_parallel(graph_run):
     same Trainer without a process group; (b) the ``fsdp`` Trainer at
     world size 1, eager, against (a); (c) ring and Ulysses attention over
     2 processes sharing the card (gloo); (d) ``torchrun train_cli
-    --param_sharding fsdp`` and ``eval_cli --mesh`` on its checkpoint."""
+    --param_sharding fsdp`` and ``eval_cli --mesh`` on its checkpoint.
+    (c) runs after (d), and its two processes then run phase
+    ``tensor_parallel``'s ranks: ``(out, tp_run)``, ``tp_run`` for
+    :func:`phase_tensor_parallel`."""
     import torch
 
     from diff3d_tpu_torch.parallel import (maybe_initialize_distributed,
@@ -3866,18 +3908,6 @@ def phase_parallel(graph_run):
                for k, r in (("nogroup", plain), ("group", grouped))}
     fsdp_s = float(np.mean(fsdp["step_s"][1:]))
 
-    # (c) Two processes on the card over gloo.
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn("chip_smoke:ring_rank", RING_WORLD, timeout_s=600)
-    ring_s = time.perf_counter() - t0
-    launched = all(r["ring_launches"]["flash_attention"] > 0
-                   and r["ring_launches"]["attention_backward_dkdv"] > 0
-                   and r["ring_launches"]["attention_backward_dq"] > 0
-                   and r["ulysses_launches"]["flash_attention"] > 0
-                   for r in ranks)
-
     # (d) The entry points under torchrun.
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", "-m"]
@@ -3887,8 +3917,8 @@ def phase_parallel(graph_run):
                              "fsdp"),
             "eval_cli": run + ["diff3d_tpu_torch.cli.eval_cli", "--mesh",
                                "--model", ckpts, "--synthetic_scenes",
-                               "--objects", "2", "--max_views", "3",
-                               "--sampler", "ddim", "--sampler_steps", "8"]}
+                               "--objects", "1", "--max_views", "3",
+                               "--sampler", "ddim", "--sampler_steps", "4"]}
     entry = {}
     for name, cmd in cmds.items():
         t0 = time.perf_counter()
@@ -3915,6 +3945,25 @@ def phase_parallel(graph_run):
     shutil.rmtree(PARALLEL_WORKDIR, ignore_errors=True)
     evalrec = entry["eval_cli"]["line"]
     eval_ok = all(math.isfinite(evalrec[k]) for k in ("psnr", "ssim"))
+
+    # (c) Two processes on the card over gloo: ring and Ulysses, then, in
+    # the same processes, phase tensor_parallel's ranks (its one-rank
+    # references first, on this process).
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_prep = tp_prepare()
+    t0 = time.perf_counter()
+    both = spawn("chip_smoke:gloo_rank", RING_WORLD, tp_prep["workdir"],
+                 timeout_s=900)
+    ranks = [b["ring"] for b in both]
+    ring_s = max(b["ring_s"] for b in both)
+    tp_run = (tp_prep, [b["tp"] for b in both],
+              time.perf_counter() - t0 - ring_s)
+    launched = all(r["ring_launches"]["flash_attention"] > 0
+                   and r["ring_launches"]["attention_backward_dkdv"] > 0
+                   and r["ring_launches"]["attention_backward_dq"] > 0
+                   and r["ulysses_launches"]["flash_attention"] > 0
+                   for r in ranks)
 
     out = {"config": "srn64", "global_batch": TRAIN_BATCH,
            "replicated_world1_nccl": {
@@ -3953,7 +4002,7 @@ def phase_parallel(graph_run):
                          for r in ranks],
                "within_tol": all(r["within_tol"] for r in ranks),
                "rows_4_5_6_launched_on_each_rank": launched,
-               "spawn_s": round(ring_s, 3)},
+               "ranks_s": round(ring_s, 3)},
            "torchrun": {k: {kk: vv for kk, vv in v.items() if kk != "line"}
                         for k, v in entry.items()},
            "manifest_mesh": manifest_mesh,
@@ -4007,6 +4056,652 @@ def phase_parallel(graph_run):
             + ranks[0]["ring_launches"]["attention_backward_dq"]),
         "flash_attention@ulysses": ranks[0]["ulysses_launches"][
             "flash_attention"]}
+    return out, tp_run
+
+
+# ---- tensor parallelism: the model axis over 2 ranks on the card ------------
+
+TP_WORKDIR = WORKDIR + "_tp"
+TP_WORLD = 2
+TP_BATCH = 8                    # (c)'s global batch
+TP_STEPS = 2                    # (c)'s eager steps
+TP_SAMPLER_STEPS = 2            # (b): DDIM steps of one view
+TP_TOL = 3e-2                   # (a), (b): the model gate, rel. L2
+# (c)'s limits; PERF.md section 6 (PR 14) gives the readings: losses and
+# norms 2.1e-5, the worst update beyond the floor 0.0158, the floor's
+# worst excess 3.8e-9; the control fails 467 of 767 leaves.
+TP_LOSS_TOL = 1e-3              # (c): losses, gradient norms, lrs (rel.)
+TP_UPDATE_TOL = 3e-2            # (c): each parameter's update, rel. L2
+TP_UPDATE_FLOOR = 1e-8          # (c): an update at bf16 noise, max abs
+TP_UPDATE_ULPS = 2              # (c): float32 spacings of p, one a step
+TP_CONTROL_REF = os.path.join(TP_WORKDIR, "control_ref.pt")
+
+
+def _tp_f32(cfg, model):
+    """``(cfg, model)`` computing in float32, in place (the weights are
+    float32 already; each Dense / Conv casts to its compute dtype): (b)'s
+    guidance up to w = 7 multiplies a denoiser's error by up to 15, so
+    bf16's summation-order noise alone would fill the gate after a few
+    steps (TF32 convolutions are turned off around (b) for the same
+    reason)."""
+    import torch
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    model.cfg = cfg.model
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32
+    return cfg, model
+
+
+class _NoTF32:
+    """cuDNN convolutions in full float32 while entered."""
+
+    def __enter__(self):
+        import torch
+
+        self._was = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = self._was
+
+
+
+def _tp_argv(workdir, *extra):
+    """The Trainer of (c): srn64 at global batch ``TP_BATCH``, eager,
+    resuming from the checkpoint in ``workdir``."""
+    return ["--synthetic", "--config", "srn64", "--batch", str(TP_BATCH),
+            "--steps", "1000", "--warmup_examples", str(10 * TRAIN_BATCH),
+            "--ckpt_every", "0", "--num_workers", "0", "--eager",
+            "--transfer", "--workdir", workdir, *extra]
+
+
+def _tp_trainer(argv):
+    """(c)'s Trainer, its lr put on its own schedule at the restored step
+    (the checkpoint's lr is the batch-128 run's, 16x this run's)."""
+    from diff3d_tpu_torch.cli import train_cli
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    trainer = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        argv))
+    set_schedule_step(trainer.state, trainer.state.step)
+    return trainer
+
+
+def _tp_steps(trainer, n, batches=None):
+    """``n`` steps of ``trainer`` on ``batches`` (default: its loader's
+    next ones): losses, gradient norms, the lr each update took and the
+    batches."""
+    losses, norms, lrs, used = [], [], [], []
+    for i in range(n):
+        lrs.append(float(trainer.state.optimizer.param_groups[0]["lr"]))
+        batch = next(trainer.loader) if batches is None else batches[i]
+        m = trainer.step_fn(trainer.state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        used.append(batch)
+    return losses, norms, lrs, used
+
+
+def _tp_params(trainer):
+    """``{name: float32 copy}`` of ``trainer``'s parameters, on the
+    card."""
+    return {n: p.detach().float().clone()
+            for n, p in trainer.state.model.named_parameters()}
+
+
+def _update_sums(got, ref, start):
+    """One leaf's (or block's) terms of (c)'s gate, from parameters after
+    the steps (``got``, ``ref``) and before them (``start``): the sums of
+    squares of the updates' difference, of the reference update and of
+    the reference parameter, the difference's largest element, and its
+    largest excess over ``TP_UPDATE_ULPS`` float32 spacings of the
+    parameter (each step rounds ``p + u`` to float32: a leaf that barely
+    moves differs by that rounding alone)."""
+    import torch
+
+    d = got.double() - ref.double()
+    u = ref.double() - start.double()
+    a = ref.float().abs()
+    ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    excess = d.abs() - TP_UPDATE_ULPS * ulp.double()
+    return [float(d.square().sum()), float(u.square().sum()),
+            float(ref.double().square().sum()), float(d.abs().max()),
+            float(excess.max())]
+
+
+def _update_gate(sums):
+    """(c)'s gate over ``{leaf: [ss_diff, ss_update, ss_param, max_diff,
+    max_excess]}`` (:func:`_update_sums`, summed over the ranks' blocks
+    where a leaf is split; a whole leaf's terms are the same on every
+    rank, so its ratios are too): rows ``(update_rel, leaf, max_diff,
+    max_excess, param_rel, passed)``, the worst first.  A leaf passes when
+    its update is within ``TP_UPDATE_TOL`` rel. L2 of the reference's, or
+    when no element of the two updates differs by more than
+    ``TP_UPDATE_ULPS`` float32 spacings of the parameter plus
+    ``TP_UPDATE_FLOOR`` (the k_proj biases: their exact gradient is zero,
+    softmax ignoring a constant added to every key, so their updates are
+    bf16's summation noise)."""
+    rows = []
+    for n, (sd, su, sp, dmax, excess) in sums.items():
+        rel = math.sqrt(sd / su) if su > 0 else (0.0 if sd == 0
+                                                 else math.inf)
+        prel = math.sqrt(sd / sp) if sp > 0 else 0.0
+        rows.append((rel, n, dmax, excess, prel,
+                     rel <= TP_UPDATE_TOL or excess <= TP_UPDATE_FLOOR))
+    return sorted(rows, reverse=True)
+
+
+class _CopyNotSummed:
+    """The control of (c): while entered, the model axis's ``copy`` hands
+    back each rank's own share of its input's gradient, unsummed."""
+
+    def __enter__(self):
+        from diff3d_tpu_torch.parallel import tensor
+
+        self._orig = tensor._Copy.backward
+        tensor._Copy.backward = staticmethod(lambda ctx, g: (g, None))
+
+    def __exit__(self, *exc):
+        from diff3d_tpu_torch.parallel import tensor
+
+        tensor._Copy.backward = self._orig
+
+
+class _Sites:
+    """The shapes the kernels are called at, counted, while it is entered:
+    ``gn[(N, L, C, G, film, silu)]`` and ``attn[(B, Lq, Lk, H, D)]`` (the
+    keys of ``record_sites``), read at the dispatch, after the model
+    axis's layout moves (so a rank's blocks)."""
+
+    def __init__(self):
+        self.gn, self.attn = {}, {}
+
+    def __enter__(self):
+        from diff3d_tpu_torch.ops import dispatch
+
+        self._orig = orig = dispatch.dispatch
+
+        def recording(op, requested, x, *args, **kwargs):
+            if op == "groupnorm":
+                N, L, C = x.shape
+                key = (N, L, C, kwargs["num_groups"],
+                       kwargs.get("scale") is not None,
+                       bool(kwargs.get("silu", False)))
+                self.gn[key] = self.gn.get(key, 0) + 1
+            elif op == "sdpa":
+                k = args[0]
+                key = (x.shape[0], x.shape[1], k.shape[1], x.shape[2],
+                       x.shape[3])
+                self.attn[key] = self.attn.get(key, 0) + 1
+            return orig(op, requested, x, *args, **kwargs)
+
+        dispatch.dispatch = recording
+        return self
+
+    def __exit__(self, *exc):
+        from diff3d_tpu_torch.ops import dispatch
+
+        dispatch.dispatch = self._orig
+
+
+def _sha1(t) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _tp_leaves(state):
+    """``{name: tensor}`` of a train state: parameters (``model.``), EMA
+    (``ema.``) and Adam's moments (``adam.<param>.<key>``)."""
+    from diff3d_tpu_torch.train.checkpoint import state_leaves
+
+    return {n: t for n, t in state_leaves(state)
+            if not n.endswith(".step")}
+
+
+def tp_rank(rank: int, world: int, workdir: str) -> dict:
+    """One rank of phase ``tensor_parallel`` (see the module docstring,
+    11a'), on the card with the other rank over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from diff3d_tpu_torch.config import MeshConfig, srn64_config
+    from diff3d_tpu_torch.parallel import make_mesh
+    from diff3d_tpu_torch.parallel.mesh import block_of
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    marks = {"start": time.perf_counter()}
+    torch.cuda.set_device(0)
+    group = dist.group.WORLD
+    cfg = srn64_config()
+    tp = MeshConfig(model_parallel=world, param_sharding="tp")
+    env = make_mesh(tp)
+    model = env.params(random_model(cfg))
+    marks["model"] = time.perf_counter()
+    axis = env.model_axis
+    batch, cond_mask = model_batch(cfg, 2 * len(cfg.diffusion.guidance_weights),
+                                   seed=5)
+    out = {"rank": rank, "model_rank": env.model_rank,
+           "backend": dist.get_backend(group), "gloo": axis.gloo}
+
+    # The sampling path: (a) one forward, (b) one Sampler(mesh) view.
+    _launch_counts(reset=True)
+    sample_sites = _Sites()
+    with torch.inference_mode():
+        axis.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sample_sites:
+            fwd = model(batch, cond_mask)
+        torch.cuda.synchronize()
+    out["ms_per_forward"] = 1e3 * (time.perf_counter() - t0)
+    out["forward"] = fwd.float().cpu()
+    out["collectives_per_forward"] = dict(axis.stats)
+    marks["a_forward"] = time.perf_counter()
+    cfg32, f32 = _tp_f32(cfg, model)
+    sampler = Sampler(f32, cfg32, device="cuda", mesh=env,
+                      sampler_kind="ddim", steps=TP_SAMPLER_STEPS)
+    views = orbit_views(2, cfg.model.H, seed=3)
+    t0 = time.perf_counter()
+    with _NoTF32():
+        out["views"] = sampler.synthesize(views, torch.Generator(
+            "cuda").manual_seed(0))
+    out["sampler_s"] = time.perf_counter() - t0
+    out["sampler_graphs"] = sampler.cuda_graphs
+    out["launches_sampling"] = _launch_counts()
+    marks["b_sampler"] = time.perf_counter()
+    del sampler, f32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The Trainer under tp, 2 eager steps from the train checkpoint.
+    trainer = _tp_trainer(_tp_argv(workdir, "--param_sharding", "tp",
+                                   "--model_parallel", str(world)))
+    tenv = trainer.env
+    out["restored_step"] = trainer.state.step
+    out["eager"] = not trainer.step_fn.cuda_graphs
+    train_sites = _Sites()
+    step_s, coll, got = [], [], ([], [], [], [])
+    marks["c_build"] = time.perf_counter()
+    _launch_counts(reset=True)
+    for i in range(TP_STEPS):
+        tenv.model_axis.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with train_sites:
+                one = _tp_steps(trainer, 1)
+        else:
+            one = _tp_steps(trainer, 1)
+        for acc, v in zip(got, one):
+            acc += v
+        step_s.append(time.perf_counter() - t0)
+        coll.append(dict(tenv.model_axis.stats))
+    out["launches_training"] = _launch_counts()
+    out["losses"], out["grad_norms"], out["lrs"], batches = got
+    out["step_s"], out["collectives_per_step"] = step_s, coll
+    marks["c_steps"] = time.perf_counter()
+    trainer.ckpt.save(trainer.state, force=True)
+    marks["c_save"] = time.perf_counter()
+    out["saved_step"] = trainer.state.step
+    out["hashes"] = {n: _sha1(t) for n, t in
+                     _tp_leaves(trainer.state).items()}
+    out["model_dims"] = dict(tenv._model_dims)
+    out["halved"] = sorted(tenv._halved)
+    marks["d_hash"] = time.perf_counter()
+
+    # (c) The control: back to the checkpoint, the first step retaken on
+    # its batch with ``copy``'s gradient unsummed; this rank's terms of
+    # the gate against one rank's first update (``TP_CONTROL_REF``).
+    trainer.ckpt.restore(trainer.state, step=out["restored_step"])
+    set_schedule_step(trainer.state, trainer.state.step)
+    marks["c_restore"] = time.perf_counter()
+    start = _tp_params(trainer)
+    with _CopyNotSummed():
+        ctl = _tp_steps(trainer, 1, batches)
+    ref = torch.load(TP_CONTROL_REF, map_location="cpu", mmap=True,
+                     weights_only=True)
+    sums = {}
+    for n, p in trainer.state.model.named_parameters():
+        d = tenv._model_dims.get(n)
+        r = ref[n] if d is None else block_of(
+            ref[n], d, tenv.model_rank, world, n in tenv._halved)
+        sums[n] = _update_sums(p.detach(), start[n] + r.to("cuda"),
+                               start[n])
+    out["control"] = {"loss": ctl[0][0], "grad_norm": ctl[1][0],
+                      "lr": ctl[2][0], "sums": sums}
+    del start, ref, batches
+    trainer.loader.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["c_control"] = time.perf_counter()
+
+    # (e) Rows 1-6 at this rank's sites, the ranks in turn.
+    out["sample_sites"] = {"gn": sample_sites.gn, "attn": sample_sites.attn}
+    out["train_sites"] = {"gn": train_sites.gn, "attn": train_sites.attn}
+    for turn in range(world):
+        dist.barrier(group)
+        if turn == rank:
+            t0 = time.perf_counter()
+            out["gn"] = phase_groupnorm(sample_sites.gn,
+                                        phase="tp_groupnorm",
+                                        odd_shapes=False)
+            out["attn"] = phase_attention(sample_sites.attn,
+                                          phase="tp_attention",
+                                          extra_shapes=False)
+            out["gn_fwd"], out["gn_bwd"] = phase_groupnorm_backward(
+                train_sites.gn, 1, phase="tp_groupnorm_backward",
+                edges=False, f32_max_n=2)
+            out["attn_rows"] = phase_attention_backward(
+                train_sites.attn, 1, phase="tp_attention_backward",
+                extra_shapes=False, f32_max_n=2)
+            out["sites_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    dist.barrier(group)
+    marks["e_sites"] = time.perf_counter()
+    names = list(marks)
+    out["marks_s"] = {n: round(marks[n] - marks[p], 3)
+                      for p, n in zip(names, names[1:])}
+    return out
+
+
+def gloo_rank(rank: int, world: int, tp_workdir: str) -> dict:
+    """One of phase ``parallel`` (c)'s two processes: its ring and
+    Ulysses rank, then phase ``tensor_parallel``'s rank."""
+    t0 = time.perf_counter()
+    ring = ring_rank(rank, world)
+    ring_s = time.perf_counter() - t0
+    return {"ring": ring, "ring_s": ring_s,
+            "tp": tp_rank(rank, world, tp_workdir)}
+
+
+def tp_prepare():
+    """Phase ``tensor_parallel``'s start, before its ranks: the workdirs
+    with the train phase's latest checkpoint, and the one-rank references
+    of (a)-(c) on this process."""
+    import torch
+
+    from diff3d_tpu_torch.config import srn64_config
+
+    t0 = time.perf_counter()
+    cfg = srn64_config()
+    shutil.rmtree(TP_WORKDIR, ignore_errors=True)
+    src = os.path.join(WORKDIR, "checkpoints")
+    step0 = max(int(m.group(1)) for m in map(
+        re.compile(r"^ckpt_(\d+)\.pt$").match, os.listdir(src)) if m)
+    wd = {}
+    for k in ("one", "tp"):
+        wd[k] = os.path.join(TP_WORKDIR, k)
+        os.makedirs(os.path.join(wd[k], "checkpoints"))
+        os.link(os.path.join(src, f"ckpt_{step0}.pt"),
+                os.path.join(wd[k], "checkpoints", f"ckpt_{step0}.pt"))
+    one = _tp_one_rank(cfg, wd["one"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"workdir": wd["tp"], "one": one,
+            "one_rank_s": time.perf_counter() - t0}
+
+
+def _tp_one_rank(cfg, workdir):
+    """The one-rank references of (a)-(c) on the card (the trainer of (c)
+    is returned alive: (d) restores into it)."""
+    import torch
+
+    from diff3d_tpu_torch.sampling import Sampler
+
+    model = random_model(cfg)
+    batch, cond_mask = model_batch(cfg, 2 * len(cfg.diffusion.guidance_weights),
+                                   seed=5)
+    with torch.inference_mode():
+        fwd = model(batch, cond_mask).float().cpu()
+        ms = cuda_ms(lambda: model(batch, cond_mask), iters=3, warmup=1)
+    cfg32, f32 = _tp_f32(cfg, model)
+    sampler = Sampler(f32, cfg32, device="cuda", sampler_kind="ddim",
+                      steps=TP_SAMPLER_STEPS, cuda_graphs=False)
+    with _NoTF32():
+        views = sampler.synthesize(orbit_views(2, cfg.model.H, seed=3),
+                                   torch.Generator("cuda").manual_seed(0))
+    del sampler, f32, model
+    trainer = _tp_trainer(_tp_argv(workdir))
+    start = _tp_params(trainer)
+    losses, norms, lrs, _ = _tp_steps(trainer, 1)
+    # The control's reference: one rank's first update.
+    torch.save({n: (p - start[n]).cpu()
+                for n, p in _tp_params(trainer).items()}, TP_CONTROL_REF)
+    more = _tp_steps(trainer, TP_STEPS - 1)
+    trainer.loader.close()
+    return {"forward": fwd, "ms_per_forward": ms, "views": views,
+            "losses": losses + more[0], "grad_norms": norms + more[1],
+            "lrs": lrs + more[2], "start": start,
+            "params": _tp_params(trainer), "trainer": trainer}
+
+
+def _gate_summary(rows):
+    """What the kernels line's reader needs of :func:`_update_gate`'s
+    rows: the counts, the worst leaves by update and by parameter, and
+    the leaves passed by the floor alone."""
+    floor = [r for r in rows if r[0] > TP_UPDATE_TOL and r[5]]
+    beyond = [r for r in rows if r[3] > TP_UPDATE_FLOOR]
+    return {"leaves": len(rows), "failed": sum(not r[5] for r in rows),
+            "row": "update rel, leaf, max diff, max excess over the "
+                   "spacings, param rel",
+            "tolerance": TP_UPDATE_TOL, "floor_abs": TP_UPDATE_FLOOR,
+            "floor_ulps": TP_UPDATE_ULPS,
+            "worst_update_rel": [r[:5] for r in rows[:5]],
+            "beyond_floor": {"count": len(beyond),
+                             "worst": [r[:5] for r in beyond[:5]]},
+            "worst_param_rel": [r[:5] for r in sorted(
+                rows, key=lambda r: r[4], reverse=True)[:3]],
+            "passed_by_floor": {
+                "count": len(floor),
+                "k_proj_biases": sum(r[1].endswith("k_proj.bias")
+                                     for r in floor),
+                "max_diff": max((r[2] for r in floor), default=0.0),
+                "max_excess": max((r[3] for r in floor), default=0.0),
+                "worst": [r[:5] for r in floor[:5]]},
+            "failed_leaves": [r[:5] for r in rows if not r[5]][:8]}
+
+
+def phase_tensor_parallel(prep, ranks, ranks_s):
+    """Tensor parallelism on the card (see the module docstring, 11a'):
+    ``prep`` is :func:`tp_prepare`'s, ``ranks`` the ranks' results of
+    :func:`tp_rank` (run by phase ``parallel``'s processes, ``ranks_s``
+    seconds)."""
+    import torch
+
+    from diff3d_tpu_torch.parallel.mesh import block_of
+    from diff3d_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    one, one_s = prep["one"], prep["one_rank_s"]
+    wd = {"tp": prep["workdir"]}
+
+    # (a) and (b) against one rank.
+    fwd_rel = max(_rel_l2(r["forward"], one["forward"]) for r in ranks)
+    view_rel = max(_rel_l2(r["views"], one["views"]) for r in ranks)
+    finite = all(torch.isfinite(r["forward"]).all()
+                 and np.isfinite(r["views"]).all() for r in ranks)
+    # (d) The tp checkpoint (gathered, written by rank 0) restored at
+    # world 1, into the one-rank trainer: each rank's blocks of every
+    # restored tensor bit for bit the rank's own.
+    r0 = ranks[0]
+    saved_step = r0["saved_step"]
+    trainer = one.pop("trainer")
+    mgr = CheckpointManager(os.path.join(wd["tp"], "checkpoints"))
+    mgr.mesh_info = trainer.env.topology_summary()
+    restored_step = mgr.restore(trainer.state)
+    reshard = mgr.last_restore_reshard
+    mesh_stamp = None if reshard is None else reshard["from"]
+    leaves = _tp_leaves(trainer.state)
+    # (c) The losses, the gradient norms and the lrs against one rank's,
+    # and each parameter's update over the steps against one rank's
+    # (:func:`_update_gate`); the control must fail that gate.
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for r in ranks
+                   for k in ("losses", "grad_norms", "lrs")
+                   for a, b in zip(r[k], one[k]))
+    gate = _update_gate({
+        n: _update_sums(leaves[f"model.{n}"], p, one["start"][n])
+        for n, p in one["params"].items()})
+    ctl_sums = {}
+    for r in ranks:
+        for n, v in r["control"]["sums"].items():
+            acc = ctl_sums.setdefault(n, [0.0, 0.0, 0.0, -math.inf,
+                                          -math.inf])
+            acc[:3] = [a + b for a, b in zip(acc[:3], v[:3])]
+            acc[3:] = [max(a, b) for a, b in zip(acc[3:], v[3:])]
+    ctl_gate = _update_gate(ctl_sums)
+    differ = []
+    for r in ranks:
+        dims, halved = r["model_dims"], set(r["halved"])
+        for n, t in leaves.items():
+            pname = n.split(".", 1)[1]
+            if n.startswith("adam."):
+                pname = pname.rsplit(".", 1)[0]
+            d = dims.get(pname)
+            mine = t if d is None else block_of(
+                t, d, r["model_rank"], TP_WORLD, pname in halved)
+            if _sha1(mine) != r["hashes"][n]:
+                differ.append((r["rank"], n))
+    del trainer, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TP_WORKDIR, ignore_errors=True)
+
+    sample_rows = ("fused_groupnorm", "flash_attention")
+    train_rows = ("fused_groupnorm", "groupnorm_backward", "flash_attention",
+                  "attention_backward_dkdv", "attention_backward_dq")
+    launched = all(r["launches_sampling"][k] > 0 for r in ranks
+                   for k in sample_rows) and all(
+        r["launches_training"][k] > 0 for r in ranks for k in train_rows)
+
+    def per(r, key):
+        c = r[key]
+        return {"calls": c["calls"], "bytes": c["bytes"],
+                "ms": round(1e3 * c["seconds"], 3)}
+
+    out = {"config": "srn64", "mesh": "dp1 x mp2, tp",
+           "transport": "gloo, 2 ranks on one card: each collective's CUDA "
+                        "tensors staged through pinned host memory "
+                        "(one broadcast per rank's block)",
+           "backend": r0["backend"], "gloo": r0["gloo"],
+           "forward": {"batch": int(one["forward"].shape[0]),
+                       "rel_l2_vs_one_rank": fwd_rel, "tolerance": TP_TOL,
+                       "ms_per_forward": [round(r["ms_per_forward"], 3)
+                                          for r in ranks],
+                       "one_rank_ms_per_forward": one["ms_per_forward"],
+                       "collectives_per_forward": [
+                           per(r, "collectives_per_forward")
+                           for r in ranks]},
+           "sampler": {"views": 1, "ddim_steps": TP_SAMPLER_STEPS,
+                       "dtype": "float32",
+                       "rel_l2_vs_one_rank": view_rel, "tolerance": TP_TOL,
+                       "s": [round(r["sampler_s"], 3) for r in ranks],
+                       "graphs": [r["sampler_graphs"] for r in ranks]},
+           "train": {"from_step": r0["restored_step"],
+                     "global_batch": TP_BATCH, "steps": TP_STEPS,
+                     "eager": all(r["eager"] for r in ranks),
+                     "losses": [r["losses"] for r in ranks],
+                     "one_rank_losses": one["losses"],
+                     "grad_norms": [r["grad_norms"] for r in ranks],
+                     "one_rank_grad_norms": one["grad_norms"],
+                     "lrs": [r["lrs"] for r in ranks],
+                     "one_rank_lrs": one["lrs"],
+                     "loss_rel": loss_rel, "loss_tolerance": TP_LOSS_TOL,
+                     "update_gate": _gate_summary(gate),
+                     "control": {
+                         "what": "the first step retaken from the "
+                                 "checkpoint with copy's backward not "
+                                 "summed over the model axis",
+                         "loss": [r["control"]["loss"] for r in ranks],
+                         "grad_norm": [r["control"]["grad_norm"]
+                                       for r in ranks],
+                         "one_rank_loss": one["losses"][0],
+                         "one_rank_grad_norm": one["grad_norms"][0],
+                         "update_gate": _gate_summary(ctl_gate)},
+                     "s_per_step": [r["step_s"] for r in ranks],
+                     "collectives_per_step": [
+                         [{"calls": c["calls"], "bytes": c["bytes"],
+                           "ms": round(1e3 * c["seconds"], 3)}
+                          for c in r["collectives_per_step"]]
+                         for r in ranks]},
+           "checkpoint": {"saved_step": saved_step,
+                          "restored_at_world_1_step": restored_step,
+                          "mesh": mesh_stamp, "reshard": reshard,
+                          "tensors_compared": len(r0["hashes"]) * TP_WORLD,
+                          "blocks_differing": len(differ)},
+           "launches_sampling": [{k: r["launches_sampling"][k]
+                                  for k in sample_rows} for r in ranks],
+           "launches_training": [{k: r["launches_training"][k]
+                                  for k in train_rows} for r in ranks],
+           "sites": {"sampling": {k: {str(kk): v for kk, v in
+                                      r0["sample_sites"][k].items()}
+                                  for k in ("gn", "attn")},
+                     "training": {k: {str(kk): v for kk, v in
+                                      r0["train_sites"][k].items()}
+                                  for k in ("gn", "attn")}},
+           "sites_s": [round(r["sites_s"], 3) for r in ranks],
+           "rank_marks_s": [r["marks_s"] for r in ranks],
+           "one_rank_s": round(one_s, 3), "ranks_s": round(ranks_s, 3),
+           "phase_s": round(one_s + ranks_s
+                            + time.perf_counter() - t_phase, 3)}
+    emit(dict(phase="tensor_parallel", **out))
+    if not (finite and fwd_rel <= TP_TOL and view_rel <= TP_TOL):
+        raise AssertionError(f"tensor_parallel: forward {fwd_rel}, views "
+                             f"{view_rel}, finite {finite}")
+    failed = [row[:5] for row in gate if not row[5]]
+    if not (loss_rel <= TP_LOSS_TOL and not failed
+            and out["train"]["eager"]):
+        raise AssertionError(f"tensor_parallel: training off one rank: "
+                             f"losses and norms {loss_rel}, "
+                             f"{len(failed)} updates, e.g. {failed[:3]}")
+    if all(row[5] for row in ctl_gate):
+        raise AssertionError("tensor_parallel: the update gate passed the "
+                             "control (copy's gradient unsummed)")
+    if differ or restored_step != saved_step or not reshard:
+        raise AssertionError(f"tensor_parallel: the checkpoint round trip: "
+                             f"{len(differ)} blocks differ, e.g. "
+                             f"{differ[:3]}; step {restored_step}")
+    if not launched:
+        raise AssertionError(f"tensor_parallel: a row was not launched: "
+                             f"{out['launches_sampling']}, "
+                             f"{out['launches_training']}")
+
+    # The kernels line: the slower rank's times, the worst error, rank
+    # 0's launches.
+    def slowest(key, sub=None):
+        rows = [r[key] if sub is None else r[key][sub] for r in ranks]
+        got = dict(rows[0])
+        for k in ("ms", "device_ms", "plain_ms", "library_ms"):
+            if k in got:
+                got[k] = max(r[k] for r in rows)
+        got["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return got
+
+    out["kernel_stats"] = {
+        "fused_groupnorm@tp": slowest("gn"),
+        "fused_groupnorm[save_stats]@tp": slowest("gn_fwd"),
+        "groupnorm_backward@tp": slowest("gn_bwd"),
+        "flash_attention@tp": slowest("attn"),
+        "flash_attention[save_lse]@tp": slowest("attn_rows", "lse"),
+        "attention_backward_dkdv@tp": slowest("attn_rows", "dkdv"),
+        "attention_backward_dq@tp": slowest("attn_rows", "dq")}
+    ls, lt = r0["launches_sampling"], r0["launches_training"]
+    out["kernel_launches"] = {
+        "fused_groupnorm@tp": ls["fused_groupnorm"],
+        "fused_groupnorm[save_stats]@tp": lt["fused_groupnorm"],
+        "groupnorm_backward@tp": lt["groupnorm_backward"],
+        "flash_attention@tp": ls["flash_attention"],
+        "flash_attention[save_lse]@tp": lt["flash_attention"],
+        "attention_backward_dkdv@tp": lt["attention_backward_dkdv"],
+        "attention_backward_dq@tp": lt["attention_backward_dq"]}
     return out
 
 
@@ -4614,8 +5309,12 @@ def main() -> None:
                  for e in train["preemption_and_eval"]["evals"])
           for k in ("fused_groupnorm", "flash_attention")}
     phase_eval()
-    par = phase_parallel(graph_run)
+    par, tp_run = phase_parallel(graph_run)
     del graph_run
+    tpar = phase_tensor_parallel(*tp_run)
+    del tp_run
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Distillation from the train phase's checkpoint (its student step is
     # one training microbatch's work; the teacher's two forwards run rows
@@ -4714,6 +5413,16 @@ def main() -> None:
                    f"heads over all {rl} tokens, the kernel alone, the "
                    "slowest rank; call_*: one rank's whole Ulysses "
                    "forward, the all-to-alls included; launches: rank 0's")
+    tp_sample = ("one srn64 forward at 2B=16 on one rank of the tp mesh "
+                 "(dp1 x mp2, 2 ranks on one card over gloo): the rank's "
+                 "blocks (C/2 channels, G/2 groups, 2 of 4 heads), summed "
+                 "over sites; the slower rank's times; launches: rank 0's "
+                 f"bf16 forward and {TP_SAMPLER_STEPS}-step float32 "
+                 "Sampler(mesh) view")
+    tp_train = (f"one srn64 train step at global batch {TP_BATCH} on one "
+                "rank of the tp mesh (dp1 x mp2, 2 ranks on one card over "
+                "gloo): the rank's blocks, summed over sites; the slower "
+                f"rank's times; launches: rank 0's {TP_STEPS} eager steps")
     student_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
                    "the student's forward and backward (a train step's "
                    "sites), summed over sites; launches of the wrapper")
@@ -4807,7 +5516,18 @@ def main() -> None:
                ("flash_attention_lse@ring", fa_at, ring_per),
                ("attention_backward@ring", f"{dkdv_at}, {dq_at}",
                 ring_per + " (the backward: rows 5 and 6)"),
-               ("flash_attention@ulysses", fa_at, ulysses_per))],
+               ("flash_attention@ulysses", fa_at, ulysses_per))]
+        + [(name, src, at, tpar["kernel_launches"][name],
+            tpar["kernel_stats"][name], per)
+           for name, src, at, per in (
+               ("fused_groupnorm@tp", film, gn_fwd_at, tp_sample),
+               ("fused_groupnorm[save_stats]@tp", film, gn_fwd_at,
+                tp_train),
+               ("groupnorm_backward@tp", film, gn_bwd_at, tp_train),
+               ("flash_attention@tp", att, fa_at, tp_sample),
+               ("flash_attention[save_lse]@tp", att, fa_at, tp_train),
+               ("attention_backward_dkdv@tp", att, dkdv_at, tp_train),
+               ("attention_backward_dq@tp", att, dq_at, tp_train))],
         design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,33 @@ def apply_model_width_overrides(cfg, args):
         cfg, model=dataclasses.replace(cfg.model, **over))
 
 
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """The placement flags of the training and evaluation CLIs: they set
+    ``cfg.mesh`` (:func:`apply_mesh_overrides`), the config the JAX
+    package's CLIs read it from."""
+    p.add_argument("--param_sharding",
+                   choices=["replicated", "fsdp", "tp", "fsdp+tp"],
+                   default=None,
+                   help="'replicated' (every rank the whole state), 'fsdp' "
+                        "(FSDP2, the step eager), 'tp' (the parameters "
+                        "split over the model axis, eager) or 'fsdp+tp' "
+                        "(both); sampling keeps whole copies over the data "
+                        "axis")
+    p.add_argument("--model_parallel", type=int, default=None,
+                   help="ranks on the mesh's model axis (tp / fsdp+tp)")
+
+
+def apply_mesh_overrides(cfg, args):
+    """Returns ``cfg`` with --param_sharding / --model_parallel applied to
+    ``cfg.mesh``."""
+    over = {k: getattr(args, k) for k in ("param_sharding", "model_parallel")
+            if getattr(args, k, None) is not None}
+    if not over:
+        return cfg
+    return dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                             **over))
+
+
 def load_eval_params(path: str, model, raw_params: bool) -> Optional[int]:
     """Load the weights to sample with into ``model`` (in place, on its
     device) and return their training step (None where the file does not

@@ -45,8 +45,11 @@ Runs on the card unless ``--device`` names another; there the reverse
 step runs as a CUDA graph.  ``--mesh`` splits each object batch over the
 ranks of a ``torchrun`` job (``Sampler(mesh=...)``: each rank synthesises
 its objects, the views are all-gathered; ``--object_batch`` is rounded up
-to a multiple of the rank count); rank 0 writes the records, the images
-and the metrics.  Writes one JSON line to stdout and, with ``--out``,
+to a multiple of the data axis's rank count); rank 0 writes the records,
+the images and the metrics.  ``--model_parallel N --param_sharding tp``
+(or ``fsdp+tp``) splits the model over a model axis of N ranks: the
+ranks of one model group synthesise the same objects, each on its blocks
+of the weights.  Writes one JSON line to stdout and, with ``--out``,
 appends it there.
 
 Usage:
@@ -58,6 +61,9 @@ Usage:
     torchrun --standalone --nproc_per_node 2 -m \
         diff3d_tpu_torch.cli.eval_cli --mesh --model ./checkpoints \
         --synthetic_scenes
+    torchrun --standalone --nproc_per_node 2 -m \
+        diff3d_tpu_torch.cli.eval_cli --mesh --model_parallel 2 \
+        --param_sharding tp --model ./checkpoints --synthetic_scenes
 """
 
 from __future__ import annotations
@@ -69,7 +75,9 @@ import os
 
 import numpy as np
 
-from diff3d_tpu_torch.cli._common import (add_model_width_args,
+from diff3d_tpu_torch.cli._common import (add_mesh_args,
+                                          add_model_width_args,
+                                          apply_mesh_overrides,
                                           apply_model_width_overrides,
                                           load_eval_params)
 
@@ -178,6 +186,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split each object batch over the ranks of a "
                         "torchrun job (NCCL on the card, gloo with "
                         "--device cpu); rank 0 writes the results")
+    add_mesh_args(p)
     return p
 
 
@@ -302,6 +311,10 @@ def _main(args) -> None:
             cfg, diffusion=dataclasses.replace(cfg.diffusion,
                                                timesteps=args.steps))
     cfg = apply_model_width_overrides(cfg, args)
+    if not args.mesh and (args.model_parallel is not None
+                          or args.param_sharding is not None):
+        raise SystemExit("--model_parallel / --param_sharding take --mesh")
+    cfg = apply_mesh_overrides(cfg, args)
 
     # A bad --feature_weights fails before any sampling.
     feature_fn, fid_key = resolve_feature_fn(args.feature_weights)

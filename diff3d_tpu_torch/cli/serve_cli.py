@@ -49,12 +49,13 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           load_eval_params)
 
 _WAITING = ("Not in the port (see ROADMAP.md): --mesh is refused (serving "
-            "over several cards rides on tensor parallelism, ROADMAP "
-            "A10b); --pallas has no counterpart: the port runs one "
+            "over several cards needs a multi-process serving loop, "
+            "ROADMAP A10b); --pallas has no counterpart: the port runs one "
             "implementation per device (ops/dispatch.py).")
 
 _MESH_REFUSED = ("--mesh: serving over a mesh of cards waits for ROADMAP "
-                 "A10b (tensor parallelism); one engine serves one card")
+                 "A10b (a multi-process serving loop); one engine serves "
+                 "one card")
 
 
 def build_parser() -> argparse.ArgumentParser:

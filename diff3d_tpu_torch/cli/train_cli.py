@@ -20,17 +20,22 @@ of as CUDA graphs, for comparison).  SIGTERM or SIGINT stops a run
 gracefully: the step it reached is checkpointed, and ``--transfer``
 resumes there.
 
-Data parallelism: launched by ``torchrun``, every rank trains
-``global_batch / world`` rows of each global batch (NCCL on the card,
-gloo with ``--device cpu``); ``--param_sharding`` picks ``replicated``
-(DDP: gradients all-reduced, the step a CUDA graph) or ``fsdp`` (FSDP2,
-eager); rank 0 writes metrics and checkpoints.  ``--elastic`` runs under
-the elastic supervisor (re-mesh and resume after a preemption or a
-transient fault; ``--elastic_max_remesh`` cycles in a row without
-progress give up).  Refused until ROADMAP A10b: ``--model_parallel``,
-``--context_parallel``, ``--param_sharding tp|fsdp+tp``, ``--attn_impl``
-and ``--pallas``.  The JAX package's other flags are unknown here (exit
-code 2).
+Data and tensor parallelism: launched by ``torchrun``, the ranks form a
+``(data, model)`` mesh with ``--model_parallel`` ranks on the model axis
+(NCCL on the card, gloo with ``--device cpu``); every data rank trains
+``global_batch / data_size`` rows of each global batch;
+``--param_sharding`` picks ``replicated`` (DDP: gradients all-reduced,
+the step a CUDA graph), ``fsdp`` (FSDP2, eager), ``tp`` (the parameters
+split Megatron-style over the model axis, eager) or ``fsdp+tp`` (both);
+rank 0 writes metrics and checkpoints.  ``--elastic`` runs under the
+elastic supervisor (re-mesh and resume after a preemption or a transient
+fault; ``--elastic_max_remesh`` cycles in a row without progress give
+up).  ``--pallas`` and ``--attn_impl auto|pallas`` name the kernels the
+port runs on the card anyway (accepted and logged); ``--attn_impl xla``
+asks for the plain versions, which the port runs only off the card: it is
+accepted with ``--device cpu`` and refused on the card.  Refused until
+ROADMAP A10b: ``--context_parallel``.  The JAX package's other flags are
+unknown here (exit code 2).
 
 Usage:
     python -m diff3d_tpu_torch.cli.train_cli --synthetic --steps 10 \\
@@ -53,6 +58,10 @@ Usage:
     torchrun --standalone --nproc_per_node 2 -m \\
         diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
         --synthetic --steps 2 --workdir /tmp/port_train_dp
+    torchrun --standalone --nproc_per_node 2 -m \\
+        diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
+        --synthetic --steps 2 --param_sharding tp --model_parallel 2 \\
+        --workdir /tmp/port_train_tp
 
 (``--init_from`` keeps every width: srn64 is ch 128, srn128 ch 256, so a
 64^2 -> 128^2 transfer takes ``--ch 128``.)
@@ -64,12 +73,13 @@ import argparse
 import dataclasses
 import logging
 
-from diff3d_tpu_torch.cli._common import (add_model_width_args,
+from diff3d_tpu_torch.cli._common import (add_mesh_args,
+                                          add_model_width_args,
+                                          apply_mesh_overrides,
                                           apply_model_width_overrides)
 
-_A10B = ("Refused until tensor parallelism is ported (ROADMAP A10b): "
-         "--model_parallel, --context_parallel, --param_sharding tp / "
-         "fsdp+tp, --attn_impl and --pallas.")
+_A10B = ("Refused until context parallelism is ported (ROADMAP A10b): "
+         "--context_parallel.")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,23 +163,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eager", action="store_true",
                    help="run the train step eagerly instead of as CUDA "
                         "graphs (the comparison path)")
-    p.add_argument("--param_sharding",
-                   choices=["replicated", "fsdp", "tp", "fsdp+tp"],
-                   default=None,
-                   help="'replicated' (every rank the whole state, the "
-                        "gradients all-reduced) or 'fsdp' (FSDP2, the step "
-                        "eager); tp / fsdp+tp are refused (ROADMAP A10b)")
-    p.add_argument("--model_parallel", type=int, default=None,
-                   help="refused: the model axis waits for ROADMAP A10b")
+    add_mesh_args(p)
     p.add_argument("--context_parallel", action="store_true",
                    help="refused: waits for ROADMAP A10b")
     p.add_argument("--attn_impl", default=None,
-                   help="refused: the port runs one attention "
-                        "implementation per device (ROADMAP A10b maps the "
-                        "reference's names)")
+                   choices=["auto", "pallas", "xla"],
+                   help="'auto' / 'pallas': the hand-written kernels, which "
+                        "the port runs on the card anyway; 'xla': the "
+                        "plain versions, which the port runs only off the "
+                        "card (accepted with --device cpu)")
     p.add_argument("--pallas", action="store_true",
-                   help="refused: the port runs one implementation per "
-                        "device (ROADMAP A10b)")
+                   help="the fused GroupNorm kernels: the port runs them on "
+                        "the card anyway (accepted and logged)")
     p.add_argument("--elastic", action="store_true",
                    help="train under the elastic supervisor: after a "
                         "preemption (SIGTERM) or a transient backend fault, "
@@ -186,16 +191,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    """Exit naming ROADMAP A10b for the flags of tensor parallelism."""
-    bad = [f for f, on in (
-        ("--model_parallel", args.model_parallel is not None),
-        ("--context_parallel", args.context_parallel),
-        (f"--param_sharding {args.param_sharding}",
-         args.param_sharding in ("tp", "fsdp+tp")),
-        ("--attn_impl", args.attn_impl is not None),
-        ("--pallas", args.pallas)) if on]
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: {_A10B}")
+    """Exit naming ROADMAP A10b for ``--context_parallel``, and for
+    ``--attn_impl xla`` on the card (the card's path runs the kernels,
+    never their plain versions)."""
+    if args.context_parallel:
+        raise SystemExit(f"--context_parallel: {_A10B}")
+    if args.attn_impl == "xla" and (
+            args.device is None or not str(args.device).startswith("cpu")):
+        raise SystemExit(
+            "--attn_impl xla asks for the plain attention, which the port "
+            "runs only off the card: the card's path runs the hand-written "
+            "kernels (take --attn_impl auto, or --device cpu)")
+
+
+def log_kernel_flags(args) -> None:
+    """Log what ``--pallas`` / ``--attn_impl`` name in the port."""
+    if args.pallas or args.attn_impl in ("auto", "pallas"):
+        logging.info("--pallas / --attn_impl %s: the hand-written CUDA "
+                     "kernels (ops/csrc/film.cu, attention.cu) run on the "
+                     "card; off the card their plain versions run",
+                     args.attn_impl or "auto")
+    if args.attn_impl == "xla":
+        logging.info("--attn_impl xla: the plain versions (the CPU runs "
+                     "nothing else)")
 
 
 def config_from_args(args):
@@ -215,9 +233,7 @@ def config_from_args(args):
     if over:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **over))
-    if getattr(args, "param_sharding", None) is not None:
-        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
-            cfg.mesh, param_sharding=args.param_sharding))
+    cfg = apply_mesh_overrides(cfg, args)
     model_over = {k: v for k, v in (("remat", args.remat),
                                     ("remat_policy", args.remat_policy))
                   if v is not None}
@@ -268,6 +284,7 @@ def _setup(args):
     from diff3d_tpu_torch.parallel import make_mesh
 
     refuse_unported(args)
+    log_kernel_flags(args)
     if args.synthetic and args.synthetic_scenes:
         raise SystemExit(
             "--synthetic and --synthetic_scenes are mutually exclusive")
@@ -387,6 +404,8 @@ def seed_from_checkpoint(trainer, path: str, init_res: int) -> None:
     src_step = load_eval_params(path, src, raw_params=False)   # on the CPU
     params = adapt_params_resolution(
         {k: v.detach() for k, v in src.named_parameters()}, (mcfg.H, mcfg.W))
+    if trainer.env.tensor_parallel:      # this rank's blocks
+        params = {k: trainer.env.local_of(k, v) for k, v in params.items()}
     target = dict(state.model.named_parameters())
     check_resolution_compatible(params, target)
     with torch.no_grad():

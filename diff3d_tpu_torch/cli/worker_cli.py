@@ -26,7 +26,7 @@ up to ``--drain_s``), stops and exits 0.
 
 Runs on the card (``--devices`` names it) unless ``--device`` names
 another torch device.  Refused, each with its reason: a ``--devices``
-slice of several cards (tensor parallelism, ROADMAP A10b), ``--compile_cache``
+slice of several cards (a multi-process serving loop, ROADMAP A10b), ``--compile_cache``
 (XLA's persistent compile cache; a worker captures its CUDA graphs at
 boot), ``--host_device_count`` (XLA's virtual host devices) and
 ``--memcheck_dir`` (the JAX package's StableHLO memory manifests; the
@@ -85,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = ephemeral)")
     p.add_argument("--devices", required=True,
                    help="the CUDA device this replica owns, by index "
-                        "('0'); a slice of several waits for tensor "
-                        "parallelism (ROADMAP A10b) and is refused")
+                        "('0'); a slice of several waits for a "
+                        "multi-process serving loop (ROADMAP A10b) and is "
+                        "refused")
     p.add_argument("--device", default=None,
                    help="torch device instead of the card --devices names "
                         "(the CPU only when named, as the tests do)")
@@ -174,7 +175,8 @@ def build_worker(args):
     if len(devices) != 1:
         raise SystemExit(
             f"--devices {args.devices}: a worker runs on one card; a slice "
-            "of several waits for tensor parallelism (ROADMAP A10b)")
+            "of several waits for a multi-process serving loop "
+            "(ROADMAP A10b)")
 
     weights, version = None, "random-init"
     if args.init == "checkpoint":

@@ -129,9 +129,8 @@ class DataConfig:
     train_fraction: float = 0.9
 
 
-#: Parameter placements the port takes.  The tensor-parallel policies
-#: (``tp``, ``fsdp+tp``) and the model axis wait for ROADMAP A10b.
-PARAM_SHARDINGS = ("replicated", "fsdp")
+#: Parameter placements the port takes.
+PARAM_SHARDINGS = ("replicated", "fsdp", "tp", "fsdp+tp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,9 +140,9 @@ class MeshConfig:
     parameters, Adam's moments and the EMA: ``'replicated'`` keeps a whole
     copy on every rank and all-reduces the gradients (DDP); ``'fsdp'``
     shards each parameter's largest divisible dim over the data axis
-    (FSDP2).  The model axis, ``tp`` / ``fsdp+tp`` and
-    ``context_parallel`` are carried field for field but refused by
-    :meth:`validate` until ROADMAP A10b."""
+    (FSDP2); ``'tp'`` splits them Megatron-style over the model axis;
+    ``'fsdp+tp'`` does both.  ``context_parallel`` is carried field for
+    field but refused by :meth:`validate` until ROADMAP A10b."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -158,19 +157,15 @@ class MeshConfig:
                 "context_parallel shards the spatial axis over the model "
                 f"axis, but model_parallel={self.model_parallel} makes "
                 "that a no-op — set model_parallel > 1")
-        if self.param_sharding in ("tp", "fsdp+tp"):
-            raise ValueError(
-                f"param_sharding={self.param_sharding!r}: the tensor-"
-                "parallel policies are not ported yet (ROADMAP A10b); "
-                f"take one of {PARAM_SHARDINGS}")
         if self.param_sharding not in PARAM_SHARDINGS:
             raise ValueError(f"param_sharding={self.param_sharding!r} not "
                              f"in {PARAM_SHARDINGS}")
-        if self.model_parallel > 1 or self.context_parallel:
+        if self.context_parallel:
             raise ValueError(
-                f"model_parallel={self.model_parallel}, context_parallel="
-                f"{self.context_parallel}: the model axis is not ported "
-                "yet (ROADMAP A10b); the port runs data parallelism only")
+                f"context_parallel=True (model_parallel="
+                f"{self.model_parallel}): context parallelism is not "
+                "ported yet (ROADMAP A10b); the model axis takes the tp "
+                "and fsdp+tp placements")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,12 @@ its port parameter:
 The carry is total: every Flax leaf is consumed exactly once, every port
 parameter is set exactly once, and shapes are checked; a missing or
 extra key raises and names it.
+
+Into a model split over a mesh's model axis (``placement``, a
+``MeshEnv`` under ``tp`` / ``fsdp+tp``): the whole tree is carried (the
+shapes checked against the whole ones), then each rank keeps its blocks
+(``MeshEnv.local_of``, FiLM's halves reordered as the placement holds
+them).
 """
 
 from __future__ import annotations
@@ -67,11 +73,15 @@ def port_key(path: str, leaf: np.ndarray):
     return ".".join(parts), tensor
 
 
-def convert_params(params: Mapping, model: nn.Module
+def convert_params(params: Mapping, model: nn.Module, placement=None
                    ) -> Dict[str, torch.Tensor]:
     """The port ``state_dict`` for ``model`` from a Flax ``params`` tree
-    (nested dicts of arrays, or one flat ``/``-joined dict)."""
-    expected = model.state_dict()
+    (nested dicts of arrays, or one flat ``/``-joined dict); ``placement``:
+    ``model`` is split over its model axis, and each tensor comes back as
+    this rank's block of the carried one."""
+    expected = {k: tuple(v.shape) if placement is None
+                else placement.whole_shape(k, v.shape)
+                for k, v in model.state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in sorted(flatten(params).items()):
         key, tensor = port_key(path, leaf)
@@ -80,27 +90,33 @@ def convert_params(params: Mapping, model: nn.Module
                            "no such parameter")
         if key in out:
             raise KeyError(f"Flax leaf {path} -> {key}: set twice")
-        if tuple(tensor.shape) != tuple(expected[key].shape):
+        if tuple(tensor.shape) != expected[key]:
             raise ValueError(
                 f"Flax leaf {path} -> {key}: shape {tuple(tensor.shape)} "
-                f"!= port {tuple(expected[key].shape)}")
+                f"!= port {expected[key]}")
         out[key] = tensor
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"port parameters with no Flax leaf: {missing}")
+    if placement is not None:
+        out = {k: placement.local_of(k, v) for k, v in out.items()}
     return out
 
 
-def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
+def load_flax_params(model: nn.Module, params: Mapping,
+                     placement=None) -> nn.Module:
     """Load a Flax parameter tree into ``model`` in place (on the
-    model's device)."""
+    model's device).  ``placement`` (a ``MeshEnv``): ``model`` is whole,
+    and is placed by the mesh's policy once the tree is carried."""
     model.load_state_dict(convert_params(params, model), strict=True)
+    if placement is not None:
+        placement.params(model)
     return model
 
 
 def load_flax_train_state(state, *, params: Mapping, ema_params: Mapping,
                           mu: Mapping, nu: Mapping, adam_count: int,
-                          schedule_count: int, step: int):
+                          schedule_count: int, step: int, placement=None):
     """Carry a JAX ``TrainState`` into the port's
     :class:`~diff3d_tpu_torch.train.TrainState` in place: the parameters,
     the EMA, Adam's first / second moments (``ScaleByAdamState.mu`` /
@@ -108,12 +124,16 @@ def load_flax_train_state(state, *, params: Mapping, ema_params: Mapping,
     parameter ``step``), the warmup schedule's count
     (``ScaleByScheduleState.count``) and ``TrainState.step``.  The trees
     are numpy, as :func:`convert_params` takes them; the JAX side
-    extracts them."""
+    extracts them.  ``placement``: the state is split over the mesh's
+    model axis (a ``Trainer``'s under ``tp``), and each rank takes its
+    blocks of every carried tensor."""
     from diff3d_tpu_torch.train.state import set_schedule_step
 
     model = state.model
-    load_flax_params(model, params)
-    ema, m1, m2 = (convert_params(t, model) for t in (ema_params, mu, nu))
+    model.load_state_dict(convert_params(params, model, placement),
+                          strict=True)
+    ema, m1, m2 = (convert_params(t, model, placement)
+                   for t in (ema_params, mu, nu))
     with torch.no_grad():
         for name, p in model.named_parameters():
             state.ema[name].copy_(ema[name])

@@ -35,6 +35,10 @@ class ConditioningProcessor(nn.Module):
          ``first_emb`` / ``other_emb``;
       5. 3x3 convs 144 -> emb_ch at stride ``2^level`` with explicit
          padding 1 (not SAME, which aligns the strided grid differently).
+
+    Placed over a model axis (``tp``), the MLP's Dense layers and the
+    level convs are column-parallel: every embedding comes out as this
+    rank's block of ``emb_ch`` (whole where ``emb_ch`` does not split).
     """
 
     def __init__(self, emb_ch: int, H: int, W: int, num_resolutions: int,
@@ -59,6 +63,7 @@ class ConditioningProcessor(nn.Module):
             setattr(self, f"level_conv_{i}",
                     Conv(D, emb_ch, 3, stride=2 ** i, padding=1,
                          compute_dtype=compute_dtype))
+        self.tp = None
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 cond_mask: torch.Tensor
@@ -67,7 +72,13 @@ class ConditioningProcessor(nn.Module):
         logsnr = torch.clamp(batch["logsnr"].float(), -self.logsnr_clip,
                              self.logsnr_clip)                   # [B, F]
         logsnr_emb = posenc_ddpm(logsnr, self.emb_ch, max_time=1.0)
-        logsnr_emb = self.Dense_1(F.silu(self.Dense_0(logsnr_emb)))
+        axis, E = self.tp, self.emb_ch
+        if axis is not None:
+            logsnr_emb = axis.input_for(logsnr_emb, E, [self.Dense_0])
+        h = F.silu(self.Dense_0(logsnr_emb))
+        if axis is not None:
+            h = axis.input_for(h, E, [self.Dense_1])
+        logsnr_emb = self.Dense_1(h)
 
         # The intrinsics-only half may arrive precomputed as
         # batch['cam_dirs'] (the sampler computes it once per trajectory).
@@ -89,6 +100,8 @@ class ConditioningProcessor(nn.Module):
             pose_emb = pose_emb + ref_emb
 
         flat = pose_emb.reshape(B * Fr, H, W, POSE_EMB_CH)
-        pose_embs = [getattr(self, f"level_conv_{i}")(flat)
-                     for i in range(self.num_resolutions)]
-        return logsnr_emb, pose_embs
+        convs = [getattr(self, f"level_conv_{i}")
+                 for i in range(self.num_resolutions)]
+        if axis is not None:
+            flat = axis.input_for(flat, POSE_EMB_CH, convs)
+        return logsnr_emb, [conv(flat) for conv in convs]

@@ -16,6 +16,20 @@ Parity traps the JAX package paid for, kept here: GroupNorm eps 1e-5;
 cross attention rolls the frames by -1 and both frames share one
 ``AttnLayer``; residuals are divided by sqrt(2); downsampling is an average
 pool and upsampling nearest.
+
+Tensor parallelism (``MeshEnv.place_model_axis``): each layer that holds a
+``tp`` attribute (a :class:`~diff3d_tpu_torch.parallel.tensor.ModelAxis`,
+None unplaced) runs on its blocks of the split parameters.  A
+:class:`Dense` / :class:`Conv` is column-parallel (``tp_mode="column"``:
+a whole input, this rank's block of the output channels), row-parallel
+(``"row"``, ``out_proj``: this rank's block of the input, the partial
+sums reduced in float32, then the bias) or replicated (None).  The blocks
+own the data flow between layers (:mod:`diff3d_tpu_torch.parallel.tensor`
+names the two layouts): a GroupNorm runs on this rank's channel block
+(``C/mp`` channels, ``G/mp`` groups) where the groups split over the
+ranks, else on the whole activation; attention runs on ``heads/mp`` heads
+where the heads split, else on the gathered whole heads; dropout's mask is
+drawn whole and sliced to the block.
 """
 
 from __future__ import annotations
@@ -65,10 +79,19 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.compute_dtype = compute_dtype
+        self.tp = None
+        self.tp_mode: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.tp_mode == "row":
+            # Each rank's partial product in float32 (bf16 products are
+            # exact there), summed over the model axis, then the bias
+            # once, then one rounding: the unsharded layer's arithmetic.
+            part = F.linear(x.to(dt).float(), self.weight.to(dt).float())
+            return (self.tp.reduce(part) + self.bias.to(dt).float()).to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        _bias_block(self).to(dt))
 
 
 class Conv(nn.Module):
@@ -88,13 +111,26 @@ class Conv(nn.Module):
         self.padding = kernel // 2 if padding is None else padding
         self.compute_dtype = compute_dtype
         self.zero_init = zero_init
+        self.tp = None
+        self.tp_mode: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         w = self.weight.to(dt, memory_format=torch.channels_last)
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w, self.bias.to(dt),
-                     stride=self.stride, padding=self.padding)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w,
+                     _bias_block(self).to(dt), stride=self.stride,
+                     padding=self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+def _bias_block(layer) -> torch.Tensor:
+    """The bias a column-parallel layer adds: its block (the JAX rule
+    leaves a bias of at most 4 entries whole where it splits the
+    kernel)."""
+    b = layer.bias
+    if layer.tp_mode == "column" and b.shape[0] != layer.weight.shape[0]:
+        return layer.tp.scatter(b)
+    return b
 
 
 def set_kernels(model: nn.Module, impl: str) -> None:
@@ -125,18 +161,33 @@ class FrameGroupNorm(nn.Module):
         self.num_groups = _num_groups(features, num_groups)
         self.kernels = "cuda"
         self.silu = silu
+        self.tp = None
 
     def forward(self, h: torch.Tensor,
                 scale: Optional[torch.Tensor] = None,
                 shift: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``h [N, H, W, C]``; ``scale`` / ``shift`` (both or neither) are
-        ``[N, H*W, C]``, views allowed."""
+        ``[N, H*W, C]``, views allowed.  Placed over a model axis, ``h``,
+        ``scale`` and ``shift`` may each be whole or a block; the result is
+        this rank's block where the groups split over the ranks (the
+        statistics of whole groups), else whole."""
+        weight, bias, groups = self.weight, self.bias, self.num_groups
+        if self.tp is not None:
+            axis, C = self.tp, self.weight.shape[0]
+            if C % axis.size == 0 and groups % axis.size == 0:
+                move = lambda t: axis.to_block(t, C)  # noqa: E731
+                weight, bias = axis.scatter(weight), axis.scatter(bias)
+                groups //= axis.size
+            else:
+                move = lambda t: axis.whole(t, C)  # noqa: E731
+            h = move(h)
+            if scale is not None:
+                scale, shift = move(scale), move(shift)
         N, H, W, C = h.shape
         kw = {} if scale is None else {"scale": scale, "shift": shift}
         out = dispatch.dispatch("groupnorm", self.kernels,
-                                h.reshape(N, H * W, C), self.weight,
-                                self.bias, num_groups=self.num_groups,
-                                silu=self.silu, **kw)
+                                h.reshape(N, H * W, C), weight, bias,
+                                num_groups=groups, silu=self.silu, **kw)
         return out.reshape(N, H, W, C)
 
 
@@ -153,14 +204,31 @@ class FiLM(nn.Module):
         super().__init__()
         self.features = features
         self.Dense_0 = Dense(emb_ch, 2 * features, compute_dtype)
+        self.tp = None
+        #: Placed over a model axis: whether this rank's block of the Dense
+        #: output is ``[scale block | shift block]`` (``MeshEnv._halved``).
+        self.halves = False
 
     def forward(self, emb: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``emb [N, h, w, emb_ch]`` -> ``(scale, shift)`` each
-        ``[N, h*w, features]``."""
-        N, H, W, E = emb.shape
-        e = self.Dense_0(F.silu(emb)).reshape(N, H * W, 2 * self.features)
-        return e[..., :self.features], e[..., self.features:]
+        ``[N, h*w, features]``.  Placed over a model axis, ``emb`` may be a
+        block, whole, or a ``parallel.tensor.ColumnInput``; the halves are
+        this rank's channel blocks (``halves``) or whole."""
+        Fe = self.features
+        if self.tp is not None:
+            axis = self.tp
+            E = self.Dense_0.weight.shape[1]
+            emb = axis.input_for(emb, E, [self.Dense_0])
+        N, H, W, _ = emb.shape
+        e = self.Dense_0(F.silu(emb))
+        e = e.reshape(N, H * W, e.shape[-1])
+        if self.tp is not None:
+            if self.halves:
+                Fe //= axis.size
+            else:
+                e = axis.whole(e, 2 * Fe)
+        return e[..., :Fe], e[..., Fe:]
 
 
 class RowShard(NamedTuple):
@@ -197,19 +265,40 @@ def dropout_keep(shape, rate: float,
 
 def dropout(h: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator],
-            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+            keep: Optional[torch.Tensor] = None, axis=None,
+            channels: Optional[int] = None) -> torch.Tensor:
     """``flax.linen.Dropout``: identity when not training or at rate 0,
     zeros at rate 1, else ``h / (1 - rate)`` where ``keep``
     (:func:`dropout_keep`, drawn here from ``generator`` unless given) is
     true and 0 elsewhere.  The draw needs an explicit generator (on
-    ``h``'s device)."""
+    ``h``'s device).  Over a model ``axis``, ``h`` is this rank's block of
+    a ``channels``-wide activation or whole: the mask is the whole
+    activation's (the draw one process makes), then this rank's
+    channels of it."""
     if not training or rate == 0.0:
         return h
     if rate == 1.0:
         return torch.zeros_like(h)
     if keep is None:
-        keep = dropout_keep(h.shape, rate, generator, h.device)
+        shape = h.shape if axis is None else h.shape[:-1] + (channels,)
+        keep = dropout_keep(shape, rate, generator, h.device)
+    if axis is not None and axis.is_block(h, channels):
+        keep = axis.block(keep)
     return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+
+
+def _input_for(axis, x: torch.Tensor, channels: int, layers):
+    """``x`` prepared for ``layers`` over the model ``axis``
+    (:meth:`~diff3d_tpu_torch.parallel.tensor.ModelAxis.input_for`);
+    ``x`` itself unplaced."""
+    return x if axis is None else axis.input_for(x, channels, layers)
+
+
+def _align(axis, a: torch.Tensor, b: torch.Tensor, channels: int):
+    """``(a, b)`` in one layout over the model ``axis``
+    (:meth:`~diff3d_tpu_torch.parallel.tensor.ModelAxis.align`); as they
+    are unplaced."""
+    return (a, b) if axis is None else axis.align(a, b, channels)
 
 
 class ResnetBlock(nn.Module):
@@ -236,17 +325,26 @@ class ResnetBlock(nn.Module):
                           zero_init=True)
         self.skip_proj = (Conv(in_ch, features, 1, compute_dtype=dt)
                           if in_ch != features else None)
+        self.tp = None
 
     def forward(self, h_in: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(self.FrameGroupNorm_0(h_in))
+        """Over the model axis, ``h_in`` is a block or whole and the
+        result a block where ``features`` splits over the ranks."""
+        axis, Fe = self.tp, self.features
+        C = self.FrameGroupNorm_0.weight.shape[0]
+        h = self.conv1(_input_for(axis, self.FrameGroupNorm_0(h_in), C,
+                                  [self.conv1]))
         scale, shift = self.FiLM_0(emb)
         h = dropout(self.FrameGroupNorm_1(h, scale, shift),
-                    self.dropout_rate, self.training, generator, keep)
-        h = self.conv2(h)
+                    self.dropout_rate, self.training, generator, keep,
+                    axis, Fe)
+        h = self.conv2(_input_for(axis, h, Fe, [self.conv2]))
         if self.skip_proj is not None:
-            h_in = self.skip_proj(h_in)
+            h_in = self.skip_proj(_input_for(axis, h_in, C,
+                                             [self.skip_proj]))
+        h, h_in = _align(axis, h, h_in, Fe)
         out = (h + h_in) / _SQRT2
         if self.resample == "up":
             out = nearest_neighbor_upsample(out)
@@ -264,13 +362,26 @@ class AttnLayer(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.kernels = "cuda"
+        self.tp = None
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, Dense(features, features, compute_dtype))
 
     def forward(self, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
-        out = multi_head_attention(self.q_proj(q), self.k_proj(kv),
-                                   self.v_proj(kv), self.num_heads,
-                                   impl=self.kernels)
+        """Placed over a model axis, ``q`` and ``kv`` are whole and
+        prepared for the projections (``AttnBlock`` does it); the result
+        is whole."""
+        q, k, v = self.q_proj(q), self.k_proj(kv), self.v_proj(kv)
+        heads = self.num_heads
+        if self.tp is not None:
+            axis, C = self.tp, self.out_proj.weight.shape[0]
+            if axis.is_block(q, C) and heads % axis.size == 0:
+                heads //= axis.size        # whole heads: heads are outer
+            else:
+                q, k, v = (axis.whole(t, C) for t in (q, k, v))
+        out = multi_head_attention(q, k, v, heads, impl=self.kernels)
+        if self.tp is not None:
+            out = (axis.to_block(out, C) if self.out_proj.tp_mode == "row"
+                   else axis.whole(out, C))
         return self.out_proj(out)
 
 
@@ -289,17 +400,24 @@ class AttnBlock(nn.Module):
         self.attn = AttnLayer(features, num_heads, compute_dtype)
         self.out_conv = Conv(features, features, 1,
                              compute_dtype=compute_dtype, zero_init=True)
+        self.tp = None
 
     def forward(self, h_in: torch.Tensor, frames: int) -> torch.Tensor:
-        N, H, W, C = h_in.shape
-        q = self.FrameGroupNorm_0(h_in).reshape(N, H * W, C)
+        C = self.FrameGroupNorm_0.weight.shape[0]
+        N, H, W, _ = h_in.shape
+        a = self.FrameGroupNorm_0(h_in)
+        axis, attn = self.tp, self.attn
+        q = _input_for(axis, a.reshape(N, H * W, a.shape[-1]), C,
+                       [attn.q_proj, attn.k_proj, attn.v_proj])
         if self.attn_type == "self":
             kv = q
         else:
             # Each frame attends to the next one, cyclically.
             kv = q.reshape(N // frames, frames, H * W, C).roll(
                 -1, dims=1).reshape(N, H * W, C)
-        h = self.out_conv(self.attn(q, kv).reshape(N, H, W, C))
+        o = self.attn(q, kv).reshape(N, H, W, C)
+        h = self.out_conv(_input_for(axis, o, C, [self.out_conv]))
+        h, h_in = _align(axis, h, h_in, C)
         return (h + h_in) / _SQRT2
 
 

@@ -15,6 +15,13 @@ keeps only the block's input and recomputes the rest in the backward;
 ``"dots"`` also keeps every convolution and matrix-product output
 (``jax.checkpoint_policies.dots_saveable``).  The recompute applies the
 same dropout masks as the forward (:func:`remat_call`).
+
+Placed over a model axis (``MeshEnv.place_model_axis``), the stream
+between blocks is this rank's channel block, the up path's concatenation
+is taken on the whole tensors (so the next layer sees the unsharded
+model's channel order), each level's conditioning embedding is gathered
+once for all its FiLM layers, and the head's output is whole on every
+rank (``layers.py`` says how each layer splits).
 """
 
 from __future__ import annotations
@@ -31,9 +38,10 @@ from diff3d_tpu_torch.config import ModelConfig
 from diff3d_tpu_torch.device import resolve_device
 from diff3d_tpu_torch.models.conditioning import (POSE_EMB_CH,
                                                   ConditioningProcessor)
-from diff3d_tpu_torch.models.layers import (Conv, Dense, FrameGroupNorm,
-                                            ResnetBlock, XUNetBlock,
-                                            dropout_keep)
+from diff3d_tpu_torch.models.layers import (FiLM, Conv, Dense,
+                                            FrameGroupNorm, ResnetBlock,
+                                            XUNetBlock, dropout_keep)
+from diff3d_tpu_torch.parallel.tensor import ColumnInput
 
 FRAMES = 2      # source view + target view
 
@@ -114,6 +122,19 @@ def remat_call(block: nn.Module, policy: str, *args,
                             preserve_rng_state=False, **kw)
 
 
+def concat_channels(axis, h: torch.Tensor, skip: torch.Tensor, ch: int,
+                    cs: int) -> torch.Tensor:
+    """The up path's ``[h, skip]`` (``ch`` and ``cs`` channels whole).
+    Over a model axis (``axis``) two blocks do not join into the block of
+    their concatenation: both are taken whole, joined, and this rank's
+    block of the result is kept (whole where ``ch + cs`` does not split),
+    so the next layer sees the unsharded model's channel order."""
+    if axis is None:
+        return torch.cat([h, skip], dim=-1)
+    h = torch.cat([axis.whole(h, ch), axis.whole(skip, cs)], dim=-1)
+    return axis.to_block(h, ch + cs) if (ch + cs) % axis.size == 0 else h
+
+
 class XUNet(nn.Module):
     """Submodules carry the Flax names (``stem_conv``, ``down_{i}_{b}``,
     ``down_{i}_downsample``, ``middle``, ``up_{i}_{b}``,
@@ -154,8 +175,11 @@ class XUNet(nn.Module):
                                  use_attn=num_res in cfg.attn_levels,
                                  num_heads=cfg.attn_heads, **kw)
         ch = dim_out[-1]
+        #: The widths of each up block's concatenation ``[h, skip]``.
+        self._concat = {}
         for i in reversed(range(num_res)):
             for b in range(cfg.num_res_blocks + 1):
+                self._concat[f"up_{i}_{b}"] = (ch, skips[-1])
                 setattr(self, f"up_{i}_{b}", XUNetBlock(
                     ch + skips.pop(), dim_out[i], E,
                     use_attn=i in cfg.attn_levels,
@@ -168,6 +192,7 @@ class XUNet(nn.Module):
         self.last_gn = FrameGroupNorm(dim_out[0], silu=True)
         self.last_conv = Conv(dim_out[0], 3, 3, compute_dtype=dt,
                               zero_init=True)
+        self.tp = None
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 cond_mask: torch.Tensor,
@@ -185,7 +210,8 @@ class XUNet(nn.Module):
                 f"batch x {tuple(batch['x'].shape)} / cond_mask "
                 f"{tuple(cond_mask.shape)} do not fit H={cfg.H} W={cfg.W}")
         logsnr_emb, pose_embs = self.conditioningprocessor(batch, cond_mask)
-        logsnr_emb = logsnr_emb.reshape(B * FRAMES, 1, 1, cfg.emb_ch)
+        logsnr_emb = logsnr_emb.reshape(B * FRAMES, 1, 1,
+                                        logsnr_emb.shape[-1])
 
         remat = cfg.remat and self.training and torch.is_grad_enabled()
 
@@ -196,11 +222,26 @@ class XUNet(nn.Module):
                                   generator=generator)
             return mod(*args, generator)
 
+        axis = self.tp
+        # Every FiLM column-parallel: each level's embedding is gathered
+        # once for all of them.
+        once = axis is not None and all(
+            m.Dense_0.tp_mode == "column" for m in self.modules()
+            if isinstance(m, FiLM))
+
         def level_emb(i):
-            return logsnr_emb + pose_embs[i]        # [B*F, h, w, emb_ch]
+            emb, pose = logsnr_emb, pose_embs[i]    # [B*F, h, w, emb_ch]
+            if axis is None:
+                return emb + pose
+            emb, pose = axis.align(emb, pose, cfg.emb_ch)
+            emb = emb + pose
+            return ColumnInput(axis.column_input(emb, cfg.emb_ch)) \
+                if once else emb
 
         h = torch.stack([batch["x"], batch["z"]], dim=1).to(
             cfg.torch_dtype).reshape(B * FRAMES, H, W, C)
+        if axis is not None:
+            h = axis.input_for(h, C, [self.stem_conv])
         h = self.stem_conv(h)
 
         hs = [h]
@@ -216,13 +257,20 @@ class XUNet(nn.Module):
         for i in reversed(range(num_res)):
             emb = level_emb(i)
             for b in range(cfg.num_res_blocks + 1):
-                h = torch.cat([h, hs.pop()], dim=-1)
+                h = concat_channels(axis, h, hs.pop(),
+                                    *self._concat[f"up_{i}_{b}"])
                 h = block(f"up_{i}_{b}", h, emb, FRAMES)
             if i != 0:
                 h = block(f"up_{i}_upsample", h, emb)
         assert not hs
 
-        h = self.last_conv(self.last_gn(h))
+        h = self.last_gn(h)
+        if axis is not None:
+            h = axis.input_for(h, self.last_gn.weight.shape[0],
+                               [self.last_conv])
+        h = self.last_conv(h)
+        if axis is not None:
+            h = axis.whole(h, 3)
         return h.reshape(B, FRAMES, H, W, 3)[:, 1].float()
 
 

@@ -37,6 +37,11 @@ loop (its own CUDA graph), and the views are all-gathered, so every rank
 returns all ``N`` objects' views and keeps the same records.
 :attr:`Sampler.lane_multiple` becomes ``n``: ``step_many`` refuses an
 object count that is not a multiple of it, ``synthesize_many`` pads.
+Under ``tp`` / ``fsdp+tp`` the model is split over the mesh's model axis
+(``MeshEnv.place_model_axis``; the data axis keeps whole copies for
+sampling): the ranks of one model group run the same objects with the same
+draws, each on its blocks, and the step runs eagerly (the model axis's
+collectives are not captured).
 ``lower_step_many`` (the JAX package's StableHLO hook) waits for ROADMAP
 A11.
 """
@@ -138,8 +143,11 @@ class Sampler:
 
       mesh: a :class:`~diff3d_tpu_torch.parallel.MeshEnv` to split the
         object axis of the batched entry points over (its data axis);
-        :attr:`lane_multiple` is then its data size.  Every rank holds the
-        whole model (the parameters are not sharded for sampling).
+        :attr:`lane_multiple` is then its data size.  Every data rank
+        holds the whole model; under ``tp`` / ``fsdp+tp`` it is split over
+        the model axis (in place: pass the whole model, as every other
+        caller does), and the caller's draws must agree across the ranks
+        of a model group (seed them alike).
 
     :attr:`graph_pool` (None: each graph gets a pool of its own) may be
     set to a CUDA-graph memory pool handle
@@ -158,8 +166,15 @@ class Sampler:
         #: The object axis's quantum: the mesh's data size (1 without).
         self.lane_multiple = 1 if mesh is None else mesh.data_size
         self.device = resolve_device(device)
-        self.cuda_graphs = use_cuda_graphs(cuda_graphs, self.device)
+        split = mesh is not None and mesh.tensor_parallel
+        if split and cuda_graphs:
+            raise ValueError("a model split over the mesh's model axis "
+                             "samples eagerly (cuda_graphs=True refused)")
+        self.cuda_graphs = use_cuda_graphs(
+            False if split else cuda_graphs, self.device)
         self.model = model.to(self.device).eval()
+        if split:
+            mesh.place_model_axis(self.model)
         self.cfg = cfg
         self.w = torch.tensor(cfg.diffusion.guidance_weights,
                               dtype=torch.float32, device=self.device)

@@ -31,7 +31,7 @@ rejected the request.
 
 **One card per worker.**  :func:`boot_worker` runs the replica on one
 CUDA device (``--devices 3`` = ``cuda:3``); a slice of several devices
-waits for tensor parallelism (ROADMAP A10b), so it is refused.  XLA's persistent compile cache has no counterpart:
+waits for a multi-process serving loop (ROADMAP A10b), so it is refused.  XLA's persistent compile cache has no counterpart:
 each worker captures its graphs at boot.
 """
 
@@ -618,7 +618,8 @@ def boot_worker(cfg: Config, *, name: str, devices: List[int],
     if len(devices) != 1:
         raise ValueError(
             f"device slice {devices}: a worker runs on one card; a slice "
-            "of several waits for tensor parallelism (ROADMAP A10b)")
+            "of several waits for a multi-process serving loop "
+            "(ROADMAP A10b)")
     if device is None:
         resolve_device(None)                  # raises without CUDA
         if devices[0] >= torch.cuda.device_count():

@@ -36,6 +36,11 @@ one every rank sees), and under ``fsdp`` the full state is gathered first
 (``torch.distributed.checkpoint.state_dict.get_state_dict`` with full
 state dicts), so the files keep the one-process format.  ``full_sliced``
 is one process's format and is refused in a group of more than one rank.
+Under ``tp`` / ``fsdp+tp`` (:attr:`CheckpointManager.placement`, the
+trainer's ``MeshEnv``) every split tensor is gathered whole over the model
+axis too (after FSDP's gather over the data axis), in the JAX package's
+order, and a restore takes each rank's block of the whole tensors: a
+checkpoint of any topology restores into any other.
 :attr:`CheckpointManager.mesh_info` (the trainer's
 ``MeshEnv.topology_summary()``) is stamped into every checkpoint; a
 restore into another topology records ``{"step", "from", "to"}`` in
@@ -140,6 +145,22 @@ def _full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor().cpu() if _sharded(t) else t
 
 
+def _placed_payload(state, placement) -> Tuple[dict, dict]:
+    """``(model, optim)`` state dicts of a state split over a model axis
+    (and maybe sharded by FSDP), whole, in the one-process format: every
+    rank calls it (the gathers are collectives)."""
+    names = [n for n, _ in state.model.named_parameters()]
+    model = {k: placement.full_of(k, v.detach())
+             for k, v in state.model.state_dict().items()}
+    osd = state.optimizer.state_dict()
+    optim = {"state": {i: {k: (placement.full_of(names[i], v)
+                               if torch.is_tensor(v) and v.dim() else v)
+                           for k, v in st.items()}
+                       for i, st in osd["state"].items()},
+             "param_groups": osd["param_groups"]}
+    return model, optim
+
+
 def _gathered_payload(state) -> Tuple[dict, dict]:
     """``(model, optim)`` state dicts of an FSDP state, whole, in the
     one-process format (Adam's state keyed by parameter index): every
@@ -177,17 +198,23 @@ def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
             + _adam_leaves(state))
 
 
-def _expected(state: TrainState, with_adam: bool
+def _expected(state: TrainState, with_adam: bool, placement=None
               ) -> List[Tuple[str, tuple, str]]:
     """(name, shape, dtype) of every tensor a checkpoint of ``state`` holds
     (Adam's for every parameter when ``with_adam``: the step counter and
-    both moments in float32)."""
-    out = [(n, *_meta(t)) for n, t in state_leaves(state)
-           if not n.startswith("adam.")]
+    both moments in float32); ``placement``: the shapes are the whole
+    ones of a state split over a model axis."""
+    def whole(name, shape):
+        return (tuple(shape) if placement is None
+                else placement.whole_shape(name, shape))
+
+    out = [(n, whole(n.split(".", 1)[1], t.shape), _meta(t)[1])
+           for n, t in state_leaves(state) if not n.startswith("adam.")]
     if with_adam:
         for name, p in state.model.named_parameters():
-            out += [(f"adam.{name}.exp_avg", tuple(p.shape), "float32"),
-                    (f"adam.{name}.exp_avg_sq", tuple(p.shape), "float32"),
+            shape = whole(name, p.shape)
+            out += [(f"adam.{name}.exp_avg", shape, "float32"),
+                    (f"adam.{name}.exp_avg_sq", shape, "float32"),
                     (f"adam.{name}.step", (), "float32")]
     return sorted(out)
 
@@ -268,6 +295,10 @@ class CheckpointManager:
         #: After a restore whose saved mesh differs from ``mesh_info``:
         #: ``{"step", "from", "to"}``; None otherwise.
         self.last_restore_reshard: Optional[dict] = None
+        #: The ``MeshEnv`` of a state split over a model axis (set by the
+        #: trainer before any restore): saves gather its tensors whole,
+        #: restores take its blocks.
+        self.placement = None
         marker = os.path.join(directory, _MARKER)
         if os.path.exists(marker):
             with open(marker) as f:
@@ -361,13 +392,15 @@ class CheckpointManager:
         path = self.path(state.step)
         if os.path.exists(path) and not force:
             return False
-        ema = {k: _full(v) for k, v in state.ema.items()}
+        ema = {k: self._whole(k, v) for k, v in state.ema.items()}
         if self.mode == "ema_bf16":
             payload = {"ema": {k: v.detach().to("cpu", torch.bfloat16)
                                for k, v in ema.items()},
                        "step": state.step}
         else:
-            if any(_sharded(p) for p in state.model.parameters()):
+            if self.placement is not None:
+                model, optim = _placed_payload(state, self.placement)
+            elif any(_sharded(p) for p in state.model.parameters()):
                 model, optim = _gathered_payload(state)
             else:
                 model = state.model.state_dict()
@@ -385,6 +418,20 @@ class CheckpointManager:
         os.replace(tmp, path)
         self._prune()
         return True
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Tensor ``t`` (placed like parameter ``name``) whole: a
+        collective where the state is split or sharded."""
+        if self.placement is not None:
+            return self.placement.full_of(name, t)
+        return _full(t)
+
+    def _local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole tensor placed like ``name`` (the
+        data axis's chunk is taken by :func:`_copy_into`)."""
+        if self.placement is None:
+            return whole
+        return self.placement.local_of(name, whole)
 
     def _snapshot(self, state: TrainState) -> _Snapshot:
         """Host copies of every tensor of ``state``, on the caller's
@@ -548,10 +595,11 @@ class CheckpointManager:
         names = [n for n, _ in state.model.named_parameters()]
         found = _full_leaves(ckpt, names)
         _preflight(found, _expected(state, any(
-            n.startswith("adam.") for n, _, _ in found)), self.path(step),
-            step)
+            n.startswith("adam.") for n, _, _ in found), self.placement),
+            self.path(step), step)
         self._note_reshard(step, ckpt.get("mesh"))
-        if any(_sharded(p) for p in state.model.parameters()):
+        if self.placement is not None or any(
+                _sharded(p) for p in state.model.parameters()):
             return self._restore_sharded(state, ckpt, step)
         state.model.load_state_dict(ckpt["model"])
         # The optimizer keeps its own kind (``capturable`` on the card):
@@ -576,24 +624,31 @@ class CheckpointManager:
 
     def _restore_sharded(self, state: TrainState, ckpt: dict,
                          step: int) -> int:
-        """``full`` into an FSDP state: every tensor copied into this
-        rank's chunk, Adam's state made as Adam makes it."""
+        """``full`` into an FSDP state or a state split over a model axis:
+        every tensor copied into this rank's block and chunk, Adam's state
+        made as Adam makes it."""
         opt = state.optimizer
         with torch.no_grad():
             for name, t in state.model.state_dict().items():
-                _copy_into(t, ckpt["model"][name])
+                _copy_into(t, self._local(name, ckpt["model"][name]))
             for name, t in ckpt["ema"].items():
-                _copy_into(state.ema[name], t)
+                _copy_into(state.ema[name], self._local(name, t))
             saved = ckpt["optim"]["state"]
-            for i, p in enumerate(state.model.parameters()):
+            for i, (name, p) in enumerate(state.model.named_parameters()):
                 st = saved.get(i, saved.get(str(i)))
                 if not st:
                     continue
                 opt.state[p] = {"step": st["step"].detach().clone().float()}
                 for key in ("exp_avg", "exp_avg_sq"):
                     buf = torch.zeros_like(p)
-                    _copy_into(buf, st[key])
+                    _copy_into(buf, self._local(name, st[key]))
                     opt.state[p][key] = buf
+        # The saved lr, as ``load_state_dict`` restores it on one process:
+        # the next update takes it (the schedule moves it after).
+        for group, saved in zip(opt.param_groups,
+                                ckpt["optim"].get("param_groups", [])):
+            if "lr" in saved:
+                group["lr"] = saved["lr"]
         settle_lr(opt)
         state.scheduler.load_state_dict(ckpt["sched"])
         state.step = int(ckpt["step"])
@@ -649,8 +704,10 @@ class CheckpointManager:
             return None
         prefix = "model." if raw else "ema."
         stored = "bfloat16" if self.mode == "ema_bf16" else None
-        want = sorted((prefix + k, tuple(v.shape), stored
-                       or _meta(v)[1]) for k, v in params.items())
+        place = self.placement
+        want = sorted((prefix + k, tuple(v.shape) if place is None
+                       else place.whole_shape(k, v.shape),
+                       stored or _meta(v)[1]) for k, v in params.items())
         if self.mode == "full_sliced":
             manifest = self._manifest(step)
             picked = [(i, m) for i, m in enumerate(manifest["leaves"])
@@ -667,5 +724,5 @@ class CheckpointManager:
                        want, self.path(step), step)
         with torch.no_grad():
             for name, t in tensors.items():
-                _copy_into(params[name], t)
+                _copy_into(params[name], self._local(name, t))
         return step

@@ -56,6 +56,16 @@ through the bucket, and the step runs **eagerly**: FSDP2 all-gathers on
 side streams, which a CUDA graph cannot capture, so ``cuda_graphs=True``
 raises there.
 
+**Tensor parallelism** (``tp`` / ``fsdp+tp``, a model axis of more than
+one rank): the ranks of one model group run the same data rows (the data
+rank keys the draws and the rows, never the global rank), each on its
+blocks of the split parameters; the gradients the backward leaves are
+exact for every leaf (``parallel/tensor.py``), and the data-axis mean
+comes on top, as above.  The global norm counts each split leaf's blocks
+once per model group (their squares summed over the model axis) and each
+whole leaf once.  The step runs eagerly (the model axis's collectives are
+not captured; over gloo they wait for the host).
+
 ``retry`` (a :class:`~diff3d_tpu_torch.runtime.retry.RetryPolicy`, the
 ``Trainer``'s ``_STEP_RETRY``) wraps the microbatch phase only: it zeroes
 the gradient sums, reseeds the draws and refills the static inputs before
@@ -214,11 +224,14 @@ def micro_step(cfg: Config, model: torch.nn.Module,
     total.add_(loss.detach())
 
 
-def _global_norm(grads: Sequence[torch.Tensor], group) -> torch.Tensor:
+def _global_norm(grads: Sequence[torch.Tensor], group, axis=None,
+                 split: Sequence[bool] = ()) -> torch.Tensor:
     """The global 2-norm of ``grads``; with ``group`` (FSDP), sharded
     gradients contribute their local shards' squares, summed over the
-    group."""
-    if group is None:
+    group; with ``axis`` (a model axis), the gradients ``split`` marks are
+    blocks, their squares summed over the axis (the whole ones counted
+    once)."""
+    if group is None and axis is None:
         return torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(list(grads))))
 
@@ -227,27 +240,45 @@ def _global_norm(grads: Sequence[torch.Tensor], group) -> torch.Tensor:
             return torch.zeros((), device=grads[0].device)
         return torch.stack([n * n for n in torch._foreach_norm(ts)]).sum()
 
-    sq = squares([_local(g) for g in grads if _local(g) is not g])
-    dist.all_reduce(sq, group=group)
-    return torch.sqrt(sq + squares([g for g in grads if _local(g) is g]))
+    if axis is None:
+        sq = squares([_local(g) for g in grads if _local(g) is not g])
+        dist.all_reduce(sq, group=group)
+        return torch.sqrt(sq + squares([g for g in grads
+                                        if _local(g) is g]))
+    total = torch.zeros((), device=grads[0].device)
+    for sharded in (True, False):
+        for blocks in (True, False):
+            ts = [_local(g) for g, s in zip(grads, split)
+                  if (_local(g) is not g) == sharded and s == blocks]
+            if not ts:
+                continue
+            sq = squares(ts)
+            if sharded:
+                dist.all_reduce(sq, group=group)
+            if blocks:
+                sq = axis.all_reduce(sq)
+            total = total + sq
+    return torch.sqrt(total)
 
 
 def update_step(cfg: Config, state: TrainState, names: Sequence[str],
                 params: Sequence[torch.Tensor],
                 grads: Sequence[torch.Tensor], total: torch.Tensor,
-                shard_group=None):
+                shard_group=None, axis=None, split: Sequence[bool] = ()):
     """Average the summed gradients and loss over the microbatches, take
     their global norm (before clipping), clip, step Adam (which reads the
     parameters' ``.grad``, i.e. ``grads``) and the EMA.  ``shard_group``:
     the data group of an FSDP state (its sharded gradients' norm sums
-    over it).  Returns ``(loss, grad_norm)``; reads no host value."""
+    over it); ``axis`` / ``split``: the model axis and which gradients are
+    its blocks (:func:`_global_norm`).  Returns ``(loss, grad_norm)``;
+    reads no host value."""
     tcfg = cfg.train
     accum = tcfg.accum_steps
     local = [_local(g) for g in grads]
     if accum > 1:
         torch._foreach_div_(local, float(accum))
         total = total / accum
-    grad_norm = _global_norm(grads, shard_group)
+    grad_norm = _global_norm(grads, shard_group, axis, split)
     if tcfg.grad_clip > 0:
         # optax.clip_by_global_norm: g * clip / norm when norm >= clip.
         torch._foreach_mul_(local, torch.where(
@@ -286,12 +317,16 @@ class TrainStep:
         self.retry = retry
         self.sched = warmup_schedule(cfg.train)
         self.group = None if env is None else env.group
-        self.fsdp = env is not None and env.cfg.param_sharding == "fsdp"
-        if self.fsdp and cuda_graphs:
+        self.env = env
+        self.fsdp = env is not None and env.cfg.param_sharding in (
+            "fsdp", "fsdp+tp")
+        self.axis = None if env is None else env.model_axis
+        if env is not None and env.eager_only and cuda_graphs:
             raise ValueError(
-                "param_sharding='fsdp' runs the train step eagerly: FSDP2 "
-                "all-gathers on side streams, which a CUDA graph cannot "
-                "capture (cuda_graphs=True refused)")
+                f"param_sharding={env.cfg.param_sharding!r} runs the train "
+                "step eagerly: FSDP2 all-gathers on side streams and the "
+                "model axis's collectives are not captured "
+                "(cuda_graphs=True refused)")
         self.cuda_graphs = cuda_graphs
         world = 1 if self.group is None else dist.get_world_size(self.group)
         self.shard = (None if world == 1
@@ -377,9 +412,12 @@ class TrainStep:
 
         grads, total = self._accumulate(accumulate, state.step)
         lr = self.sched(state.step)
+        split = ([self.env.is_split(n) for n in names]
+                 if self.axis is not None else ())
         loss, grad_norm = update_step(
             cfg, state, names, params, grads, total,
-            shard_group=self.group if self.fsdp else None)
+            shard_group=self.group if self.fsdp else None, axis=self.axis,
+            split=split)
         state.scheduler.step()
         state.step += 1
         return {"loss": loss.clone(), "lr": lr, "grad_norm": grad_norm}
@@ -466,5 +504,6 @@ def make_train_step(cfg: Config, cuda_graphs: bool = False,
     """The train step of ``cfg`` (:class:`TrainStep`); ``cuda_graphs``
     captures it as CUDA graphs (a CUDA device only); ``retry`` retries
     its microbatch phase; ``env`` (a ``MeshEnv``) makes it data-parallel
-    over the mesh's data axis."""
+    over the mesh's data axis (and tensor-parallel over its model axis
+    under ``tp`` / ``fsdp+tp``)."""
     return TrainStep(cfg, cuda_graphs=cuda_graphs, retry=retry, env=env)

@@ -29,9 +29,13 @@ step all-reduces the gradients (:mod:`~diff3d_tpu_torch.train.step`),
 metrics and checkpoint files are written by rank 0 only, an evaluation
 scores one global val batch (each rank its rows, the losses averaged),
 and the stop flag is an agreement: at every step boundary the local flags
-are all-reduced with MAX over a gloo group of the same ranks (a host op,
-no device synchronisation), so every rank stops and saves at the same
-step.  :class:`ElasticSupervisor` re-meshes and resumes around
+are all-reduced with MAX over a gloo group of every rank of the mesh (a
+host op, no device synchronisation), so every rank stops and saves at the
+same step.  Under ``tp`` / ``fsdp+tp`` the ranks of one model group share
+their data rank (its loader rows, the step's draws) and the parameters,
+Adam's moments and the EMA are split over the model axis; checkpoints
+gather them whole (:mod:`~diff3d_tpu_torch.train.checkpoint`).
+:class:`ElasticSupervisor` re-meshes and resumes around
 :meth:`Trainer.train` after preemptions and transient faults.
 
 Runs on the card unless ``device`` names another; there the train step
@@ -115,10 +119,12 @@ class Trainer:
         self.workdir = workdir
         self.env = env if env is not None else make_mesh(cfg.mesh)
         self.device = resolve_device(device)
-        fsdp = self.env.cfg.param_sharding == "fsdp"
-        if fsdp and cuda_graphs is None and self.device.type == "cuda":
-            log.info("param_sharding='fsdp': the train step runs eagerly "
-                     "(FSDP2's all-gathers cannot be captured)")
+        eager = self.env.eager_only
+        if eager and cuda_graphs is None and self.device.type == "cuda":
+            log.info("param_sharding=%r: the train step runs eagerly "
+                     "(FSDP2's all-gathers and the model axis's "
+                     "collectives are not captured)",
+                     self.env.cfg.param_sharding)
             cuda_graphs = False
         graphs = use_cuda_graphs(cuda_graphs, self.device)
         model = init_params(xunet.XUNet(cfg.model), cfg)
@@ -126,7 +132,7 @@ class Trainer:
         log.info("XUNet: %.1fM params",
                  sum(p.numel() for p in model.parameters()) / 1e6)
         self.state: TrainState = create_train_state(
-            model, cfg.train, capturable=False if fsdp else None)
+            model, cfg.train, capturable=False if eager else None)
         self.ckpt = CheckpointManager(
             os.path.join(workdir, cfg.train.checkpoint_dir),
             keep=cfg.train.keep_checkpoints, mode=cfg.train.ckpt_mode,
@@ -134,6 +140,8 @@ class Trainer:
         # Stamped before any restore: a restore into another topology is
         # then a recognised reshard.
         self.ckpt.mesh_info = self.env.topology_summary()
+        if self.env.tensor_parallel:
+            self.ckpt.placement = self.env
         if transfer and self.ckpt.mode == "ema_bf16":
             # Warm restart: the checkpoint holds the EMA only, so the
             # parameters and the EMA both start from it, Adam's moments
@@ -216,11 +224,11 @@ class Trainer:
         stops every rank at the same step (a local flag alone would split
         the ranks between a collective save and a collective step)."""
         local = self._preempted.is_set()
-        if self.env.data_size == 1:
+        if self.env.data_size * self.env.model_size == 1:
             return local
         flag = torch.tensor([1 if local else 0], dtype=torch.int32)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX,
-                        group=self.env.cpu_group)
+                        group=self.env.cpu_world_group)
         return bool(flag.item())
 
     def eval_draws(self, step: int) -> TrainDraws:
@@ -365,7 +373,8 @@ class Trainer:
             # Keep the last state so transfer=True loses at most the
             # interrupted step.  A sharded state's save gathers over every
             # rank, which a rank failing alone cannot do.
-            if self.env.data_size > 1 and self.env.sharded(self.state.model):
+            if (self.env.data_size > 1 and self.env.sharded(
+                    self.state.model)) or self.env.tensor_parallel:
                 log.error("no emergency checkpoint of a sharded state")
                 raise
             try:

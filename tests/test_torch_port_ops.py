@@ -448,11 +448,12 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((REPO / "diff3d_tpu_torch").rglob("*.py"))
-    assert {"mesh.py", "multihost.py", "ring_attention.py"} <= {
+    assert {"mesh.py", "multihost.py", "ring_attention.py", "tensor.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}
     # The spawned ranks of the parallel tests import only the port.
     files += [REPO / "chip_smoke.py",
-              REPO / "tests" / "_torch_port_parallel_worker.py"]
+              REPO / "tests" / "_torch_port_parallel_worker.py",
+              REPO / "tests" / "_torch_port_tp_worker.py"]
     assert len(files) > 15
     for path in files:
         for mod in _imports(path):

@@ -236,13 +236,26 @@ def test_eval_cli_mesh_matches_one_process(group, tmp_path):
 
 
 def test_train_cli_lifts_and_refuses_the_parallel_flags():
+    """The data- and tensor-parallel flags and the kernel-naming flags are
+    accepted; ``--context_parallel`` stays refused, naming ROADMAP A10b,
+    and ``--attn_impl xla`` (the plain versions) is refused on the card."""
     p = train_cli.build_parser()
     args = p.parse_args(["--param_sharding", "fsdp", "--elastic",
                          "--elastic_max_remesh", "3"])
     train_cli.refuse_unported(args)
     assert train_cli.config_from_args(args).mesh.param_sharding == "fsdp"
-    for argv in (["--model_parallel", "2"], ["--context_parallel"],
-                 ["--param_sharding", "tp"], ["--param_sharding", "fsdp+tp"],
-                 ["--attn_impl", "xla"], ["--pallas"]):
-        with pytest.raises(SystemExit, match="A10b"):
-            train_cli.refuse_unported(p.parse_args(argv))
+    for argv in (["--model_parallel", "2"], ["--param_sharding", "tp"],
+                 ["--param_sharding", "fsdp+tp", "--model_parallel", "2"],
+                 ["--attn_impl", "xla", "--device", "cpu"],
+                 ["--attn_impl", "pallas"], ["--attn_impl", "auto"],
+                 ["--pallas"]):
+        args = p.parse_args(argv)
+        train_cli.refuse_unported(args)
+        train_cli.config_from_args(args).validate()
+    mesh = train_cli.config_from_args(p.parse_args(
+        ["--param_sharding", "fsdp+tp", "--model_parallel", "2"])).mesh
+    assert (mesh.param_sharding, mesh.model_parallel) == ("fsdp+tp", 2)
+    with pytest.raises(SystemExit, match="A10b"):
+        train_cli.refuse_unported(p.parse_args(["--context_parallel"]))
+    with pytest.raises(SystemExit, match="only off the card"):
+        train_cli.refuse_unported(p.parse_args(["--attn_impl", "xla"]))

@@ -514,4 +514,5 @@ def test_train_cli_on_cpu(tmp_path, data):
     model_cfg = trainer.state.model.cfg
     assert model_cfg.remat and model_cfg.remat_policy == "dots"
     with pytest.raises(SystemExit, match="A10b"):   # not ported yet
-        train_cli.main(["--device", "cpu", "--model_parallel", "2"])
+        train_cli.main(["--device", "cpu", "--model_parallel", "2",
+                        "--context_parallel"])

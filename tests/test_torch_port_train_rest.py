@@ -582,15 +582,18 @@ def test_train_cli_val_sets_match_the_jax_cli(tmp_path, monkeypatch, data):
 
 
 def test_train_cli_still_refuses_the_parallel_flags():
-    """The flags of tensor parallelism stay refused, naming ROADMAP A10b
-    (``--elastic`` and ``--param_sharding replicated|fsdp`` are lifted:
-    ``test_torch_port_parallel_train.py``); a flag value the parser does
-    not take still exits."""
+    """``--context_parallel`` stays refused, naming ROADMAP A10b (the
+    tensor-parallel flags are lifted: ``--model_parallel`` and
+    ``--param_sharding tp`` pass; ``test_torch_port_tp.py`` trains under
+    them); a flag value the parser does not take still exits."""
     p = train_cli.build_parser()
-    for argv in (["--model_parallel", "2"], ["--context_parallel"],
-                 ["--param_sharding", "tp"]):
+    for argv in (["--model_parallel", "2"], ["--param_sharding", "tp"]):
+        train_cli.refuse_unported(p.parse_args(argv))
+    for argv in (["--context_parallel"],
+                 ["--context_parallel", "--model_parallel", "2"]):
         with pytest.raises(SystemExit, match="A10b"):
             train_cli.refuse_unported(p.parse_args(argv))
-    for argv in (["--elastic", "2"], ["--param_sharding", "2"]):
+    for argv in (["--elastic", "2"], ["--param_sharding", "2"],
+                 ["--attn_impl", "einsum"]):
         with pytest.raises(SystemExit):
             p.parse_args(argv)
