@@ -42,10 +42,10 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      ms per step of each, the capture's seconds, launches (captured x
      replays) and peak memory.
   6c. sampler_many — ``step_many`` over N = 4 objects at record lengths
-     1-4: on an f32 copy of the model at 16 steps against ``step`` per
-     object (rel. L2 1e-3); ``synthesize_many`` of one view of 4 objects
-     at 32 steps (cut from 256; the f32 comparison at 8 steps) in bf16
-     timed, with finite outputs.
+     1-4: on an f32 copy of the model at 4 steps (cut from 8) against
+     ``step`` per object (rel. L2 1e-3); ``synthesize_many`` of one view
+     of 4 objects at 32 steps (cut from 256) in bf16 timed, with finite
+     outputs.
  6d. serve — the single-engine service at srn64 full width through
      ``cli/serve_cli.py``'s ``build_service`` (chip_smoke's random weights
      as a state dict, ``--sampler_steps 16`` (cut from 64), ``--schedules
@@ -206,12 +206,14 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      timed beside the plain engines and ``F.scaled_dot_product_attention``,
      and the kernels alone, the ranks in turn (rows 4-6 on one 512 x 512
      ring block, the backward with a non-zero lse cotangent; row 3 on
-     Ulysses' local heads), beside the same; (d) ``torchrun
-     --standalone --nproc_per_node 1 -m diff3d_tpu_torch.cli.train_cli
-     --param_sharding fsdp`` (2 steps) and ``eval_cli --mesh`` on its
-     checkpoint (1 object, DDIM 4): exit 0, the checkpoint's manifest
-     carries the topology, finite PSNR; the torchrun start-up seconds.
-     (c) runs after (d).
+     Ulysses' local heads), beside the same; (d) one ``torchrun
+     --standalone --nproc_per_node 1`` launch of this script
+     (``--torchrun-entry-points``) that runs ``train_cli.main
+     --param_sharding fsdp`` (2 steps), then ``eval_cli.main --mesh`` on
+     its checkpoint (1 object, DDIM 4), in the group torchrun's
+     environment names (one start-up for both): exit 0,
+     the checkpoint's manifest carries the topology, finite PSNR; the
+     torchrun start-up seconds.  (c) runs after (d).
  11a'. tensor_parallel — the ``tp`` placement over a model axis of two
      processes sharing the card (gloo; its collectives staged through
      pinned host memory; the two processes of 11a (c), which run this
@@ -220,15 +222,16 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      (a) one X-UNet
      forward at 2B = 16 (seeded random weights, placed: each rank its
      blocks) against the one-rank forward on the card (rel. L2 3e-2);
-     (b) ``Sampler(mesh)`` on a float32 copy (TF32 off): one view of 2
-     DDIM steps against the one-rank ``Sampler`` from the same generator
-     seed (rel. L2 3e-2);
+     (b) ``Sampler(mesh)`` on a float32 copy (TF32 off): one view of 1
+     DDIM step (cut from 2) against the one-rank ``Sampler`` from the same
+     generator seed (rel. L2 3e-2);
      (c) the ``Trainer`` built by ``train_cli --param_sharding tp
      --model_parallel 2`` from the train phase's checkpoint (the lr put on
-     the batch-8 schedule at its step), 2 eager steps at global batch 8,
-     against one rank's eager steps from the same checkpoint: losses,
-     gradient norms and lrs within 1e-3, and every parameter's update
-     (its change over the 2 steps) within 3e-2 rel. L2 of one rank's, or
+     the batch-8 schedule at its step), 1 eager step (cut from 2) at
+     global batch 8, against one rank's eager step from the same
+     checkpoint: losses, gradient norms and lrs within 1e-3, and every
+     parameter's update (its change over the step) within 3e-2 rel. L2 of
+     one rank's, or
      every element of it within 2 float32 spacings of the parameter plus
      1e-8 (a leaf that barely moves differs by the rounding of ``p + u``;
      the k_proj biases, whose exact gradient is zero, by bf16's summation
@@ -248,6 +251,33 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      against their plain versions and timed beside their bounds (the
      site phases' functions, run without the extra shapes); the staged
      collectives' ms per forward and per train step.
+ 11a''. context_parallel — ``MeshConfig.context_parallel`` (the
+     ``replicated`` placement) over a model axis of the same two
+     processes (after their tp ranks; the one-rank references are 11a''s),
+     srn64 at full width, dp1 x mp2, each rank its 32 of the 64 rows at
+     level 0 (16, 8, 4 below): (a) one forward at 2B = 16 against one
+     rank's (rel. L2 3e-2), the staged collectives per forward (calls,
+     bytes, ms); (d) ``Sampler(mesh).synthesize`` on a float32 copy (TF32
+     off), its single-object path split by rows: one view of 2 DDIM steps
+     against one rank's (3e-2); (c) the ``Trainer`` built by ``train_cli
+     --context_parallel --model_parallel 2`` from the train phase's
+     checkpoint, 2 eager steps at global batch 8 against one rank's:
+     losses, gradient norms and lrs within 1e-3, each leaf's update
+     within 3e-2 rel. L2 of one rank's or every element within 2 float32
+     spacings of the parameter + 1e-8 (11a''s gate), both ranks the same
+     update; the control, which the gate must refuse: the first step
+     retaken from the checkpoint with the halo's backward not adding the
+     neighbours' share to a rank's edge rows; (e) the second step's peak
+     allocated bytes above what it starts with, against one process's at
+     batch 8 (at most 0.75x); the launch counts set to 0 before (a) + (d)
+     and before (c), read after each: the split-statistics GroupNorm (a)
+     and (b) and row 3 in the first window, (a)-(d) and rows 4-6 in the
+     second, the unsplit GroupNorm kernels never; (b) on each rank, the
+     ranks in turn, the four split-statistics entry points at every
+     GroupNorm site of the rank's rows against their plain versions (bf16
+     and f32; sums and statistics bit-identical over two runs), timed
+     beside their bounds, their plain versions and ``F.group_norm`` +
+     FiLM; rows 3-6 at ``Lq = L/2``, ``Lk = L``.
  11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
      (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
@@ -1412,7 +1442,8 @@ def phase_sampler_graph(cfg, model):
         ran = dict(eager)
         for k, g in sampler.graphs.items():
             for name, n in g.captured.items():
-                ran[name] += n * (g.replays - replays0.get(k, 0))
+                if name in ran:
+                    ran[name] += n * (g.replays - replays0.get(k, 0))
         outs.setdefault(graphs, []).append(out)
         runs.append({"cuda_graphs": graphs, "seconds": round(seconds, 4),
                      "ms_per_step": round(
@@ -1450,7 +1481,7 @@ def phase_sampler_graph(cfg, model):
 
 
 SAMPLER_MANY_STEPS = 32         # the timed batched view (cut from 256)
-SAMPLER_MANY_F32_STEPS = 8      # step_many vs step
+SAMPLER_MANY_F32_STEPS = 4      # step_many vs step (cut from 8)
 
 
 def phase_sampler_many(cfg, model):
@@ -1511,7 +1542,7 @@ def phase_sampler_many(cfg, model):
     outs = bf16.synthesize_many(views, gens)
     seconds = time.perf_counter() - t0
     out = {"objects": N, "record_lens": lens, "record_capacity": cap,
-           "f32_steps": 16, "rel_l2_many_vs_step": rel,
+           "f32_steps": SAMPLER_MANY_F32_STEPS, "rel_l2_many_vs_step": rel,
            "tolerance": "rel L2 1e-3 (f32, TF32 off)",
            "bf16_steps": SAMPLER_MANY_STEPS,
            "bf16_seconds": round(seconds, 4),
@@ -2505,18 +2536,27 @@ def phase_serve_cascade(cfg, model):
     return out, sites
 
 
-def _launch_counts(reset: bool = False, graphs=()):
-    """The launch count of every kernel wrapper (set to 0 first when
-    ``reset``), plus the launches that the replays of ``graphs`` ran
-    (each graph's captured launches x its replays)."""
+#: The wrappers of rows 1-6 on every path but context parallelism's; the
+#: split-statistics GroupNorm's (``split=True``) run only there.
+UNSPLIT_ROWS = ("fused_groupnorm", "groupnorm_backward", "flash_attention",
+                "attention_backward_dkdv", "attention_backward_dq")
+
+
+def _launch_counts(reset: bool = False, graphs=(), split: bool = False):
+    """The launch count of every kernel wrapper of ``UNSPLIT_ROWS`` (with
+    ``split``, of every wrapper; each set to 0 first when ``reset``), plus
+    the launches that the replays of ``graphs`` ran (each graph's captured
+    launches x its replays)."""
     from diff3d_tpu_torch.graphs import graph_launches
     from diff3d_tpu_torch.ops import launch_counts, set_launch_counts
 
     if reset:
         set_launch_counts({k: 0 for k in launch_counts()})
-    counts = launch_counts()
+    counts = {k: n for k, n in launch_counts().items()
+              if split or k in UNSPLIT_ROWS}
     for k, n in graph_launches(graphs).items():
-        counts[k] += n
+        if k in counts:
+            counts[k] += n
     return counts
 
 
@@ -3908,36 +3948,38 @@ def phase_parallel(graph_run):
                for k, r in (("nogroup", plain), ("group", grouped))}
     fsdp_s = float(np.mean(fsdp["step_s"][1:]))
 
-    # (d) The entry points under torchrun.
-    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "1", "-m"]
+    # (d) The entry points under one torchrun launch: train_cli.main,
+    # then eval_cli.main on its checkpoint, in the group torchrun's
+    # environment names (one launch: its start-up paid once).
     ckpts = os.path.join(wd["torchrun"], "checkpoints")
-    cmds = {"train_cli": run + ["diff3d_tpu_torch.cli.train_cli"]
-            + _parallel_argv(wd["torchrun"], FSDP_STEPS, "--param_sharding",
-                             "fsdp"),
-            "eval_cli": run + ["diff3d_tpu_torch.cli.eval_cli", "--mesh",
-                               "--model", ckpts, "--synthetic_scenes",
-                               "--objects", "1", "--max_views", "3",
-                               "--sampler", "ddim", "--sampler_steps", "4"]}
-    entry = {}
-    for name, cmd in cmds.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, cwd=os.path.dirname(
-                                  os.path.abspath(__file__)))
-        entry[name] = {"rc": proc.returncode,
-                       "wall_s": round(time.perf_counter() - t0, 3)}
-        if proc.returncode:
-            raise AssertionError(f"parallel: torchrun {name} exited "
-                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
-        if name == "eval_cli":
-            entry[name]["line"] = json.loads(
-                proc.stdout.strip().splitlines()[-1])
+    train_argv = _parallel_argv(wd["torchrun"], FSDP_STEPS,
+                                "--param_sharding", "fsdp")
+    eval_argv = ["--mesh", "--model", ckpts, "--synthetic_scenes",
+                 "--objects", "1", "--max_views", "3", "--sampler", "ddim",
+                 "--sampler_steps", "4"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--torchrun-entry-points", *train_argv, "--then-eval",
+           *eval_argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    entry = {"train_cli": {"rc": proc.returncode,
+                           "wall_s": round(time.perf_counter() - t0, 3)}}
+    if proc.returncode:
+        raise AssertionError(f"parallel: torchrun train_cli + eval_cli "
+                             f"exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    marks = json.loads(lines[-1])
+    entry["eval_cli"] = {"rc": 0, "wall_s": marks["eval_s"],
+                         "line": json.loads(lines[-2])}
     with open(os.path.join(wd["torchrun"], "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f if ln.strip()]
     entry["train_cli"]["train_wall_s"] = recs[-1]["wall_s"]
     entry["train_cli"]["startup_s"] = round(
-        entry["train_cli"]["wall_s"] - recs[-1]["wall_s"], 3)
+        entry["train_cli"]["wall_s"] - marks["eval_s"] - recs[-1]["wall_s"],
+        3)
     saved = torch.load(os.path.join(ckpts, f"ckpt_{FSDP_STEPS}.pt"),
                        map_location="cpu", weights_only=True)
     manifest_mesh = saved.get("mesh")
@@ -3954,11 +3996,13 @@ def phase_parallel(graph_run):
     tp_prep = tp_prepare()
     t0 = time.perf_counter()
     both = spawn("chip_smoke:gloo_rank", RING_WORLD, tp_prep["workdir"],
-                 timeout_s=900)
+                 tp_prep["cp_workdir"], timeout_s=900)
     ranks = [b["ring"] for b in both]
     ring_s = max(b["ring_s"] for b in both)
+    cp_s = max(b["cp_s"] for b in both)
     tp_run = (tp_prep, [b["tp"] for b in both],
-              time.perf_counter() - t0 - ring_s)
+              time.perf_counter() - t0 - ring_s - cp_s)
+    cp_run = (tp_prep, [b["cp"] for b in both], cp_s)
     launched = all(r["ring_launches"]["flash_attention"] > 0
                    and r["ring_launches"]["attention_backward_dkdv"] > 0
                    and r["ring_launches"]["attention_backward_dq"] > 0
@@ -4056,7 +4100,7 @@ def phase_parallel(graph_run):
             + ranks[0]["ring_launches"]["attention_backward_dq"]),
         "flash_attention@ulysses": ranks[0]["ulysses_launches"][
             "flash_attention"]}
-    return out, tp_run
+    return out, tp_run, cp_run
 
 
 # ---- tensor parallelism: the model axis over 2 ranks on the card ------------
@@ -4064,8 +4108,10 @@ def phase_parallel(graph_run):
 TP_WORKDIR = WORKDIR + "_tp"
 TP_WORLD = 2
 TP_BATCH = 8                    # (c)'s global batch
-TP_STEPS = 2                    # (c)'s eager steps
-TP_SAMPLER_STEPS = 2            # (b): DDIM steps of one view
+TP_STEPS = 1                    # (c)'s eager steps (cut from 2)
+TP_SAMPLER_STEPS = 1            # (b): DDIM steps of one view (cut from 2)
+CP_STEPS = 2                    # the context phase's (c) eager steps
+CP_SAMPLER_STEPS = 2            # the context phase's (d) DDIM steps
 TP_TOL = 3e-2                   # (a), (b): the model gate, rel. L2
 # (c)'s limits; PERF.md section 6 (PR 14) gives the readings: losses and
 # norms 2.1e-5, the worst update beyond the floor 0.0158, the floor's
@@ -4321,7 +4367,8 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) The Trainer under tp, 2 eager steps from the train checkpoint.
+    # (c) The Trainer under tp, TP_STEPS eager steps from the train
+    # checkpoint.
     trainer = _tp_trainer(_tp_argv(workdir, "--param_sharding", "tp",
                                    "--model_parallel", str(world)))
     tenv = trainer.env
@@ -4413,14 +4460,19 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     return out
 
 
-def gloo_rank(rank: int, world: int, tp_workdir: str) -> dict:
+def gloo_rank(rank: int, world: int, tp_workdir: str,
+              cp_workdir: str) -> dict:
     """One of phase ``parallel`` (c)'s two processes: its ring and
-    Ulysses rank, then phase ``tensor_parallel``'s rank."""
+    Ulysses rank, then phase ``tensor_parallel``'s rank, then phase
+    ``context_parallel``'s."""
     t0 = time.perf_counter()
     ring = ring_rank(rank, world)
-    ring_s = time.perf_counter() - t0
-    return {"ring": ring, "ring_s": ring_s,
-            "tp": tp_rank(rank, world, tp_workdir)}
+    t1 = time.perf_counter()
+    tp = tp_rank(rank, world, tp_workdir)
+    t2 = time.perf_counter()
+    cp = cp_rank(rank, world, cp_workdir)
+    return {"ring": ring, "ring_s": t1 - t0, "tp": tp, "tp_s": t2 - t1,
+            "cp": cp, "cp_s": time.perf_counter() - t2}
 
 
 def tp_prepare():
@@ -4438,7 +4490,7 @@ def tp_prepare():
     step0 = max(int(m.group(1)) for m in map(
         re.compile(r"^ckpt_(\d+)\.pt$").match, os.listdir(src)) if m)
     wd = {}
-    for k in ("one", "tp"):
+    for k in ("one", "tp", "cp"):
         wd[k] = os.path.join(TP_WORKDIR, k)
         os.makedirs(os.path.join(wd[k], "checkpoints"))
         os.link(os.path.join(src, f"ckpt_{step0}.pt"),
@@ -4446,7 +4498,7 @@ def tp_prepare():
     one = _tp_one_rank(cfg, wd["one"])
     gc.collect()
     torch.cuda.empty_cache()
-    return {"workdir": wd["tp"], "one": one,
+    return {"workdir": wd["tp"], "cp_workdir": wd["cp"], "one": one,
             "one_rank_s": time.perf_counter() - t0}
 
 
@@ -4464,24 +4516,38 @@ def _tp_one_rank(cfg, workdir):
         fwd = model(batch, cond_mask).float().cpu()
         ms = cuda_ms(lambda: model(batch, cond_mask), iters=3, warmup=1)
     cfg32, f32 = _tp_f32(cfg, model)
-    sampler = Sampler(f32, cfg32, device="cuda", sampler_kind="ddim",
-                      steps=TP_SAMPLER_STEPS, cuda_graphs=False)
-    with _NoTF32():
-        views = sampler.synthesize(orbit_views(2, cfg.model.H, seed=3),
-                                   torch.Generator("cuda").manual_seed(0))
+    views = {}
+    for steps in sorted({TP_SAMPLER_STEPS, CP_SAMPLER_STEPS}):
+        sampler = Sampler(f32, cfg32, device="cuda", sampler_kind="ddim",
+                          steps=steps, cuda_graphs=False)
+        with _NoTF32():
+            views[steps] = sampler.synthesize(
+                orbit_views(2, cfg.model.H, seed=3),
+                torch.Generator("cuda").manual_seed(0))
     del sampler, f32, model
     trainer = _tp_trainer(_tp_argv(workdir))
     start = _tp_params(trainer)
     losses, norms, lrs, _ = _tp_steps(trainer, 1)
-    # The control's reference: one rank's first update.
-    torch.save({n: (p - start[n]).cpu()
-                for n, p in _tp_params(trainer).items()}, TP_CONTROL_REF)
-    more = _tp_steps(trainer, TP_STEPS - 1)
+    params = {1: _tp_params(trainer)}
+    # The controls' reference: one rank's first update.
+    torch.save({n: (p - start[n]).cpu() for n, p in params[1].items()},
+               TP_CONTROL_REF)
+    # The context phase's (e): the last step's peak above what it starts
+    # with (the state, the gradient bucket, whatever else is resident).
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    more = _tp_steps(trainer, CP_STEPS - 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
     trainer.loader.close()
+    params[CP_STEPS] = _tp_params(trainer)
+    # The context phase's (c) reference, read by its ranks.
+    torch.save({n: p.cpu() for n, p in params[CP_STEPS].items()}, CP_REF)
     return {"forward": fwd, "ms_per_forward": ms, "views": views,
             "losses": losses + more[0], "grad_norms": norms + more[1],
-            "lrs": lrs + more[2], "start": start,
-            "params": _tp_params(trainer), "trainer": trainer}
+            "lrs": lrs + more[2], "start": start, "params": params,
+            "step_peak_above_state": peak, "trainer": trainer}
 
 
 def _gate_summary(rows):
@@ -4526,7 +4592,8 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
 
     # (a) and (b) against one rank.
     fwd_rel = max(_rel_l2(r["forward"], one["forward"]) for r in ranks)
-    view_rel = max(_rel_l2(r["views"], one["views"]) for r in ranks)
+    view_rel = max(_rel_l2(r["views"], one["views"][TP_SAMPLER_STEPS])
+                   for r in ranks)
     finite = all(torch.isfinite(r["forward"]).all()
                  and np.isfinite(r["views"]).all() for r in ranks)
     # (d) The tp checkpoint (gathered, written by rank 0) restored at
@@ -4549,7 +4616,7 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
                    for a, b in zip(r[k], one[k]))
     gate = _update_gate({
         n: _update_sums(leaves[f"model.{n}"], p, one["start"][n])
-        for n, p in one["params"].items()})
+        for n, p in one["params"][TP_STEPS].items()})
     ctl_sums = {}
     for r in ranks:
         for n, v in r["control"]["sums"].items():
@@ -4702,6 +4769,556 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
         "flash_attention[save_lse]@tp": lt["flash_attention"],
         "attention_backward_dkdv@tp": lt["attention_backward_dkdv"],
         "attention_backward_dq@tp": lt["attention_backward_dq"]}
+    return out
+
+
+# ---- context parallelism: the image rows over 2 ranks on the card -----------
+
+CP_MEMORY_RATIO = 0.75          # (e): a rank's activation peak over one's
+# (c)'s reference: one rank's parameters after its CP_STEPS steps (the
+# one-rank trainer of tp_prepare, from the same checkpoint and batches).
+CP_REF = os.path.join(TP_WORKDIR, "one_params.pt")
+SPLIT_SUM_TOL = 1e-9            # (b): the f64 sums, relative to 1 + max|ref|
+
+
+class _HaloNotAdded:
+    """The control of the context phase (c): while entered, the halo's
+    backward drops the gradient its neighbours send back for a rank's edge
+    rows (the add removed), keeping only the rank's own."""
+
+    def __enter__(self):
+        from diff3d_tpu_torch.parallel import context
+
+        self._orig = context._Halo.backward
+
+        def backward(ctx, g):
+            import torch
+
+            k = ctx.k
+            # The same collective as the sound backward, its result unused.
+            ctx.rows.parts(torch.stack([g[:, :k], g[:, -k:]]).contiguous())
+            return g[:, k:-k].clone(), None, None
+
+        context._Halo.backward = staticmethod(backward)
+
+    def __exit__(self, *exc):
+        from diff3d_tpu_torch.parallel import context
+
+        context._Halo.backward = self._orig
+
+
+def split_gn_work(N, L, C, G, film, silu, itemsize=2):
+    """``{entry: (f32 flops, bytes)}`` of the four split-statistics entry
+    points at one site, for their bounds: each input read once, each
+    output written once ((a) x in, [2, N, G] f64 out; (b) x, scale, shift
+    in, the output and the f32 statistics out; (c) x, g, scale (and shift
+    under SiLU) in, the [2, N, G] sums and [N, C] partials out; (d) the
+    same in, dx (and dscale, dshift) out)."""
+    e = N * L * C
+    films = (2 if film else 0)
+    bwd_in = 2 + (1 if film else 0) + (1 if film and silu else 0)
+    return {
+        "groupnorm_partial_sums": (3.0 * e, itemsize * e + 16 * N * G),
+        "groupnorm_apply_sums": (10.0 * e, itemsize * e * (2 + films)
+                                 + 8 * C + 16 * N * G + 8 * N * G),
+        "groupnorm_backward_partial_sums": (
+            30.0 * e, itemsize * e * bwd_in + 8 * C + 8 * N * G
+            + 8 * N * G + 8 * N * C),
+        "groupnorm_backward_apply_sums": (
+            30.0 * e, itemsize * e * (bwd_in + 1 + films) + 8 * C
+            + 16 * N * G)}
+
+
+def phase_split_groupnorm(gn_sites, phase="cp_groupnorm"):
+    """The split-statistics GroupNorm (``cuda_film``'s entry points (a)-(d))
+    at the sites one rank of the context phase gives them (its rows of
+    each sample): each against its plain version on the same inputs, in
+    bf16 and f32, the sums and statistics bit-identical over two runs;
+    then each timed in bf16 beside its bound and plain version, and the
+    forward pair and the backward pair beside ``F.group_norm`` + FiLM /
+    SiLU (forward, and its autograd backward) on the same rows.  Per
+    forward / train step: every site once (no remat)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diff3d_tpu_torch.ops import cuda_film as f
+
+    names = ("groupnorm_partial_sums", "groupnorm_apply_sums",
+             "groupnorm_backward_partial_sums",
+             "groupnorm_backward_apply_sums")
+    acc = {n: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+           for n in names}
+    lib_fwd, lib_bwd = 0.0, 0.0
+    worst, checked, sites = 0.0, 0, []
+    for si, ((N, L, C, G, film, silu), count) in enumerate(
+            sorted(gn_sites.items())):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, gamma, beta, kw = gn_inputs((N, L, C, G), dtype, film,
+                                           90 + si)
+            sc, sh = kw.get("scale"), kw.get("shift")
+            gen = torch.Generator("cuda").manual_seed(95 + si)
+            g = torch.randn(N, L, C, generator=gen, device="cuda").to(dtype)
+            length = 2 * L            # a rank of two: its rows and the other's
+
+            def run():
+                s = f.groupnorm_partial_sums(x, num_groups=G)
+                out, st = f.groupnorm_apply_sums(
+                    x, gamma, beta, sc, sh, 2 * s, length=length,
+                    num_groups=G, silu=silu)
+                bs, dg, db = f.groupnorm_backward_partial_sums(
+                    x, g, gamma, beta, sc, sh, st, num_groups=G, silu=silu)
+                d = f.groupnorm_backward_apply_sums(
+                    x, g, gamma, beta, sc, sh, st, 2 * bs, length=length,
+                    num_groups=G, silu=silu)
+                return [s, out, st, bs, dg, db, *d]
+
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, again)):
+                if a is not None and not torch.equal(a, b):
+                    raise AssertionError(f"{phase}: output {i} at "
+                                         f"{(N, L, C, G)} differs run to run")
+            s, out, st, bs, dg, db, dx, dsc, dsh = got
+            want_s = f.groupnorm_partial_sums_reference(x, G)
+            want_out, want_st = f.groupnorm_apply_sums_reference(
+                x, gamma, beta, sc, sh, 2 * s, length=length, num_groups=G,
+                silu=silu)
+            want_b = f.groupnorm_backward_partial_sums_reference(
+                x, g, gamma, beta, sc, sh, st, num_groups=G, silu=silu)
+            want_d = f.groupnorm_backward_apply_sums_reference(
+                x, g, gamma, beta, sc, sh, st, 2 * bs, length=length,
+                num_groups=G, silu=silu)
+            el = F32_TOL if dtype == torch.float32 else BF16_TOL
+            pairs = [("groupnorm_partial_sums", s, want_s, SPLIT_SUM_TOL),
+                     ("groupnorm_apply_sums", out, want_out, el),
+                     ("groupnorm_apply_sums", st, want_st, F32_TOL),
+                     ("groupnorm_backward_partial_sums", bs, want_b[0],
+                      SUM_TOL),
+                     ("groupnorm_backward_partial_sums", dg, want_b[1],
+                      SUM_TOL),
+                     ("groupnorm_backward_partial_sums", db, want_b[2],
+                      SUM_TOL)]
+            pairs += [("groupnorm_backward_apply_sums", a, b, el)
+                      for a, b in zip((dx, dsc, dsh), want_d)
+                      if b is not None]
+            for name, a, b, tol in pairs:
+                err, ratio = _err_over_tol(a, b, tol)
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"{phase}: {name} at {(N, L, C, G)} {dtype} film="
+                        f"{film} silu={silu}: max abs err {err}")
+                worst = max(worst, ratio)
+                checked += 1
+                if dtype == torch.bfloat16:
+                    acc[name]["max_abs_err"] = max(acc[name]["max_abs_err"],
+                                                   err)
+        # Times in bf16 (the model's dtype), x etc. of the last bf16 run.
+        x, gamma, beta, kw = gn_inputs((N, L, C, G), torch.bfloat16, film,
+                                       90 + si)
+        sc, sh = kw.get("scale"), kw.get("shift")
+        g = torch.randn(N, L, C, generator=torch.Generator(
+            "cuda").manual_seed(95 + si), device="cuda").to(x.dtype)
+        s = 2 * f.groupnorm_partial_sums(x, num_groups=G)
+        _, st = f.groupnorm_apply_sums(x, gamma, beta, sc, sh, s,
+                                       length=2 * L, num_groups=G, silu=silu)
+        bs = 2 * f.groupnorm_backward_partial_sums(
+            x, g, gamma, beta, sc, sh, st, num_groups=G, silu=silu)[0]
+        calls = {
+            "groupnorm_partial_sums": (
+                lambda: f.groupnorm_partial_sums(x, num_groups=G),
+                lambda: f.groupnorm_partial_sums_reference(x, G)),
+            "groupnorm_apply_sums": (
+                lambda: f.groupnorm_apply_sums(
+                    x, gamma, beta, sc, sh, s, length=2 * L, num_groups=G,
+                    silu=silu),
+                lambda: f.groupnorm_apply_sums_reference(
+                    x, gamma, beta, sc, sh, s, length=2 * L, num_groups=G,
+                    silu=silu)),
+            "groupnorm_backward_partial_sums": (
+                lambda: f.groupnorm_backward_partial_sums(
+                    x, g, gamma, beta, sc, sh, st, num_groups=G, silu=silu),
+                lambda: f.groupnorm_backward_partial_sums_reference(
+                    x, g, gamma, beta, sc, sh, st, num_groups=G,
+                    silu=silu)),
+            "groupnorm_backward_apply_sums": (
+                lambda: f.groupnorm_backward_apply_sums(
+                    x, g, gamma, beta, sc, sh, st, bs, length=2 * L,
+                    num_groups=G, silu=silu),
+                lambda: f.groupnorm_backward_apply_sums_reference(
+                    x, g, gamma, beta, sc, sh, st, bs, length=2 * L,
+                    num_groups=G, silu=silu))}
+        work = split_gn_work(N, L, C, G, film, silu)
+        row = {"N": N, "L": L, "C": C, "G": G, "film": film, "silu": silu,
+               "per_forward": count}
+        for name, (kernel, plain) in calls.items():
+            ms, pms = cuda_ms(kernel), cuda_ms(plain, iters=5, warmup=1)
+            flops, nbytes = work[name]
+            bound = _bound(acc[name], count, flops, F32_FLOPS, nbytes)
+            acc[name]["ms"] += count * ms
+            acc[name]["plain_ms"] += count * pms
+            row[name] = {"us": round(ms * 1e3, 2),
+                         "plain_us": round(pms * 1e3, 2),
+                         "bound_us": round(bound * 1e3, 3)}
+        # The library: F.group_norm + FiLM (+ SiLU) on the same rows, and
+        # its autograd backward (a rank of two holds W / 2 rows of a W x W
+        # level).
+        W = math.isqrt(2 * L)
+
+        def nchw(t):
+            return t.reshape(N, L // W, W, C).permute(0, 3, 1, 2)
+
+        x4 = nchw(x)
+        gb, bb = gamma.to(x.dtype), beta.to(x.dtype)
+        sc4, sh4 = (nchw(sc), nchw(sh)) if film else (None, None)
+
+        def library(inp):
+            y = F.group_norm(inp, G, gb, bb, 1e-5)
+            if film:
+                y = y * (1.0 + sc4) + sh4
+            return F.silu(y) if silu else y
+
+        lf = cuda_ms(lambda: library(x4))
+        xl = x4.detach().clone().requires_grad_()
+        yl = library(xl)
+        gl = nchw(g)
+        lb = cuda_ms(lambda: torch.autograd.grad(yl, xl, gl,
+                                                 retain_graph=True))
+        lib_fwd += count * lf
+        lib_bwd += count * lb
+        row["library_forward_us"] = round(lf * 1e3, 2)
+        row["library_backward_us"] = round(lb * 1e3, 2)
+        sites.append(row)
+    stats = {}
+    for name in names:
+        st = _finish(acc[name])
+        st["library_ms"] = (lib_fwd if name == "groupnorm_apply_sums" else
+                            lib_bwd if name == "groupnorm_backward_apply_sums"
+                            else None)
+        stats[name] = st
+    emit({"phase": phase, "checked": checked,
+          "worst_err_over_tol": round(worst, 4),
+          "tolerance": "sums f64 1e-9, f32 1e-4; elements f32 1e-5, bf16 "
+                       "2^-7; statistics f32 1e-5; each *(1+max|ref|)",
+          "bit_identical_run_to_run": True,
+          "library": "F.group_norm + FiLM (+ SiLU) on the same rows "
+                     "(apply_sums: the forward; backward_apply_sums: its "
+                     "autograd backward)",
+          "sites": sites, "per_forward": stats})
+    return stats
+
+
+def cp_rank(rank: int, world: int, workdir: str) -> dict:
+    """One rank of phase ``context_parallel`` (see the module docstring,
+    11a''), on the card with the other rank over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from diff3d_tpu_torch.config import MeshConfig, srn64_config
+    from diff3d_tpu_torch.parallel import make_mesh
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    marks = {"start": time.perf_counter()}
+    torch.cuda.set_device(0)
+    group = dist.group.WORLD
+    cfg = srn64_config()
+    env = make_mesh(MeshConfig(model_parallel=world, context_parallel=True),
+                    model=cfg.model)
+    model = env.params(random_model(cfg))
+    rows = env.context_axis
+    marks["model"] = time.perf_counter()
+    batch, cond_mask = model_batch(
+        cfg, 2 * len(cfg.diffusion.guidance_weights), seed=5)
+    out = {"rank": rank, "model_rank": env.model_rank,
+           "backend": dist.get_backend(group), "gloo": rows.axis.gloo,
+           "rows": rows.rows(cfg.model.H)}
+
+    # (a) one forward (timed after a first one), (d) one Sampler(mesh)
+    # view (the single-object path).
+    _launch_counts(reset=True, split=True)
+    sample_sites = _Sites()
+    with torch.inference_mode():
+        model(batch, cond_mask)
+        rows.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sample_sites:
+            fwd = model(batch, cond_mask)
+        torch.cuda.synchronize()
+    out["ms_per_forward"] = 1e3 * (time.perf_counter() - t0)
+    out["forward"] = fwd.float().cpu()
+    out["collectives_per_forward"] = dict(rows.stats)
+    marks["a_forward"] = time.perf_counter()
+    cfg32, f32 = _tp_f32(cfg, model)
+    sampler = Sampler(f32, cfg32, device="cuda", mesh=env,
+                      sampler_kind="ddim", steps=CP_SAMPLER_STEPS)
+    t0 = time.perf_counter()
+    with _NoTF32():
+        out["views"] = sampler.synthesize(orbit_views(2, cfg.model.H,
+                                                      seed=3),
+                                          torch.Generator("cuda").manual_seed(
+                                              0))
+    out["sampler_s"] = time.perf_counter() - t0
+    out["sampler_graphs"] = sampler.cuda_graphs
+    out["launches_sampling"] = _launch_counts(split=True)
+    marks["d_sampler"] = time.perf_counter()
+    del sampler, f32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The Trainer under cp, CP_STEPS eager steps from the train
+    # checkpoint;
+    # (e) the second step's peak above what it started with.
+    trainer = _tp_trainer(_tp_argv(workdir, "--context_parallel",
+                                   "--model_parallel", str(world)))
+    rows = trainer.env.context_axis         # the trainer's own mesh
+    out["restored_step"] = trainer.state.step
+    out["eager"] = not trainer.step_fn.cuda_graphs
+    start = _tp_params(trainer)
+    train_sites = _Sites()
+    step_s, coll, got = [], [], ([], [], [], [])
+    marks["c_build"] = time.perf_counter()
+    _launch_counts(reset=True, split=True)
+    for i in range(CP_STEPS):
+        rows.reset_stats()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if i == 0:
+            with train_sites:
+                one = _tp_steps(trainer, 1)
+        else:
+            one = _tp_steps(trainer, 1)
+        torch.cuda.synchronize()
+        out["step_peak_above_state"] = (torch.cuda.max_memory_allocated()
+                                        - base)
+        for acc, v in zip(got, one):
+            acc += v
+        step_s.append(time.perf_counter() - t0)
+        coll.append(dict(rows.stats))
+    out["launches_training"] = _launch_counts(split=True)
+    out["losses"], out["grad_norms"], out["lrs"], batches = got
+    out["step_s"], out["collectives_per_step"] = step_s, coll
+    out["state_bytes"] = base
+    marks["c_steps"] = time.perf_counter()
+    ref = torch.load(CP_REF, map_location="cpu", mmap=True,
+                     weights_only=True)
+    out["sums"] = {n: _update_sums(p.detach(), ref[n].to("cuda"), start[n])
+                   for n, p in trainer.state.model.named_parameters()}
+    marks["c_gate"] = time.perf_counter()
+
+    # (c) The control: back to the checkpoint, the first step retaken on
+    # its batch with the halo's backward not adding the neighbours' share.
+    trainer.ckpt.restore(trainer.state, step=out["restored_step"])
+    set_schedule_step(trainer.state, trainer.state.step)
+    with _HaloNotAdded():
+        ctl = _tp_steps(trainer, 1, batches)
+    ref = torch.load(TP_CONTROL_REF, map_location="cpu", mmap=True,
+                     weights_only=True)
+    out["control"] = {
+        "loss": ctl[0][0], "grad_norm": ctl[1][0], "lr": ctl[2][0],
+        "sums": {n: _update_sums(p.detach(), start[n] + ref[n].to("cuda"),
+                                 start[n])
+                 for n, p in trainer.state.model.named_parameters()}}
+    del start, ref, batches
+    trainer.loader.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["c_control"] = time.perf_counter()
+
+    # (b) The kernels at this rank's sites, the ranks in turn.
+    out["sample_sites"] = {"gn": sample_sites.gn, "attn": sample_sites.attn}
+    out["train_sites"] = {"gn": train_sites.gn, "attn": train_sites.attn}
+    for turn in range(world):
+        dist.barrier(group)
+        if turn == rank:
+            t0 = time.perf_counter()
+            out["gn"] = phase_split_groupnorm(train_sites.gn)
+            out["attn"] = phase_attention(sample_sites.attn,
+                                          phase="cp_attention",
+                                          extra_shapes=False)
+            out["attn_rows"] = phase_attention_backward(
+                train_sites.attn, 1, phase="cp_attention_backward",
+                extra_shapes=False, f32_max_n=2)
+            out["sites_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    dist.barrier(group)
+    marks["b_sites"] = time.perf_counter()
+    names = list(marks)
+    out["marks_s"] = {n: round(marks[n] - marks[p], 3)
+                      for p, n in zip(names, names[1:])}
+    return out
+
+
+def phase_context_parallel(prep, ranks, ranks_s):
+    """Context parallelism on the card (see the module docstring, 11a''):
+    ``prep`` is :func:`tp_prepare`'s (the one-rank references are the tp
+    phase's), ``ranks`` the ranks' results of :func:`cp_rank` (run by
+    phase ``parallel``'s processes, ``ranks_s`` seconds)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    one = prep["one"]
+    fwd_rel = max(_rel_l2(r["forward"], one["forward"]) for r in ranks)
+    view_rel = max(_rel_l2(r["views"], one["views"][CP_SAMPLER_STEPS])
+                   for r in ranks)
+    finite = all(torch.isfinite(r["forward"]).all()
+                 and np.isfinite(r["views"]).all() for r in ranks)
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for r in ranks
+                   for k in ("losses", "grad_norms", "lrs")
+                   for a, b in zip(r[k], one[k]))
+    r0 = ranks[0]
+    gate = _update_gate(r0["sums"])
+    ctl_gate = _update_gate(r0["control"]["sums"])
+    same_state = all(r["sums"] == r0["sums"] for r in ranks)
+    ctl_failed = sum(not row[5] for row in ctl_gate)
+    mem = {"rank_peak_above_state": [r["step_peak_above_state"]
+                                     for r in ranks],
+           "one_process_peak_above_state": one["step_peak_above_state"],
+           "what": "the second train step's peak allocated bytes above "
+                   "the bytes allocated before it (parameters, gradients, "
+                   "Adam's moments, the EMA), one rank of the cp mesh vs "
+                   "one process, both at global batch 8"}
+    mem["ratio"] = (max(mem["rank_peak_above_state"])
+                    / mem["one_process_peak_above_state"])
+    mem["limit"] = CP_MEMORY_RATIO
+    split_rows = ("groupnorm_partial_sums", "groupnorm_apply_sums")
+    train_rows = ("groupnorm_partial_sums", "groupnorm_apply_sums",
+                  "groupnorm_backward_partial_sums",
+                  "groupnorm_backward_apply_sums", "flash_attention",
+                  "attention_backward_dkdv", "attention_backward_dq")
+    launched = all(r["launches_sampling"][k] > 0 for r in ranks
+                   for k in split_rows + ("flash_attention",)) and all(
+        r["launches_training"][k] > 0 for r in ranks for k in train_rows)
+    unsplit = {k: [r[w][k] for r in ranks
+                   for w in ("launches_sampling", "launches_training")]
+               for k in ("fused_groupnorm", "groupnorm_backward")}
+
+    def per(c):
+        return {"calls": c["calls"], "bytes": c["bytes"],
+                "ms": round(1e3 * c["seconds"], 3)}
+
+    out = {"config": "srn64", "mesh": "dp1 x mp2, context_parallel, "
+                                      "replicated",
+           "transport": "gloo, 2 ranks on one card: each collective's CUDA "
+                        "tensors staged through pinned host memory",
+           "backend": r0["backend"], "gloo": r0["gloo"],
+           "rows": [r["rows"] for r in ranks],
+           "forward": {"batch": int(one["forward"].shape[0]),
+                       "rel_l2_vs_one_rank": fwd_rel, "tolerance": TP_TOL,
+                       "ms_per_forward": [round(r["ms_per_forward"], 3)
+                                          for r in ranks],
+                       "one_rank_ms_per_forward": one["ms_per_forward"],
+                       "collectives_per_forward": [
+                           per(r["collectives_per_forward"])
+                           for r in ranks]},
+           "sampler": {"views": 1, "ddim_steps": CP_SAMPLER_STEPS,
+                       "dtype": "float32", "path": "single-object (step)",
+                       "rel_l2_vs_one_rank": view_rel, "tolerance": TP_TOL,
+                       "s": [round(r["sampler_s"], 3) for r in ranks],
+                       "graphs": [r["sampler_graphs"] for r in ranks]},
+           "train": {"from_step": r0["restored_step"],
+                     "global_batch": TP_BATCH, "steps": CP_STEPS,
+                     "eager": all(r["eager"] for r in ranks),
+                     "losses": [r["losses"] for r in ranks],
+                     "one_rank_losses": one["losses"],
+                     "grad_norms": [r["grad_norms"] for r in ranks],
+                     "one_rank_grad_norms": one["grad_norms"],
+                     "lrs": [r["lrs"] for r in ranks],
+                     "loss_rel": loss_rel, "loss_tolerance": TP_LOSS_TOL,
+                     "ranks_hold_the_same_update": same_state,
+                     "update_gate": _gate_summary(gate),
+                     "control": {
+                         "what": "the first step retaken from the "
+                                 "checkpoint with the halo's backward not "
+                                 "adding the neighbours' share to the edge "
+                                 "rows",
+                         "loss": [r["control"]["loss"] for r in ranks],
+                         "grad_norm": [r["control"]["grad_norm"]
+                                       for r in ranks],
+                         "one_rank_loss": one["losses"][0],
+                         "sound_loss": r0["losses"][0],
+                         "loss_equals_sound_step": all(
+                             r["control"]["loss"] == r["losses"][0]
+                             for r in ranks),
+                         "leaves_failed": ctl_failed,
+                         "update_gate": _gate_summary(ctl_gate)},
+                     "s_per_step": [r["step_s"] for r in ranks],
+                     "collectives_per_step": [
+                         [per(c) for c in r["collectives_per_step"]]
+                         for r in ranks]},
+           "memory": mem,
+           "launches_sampling": [{k: r["launches_sampling"][k]
+                                  for k in split_rows + ("flash_attention",)}
+                                 for r in ranks],
+           "launches_training": [{k: r["launches_training"][k]
+                                  for k in train_rows} for r in ranks],
+           "unsplit_groupnorm_launches": unsplit,
+           "sites": {"sampling": {k: {str(kk): v for kk, v in
+                                      r0["sample_sites"][k].items()}
+                                  for k in ("gn", "attn")},
+                     "training": {k: {str(kk): v for kk, v in
+                                      r0["train_sites"][k].items()}
+                                  for k in ("gn", "attn")}},
+           "sites_s": [round(r["sites_s"], 3) for r in ranks],
+           "rank_marks_s": [r["marks_s"] for r in ranks],
+           "ranks_s": round(ranks_s, 3),
+           "phase_s": round(ranks_s + time.perf_counter() - t_phase, 3)}
+    emit(dict(phase="context_parallel", **out))
+    if not (finite and fwd_rel <= TP_TOL and view_rel <= TP_TOL):
+        raise AssertionError(f"context_parallel: forward {fwd_rel}, views "
+                             f"{view_rel}, finite {finite}")
+    failed = [row[:5] for row in gate if not row[5]]
+    if not (loss_rel <= TP_LOSS_TOL and not failed and same_state
+            and out["train"]["eager"]):
+        raise AssertionError(f"context_parallel: training off one rank: "
+                             f"losses and norms {loss_rel}, "
+                             f"{len(failed)} updates, e.g. {failed[:3]}; "
+                             f"ranks alike {same_state}")
+    if ctl_failed == 0:
+        raise AssertionError("context_parallel: the update gate passed the "
+                             "control (the halo's backward add removed)")
+    if not mem["ratio"] <= CP_MEMORY_RATIO:
+        raise AssertionError(f"context_parallel: a rank's activation peak "
+                             f"{mem['ratio']:.3f} of one process's")
+    if not launched or any(n for v in unsplit.values() for n in v):
+        raise AssertionError(f"context_parallel: launches: "
+                             f"{out['launches_sampling']}, "
+                             f"{out['launches_training']}, unsplit "
+                             f"{unsplit}")
+
+    def slowest(key, sub=None):
+        rows = [r[key] if sub is None else r[key][sub] for r in ranks]
+        got = dict(rows[0])
+        for k in ("ms", "device_ms", "plain_ms", "library_ms"):
+            if got.get(k) is not None:
+                got[k] = max(r[k] for r in rows)
+        got["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return got
+
+    out["kernel_stats"] = {
+        **{f"{k}@cp": slowest("gn", k) for k in (
+            "groupnorm_partial_sums", "groupnorm_apply_sums",
+            "groupnorm_backward_partial_sums",
+            "groupnorm_backward_apply_sums")},
+        "flash_attention@cp": slowest("attn"),
+        "flash_attention[save_lse]@cp": slowest("attn_rows", "lse"),
+        "attention_backward_dkdv@cp": slowest("attn_rows", "dkdv"),
+        "attention_backward_dq@cp": slowest("attn_rows", "dq")}
+    ls, lt = r0["launches_sampling"], r0["launches_training"]
+    out["kernel_launches"] = {
+        "groupnorm_partial_sums@cp": ls["groupnorm_partial_sums"],
+        "groupnorm_apply_sums@cp": ls["groupnorm_apply_sums"],
+        "groupnorm_backward_partial_sums@cp":
+            lt["groupnorm_backward_partial_sums"],
+        "groupnorm_backward_apply_sums@cp":
+            lt["groupnorm_backward_apply_sums"],
+        "flash_attention@cp": ls["flash_attention"],
+        "flash_attention[save_lse]@cp": lt["flash_attention"],
+        "attention_backward_dkdv@cp": lt["attention_backward_dkdv"],
+        "attention_backward_dq@cp": lt["attention_backward_dq"]}
     return out
 
 
@@ -5309,10 +5926,11 @@ def main() -> None:
                  for e in train["preemption_and_eval"]["evals"])
           for k in ("fused_groupnorm", "flash_attention")}
     phase_eval()
-    par, tp_run = phase_parallel(graph_run)
+    par, tp_run, cp_run = phase_parallel(graph_run)
     del graph_run
     tpar = phase_tensor_parallel(*tp_run)
-    del tp_run
+    cpar = phase_context_parallel(*cp_run)
+    del tp_run, cp_run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5423,6 +6041,17 @@ def main() -> None:
                 "rank of the tp mesh (dp1 x mp2, 2 ranks on one card over "
                 "gloo): the rank's blocks, summed over sites; the slower "
                 f"rank's times; launches: rank 0's {TP_STEPS} eager steps")
+    cp_sample = ("one srn64 forward at 2B=16 on one rank of the context-"
+                 "parallel mesh (dp1 x mp2, 2 ranks on one card over gloo): "
+                 "the rank's 32 of 64 rows at every level (attention: its "
+                 "queries against all keys), summed over sites; the slower "
+                 "rank's times; launches: rank 0's bf16 forward and "
+                 f"{CP_SAMPLER_STEPS}-step float32 Sampler(mesh) view")
+    cp_train = (f"one srn64 train step at global batch {TP_BATCH} on one "
+                "rank of the context-parallel mesh (dp1 x mp2, 2 ranks on "
+                "one card over gloo): the rank's rows, summed over sites; "
+                f"the slower rank's times; launches: rank 0's {CP_STEPS} "
+                "eager steps")
     student_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
                    "the student's forward and backward (a train step's "
                    "sites), summed over sites; launches of the wrapper")
@@ -5444,7 +6073,17 @@ def main() -> None:
                                      "block, blocks merged by log-sum-exp",
               "attention_backward": "mma.sync bf16 dK/dV and dQ (rows 5 "
                                     "and 6) per ring block, with the "
-                                    "merge's lse cotangent"}
+                                    "merge's lse cotangent",
+              "groupnorm_partial_sums": "one block per (sample, group), "
+                                        "f64 sums folded in a fixed tree",
+              "groupnorm_apply_sums": "grid-stride element loop, the "
+                                      "statistics from the summed f64 sums",
+              "groupnorm_backward_partial_sums": "one block per (sample, "
+                                                 "group), f32 sums in a "
+                                                 "fixed tree, then the "
+                                                 "[N, C] fold over N",
+              "groupnorm_backward_apply_sums": "grid-stride element loop "
+                                               "from the summed sums"}
     kernels = kernel_entries([
         ("fused_groupnorm", film, gn_fwd_at, launches["fused_groupnorm"], gn,
          sample_per),
@@ -5527,7 +6166,20 @@ def main() -> None:
                ("flash_attention@tp", att, fa_at, tp_sample),
                ("flash_attention[save_lse]@tp", att, fa_at, tp_train),
                ("attention_backward_dkdv@tp", att, dkdv_at, tp_train),
-               ("attention_backward_dq@tp", att, dq_at, tp_train))],
+               ("attention_backward_dq@tp", att, dq_at, tp_train))]
+        + [(name, src, at, cpar["kernel_launches"][name],
+            cpar["kernel_stats"][name], per)
+           for name, src, at, per in (
+               ("groupnorm_partial_sums@cp", film, gn_fwd_at, cp_sample),
+               ("groupnorm_apply_sums@cp", film, gn_fwd_at, cp_sample),
+               ("groupnorm_backward_partial_sums@cp", film, gn_bwd_at,
+                cp_train),
+               ("groupnorm_backward_apply_sums@cp", film, gn_bwd_at,
+                cp_train),
+               ("flash_attention@cp", att, fa_at, cp_sample),
+               ("flash_attention[save_lse]@cp", att, fa_at, cp_train),
+               ("attention_backward_dkdv@cp", att, dkdv_at, cp_train),
+               ("attention_backward_dq@cp", att, dq_at, cp_train))],
         design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5535,8 +6187,35 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def torchrun_entry_points(argv) -> None:
+    """Phase ``parallel`` (d) under torchrun: ``train_cli.main`` on the
+    argv before ``--then-eval``, then ``eval_cli.main`` on the rest, in
+    the one group torchrun's environment names (each CLI uses a group its
+    caller made and leaves it up).  The eval's line is printed second to
+    last, its seconds last."""
+    from diff3d_tpu_torch.cli import eval_cli, train_cli
+    from diff3d_tpu_torch.parallel import (maybe_initialize_distributed,
+                                           shutdown_distributed)
+
+    cut = argv.index("--then-eval")
+    if not maybe_initialize_distributed():
+        raise SystemExit("--torchrun-entry-points: no group (run it under "
+                         "torchrun)")
+    try:
+        train_cli.main(argv[:cut])
+        t0 = time.perf_counter()
+        eval_cli.main(argv[cut + 1:])
+        eval_s = round(time.perf_counter() - t0, 3)
+    finally:
+        shutdown_distributed()
+    sys.stdout.flush()
+    print(json.dumps({"eval_s": eval_s}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--srn128-graph-trial"]:
         graph_trial(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--torchrun-entry-points"]:
+        torchrun_entry_points(sys.argv[2:])
     else:
         main()

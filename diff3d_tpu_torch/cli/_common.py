@@ -57,14 +57,17 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
                         "(both); sampling keeps whole copies over the data "
                         "axis")
     p.add_argument("--model_parallel", type=int, default=None,
-                   help="ranks on the mesh's model axis (tp / fsdp+tp)")
+                   help="ranks on the mesh's model axis (tp / fsdp+tp, or "
+                        "train_cli's --context_parallel)")
 
 
 def apply_mesh_overrides(cfg, args):
-    """Returns ``cfg`` with --param_sharding / --model_parallel applied to
-    ``cfg.mesh``."""
+    """Returns ``cfg`` with --param_sharding / --model_parallel (and
+    --context_parallel, where the CLI takes it) applied to ``cfg.mesh``."""
     over = {k: getattr(args, k) for k in ("param_sharding", "model_parallel")
             if getattr(args, k, None) is not None}
+    if getattr(args, "context_parallel", False):
+        over["context_parallel"] = True
     if not over:
         return cfg
     return dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,

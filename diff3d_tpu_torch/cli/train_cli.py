@@ -20,22 +20,25 @@ of as CUDA graphs, for comparison).  SIGTERM or SIGINT stops a run
 gracefully: the step it reached is checkpointed, and ``--transfer``
 resumes there.
 
-Data and tensor parallelism: launched by ``torchrun``, the ranks form a
-``(data, model)`` mesh with ``--model_parallel`` ranks on the model axis
-(NCCL on the card, gloo with ``--device cpu``); every data rank trains
-``global_batch / data_size`` rows of each global batch;
+Data, tensor and context parallelism: launched by ``torchrun``, the ranks
+form a ``(data, model)`` mesh with ``--model_parallel`` ranks on the model
+axis (NCCL on the card, gloo with ``--device cpu``); every data rank
+trains ``global_batch / data_size`` rows of each global batch;
 ``--param_sharding`` picks ``replicated`` (DDP: gradients all-reduced,
 the step a CUDA graph), ``fsdp`` (FSDP2, eager), ``tp`` (the parameters
 split Megatron-style over the model axis, eager) or ``fsdp+tp`` (both);
-rank 0 writes metrics and checkpoints.  ``--elastic`` runs under the
+``--context_parallel`` (with ``--model_parallel N`` and the
+``replicated`` placement) splits the activations' image rows over the
+model axis instead, eager; rank 0 writes metrics and checkpoints.  ``--elastic`` runs under the
 elastic supervisor (re-mesh and resume after a preemption or a transient
 fault; ``--elastic_max_remesh`` cycles in a row without progress give
 up).  ``--pallas`` and ``--attn_impl auto|pallas`` name the kernels the
 port runs on the card anyway (accepted and logged); ``--attn_impl xla``
 asks for the plain versions, which the port runs only off the card: it is
 accepted with ``--device cpu`` and refused on the card.  Refused until
-ROADMAP A10b: ``--context_parallel``.  The JAX package's other flags are
-unknown here (exit code 2).
+ROADMAP A10b: ``--context_parallel`` with ``--param_sharding
+fsdp|tp|fsdp+tp``.  The JAX package's other flags are unknown here (exit
+code 2).
 
 Usage:
     python -m diff3d_tpu_torch.cli.train_cli --synthetic --steps 10 \\
@@ -62,6 +65,10 @@ Usage:
         diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
         --synthetic --steps 2 --param_sharding tp --model_parallel 2 \\
         --workdir /tmp/port_train_tp
+    torchrun --standalone --nproc_per_node 2 -m \\
+        diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
+        --synthetic --steps 2 --context_parallel --model_parallel 2 \\
+        --workdir /tmp/port_train_cp
 
 (``--init_from`` keeps every width: srn64 is ch 128, srn128 ch 256, so a
 64^2 -> 128^2 transfer takes ``--ch 128``.)
@@ -78,8 +85,9 @@ from diff3d_tpu_torch.cli._common import (add_mesh_args,
                                           apply_mesh_overrides,
                                           apply_model_width_overrides)
 
-_A10B = ("Refused until context parallelism is ported (ROADMAP A10b): "
-         "--context_parallel.")
+_A10B = ("Refused until ROADMAP A10b: --context_parallel with "
+         "--param_sharding fsdp, tp or fsdp+tp (context parallelism takes "
+         "the replicated placement).")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,7 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "graphs (the comparison path)")
     add_mesh_args(p)
     p.add_argument("--context_parallel", action="store_true",
-                   help="refused: waits for ROADMAP A10b")
+                   help="split the activations' image rows over the "
+                        "model axis (--model_parallel N > 1, the replicated "
+                        "placement; the step eager).  With --param_sharding "
+                        "fsdp|tp|fsdp+tp: refused, ROADMAP A10b")
     p.add_argument("--attn_impl", default=None,
                    choices=["auto", "pallas", "xla"],
                    help="'auto' / 'pallas': the hand-written kernels, which "
@@ -191,11 +202,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    """Exit naming ROADMAP A10b for ``--context_parallel``, and for
-    ``--attn_impl xla`` on the card (the card's path runs the kernels,
-    never their plain versions)."""
-    if args.context_parallel:
-        raise SystemExit(f"--context_parallel: {_A10B}")
+    """Exit naming ROADMAP A10b for ``--context_parallel`` with a sharded
+    placement, and ``--attn_impl xla`` on the card (the card's path runs
+    the kernels, never their plain versions)."""
+    if args.context_parallel and args.param_sharding not in (
+            None, "replicated"):
+        raise SystemExit(f"--context_parallel --param_sharding "
+                         f"{args.param_sharding}: {_A10B}")
     if args.attn_impl == "xla" and (
             args.device is None or not str(args.device).startswith("cpu")):
         raise SystemExit(
@@ -295,7 +308,10 @@ def _setup(args):
         # own kernels use no float atomics).
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    env = make_mesh(cfg.mesh)
+    try:
+        env = make_mesh(cfg.mesh, model=cfg.model)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
     if cfg.train.global_batch % env.data_size:
         raise SystemExit(f"global batch {cfg.train.global_batch} does not "
                          f"split over {env.data_size} ranks")

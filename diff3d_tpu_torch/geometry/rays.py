@@ -18,12 +18,16 @@ import torch
 
 
 def pinhole_rays_cam(K: torch.Tensor, H: int, W: int,
-                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     dtype: Optional[torch.dtype] = None,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Camera-space ray directions ``K^-1 @ [u, v, 1]`` per pixel,
-    ``[..., H, W, 3]`` for ``K [..., 3, 3]``."""
+    ``[..., H, W, 3]`` for ``K [..., 3, 3]``; ``rows=(start, stop)``: only
+    those rows of the image (``[..., stop - start, W, 3]``, the context
+    split's rows: computed from ``K`` alone, no collective)."""
     dtype = K.dtype if dtype is None else dtype
+    start, stop = (0, H) if rows is None else rows
     u = torch.arange(W, dtype=dtype, device=K.device) + 0.5
-    v = torch.arange(H, dtype=dtype, device=K.device) + 0.5
+    v = torch.arange(start, stop, dtype=dtype, device=K.device) + 0.5
     vv, uu = torch.meshgrid(v, u, indexing="ij")          # each [H, W]
     px = torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)  # [H, W, 3]
     # inv_ex: the same inverse without inv's singularity check, which

@@ -39,6 +39,13 @@ class ConditioningProcessor(nn.Module):
     Placed over a model axis (``tp``), the MLP's Dense layers and the
     level convs are column-parallel: every embedding comes out as this
     rank's block of ``emb_ch`` (whole where ``emb_ch`` does not split).
+
+    Split by image rows (``cp``, a :class:`~diff3d_tpu_torch.parallel.
+    context.RowAxis`), each pose embedding is this rank's rows: the rays,
+    posenc and ``pos_emb`` are taken for the rank's rows plus one above
+    and one below (zero rows outside the image, the convs' padding), with
+    no collective; the stride-1 level-0 conv reads all of them, a level
+    conv at stride ``2^i >= 2`` (padding 1) only the row above.
     """
 
     def __init__(self, emb_ch: int, H: int, W: int, num_resolutions: int,
@@ -64,6 +71,7 @@ class ConditioningProcessor(nn.Module):
                     Conv(D, emb_ch, 3, stride=2 ** i, padding=1,
                          compute_dtype=compute_dtype))
         self.tp = None
+        self.cp = None
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 cond_mask: torch.Tensor
@@ -80,11 +88,22 @@ class ConditioningProcessor(nn.Module):
             h = axis.input_for(h, E, [self.Dense_1])
         logsnr_emb = self.Dense_1(h)
 
+        # The rows of the pose embedding: all, or this rank's plus one
+        # above and one below, clipped to the image (the clipped ones are
+        # zero rows, added below).
+        a, b = 0, H
+        if self.cp is not None:
+            r0, r1 = self.cp.rows(H)
+            a, b = max(r0 - 1, 0), min(r1 + 1, H)
+            pad = (a - (r0 - 1), (r1 + 1) - b)
         # The intrinsics-only half may arrive precomputed as
         # batch['cam_dirs'] (the sampler computes it once per trajectory).
         cam_dirs = batch.get("cam_dirs")
         if cam_dirs is None:
-            cam_dirs = pinhole_rays_cam(batch["K"][:, None].float(), H, W)
+            cam_dirs = pinhole_rays_cam(batch["K"][:, None].float(), H, W,
+                                        rows=(a, b))
+        elif (a, b) != (0, H):
+            cam_dirs = cam_dirs[..., a:b, :, :]
         pos, dirs = pinhole_rays_world(batch["R"].float(),
                                        batch["t"].float(), cam_dirs)
         pose_emb = torch.cat([posenc_nerf(pos, 0, POS_DEG),
@@ -92,16 +111,21 @@ class ConditioningProcessor(nn.Module):
         pose_emb = torch.where(cond_mask[:, None, None, None, None],
                                pose_emb, torch.zeros_like(pose_emb))
         if self.pos_emb is not None:
-            pose_emb = pose_emb + self.pos_emb[None, None]
+            pose_emb = pose_emb + self.pos_emb[a:b][None, None]
         B, Fr = pose_emb.shape[:2]
         if self.first_emb is not None:
             ref_emb = torch.cat([self.first_emb]
                                 + [self.other_emb] * (Fr - 1), dim=1)
             pose_emb = pose_emb + ref_emb
 
-        flat = pose_emb.reshape(B * Fr, H, W, POSE_EMB_CH)
+        flat = pose_emb.reshape(B * Fr, b - a, W, POSE_EMB_CH)
         convs = [getattr(self, f"level_conv_{i}")
                  for i in range(self.num_resolutions)]
+        if self.cp is not None:
+            flat = F.pad(flat, (0, 0, 0, 0) + pad)   # rows r0 - 1 .. r1
+            return logsnr_emb, [
+                conv(flat if conv.stride == 1 else flat[:, :-1],
+                     rows_padded=True) for conv in convs]
         if axis is not None:
             flat = axis.input_for(flat, POSE_EMB_CH, convs)
         return logsnr_emb, [conv(flat) for conv in convs]

@@ -30,6 +30,19 @@ names the two layouts): a GroupNorm runs on this rank's channel block
 ranks, else on the whole activation; attention runs on ``heads/mp`` heads
 where the heads split, else on the gathered whole heads; dropout's mask is
 drawn whole and sliced to the block.
+
+Context parallelism (``MeshEnv.place_context_axis``): each layer that
+holds a ``cp`` attribute (a :class:`~diff3d_tpu_torch.parallel.context.
+RowAxis`, None unplaced) runs on this rank's image rows.  A 3x3
+:class:`Conv` at stride 1 takes one halo row from each neighbour and pads
+only the width; a 1x1 one is local; a :class:`FrameGroupNorm` takes the
+statistics of the whole sample (split statistics: sums over the model
+axis); :class:`AttnLayer` projects this rank's queries and attends them
+to every rank's keys and values (their input gathered in model-rank
+order, its backward summed over the ranks); dropout's
+mask is drawn whole and sliced to the rows; FiLM, the residuals and the
+resampling are local (each rank's rows are even at a level that
+downsamples).
 """
 
 from __future__ import annotations
@@ -113,13 +126,25 @@ class Conv(nn.Module):
         self.zero_init = zero_init
         self.tp = None
         self.tp_mode: Optional[str] = None
+        self.cp = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rows_padded: bool = False) -> torch.Tensor:
+        """``rows_padded``: ``x`` already holds the rows the padding would
+        add (a halo, or zero rows at the image's edge), so only the width
+        is padded.  Split by rows (``cp``), a stride-1 conv wider than 1x1
+        takes its halo from the neighbours."""
         dt = self.compute_dtype
+        pad = self.padding
+        if self.cp is not None and not rows_padded and pad > 0:
+            if self.stride != 1:
+                raise ValueError("a strided conv split by rows takes its "
+                                 "input rows padded (rows_padded=True)")
+            x, rows_padded = self.cp.halo(x, pad), True
         w = self.weight.to(dt, memory_format=torch.channels_last)
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w,
                      _bias_block(self).to(dt), stride=self.stride,
-                     padding=self.padding)
+                     padding=(0, pad) if rows_padded else pad)
         return y.permute(0, 2, 3, 1)
 
 
@@ -162,6 +187,7 @@ class FrameGroupNorm(nn.Module):
         self.kernels = "cuda"
         self.silu = silu
         self.tp = None
+        self.cp = None
 
     def forward(self, h: torch.Tensor,
                 scale: Optional[torch.Tensor] = None,
@@ -185,6 +211,8 @@ class FrameGroupNorm(nn.Module):
                 scale, shift = move(scale), move(shift)
         N, H, W, C = h.shape
         kw = {} if scale is None else {"scale": scale, "shift": shift}
+        if self.cp is not None:          # this rank's rows, whole groups
+            kw["rows"] = self.cp
         out = dispatch.dispatch("groupnorm", self.kernels,
                                 h.reshape(N, H * W, C), weight, bias,
                                 num_groups=groups, silu=self.silu, **kw)
@@ -246,13 +274,18 @@ class RowShard(NamedTuple):
 
 def dropout_keep(shape, rate: float,
                  generator: Optional[torch.Generator | RowShard],
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, rows=None) -> torch.Tensor:
     """The keep mask of :func:`dropout`: a uniform draw from ``generator``
     (a ``torch.Generator``, or a :class:`RowShard`: this rank's rows of the
-    global batch's draw) below ``1 - rate``."""
+    global batch's draw) below ``1 - rate``.  ``rows`` (a ``RowAxis``):
+    ``shape`` is this rank's image rows (dim 1) of the activation; the
+    draw is the whole activation's, then this rank's rows of it."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     shape = tuple(shape)
+    h = shape[1]
+    if rows is not None:
+        shape = shape[:1] + (h * rows.size,) + shape[2:]
     if isinstance(generator, RowShard):
         gen, rank, world = generator
         n = shape[0]
@@ -260,13 +293,15 @@ def dropout_keep(shape, rate: float,
                        device=device)[rank * n:(rank + 1) * n]
     else:
         u = torch.rand(shape, generator=generator, device=device)
+    if rows is not None:
+        u = u[:, rows.rank * h:(rows.rank + 1) * h]
     return u < 1.0 - rate
 
 
 def dropout(h: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator],
             keep: Optional[torch.Tensor] = None, axis=None,
-            channels: Optional[int] = None) -> torch.Tensor:
+            channels: Optional[int] = None, rows=None) -> torch.Tensor:
     """``flax.linen.Dropout``: identity when not training or at rate 0,
     zeros at rate 1, else ``h / (1 - rate)`` where ``keep``
     (:func:`dropout_keep`, drawn here from ``generator`` unless given) is
@@ -274,14 +309,15 @@ def dropout(h: torch.Tensor, rate: float, training: bool,
     ``h``'s device).  Over a model ``axis``, ``h`` is this rank's block of
     a ``channels``-wide activation or whole: the mask is the whole
     activation's (the draw one process makes), then this rank's
-    channels of it."""
+    channels of it; split by ``rows`` (a ``RowAxis``), this rank's image
+    rows of it."""
     if not training or rate == 0.0:
         return h
     if rate == 1.0:
         return torch.zeros_like(h)
     if keep is None:
         shape = h.shape if axis is None else h.shape[:-1] + (channels,)
-        keep = dropout_keep(shape, rate, generator, h.device)
+        keep = dropout_keep(shape, rate, generator, h.device, rows)
     if axis is not None and axis.is_block(h, channels):
         keep = axis.block(keep)
     return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
@@ -326,6 +362,7 @@ class ResnetBlock(nn.Module):
         self.skip_proj = (Conv(in_ch, features, 1, compute_dtype=dt)
                           if in_ch != features else None)
         self.tp = None
+        self.cp = None
 
     def forward(self, h_in: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -339,7 +376,7 @@ class ResnetBlock(nn.Module):
         scale, shift = self.FiLM_0(emb)
         h = dropout(self.FrameGroupNorm_1(h, scale, shift),
                     self.dropout_rate, self.training, generator, keep,
-                    axis, Fe)
+                    axis, Fe, self.cp)
         h = self.conv2(_input_for(axis, h, Fe, [self.conv2]))
         if self.skip_proj is not None:
             h_in = self.skip_proj(_input_for(axis, h_in, C,
@@ -363,13 +400,20 @@ class AttnLayer(nn.Module):
         self.num_heads = num_heads
         self.kernels = "cuda"
         self.tp = None
+        self.cp = None
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, Dense(features, features, compute_dtype))
 
     def forward(self, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         """Placed over a model axis, ``q`` and ``kv`` are whole and
         prepared for the projections (``AttnBlock`` does it); the result
-        is whole."""
+        is whole.  Split by rows (``cp``), ``q`` and ``kv`` are this rank's
+        tokens: the keys' and values' input is gathered from every rank
+        (the frame's tokens in order; one gather for both, and each key
+        projected whole, as one process projects it), and the result is
+        this rank's queries'."""
+        if self.cp is not None:
+            kv = self.cp.gather_kv(kv)
         q, k, v = self.q_proj(q), self.k_proj(kv), self.v_proj(kv)
         heads = self.num_heads
         if self.tp is not None:

@@ -22,6 +22,17 @@ is taken on the whole tensors (so the next layer sees the unsharded
 model's channel order), each level's conditioning embedding is gathered
 once for all its FiLM layers, and the head's output is whole on every
 rank (``layers.py`` says how each layer splits).
+
+Split by image rows (``MeshEnv.place_context_axis``, ``cp``), the stream
+between blocks is this rank's rows of every level: the stem conv reads
+this rank's rows of ``x`` / ``z`` with one row above and below (sliced
+from the whole inputs every rank holds, zeros at the edges), the level
+embeddings are by rows (``conditioning.py``), the up path's concatenation
+is local (the rows match), and the head's 3 output channels are gathered
+into the whole image, whose gradient each rank takes back for its rows
+only.  Remat recomputes a block's collectives in the backward, in the
+same order on every rank; its dropout mask is this rank's rows of the
+whole mask.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from diff3d_tpu_torch.models.conditioning import (POSE_EMB_CH,
 from diff3d_tpu_torch.models.layers import (FiLM, Conv, Dense,
                                             FrameGroupNorm, ResnetBlock,
                                             XUNetBlock, dropout_keep)
+from diff3d_tpu_torch.parallel.context import with_halo
 from diff3d_tpu_torch.parallel.tensor import ColumnInput
 
 FRAMES = 2      # source view + target view
@@ -88,7 +100,8 @@ def _draw_dropout(block: nn.Module, h: torch.Tensor,
     if not res.training or rate in (0.0, 1.0):
         return None, None
     shape = tuple(h.shape[:3]) + (res.features,)
-    return _pack_bits(dropout_keep(shape, rate, generator, h.device)), shape
+    return _pack_bits(dropout_keep(shape, rate, generator, h.device,
+                                   res.cp)), shape
 
 
 def remat_call(block: nn.Module, policy: str, *args,
@@ -193,6 +206,7 @@ class XUNet(nn.Module):
         self.last_conv = Conv(dim_out[0], 3, 3, compute_dtype=dt,
                               zero_init=True)
         self.tp = None
+        self.cp = None
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 cond_mask: torch.Tensor,
@@ -242,7 +256,11 @@ class XUNet(nn.Module):
             cfg.torch_dtype).reshape(B * FRAMES, H, W, C)
         if axis is not None:
             h = axis.input_for(h, C, [self.stem_conv])
-        h = self.stem_conv(h)
+        if self.cp is not None:
+            h = self.stem_conv(with_halo(h, *self.cp.rows(H)),
+                               rows_padded=True)
+        else:
+            h = self.stem_conv(h)
 
         hs = [h]
         for i in range(num_res):
@@ -271,7 +289,10 @@ class XUNet(nn.Module):
         h = self.last_conv(h)
         if axis is not None:
             h = axis.whole(h, 3)
-        return h.reshape(B, FRAMES, H, W, 3)[:, 1].float()
+        h = h.reshape(B, FRAMES, h.shape[1], W, 3)[:, 1]
+        if self.cp is not None:
+            h = self.cp.gather_rows(h)
+        return h.float()
 
 
 def init_params(model: nn.Module, generator: torch.Generator,

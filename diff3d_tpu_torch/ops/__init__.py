@@ -11,7 +11,14 @@ KERNEL_WRAPPERS = {"fused_groupnorm": cuda_film.fused_groupnorm,
                    "groupnorm_backward": cuda_film.groupnorm_backward,
                    "flash_attention": flash_attention,
                    "attention_backward_dkdv": attention_backward_dkdv,
-                   "attention_backward_dq": attention_backward_dq}
+                   "attention_backward_dq": attention_backward_dq,
+                   # The split statistics (context parallelism).
+                   "groupnorm_partial_sums": cuda_film.groupnorm_partial_sums,
+                   "groupnorm_apply_sums": cuda_film.groupnorm_apply_sums,
+                   "groupnorm_backward_partial_sums":
+                       cuda_film.groupnorm_backward_partial_sums,
+                   "groupnorm_backward_apply_sums":
+                       cuda_film.groupnorm_backward_apply_sums}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1066,6 +1066,258 @@ cudaError_t launch_bwd_all(const GnBwdArgs& a, int cs, int film, int silu,
   return launch_bwd_w<T, 1>(a, cs, film, silu, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Split statistics (context parallelism).  The same two TPU kernels
+// (pallas_film.py::_fwd_kernel and ::_bwd_kernel) when a sample's rows lie
+// on several ranks: each pass splits in two around a sum over the ranks
+// that the host makes (cuda_film._SplitGroupNormFn).
+//   (a) gn_split_sums_kernel: per (n, g) the f64 sums of x and x^2 over
+//       this rank's rows -> [2, N, G] f64.
+//   (b) gn_split_apply_kernel: from the summed f64 sums, mean / rstd by
+//       the cluster forward's own f32 operations (inv_count, E[x^2] -
+//       mean^2 clamped at 0, rsqrtf(var + eps)), then its element chain,
+//       each operation rounded to f32; also the [2, N, G] mean / rstd.
+//   (c) gn_split_bwd_sums_kernel: per (n, g) the f32 sums of dxhat and
+//       dxhat * x_hat over this rank's rows -> [2, N, G], and per (n, c)
+//       the dgamma / dbeta partials, folded over N by gn_bwd_param_kernel.
+//   (d) gn_split_bwd_apply_kernel: dx = rstd (dxhat - mean_g(dxhat) - x_hat
+//       mean_g(dxhat x_hat)) from the summed sums, dscale, dshift.
+// What bounds them on an H100: bytes, as the cluster kernels (a few flops
+// an element).  Design: the simplest that is right.  (a) and (c) give each
+// (n, g) one block of SPLIT_NT threads, thread t taking channel t % gs of
+// the group on rows t / gs, t / gs + SPLIT_NT / gs, ... (gs <= SPLIT_NT),
+// and fold the threads' sums in shared memory in a fixed tree, so a call
+// is bit-identical run to run; a group's gs channels are gs * sizeof(T)
+// contiguous bytes of a row, so narrow groups read whole sectors only in
+// part.  (b) and (d) are grid-stride element loops that read each
+// element's group statistics again (from L1).  No float atomics, no
+// scratch beyond (c)'s [2, N, C] partials; nothing synchronises.
+
+constexpr int SPLIT_NT = 256;      // threads of a split-sums block
+
+struct GnSplitArgs {
+  const void* x;
+  long long sxn, sxl;
+  const void* g;                   // (c), (d): the upstream gradient
+  long long sgn, sgl;
+  const float* gamma;
+  const float* beta;
+  const void* scale;
+  long long ssn, ssl;
+  const void* shift;
+  long long shn, shl;
+  const double* sums;              // (b): [2, N, G] summed over the ranks
+  double* psums;                   // (a): [2, N, G] this rank's
+  const float* stats;              // (c), (d): [2, N, G] mean, rstd
+  float* stats_out;                // (b)
+  const float* bsums;              // (d): [2, N, G] summed over the ranks
+  float* bpsums;                   // (c): [2, N, G] this rank's
+  void* out;                       // (b): out, (d): dx; contiguous
+  void* dscale;                    // (d), FiLM only; contiguous
+  void* dshift;
+  float* pdg;                      // (c): [N, C] dgamma partials
+  float* pdb;                      // (c): [N, C] dbeta partials
+  int N, L, Ltot, C, G;            // Ltot: the whole image's L
+  float eps;
+};
+
+// Fold v[SPLIT_NT] in a fixed tree; the total lands in v[0].
+template <typename A>
+__device__ __forceinline__ void block_fold(A* v) {
+  for (int s = SPLIT_NT / 2; s > 0; s >>= 1) {
+    __syncthreads();
+    if ((int)threadIdx.x < s) v[threadIdx.x] += v[threadIdx.x + s];
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_NT)
+    gn_split_sums_kernel(GnSplitArgs a) {
+  __shared__ double r1[SPLIT_NT], r2[SPLIT_NT];
+  const int gi = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
+  const int gs = a.C / a.G, RY = SPLIT_NT / gs;
+  const int ch = tid % gs, ry = tid / gs;
+  const T* xn = static_cast<const T*>(a.x) + (int64_t)n * a.sxn +
+                (int64_t)gi * gs + ch;
+  double s = 0.0, q = 0.0;
+  if (ry < RY) {
+    for (int r = ry; r < a.L; r += RY) {
+      const double v = load_f32<T>(xn + (int64_t)r * a.sxl);
+      s += v;
+      q += v * v;
+    }
+  }
+  r1[tid] = s;
+  r2[tid] = q;
+  block_fold(r1);
+  block_fold(r2);
+  if (tid == 0) {
+    a.psums[(int64_t)n * a.G + gi] = r1[0];
+    a.psums[((int64_t)a.N + n) * a.G + gi] = r2[0];
+  }
+}
+
+// The cluster forward's statistics from the sums of a group.
+__device__ __forceinline__ void split_stats(double t1, double t2,
+                                            float inv_count, float eps,
+                                            float& mean, float& rstd) {
+  mean = __fmul_rn((float)t1, inv_count);
+  const float mean2 = __fmul_rn((float)t2, inv_count);
+  const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
+  rstd = rsqrtf(__fadd_rn(var, eps));
+}
+
+template <typename T, bool FILM, bool SILU>
+__global__ void __launch_bounds__(256) gn_split_apply_kernel(GnSplitArgs a) {
+  const int C = a.C, G = a.G, gs = C / G;
+  const float inv_count = 1.f / ((float)a.Ltot * (float)gs);
+  const int64_t total = (int64_t)a.N * a.L * C;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (int64_t)gridDim.x * blockDim.x) {
+    const int c = (int)(e % C);
+    const int64_t nr = e / C;
+    const int r = (int)(nr % a.L), n = (int)(nr / a.L);
+    const int64_t grp = (int64_t)n * G + c / gs;
+    float mu, rs;
+    split_stats(a.sums[grp], a.sums[(int64_t)a.N * G + grp], inv_count,
+                a.eps, mu, rs);
+    if (r == 0 && c % gs == 0) {
+      a.stats_out[grp] = mu;
+      a.stats_out[(int64_t)a.N * G + grp] = rs;
+    }
+    const float xv = load_f32<T>(static_cast<const T*>(a.x) +
+                                 (int64_t)n * a.sxn + (int64_t)r * a.sxl + c);
+    // The cluster kernel's operations, each rounded to f32.
+    float v = __fmul_rn(__fsub_rn(xv, mu), rs);
+    v = __fadd_rn(__fmul_rn(v, a.gamma[c]), a.beta[c]);
+    if (FILM) {
+      const float sc = load_f32<T>(static_cast<const T*>(a.scale) +
+                                   (int64_t)n * a.ssn + (int64_t)r * a.ssl +
+                                   c);
+      const float sh = load_f32<T>(static_cast<const T*>(a.shift) +
+                                   (int64_t)n * a.shn + (int64_t)r * a.shl +
+                                   c);
+      v = __fadd_rn(__fmul_rn(v, __fadd_rn(1.f, sc)), sh);
+    }
+    if (SILU) v = __fmul_rn(v, 1.f / (1.f + expf(-v)));
+    static_cast<T*>(a.out)[e] = from_f32<T>(v);
+  }
+}
+
+// One element's backward chain (gn_grad) at (n, r, c).
+template <typename T, bool FILM, bool SILU>
+__device__ __forceinline__ GnGrad split_grad(const GnSplitArgs& a, int n,
+                                             int r, int c, float mu,
+                                             float rs) {
+  const int64_t xo = (int64_t)n * a.sxn + (int64_t)r * a.sxl + c;
+  const int64_t go = (int64_t)n * a.sgn + (int64_t)r * a.sgl + c;
+  const float xv = load_f32<T>(static_cast<const T*>(a.x) + xo);
+  const float gv = load_f32<T>(static_cast<const T*>(a.g) + go);
+  float sc = 0.f, sh = 0.f;
+  if (FILM) {
+    sc = load_f32<T>(static_cast<const T*>(a.scale) + (int64_t)n * a.ssn +
+                     (int64_t)r * a.ssl + c);
+    if (SILU)
+      sh = load_f32<T>(static_cast<const T*>(a.shift) + (int64_t)n * a.shn +
+                       (int64_t)r * a.shl + c);
+  }
+  return gn_grad<FILM, SILU>(xv, gv, sc, sh, a.gamma[c], a.beta[c], mu, rs);
+}
+
+template <typename T, bool FILM, bool SILU>
+__global__ void __launch_bounds__(SPLIT_NT)
+    gn_split_bwd_sums_kernel(GnSplitArgs a) {
+  __shared__ float r1[SPLIT_NT], r2[SPLIT_NT], r3[SPLIT_NT], r4[SPLIT_NT];
+  const int gi = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
+  const int gs = a.C / a.G, RY = SPLIT_NT / gs;
+  const int ch = tid % gs, ry = tid / gs, c = gi * gs + ch;
+  const int64_t grp = (int64_t)n * a.G + gi;
+  const float mu = a.stats[grp], rs = a.stats[(int64_t)a.N * a.G + grp];
+  float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
+  if (ry < RY) {
+    for (int r = ry; r < a.L; r += RY) {
+      const GnGrad o = split_grad<T, FILM, SILU>(a, n, r, c, mu, rs);
+      s1 += o.dxhat;
+      s2 += o.dxhat * o.xhat;
+      s3 += o.dy_gn * o.xhat;
+      s4 += o.dy_gn;
+    }
+  }
+  r1[tid] = s1;
+  r2[tid] = s2;
+  r3[tid] = s3;
+  r4[tid] = s4;
+  __syncthreads();
+  // Per channel: its RY row groups in order (before the group folds
+  // overwrite nothing of r3 / r4).
+  if (tid < gs) {
+    float dg = 0.f, db = 0.f;
+    for (int k = 0; k < RY; ++k) {
+      dg += r3[tid + k * gs];
+      db += r4[tid + k * gs];
+    }
+    a.pdg[(int64_t)n * a.C + c] = dg;
+    a.pdb[(int64_t)n * a.C + c] = db;
+  }
+  block_fold(r1);
+  block_fold(r2);
+  if (tid == 0) {
+    a.bpsums[grp] = r1[0];
+    a.bpsums[(int64_t)a.N * a.G + grp] = r2[0];
+  }
+}
+
+template <typename T, bool FILM, bool SILU>
+__global__ void __launch_bounds__(256)
+    gn_split_bwd_apply_kernel(GnSplitArgs a) {
+  const int C = a.C, G = a.G, gs = C / G;
+  const float count = (float)a.Ltot * (float)gs;
+  const int64_t total = (int64_t)a.N * a.L * C;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (int64_t)gridDim.x * blockDim.x) {
+    const int c = (int)(e % C);
+    const int64_t nr = e / C;
+    const int r = (int)(nr % a.L), n = (int)(nr / a.L);
+    const int64_t grp = (int64_t)n * G + c / gs;
+    const int64_t grp2 = (int64_t)a.N * G + grp;
+    const float rs = a.stats[grp2];
+    const GnGrad o = split_grad<T, FILM, SILU>(a, n, r, c, a.stats[grp], rs);
+    const float m1 = a.bsums[grp] / count, m2 = a.bsums[grp2] / count;
+    static_cast<T*>(a.out)[e] = from_f32<T>(rs * (o.dxhat - m1 - o.xhat * m2));
+    if (FILM) {
+      static_cast<T*>(a.dscale)[e] = from_f32<T>(o.dy_f * o.y_gn);
+      static_cast<T*>(a.dshift)[e] = from_f32<T>(o.dy_f);
+    }
+  }
+}
+
+// Blocks of an element kernel: enough for the card, the rest by the
+// grid-stride loop.
+int split_blocks(const GnSplitArgs& a) {
+  const long long total = (long long)a.N * a.L * a.C;
+  const long long b = (total + 255) / 256;
+  return (int)(b < 8192 ? (b > 0 ? b : 1) : 8192);
+}
+
+// The four modes of a template kernel launcher K<T, FILM, SILU>.
+#define SPLIT_MODES(KERNEL, T, FILM_, SILU_, GRID, BLOCK, STREAM, A)       \
+  do {                                                                     \
+    if (FILM_ && SILU_)                                                    \
+      KERNEL<T, true, true><<<GRID, BLOCK, 0, STREAM>>>(A);                \
+    else if (FILM_)                                                        \
+      KERNEL<T, true, false><<<GRID, BLOCK, 0, STREAM>>>(A);               \
+    else if (SILU_)                                                        \
+      KERNEL<T, false, true><<<GRID, BLOCK, 0, STREAM>>>(A);               \
+    else                                                                   \
+      KERNEL<T, false, false><<<GRID, BLOCK, 0, STREAM>>>(A);              \
+  } while (0)
+
+bool split_ok(int N, int L, int C, int G, int dtype) {
+  return N >= 1 && L >= 1 && C >= 1 && G >= 1 && C % G == 0 &&
+         C / G <= SPLIT_NT && (dtype == 0 || dtype == 1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1205,6 +1457,189 @@ int gn_fused_backward(const void* x, long long sxn, long long sxl,
       dtype == 0 ? launch_bwd_all<float>(a, cluster, film, silu, st)
                  : launch_bwd_all<__nv_bfloat16>(a, cluster, film, silu, st);
   return (int)err;
+}
+
+// ---- split statistics (context parallelism) --------------------------------
+// dtype: 0 = float32, 1 = bfloat16 (x, g, scale, shift and the outputs
+// share it).  Views take element strides (sxn, sxl) with unit channel
+// stride; outputs are contiguous [N, L, C].  Ltot: the whole image's L
+// (every rank's rows), the count each group's mean divides by over C / G.
+// At most 256 channels a group.  Each returns a cudaError_t code.
+
+// (a) psums: double [2, N, G], the sums of x and x^2 over these rows.
+int gn_split_sums(const void* x, long long sxn, long long sxl, void* psums,
+                  int N, int L, int C, int G, int dtype, void* stream) {
+  if (!split_ok(N, L, C, G, dtype) || psums == nullptr)
+    return (int)cudaErrorInvalidValue;
+  GnSplitArgs a = {};
+  a.x = x;
+  a.sxn = sxn;
+  a.sxl = sxl;
+  a.psums = static_cast<double*>(psums);
+  a.N = N;
+  a.L = L;
+  a.C = C;
+  a.G = G;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(G, N);
+  if (dtype == 0)
+    gn_split_sums_kernel<float><<<grid, SPLIT_NT, 0, st>>>(a);
+  else
+    gn_split_sums_kernel<__nv_bfloat16><<<grid, SPLIT_NT, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// (b) sums: double [2, N, G] over every rank; out like x; stats: float
+// [2, N, G] mean, rstd.
+int gn_split_apply(const void* x, long long sxn, long long sxl,
+                   const void* gamma, const void* beta, const void* scale,
+                   long long ssn, long long ssl, const void* shift,
+                   long long shn, long long shl, const void* sums, void* out,
+                   void* stats, int N, int L, int Ltot, int C, int G,
+                   int dtype, int film, int silu, float eps, void* stream) {
+  if (!split_ok(N, L, C, G, dtype) || Ltot < L || sums == nullptr ||
+      out == nullptr || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  GnSplitArgs a = {};
+  a.x = x;
+  a.sxn = sxn;
+  a.sxl = sxl;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.scale = film ? scale : x;
+  a.ssn = film ? ssn : sxn;
+  a.ssl = film ? ssl : sxl;
+  a.shift = film ? shift : x;
+  a.shn = film ? shn : sxn;
+  a.shl = film ? shl : sxl;
+  a.sums = static_cast<const double*>(sums);
+  a.out = out;
+  a.stats_out = static_cast<float*>(stats);
+  a.N = N;
+  a.L = L;
+  a.Ltot = Ltot;
+  a.C = C;
+  a.G = G;
+  a.eps = eps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = split_blocks(a);
+  if (dtype == 0)
+    SPLIT_MODES(gn_split_apply_kernel, float, film, silu, blocks, 256, st, a);
+  else
+    SPLIT_MODES(gn_split_apply_kernel, __nv_bfloat16, film, silu, blocks, 256,
+                st, a);
+  return (int)cudaGetLastError();
+}
+
+// (c) stats: the forward's float [2, N, G]; bpsums: float [2, N, G], the
+// sums of dxhat and dxhat * x_hat over these rows; partial: float scratch
+// of 2 * N * C; dgamma / dbeta: float [C], this rank's.
+int gn_split_backward_sums(const void* x, long long sxn, long long sxl,
+                           const void* g, long long sgn, long long sgl,
+                           const void* gamma, const void* beta,
+                           const void* scale, long long ssn, long long ssl,
+                           const void* shift, long long shn, long long shl,
+                           const void* stats, void* bpsums, void* partial,
+                           void* dgamma, void* dbeta, int N, int L, int C,
+                           int G, int dtype, int film, int silu,
+                           void* stream) {
+  if (!split_ok(N, L, C, G, dtype) || stats == nullptr ||
+      bpsums == nullptr || partial == nullptr || dgamma == nullptr ||
+      dbeta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  GnSplitArgs a = {};
+  a.x = x;
+  a.sxn = sxn;
+  a.sxl = sxl;
+  a.g = g;
+  a.sgn = sgn;
+  a.sgl = sgl;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.scale = film ? scale : x;
+  a.ssn = film ? ssn : sxn;
+  a.ssl = film ? ssl : sxl;
+  a.shift = film ? shift : x;
+  a.shn = film ? shn : sxn;
+  a.shl = film ? shl : sxl;
+  a.stats = static_cast<const float*>(stats);
+  a.bpsums = static_cast<float*>(bpsums);
+  a.pdg = static_cast<float*>(partial);
+  a.pdb = a.pdg + (size_t)N * C;
+  a.N = N;
+  a.L = L;
+  a.C = C;
+  a.G = G;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(G, N);
+  if (dtype == 0)
+    SPLIT_MODES(gn_split_bwd_sums_kernel, float, film, silu, grid, SPLIT_NT,
+                st, a);
+  else
+    SPLIT_MODES(gn_split_bwd_sums_kernel, __nv_bfloat16, film, silu, grid,
+                SPLIT_NT, st, a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  GnBwdArgs pa = {};
+  pa.pdg = a.pdg;
+  pa.pdb = a.pdb;
+  pa.dgamma = static_cast<float*>(dgamma);
+  pa.dbeta = static_cast<float*>(dbeta);
+  pa.N = N;
+  pa.C = C;
+  gn_bwd_param_kernel<<<(C + 31) / 32, 512, 0, st>>>(pa);
+  return (int)cudaGetLastError();
+}
+
+// (d) stats: the forward's float [2, N, G]; bsums: float [2, N, G] over
+// every rank; dx (and dscale / dshift with FiLM) like x.
+int gn_split_backward_apply(const void* x, long long sxn, long long sxl,
+                            const void* g, long long sgn, long long sgl,
+                            const void* gamma, const void* beta,
+                            const void* scale, long long ssn, long long ssl,
+                            const void* shift, long long shn, long long shl,
+                            const void* stats, const void* bsums, void* dx,
+                            void* dscale, void* dshift, int N, int L,
+                            int Ltot, int C, int G, int dtype, int film,
+                            int silu, void* stream) {
+  if (!split_ok(N, L, C, G, dtype) || Ltot < L || stats == nullptr ||
+      bsums == nullptr || dx == nullptr ||
+      (film && (dscale == nullptr || dshift == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  GnSplitArgs a = {};
+  a.x = x;
+  a.sxn = sxn;
+  a.sxl = sxl;
+  a.g = g;
+  a.sgn = sgn;
+  a.sgl = sgl;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.scale = film ? scale : x;
+  a.ssn = film ? ssn : sxn;
+  a.ssl = film ? ssl : sxl;
+  a.shift = film ? shift : x;
+  a.shn = film ? shn : sxn;
+  a.shl = film ? shl : sxl;
+  a.stats = static_cast<const float*>(stats);
+  a.bsums = static_cast<const float*>(bsums);
+  a.out = dx;
+  a.dscale = film ? dscale : dx;
+  a.dshift = film ? dshift : dx;
+  a.N = N;
+  a.L = L;
+  a.Ltot = Ltot;
+  a.C = C;
+  a.G = G;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = split_blocks(a);
+  if (dtype == 0)
+    SPLIT_MODES(gn_split_bwd_apply_kernel, float, film, silu, blocks, 256, st,
+                a);
+  else
+    SPLIT_MODES(gn_split_bwd_apply_kernel, __nv_bfloat16, film, silu, blocks,
+                256, st, a);
+  return (int)cudaGetLastError();
 }
 
 const char* gn_error_string(int code) {

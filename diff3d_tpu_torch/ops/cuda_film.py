@@ -60,17 +60,37 @@ _SIGNATURES = {    # ctypes argument types of film.cu's C entry points
     "gn_fused_backward": ((_c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll, _c_p,
                            _c_p, _c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll)
                           + (_c_p,) * 7 + (_c_i,) * 10 + (_c_p,)),
+    "gn_split_sums": (_c_p, _c_ll, _c_ll, _c_p) + (_c_i,) * 5 + (_c_p,),
+    "gn_split_apply": ((_c_p, _c_ll, _c_ll, _c_p, _c_p, _c_p, _c_ll, _c_ll,
+                        _c_p, _c_ll, _c_ll, _c_p, _c_p, _c_p)
+                       + (_c_i,) * 8 + (ctypes.c_float, _c_p)),
+    "gn_split_backward_sums": ((_c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll,
+                                _c_p, _c_p, _c_p, _c_ll, _c_ll, _c_p, _c_ll,
+                                _c_ll) + (_c_p,) * 5 + (_c_i,) * 7
+                               + (_c_p,)),
+    "gn_split_backward_apply": ((_c_p, _c_ll, _c_ll, _c_p, _c_ll, _c_ll,
+                                 _c_p, _c_p, _c_p, _c_ll, _c_ll, _c_p, _c_ll,
+                                 _c_ll) + (_c_p,) * 5 + (_c_i,) * 8
+                                + (_c_p,)),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The split-statistics sums kernels give each group one block of this many
+# threads, one channel of the group a thread at least.
+SPLIT_THREADS = 256
 
 
 def supports(x: torch.Tensor, *args, num_groups: int = 32,
-             **kwargs) -> bool:
+             rows=None, **kwargs) -> bool:
     """Operands the kernel takes: ``[N, L, C]`` f32/bf16 with unit
-    channel stride, C divisible by ``num_groups``, C <= 4096."""
+    channel stride, C divisible by ``num_groups``, C <= 4096; with
+    ``rows`` (split statistics) at most ``SPLIT_THREADS`` channels a
+    group."""
     if x.dim() != 3 or x.dtype not in _DTYPE_CODE or x.stride(-1) != 1:
         return False
     C = x.shape[-1]
+    if rows is not None and (num_groups < 1
+                             or C // num_groups > SPLIT_THREADS):
+        return False
     return (0 < num_groups <= MAX_GROUPS and C % num_groups == 0
             and 0 < C <= MAX_C)
 
@@ -116,6 +136,28 @@ def groupnorm_reference(x: torch.Tensor, gamma: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _backward_chain(x, g, gamma, beta, scale, shift, stats, silu):
+    """The backward's element chain in f32: ``(rstd, xhat, y_gn, dy_f,
+    dy_gn, dxhat)`` from the saved ``stats``, SiLU's derivative
+    recomputed from y."""
+    C = x.shape[-1]
+    rstd = _per_channel(stats[1], C)
+    xhat = (x.float() - _per_channel(stats[0], C)) * rstd
+    y_gn = xhat * gamma.float() + beta.float()
+    film = scale is not None
+    if film:
+        sc1 = 1.0 + scale.float()
+        y = y_gn * sc1 + shift.float()
+    else:
+        y = y_gn
+    dy_f = g.float()
+    if silu:
+        sig = torch.sigmoid(y)
+        dy_f = dy_f * (sig * (1.0 + y * (1.0 - sig)))
+    dy_gn = dy_f * sc1 if film else dy_f
+    return rstd, xhat, y_gn, dy_f, dy_gn, dy_gn * gamma.float()
+
+
 def groupnorm_backward_reference(
         x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
         beta: torch.Tensor, scale: Optional[torch.Tensor],
@@ -131,21 +173,8 @@ def groupnorm_backward_reference(
     FiLM) and dgamma / dbeta f32."""
     N, L, C = x.shape
     gs = C // num_groups
-    rstd = _per_channel(stats[1], C)
-    xhat = (x.float() - _per_channel(stats[0], C)) * rstd
-    y_gn = xhat * gamma.float() + beta.float()
-    film = scale is not None
-    if film:
-        sc1 = 1.0 + scale.float()
-        y = y_gn * sc1 + shift.float()
-    else:
-        y = y_gn
-    dy_f = g.float()
-    if silu:
-        sig = torch.sigmoid(y)
-        dy_f = dy_f * (sig * (1.0 + y * (1.0 - sig)))
-    dy_gn = dy_f * sc1 if film else dy_f
-    dxhat = dy_gn * gamma.float()
+    rstd, xhat, y_gn, dy_f, dy_gn, dxhat = _backward_chain(
+        x, g, gamma, beta, scale, shift, stats, silu)
 
     def group_mean(t):
         return _per_channel(
@@ -154,10 +183,101 @@ def groupnorm_backward_reference(
     dx = rstd * (dxhat - group_mean(dxhat) - xhat * group_mean(dxhat * xhat))
     dgamma = (dy_gn * xhat).sum(dim=(0, 1))
     dbeta = dy_gn.sum(dim=(0, 1))
-    if film:
+    if scale is not None:
         return (dx.to(x.dtype), (dy_f * y_gn).to(scale.dtype),
                 dy_f.to(shift.dtype), dgamma, dbeta)
     return dx.to(x.dtype), None, None, dgamma, dbeta
+
+
+# ---- split statistics (context parallelism) -------------------------------
+#
+# Under context parallelism a group's rows lie on several ranks, so each
+# pass splits in two around a sum over the model axis
+# (``parallel/context.py``): the forward into (a) the per-group f64 sums
+# of x and x^2 over this rank's rows and (b) the apply from the summed
+# ones, with the one-rank kernel's f32 formula for mean / rstd; the
+# backward into (c) the per-group f32 sums of dxhat and dxhat * x_hat over
+# this rank's rows (with this rank's dgamma / dbeta) and (d) dx, dscale,
+# dshift from the summed ones.  ``length`` below is the whole image's L
+# (its pixels, every rank's rows): each group's mean divides by
+# ``length * C / G``.
+
+
+def _group_sums(t: torch.Tensor, num_groups: int) -> torch.Tensor:
+    N, L, C = t.shape
+    return t.reshape(N, L, num_groups, C // num_groups).sum(dim=(1, 3))
+
+
+def groupnorm_partial_sums_reference(x: torch.Tensor,
+                                     num_groups: int) -> torch.Tensor:
+    """(a), plain: ``[2, N, G]`` float64 ``Σx`` and ``Σx²`` per group over
+    this rank's rows of ``x [N, l, C]`` (x² of an f32 is exact in f64)."""
+    xd = x.double()
+    return torch.stack([_group_sums(xd, num_groups),
+                        _group_sums(xd * xd, num_groups)])
+
+
+def stats_from_sums(sums: torch.Tensor, length: int, C: int,
+                    num_groups: int) -> torch.Tensor:
+    """``[2, N, G]`` f32 mean / rstd from the summed f64 ``sums`` of
+    ``length`` pixels a sample: the cluster kernel's f32 operations
+    (``film.cu``), each rounded: ``mean = f32(Σx) * (1 / count)``, ``var =
+    E[x²] - mean²`` clamped at 0, ``rstd = rsqrt(var + eps)``."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / (
+        torch.tensor(float(length), dtype=torch.float32)
+        * torch.tensor(float(C // num_groups), dtype=torch.float32))
+    inv = inv.to(sums.device)
+    mean = sums[0].float() * inv
+    mean2 = sums[1].float() * inv
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    return torch.stack([mean, torch.rsqrt(var + EPS)])
+
+
+def groupnorm_apply_sums_reference(
+        x, gamma, beta, scale, shift, sums, *, length: int,
+        num_groups: int, silu: bool):
+    """(b), plain: ``(out, stats)``: the statistics of the summed
+    ``sums`` (:func:`stats_from_sums`), then :func:`groupnorm_reference`'s
+    element chain."""
+    stats = stats_from_sums(sums, length, x.shape[-1], num_groups)
+    out = groupnorm_reference(x, gamma, beta, num_groups=num_groups,
+                              scale=scale, shift=shift, silu=silu,
+                              stats=stats)
+    return out, stats
+
+
+def groupnorm_backward_partial_sums_reference(
+        x, g, gamma, beta, scale, shift, stats, *, num_groups: int,
+        silu: bool):
+    """(c), plain: ``(sums, dgamma, dbeta)``: ``[2, N, G]`` f32 ``Σdxhat``
+    and ``Σdxhat x_hat`` per group over this rank's rows, and this rank's
+    f32 dgamma / dbeta (summed over N and its rows)."""
+    _, xhat, _, _, dy_gn, dxhat = _backward_chain(
+        x, g, gamma, beta, scale, shift, stats, silu)
+    sums = torch.stack([_group_sums(dxhat, num_groups),
+                        _group_sums(dxhat * xhat, num_groups)])
+    return sums, (dy_gn * xhat).sum(dim=(0, 1)), dy_gn.sum(dim=(0, 1))
+
+
+def groupnorm_backward_apply_sums_reference(
+        x, g, gamma, beta, scale, shift, stats, sums, *, length: int,
+        num_groups: int, silu: bool):
+    """(d), plain: ``(dx, dscale, dshift)`` from the summed f32 ``sums``
+    of ``length`` pixels a sample: ``mean_g(t) = Σt / count`` in f32, then
+    the unsplit backward's formula (dscale / dshift None without
+    FiLM)."""
+    C = x.shape[-1]
+    rstd, xhat, y_gn, dy_f, _, dxhat = _backward_chain(
+        x, g, gamma, beta, scale, shift, stats, silu)
+    count = torch.tensor(float(length), dtype=torch.float32) * torch.tensor(
+        float(C // num_groups), dtype=torch.float32)
+    m = sums.float() / count.to(sums.device)
+    dx = rstd * (dxhat - _per_channel(m[0], C)
+                 - xhat * _per_channel(m[1], C))
+    if scale is None:
+        return dx.to(x.dtype), None, None
+    return (dx.to(x.dtype), (dy_f * y_gn).to(scale.dtype),
+            dy_f.to(shift.dtype))
 
 
 def _fwd_aux_bytes(C: int, G: int, itemsize: int) -> int:
@@ -416,11 +536,218 @@ def groupnorm_backward(x: torch.Tensor, g: torch.Tensor,
     return out
 
 
+# ---- the split-statistics wrappers -----------------------------------------
+
+
+def _strides(t: torch.Tensor):
+    return t.stride(0), t.stride(1)
+
+
+def _film_views(x, scale, shift):
+    """``(scale, shift)`` as the kernels take them (x itself without FiLM)
+    and the flag."""
+    film = scale is not None
+    return (scale if film else x), (shift if film else x), int(film)
+
+
+def _check_split(name, x, gamma, beta, scale, shift, num_groups):
+    _check(x, gamma, beta, scale, shift, num_groups)
+    if x.shape[-1] // num_groups > SPLIT_THREADS:
+        raise ValueError(f"{name}: {x.shape[-1] // num_groups} channels a "
+                         f"group, the split kernels take <= "
+                         f"{SPLIT_THREADS}")
+
+
+def _check_stats(name, t, x, G, dtype):
+    N = x.shape[0]
+    if t.shape != (2, N, G) or t.dtype != dtype or not t.is_contiguous() \
+            or t.get_device() != x.get_device():
+        raise ValueError(f"{name}: expected a contiguous {dtype} "
+                         f"[2, {N}, {G}] on {x.device}")
+
+
+def groupnorm_partial_sums(x: torch.Tensor, *,
+                           num_groups: int) -> torch.Tensor:
+    """(a) of the split statistics: ``[2, N, G]`` float64 ``Σx`` and
+    ``Σx²`` per group over this rank's rows of ``x [N, l, C]``
+    (``gn_split_sums_kernel``; the plain version on a CPU tensor).  Each
+    launch adds one to ``groupnorm_partial_sums.launches``."""
+    if not x.is_cuda:
+        return groupnorm_partial_sums_reference(x, num_groups)
+    if not supports(x, num_groups=num_groups, rows=True):
+        raise ValueError(f"groupnorm_partial_sums: the kernel does not take "
+                         f"x {tuple(x.shape)} {x.dtype} stride {x.stride()} "
+                         f"with num_groups={num_groups}")
+    N, L, C = x.shape
+    sums = torch.empty((2, N, num_groups), dtype=torch.float64,
+                       device=x.device)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_sums")(
+        x.data_ptr(), *_strides(x), sums.data_ptr(), N, L, C, num_groups,
+        _DTYPE_CODE[x.dtype], _stream(x))
+    _raise(lib, "gn_split_sums", rc)
+    groupnorm_partial_sums.launches += 1
+    return sums
+
+
+def groupnorm_apply_sums(x, gamma, beta, scale, shift, sums, *,
+                         length: int, num_groups: int, silu: bool):
+    """(b) of the split statistics: ``(out, stats)`` of this rank's rows
+    from the ``[2, N, G]`` f64 ``sums`` of every rank's (``length``
+    pixels a sample): mean / rstd with the one-rank kernel's f32 formula,
+    then the GN -> (FiLM) -> (SiLU) chain; ``stats`` the ``[2, N, G]`` f32
+    mean / rstd for the backward (``gn_split_apply_kernel``; the plain
+    version on a CPU tensor).  Each launch adds one to
+    ``groupnorm_apply_sums.launches``."""
+    if not x.is_cuda:
+        return groupnorm_apply_sums_reference(
+            x, gamma, beta, scale, shift, sums, length=length,
+            num_groups=num_groups, silu=silu)
+    _check_split("groupnorm_apply_sums", x, gamma, beta, scale, shift,
+                 num_groups)
+    N, L, C = x.shape
+    _check_stats("groupnorm_apply_sums: sums", sums, x, num_groups,
+                 torch.float64)
+    out = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
+    stats = torch.empty((2, N, num_groups), dtype=torch.float32,
+                        device=x.device)
+    sc, sh, film = _film_views(x, scale, shift)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_apply")(
+        x.data_ptr(), *_strides(x), gamma.data_ptr(), beta.data_ptr(),
+        sc.data_ptr(), *_strides(sc), sh.data_ptr(), *_strides(sh),
+        sums.data_ptr(), out.data_ptr(), stats.data_ptr(), N, L, int(length),
+        C, num_groups, _DTYPE_CODE[x.dtype], film, int(silu), EPS,
+        _stream(x))
+    _raise(lib, "gn_split_apply", rc)
+    groupnorm_apply_sums.launches += 1
+    return out, stats
+
+
+def groupnorm_backward_partial_sums(x, g, gamma, beta, scale, shift, stats,
+                                    *, num_groups: int, silu: bool):
+    """(c) of the split statistics: ``(sums, dgamma, dbeta)``: the
+    ``[2, N, G]`` f32 ``Σdxhat`` and ``Σdxhat x_hat`` per group over this
+    rank's rows, and this rank's f32 dgamma / dbeta
+    (``gn_split_bwd_sums_kernel``, then ``gn_bwd_param_kernel``'s fold
+    over N; the plain version on a CPU tensor).  Each launch adds one to
+    ``groupnorm_backward_partial_sums.launches``."""
+    if not x.is_cuda:
+        return groupnorm_backward_partial_sums_reference(
+            x, g, gamma, beta, scale, shift, stats, num_groups=num_groups,
+            silu=silu)
+    _check_split("groupnorm_backward_partial_sums", x, gamma, beta, scale,
+                 shift, num_groups)
+    N, L, C = x.shape
+    _check_grad("groupnorm_backward_partial_sums", x, g)
+    _check_stats("groupnorm_backward_partial_sums: stats", stats, x,
+                 num_groups, torch.float32)
+    sums = torch.empty((2, N, num_groups), dtype=torch.float32,
+                       device=x.device)
+    partial = torch.empty(2 * N * C, dtype=torch.float32, device=x.device)
+    dgb = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    sc, sh, film = _film_views(x, scale, shift)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_backward_sums")(
+        x.data_ptr(), *_strides(x), g.data_ptr(), *_strides(g),
+        gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), *_strides(sc),
+        sh.data_ptr(), *_strides(sh), stats.data_ptr(), sums.data_ptr(),
+        partial.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(), N, L, C,
+        num_groups, _DTYPE_CODE[x.dtype], film, int(silu), _stream(x))
+    _raise(lib, "gn_split_backward_sums", rc)
+    groupnorm_backward_partial_sums.launches += 1
+    return sums, dgb[0], dgb[1]
+
+
+def groupnorm_backward_apply_sums(x, g, gamma, beta, scale, shift, stats,
+                                  sums, *, length: int, num_groups: int,
+                                  silu: bool):
+    """(d) of the split statistics: ``(dx, dscale, dshift)`` of this
+    rank's rows from the ``[2, N, G]`` f32 ``sums`` of every rank's
+    (``length`` pixels a sample); dscale / dshift None without FiLM
+    (``gn_split_bwd_apply_kernel``; the plain version on a CPU tensor).
+    Each launch adds one to ``groupnorm_backward_apply_sums.launches``."""
+    if not x.is_cuda:
+        return groupnorm_backward_apply_sums_reference(
+            x, g, gamma, beta, scale, shift, stats, sums, length=length,
+            num_groups=num_groups, silu=silu)
+    _check_split("groupnorm_backward_apply_sums", x, gamma, beta, scale,
+                 shift, num_groups)
+    N, L, C = x.shape
+    _check_grad("groupnorm_backward_apply_sums", x, g)
+    for name, t in (("stats", stats), ("sums", sums)):
+        _check_stats(f"groupnorm_backward_apply_sums: {name}", t, x,
+                     num_groups, torch.float32)
+    film = scale is not None
+    dx = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
+    dscale = torch.empty_like(dx) if film else None
+    dshift = torch.empty_like(dx) if film else None
+    sc, sh, _ = _film_views(x, scale, shift)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_backward_apply")(
+        x.data_ptr(), *_strides(x), g.data_ptr(), *_strides(g),
+        gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), *_strides(sc),
+        sh.data_ptr(), *_strides(sh), stats.data_ptr(), sums.data_ptr(),
+        dx.data_ptr(), dscale.data_ptr() if film else 0,
+        dshift.data_ptr() if film else 0, N, L, int(length), C, num_groups,
+        _DTYPE_CODE[x.dtype], int(film), int(silu), _stream(x))
+    _raise(lib, "gn_split_backward_apply", rc)
+    groupnorm_backward_apply_sums.launches += 1
+    return dx, dscale, dshift
+
+
+def _check_grad(name, x, g):
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or g.stride(-1) != 1:
+        raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} must match "
+                         f"x {tuple(x.shape)} {x.dtype}, unit channel "
+                         "stride")
+
+
+def _split_forward(x, gamma, beta, scale, shift, num_groups, silu, rows):
+    """(a), the f64 sums over the model axis, (b): ``(out, stats)``."""
+    sums = rows.sum(groupnorm_partial_sums(x, num_groups=num_groups))
+    return groupnorm_apply_sums(x, gamma, beta, scale, shift, sums,
+                                length=x.shape[1] * rows.size,
+                                num_groups=num_groups, silu=silu)
+
+
+class _SplitGroupNormFn(torch.autograd.Function):
+    """The differentiable GroupNorm of this rank's rows with split
+    statistics (``rows``: a :class:`~diff3d_tpu_torch.parallel.context.
+    RowAxis`): the forward is (a), the f64 sum over the model axis, (b);
+    the backward (c), the f32 sum over the model axis, (d).  dgamma /
+    dbeta are this rank's (the train step sums every parameter's gradient
+    over the model axis)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, num_groups, silu, rows):
+        out, stats = _split_forward(x, gamma, beta, scale, shift,
+                                    num_groups, silu, rows)
+        ctx.save_for_backward(x, gamma, beta, scale, shift, stats)
+        ctx.num_groups, ctx.silu, ctx.rows = num_groups, silu, rows
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, gamma, beta, scale, shift, stats = ctx.saved_tensors
+        G, silu, rows = ctx.num_groups, ctx.silu, ctx.rows
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        sums, dgamma, dbeta = groupnorm_backward_partial_sums(
+            x, g, gamma, beta, scale, shift, stats, num_groups=G, silu=silu)
+        dx, dscale, dshift = groupnorm_backward_apply_sums(
+            x, g, gamma, beta, scale, shift, stats, rows.sum(sums),
+            length=x.shape[1] * rows.size, num_groups=G, silu=silu)
+        return dx, dgamma, dbeta, dscale, dshift, None, None, None
+
+
 def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
                     beta: torch.Tensor, *, num_groups: int,
                     scale: Optional[torch.Tensor] = None,
                     shift: Optional[torch.Tensor] = None,
-                    silu: bool = False) -> torch.Tensor:
+                    silu: bool = False, rows=None) -> torch.Tensor:
     """Fused GroupNorm -> (FiLM) -> (SiLU) over ``x [N, L, C]``.
 
     ``gamma`` / ``beta`` are the ``[C]`` float32 affine parameters;
@@ -434,6 +761,12 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
     statistics (``save_stats``) and whose backward is
     :func:`groupnorm_backward`; under ``no_grad`` / ``inference_mode``
     nothing is saved, as in the Pallas primal (``pallas_film.py:441-448``).
+
+    ``rows`` (a :class:`~diff3d_tpu_torch.parallel.context.RowAxis`):
+    ``x`` is this rank's rows of each sample, and the statistics are the
+    whole sample's, by the split-statistics entry points and sums over
+    the model axis (:class:`_SplitGroupNormFn`); the unsplit kernel is
+    not launched.
     """
     film = scale is not None
     if film != (shift is not None):
@@ -444,9 +777,16 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
                          f"{tuple(x.shape)}")
     if x.is_cuda:
         _check(x, gamma, beta, scale, shift, num_groups)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, gamma, beta, scale, shift)):
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, gamma, beta, scale, shift))
+    if rows is not None:
+        if grad:
+            return _SplitGroupNormFn.apply(x, gamma, beta, scale, shift,
+                                           num_groups, silu, rows)
+        return _split_forward(x, gamma, beta, scale, shift, num_groups,
+                              silu, rows)[0]
+    if grad:
         return _FusedGroupNormFn.apply(x, gamma, beta, scale, shift,
                                        num_groups, silu)
     if not x.is_cuda:
@@ -460,6 +800,10 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
 
 fused_groupnorm.launches = 0
 groupnorm_backward.launches = 0
+groupnorm_partial_sums.launches = 0
+groupnorm_apply_sums.launches = 0
+groupnorm_backward_partial_sums.launches = 0
+groupnorm_backward_apply_sums.launches = 0
 
 dispatch.register("groupnorm", "cuda", fused_groupnorm, supports=supports)
 dispatch.register("groupnorm", "torch", groupnorm_reference)

@@ -45,8 +45,13 @@ Parameter placement (``MeshConfig.param_sharding``):
     ``n * 128`` elements) is sharded over the data axis by FSDP2, as
     ``fsdp`` does.
 
-Context parallelism waits for ROADMAP A10b: :meth:`MeshConfig.validate`
-refuses it.
+``context_parallel`` (with ``'replicated'`` and a model axis of more than
+one rank): every parameter stays whole on every rank, and the
+activations' image rows are split over the model axis instead
+(:meth:`MeshEnv.place_context_axis`; the collectives are
+:mod:`diff3d_tpu_torch.parallel.context`'s).  Its combinations with
+``fsdp``, ``tp`` and ``fsdp+tp`` wait for ROADMAP A10b:
+:meth:`MeshConfig.validate` refuses them.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ import torch.distributed as dist
 from torch import nn
 
 from diff3d_tpu_torch.config import MeshConfig
+from diff3d_tpu_torch.parallel.context import (RowAxis, check_rows,
+                                               place_rows)
 from diff3d_tpu_torch.parallel.tensor import ModelAxis, model_axis_of
 
 log = logging.getLogger(__name__)
@@ -194,6 +201,7 @@ class MeshEnv:
     device_mesh: Optional[object] = None
     _cpu_world: Optional[object] = None
     _model_axis: Optional[ModelAxis] = None
+    _row_axis: Optional[RowAxis] = None
     #: The port dim the model axis split of every parameter it placed
     #: (:meth:`place_model_axis`; keyed by name: one architecture per
     #: mesh).
@@ -254,10 +262,29 @@ class MeshEnv:
         :attr:`tensor_parallel`)."""
         if not self.tensor_parallel:
             return None
+        return self._axis()
+
+    def _axis(self) -> ModelAxis:
         if self._model_axis is None:
             self._model_axis = ModelAxis(self.model_group, self.model_rank,
                                          self.model_size)
         return self._model_axis
+
+    @property
+    def context_parallel(self) -> bool:
+        """Whether the activations' image rows are split over a model axis
+        of more than one rank."""
+        return self.cfg.context_parallel and self.model_size > 1
+
+    @property
+    def context_axis(self) -> Optional[RowAxis]:
+        """The row split's collectives over the model axis (None unless
+        :attr:`context_parallel`)."""
+        if not self.context_parallel:
+            return None
+        if self._row_axis is None:
+            self._row_axis = RowAxis(self._axis())
+        return self._row_axis
 
     @property
     def group(self):
@@ -360,6 +387,7 @@ class MeshEnv:
         :meth:`placement`, the replicated ones ignored); ``fsdp+tp`` does
         both, in that order."""
         self.place_model_axis(model)
+        self.place_context_axis(model)
         if self.cfg.param_sharding not in ("fsdp", "fsdp+tp") \
                 or self.data_size == 1:
             return model
@@ -427,6 +455,20 @@ class MeshEnv:
                  sum(1 for _ in model.parameters()), axis.size)
         return model
 
+    def place_context_axis(self, model: nn.Module) -> nn.Module:
+        """Split ``model``'s activations by image rows over the model axis:
+        every layer that takes the row split (a ``cp`` attribute) learns
+        the axis; the parameters stay whole.  Refuses a model whose rows
+        do not split at every level (:func:`~diff3d_tpu_torch.parallel.
+        context.check_rows`).  A no-op unless :attr:`context_parallel`."""
+        axis = self.context_axis
+        if axis is None:
+            return model
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None:
+            check_rows(cfg, axis.size)
+        return place_rows(model, axis)
+
     def local_of(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole tensor placed like parameter
         ``name`` (the tensor itself where the model axis does not split
@@ -465,10 +507,11 @@ class MeshEnv:
     @property
     def eager_only(self) -> bool:
         """Whether the train step runs eagerly under this placement: FSDP2
-        gathers on side streams, and the model axis's collectives are not
-        captured (over gloo they wait for the host)."""
+        gathers on side streams, and the model axis's collectives (tensor
+        and context parallelism's) are not captured (over gloo they wait
+        for the host)."""
         return (self.cfg.param_sharding in ("fsdp", "fsdp+tp")
-                or self.tensor_parallel)
+                or self.tensor_parallel or self.context_parallel)
 
 
 def block_of(whole: torch.Tensor, dim: int, rank: int, size: int,
@@ -495,7 +538,8 @@ def _is_dtensor(t) -> bool:
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(),
-              devices: Optional[Sequence[int]] = None) -> MeshEnv:
+              devices: Optional[Sequence[int]] = None,
+              model=None) -> MeshEnv:
     """The ``(data, model)`` mesh over the process group's ranks
     (``devices``: the ranks, default all), the JAX package's
     ``make_mesh``: ``data_parallel == -1`` takes every rank the model axis
@@ -503,9 +547,13 @@ def make_mesh(cfg: MeshConfig = MeshConfig(),
     runs only within its mesh here, so a mesh that leaves ranks out is
     refused too.  Without a process group this is the one-process mesh (no
     ``DeviceMesh``).  The mesh's devices are the card on an NCCL group and
-    the CPU on a gloo one."""
+    the CPU on a gloo one.  ``model`` (a ``ModelConfig``): under
+    ``context_parallel``, a model whose rows do not split over the model
+    axis at every level is refused here, naming the level."""
     global _CURRENT
     cfg.validate()
+    if cfg.context_parallel and model is not None:
+        check_rows(model, max(1, cfg.model_parallel))
     world = dist.get_world_size() if dist.is_initialized() else 1
     ranks = list(range(world)) if devices is None else list(devices)
     mp = max(1, cfg.model_parallel)

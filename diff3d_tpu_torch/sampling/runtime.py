@@ -41,7 +41,14 @@ Under ``tp`` / ``fsdp+tp`` the model is split over the mesh's model axis
 (``MeshEnv.place_model_axis``; the data axis keeps whole copies for
 sampling): the ranks of one model group run the same objects with the same
 draws, each on its blocks, and the step runs eagerly (the model axis's
-collectives are not captured).
+collectives are not captured).  Under ``context_parallel`` the
+single-object path (:meth:`Sampler.step`, :meth:`Sampler.synthesize`)
+runs the model split by image rows over the model axis
+(``parallel/context.py``), eagerly, every rank of a model group on the
+same object with the same draws; the object-batched path
+(:meth:`Sampler.step_many`, :meth:`Sampler.synthesize_many`) leaves the
+row split out, as the JAX package does (``diff3d_tpu/sampling/
+runtime.py:312-317``), and the model ranks then compute the same thing.
 ``lower_step_many`` (the JAX package's StableHLO hook) waits for ROADMAP
 A11.
 """
@@ -61,6 +68,7 @@ from diff3d_tpu_torch.diffusion import (SAMPLER_KINDS, Draws, ReverseLoop,
                                        draw_steps, sample_loop_prepare,
                                        schedule_start_index)
 from diff3d_tpu_torch.graphs import StepGraph, use_cuda_graphs
+from diff3d_tpu_torch.parallel.context import place_rows
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -166,15 +174,19 @@ class Sampler:
         #: The object axis's quantum: the mesh's data size (1 without).
         self.lane_multiple = 1 if mesh is None else mesh.data_size
         self.device = resolve_device(device)
-        split = mesh is not None and mesh.tensor_parallel
+        split = mesh is not None and (mesh.tensor_parallel
+                                      or mesh.context_parallel)
         if split and cuda_graphs:
             raise ValueError("a model split over the mesh's model axis "
                              "samples eagerly (cuda_graphs=True refused)")
         self.cuda_graphs = use_cuda_graphs(
             False if split else cuda_graphs, self.device)
         self.model = model.to(self.device).eval()
+        #: The row split of the single-object path (None: not split).
+        self._rows = None if mesh is None else mesh.context_axis
         if split:
             mesh.place_model_axis(self.model)
+            mesh.place_context_axis(self.model)
         self.cfg = cfg
         self.w = torch.tensor(cfg.diffusion.guidance_weights,
                               dtype=torch.float32, device=self.device)
@@ -254,6 +266,7 @@ class Sampler:
         record_imgs, step + 1)``; the record is updated in place.
         """
         self._check_draft(draft, batched=False)
+        self._split_rows(True)
         out, _, _ = self._view(
             record_imgs[None], record_R[None], record_T[None], [int(step)],
             K[None], [draws], None if draft is None else draft[None])
@@ -280,6 +293,7 @@ class Sampler:
         the views are all-gathered.
         """
         self._check_draft(drafts, batched=True)
+        self._split_rows(False)
         lens = [int(s) for s in steps]
         n = int(record_imgs.shape[0])
         if n % self.lane_multiple:
@@ -297,6 +311,13 @@ class Sampler:
                               draws, drafts)
         return self._view_split(record_imgs, record_R, record_T, lens, K,
                                 draws, drafts)
+
+    def _split_rows(self, on: bool) -> None:
+        """Under context parallelism, the model split by rows (``on``:
+        the single-object path) or whole on every rank (the batched
+        path)."""
+        if self._rows is not None:
+            place_rows(self.model, self._rows if on else None)
 
     def _view_split(self, record_imgs, record_R, record_T, lens, K, draws,
                     drafts) -> tuple:
@@ -448,10 +469,12 @@ class Sampler:
         H, W = imgs.shape[1:3]
         if n_views < 2:
             return np.zeros((0, B, H, W, 3), np.float32)
-        outs = self.synthesize_many(
-            [views], None, max_views=n_views,
-            draws=[self._view_draws(n_views - 1, generator, draws,
-                                    "draws")])[0]
+        per_view = self._view_draws(n_views - 1, generator, draws, "draws")
+        if self._rows is not None:
+            outs = self._synthesize_steps(views, n_views, per_view)
+        else:
+            outs = self.synthesize_many([views], None, max_views=n_views,
+                                        draws=[per_view])[0]
         if out_dir is not None:
             for s in range(1, n_views):
                 save_image(os.path.join(out_dir, str(s), "gt.png"), imgs[s])
@@ -459,6 +482,22 @@ class Sampler:
                     save_image(os.path.join(out_dir, str(s), f"{i}.png"),
                                outs[s - 1, i])
         return outs
+
+    def _synthesize_steps(self, views, n_views: int, per_view) -> np.ndarray:
+        """:meth:`synthesize` through :meth:`step`, one view at a time (the
+        single-object path, split by rows under context parallelism)."""
+        rec = self._record_init(
+            np.asarray(views["imgs"][0], np.float32),
+            np.asarray(views["R"], np.float32),
+            np.asarray(views["T"], np.float32), n_views)
+        rec_i, rec_R, rec_T = (torch.from_numpy(a).to(self.device)
+                               for a in rec)
+        K = torch.from_numpy(np.asarray(views["K"], np.float32)).to(
+            self.device)
+        for s in range(1, n_views):
+            _, rec_i, _ = self.step(rec_i, rec_R, rec_T, s, K,
+                                    per_view[s - 1])
+        return rec_i[1:n_views].cpu().numpy()
 
     def synthesize_many(self, views_list: Sequence[Dict[str, np.ndarray]],
                         generators: Optional[Sequence[torch.Generator]],

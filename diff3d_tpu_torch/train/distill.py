@@ -211,6 +211,9 @@ class DistillStep:
         if env is not None and env.cfg.param_sharding != "replicated":
             raise ValueError("distillation is data-parallel under the "
                              "replicated policy only")
+        if env is not None and env.context_parallel:
+            raise ValueError("distillation under context_parallel waits "
+                             "for ROADMAP A10c")
         self.group = None if env is None else env.group
         self.world = 1 if env is None else env.data_size
         self.rank = 0 if env is None else env.data_rank

@@ -66,6 +66,18 @@ once per model group (their squares summed over the model axis) and each
 whole leaf once.  The step runs eagerly (the model axis's collectives are
 not captured; over gloo they wait for the host).
 
+**Context parallelism** (``MeshConfig.context_parallel``, the
+``replicated`` placement): the ranks of one model group run the same data
+rows and draws, each on its image rows (``parallel/context.py``); every
+parameter is whole on every rank, and each rank's gradient covers its
+rows only.  So the bucket is all-reduced over every rank of the mesh (the
+world) and divided by the data size, not the world: the sum over the
+model axis makes each data rank's gradient whole, the division the mean
+over the data axis.  Every model rank takes the same loss (the output is
+gathered whole), so only model rank 0 puts its loss sum into the bucket.
+The global norm is taken on the reduced, whole gradients.  The step runs
+eagerly.
+
 ``retry`` (a :class:`~diff3d_tpu_torch.runtime.retry.RetryPolicy`, the
 ``Trainer``'s ``_STEP_RETRY``) wraps the microbatch phase only: it zeroes
 the gradient sums, reseeds the draws and refills the static inputs before
@@ -144,15 +156,21 @@ class GradSync:
     ``params`` (each ``.grad`` a view of it) and, last, the loss sum.
     With a data ``group``, :meth:`reduce` all-reduces it over the group and
     divides by the group's size: one collective per step; without one it
-    does nothing."""
+    does nothing.  ``divisor`` overrides that size (context parallelism:
+    the group is the world, the divisor the data size); ``with_loss``
+    False leaves this rank's loss sum out of the all-reduce (a rank whose
+    model-axis peer adds the same loss)."""
 
     #: Each gradient starts on a multiple of this many elements (256
     #: bytes), so the foreach kernels see aligned views.
     ALIGN = 64
 
-    def __init__(self, params: Sequence[torch.Tensor], group=None):
+    def __init__(self, params: Sequence[torch.Tensor], group=None,
+                 divisor: Optional[int] = None, with_loss: bool = True):
         self.group = group
-        self.world = 1 if group is None else dist.get_world_size(group)
+        self.world = (divisor if divisor is not None else
+                      1 if group is None else dist.get_world_size(group))
+        self.with_loss = with_loss
         offsets, n = [], 0
         for p in params:
             offsets.append(n)
@@ -180,6 +198,8 @@ class GradSync:
         batch's)."""
         if self.group is None:
             return
+        if not self.with_loss:
+            self.total.zero_()
         dist.all_reduce(self.flat, group=self.group)
         self.flat.div_(float(self.world))
 
@@ -321,11 +341,18 @@ class TrainStep:
         self.fsdp = env is not None and env.cfg.param_sharding in (
             "fsdp", "fsdp+tp")
         self.axis = None if env is None else env.model_axis
+        #: Context parallelism: the bucket's group (the world), divisor
+        #: (the data size) and whether this rank's loss enters it.
+        self.rows = None
+        if env is not None and env.context_parallel:
+            self.rows = (dist.group.WORLD, env.data_size,
+                         env.model_rank == 0)
         if env is not None and env.eager_only and cuda_graphs:
             raise ValueError(
-                f"param_sharding={env.cfg.param_sharding!r} runs the train "
-                "step eagerly: FSDP2 all-gathers on side streams and the "
-                "model axis's collectives are not captured "
+                f"param_sharding={env.cfg.param_sharding!r}"
+                f"{' with context_parallel' if self.rows else ''} runs the "
+                "train step eagerly: FSDP2 all-gathers on side streams and "
+                "the model axis's collectives are not captured "
                 "(cuda_graphs=True refused)")
         self.cuda_graphs = cuda_graphs
         world = 1 if self.group is None else dist.get_world_size(self.group)
@@ -355,7 +382,8 @@ class TrainStep:
         FSDP), made on first use."""
         whole = [p for p in params if _local(p) is p]
         if self._sync is None or self._sync.key != tuple(map(id, whole)):
-            self._sync = GradSync(whole, self.group)
+            self._sync = (GradSync(whole, self.group) if self.rows is None
+                          else GradSync(whole, *self.rows))
         return self._sync
 
     def _draws(self, d):

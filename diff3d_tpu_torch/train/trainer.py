@@ -34,7 +34,10 @@ host op, no device synchronisation), so every rank stops and saves at the
 same step.  Under ``tp`` / ``fsdp+tp`` the ranks of one model group share
 their data rank (its loader rows, the step's draws) and the parameters,
 Adam's moments and the EMA are split over the model axis; checkpoints
-gather them whole (:mod:`~diff3d_tpu_torch.train.checkpoint`).
+gather them whole (:mod:`~diff3d_tpu_torch.train.checkpoint`).  Under
+``context_parallel`` the ranks of one model group share their data rank
+too, each runs the model on its image rows, and the state is whole on
+every rank (rank 0 writes it); the step runs eagerly.
 :class:`ElasticSupervisor` re-meshes and resumes around
 :meth:`Trainer.train` after preemptions and transient faults.
 
@@ -117,14 +120,17 @@ class Trainer:
         self.cfg = cfg
         self.loader = loader
         self.workdir = workdir
-        self.env = env if env is not None else make_mesh(cfg.mesh)
+        self.env = env if env is not None else make_mesh(cfg.mesh,
+                                                         model=cfg.model)
         self.device = resolve_device(device)
         eager = self.env.eager_only
         if eager and cuda_graphs is None and self.device.type == "cuda":
-            log.info("param_sharding=%r: the train step runs eagerly "
+            log.info("param_sharding=%r%s: the train step runs eagerly "
                      "(FSDP2's all-gathers and the model axis's "
                      "collectives are not captured)",
-                     self.env.cfg.param_sharding)
+                     self.env.cfg.param_sharding,
+                     " with context_parallel"
+                     if self.env.context_parallel else "")
             cuda_graphs = False
         graphs = use_cuda_graphs(cuda_graphs, self.device)
         model = init_params(xunet.XUNet(cfg.model), cfg)
@@ -543,7 +549,7 @@ class ElasticSupervisor:
                 device=None if self.device is None else str(self.device))
         if self.topology_fn is not None:
             return self.topology_fn()
-        return make_mesh(self.cfg.mesh)
+        return make_mesh(self.cfg.mesh, model=self.cfg.model)
 
     def run(self, max_steps: Optional[int] = None) -> TrainState:
         """Train to ``max_steps`` (default ``cfg.train.max_steps``),

@@ -1290,3 +1290,124 @@ def test_served_cascade_swap_refreshes_the_draft_in_place(cuda):
     np.testing.assert_array_equal(again, base)
     assert all(g.replays > 0 for g in graphs[0].values())
     assert all(g.replays > 0 for g in graphs[1].values())
+
+
+# ---- split statistics (context parallelism) ----------------------------
+
+SPLIT_SHAPES = [(4, 300, 256, 32), (3, 70, 384, 32), (2, 64, 96, 3),
+                (2, 40, 1024, 4)]
+
+
+def _split_inputs(cuda, N, L, C, dtype, pad=0):
+    x, gamma, beta, scale, shift = _gn_forward_inputs(cuda, N, L, C, dtype,
+                                                      pad)
+    gen = torch.Generator(cuda).manual_seed(11)
+    g = torch.randn(N, L, C + pad, generator=gen, device=cuda).to(dtype)
+    return x, g[..., pad:], gamma, beta, scale, shift
+
+
+@pytest.mark.parametrize("pad", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film,silu", [(False, False), (False, True),
+                                       (True, False), (True, True)])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_groupnorm_entry_points_match_plain(cuda, shape, film, silu,
+                                                  dtype, pad):
+    """(a)-(d) of the split statistics against their plain versions, on a
+    rank holding half the rows of a 2-rank image (the sums passed in are
+    this rank's doubled, standing for the other rank's)."""
+    N, L, C, G = shape
+    x, g, gamma, beta, scale, shift = _split_inputs(cuda, N, L, C, dtype,
+                                                    pad)
+    if not film:
+        scale = shift = None
+    f = cuda_film
+    counts = {k: getattr(f, k).launches for k in (
+        "groupnorm_partial_sums", "groupnorm_apply_sums",
+        "groupnorm_backward_partial_sums", "groupnorm_backward_apply_sums")}
+    sums = f.groupnorm_partial_sums(x, num_groups=G)
+    want = f.groupnorm_partial_sums_reference(x, G)
+    assert sums.dtype == torch.float64 and sums.shape == (2, N, G)
+    torch.testing.assert_close(sums, want, rtol=1e-12, atol=1e-9)
+    total = 2 * sums
+    out, stats = f.groupnorm_apply_sums(x, gamma, beta, scale, shift, total,
+                                        length=2 * L, num_groups=G,
+                                        silu=silu)
+    rout, rstats = f.groupnorm_apply_sums_reference(
+        x, gamma, beta, scale, shift, total, length=2 * L, num_groups=G,
+        silu=silu)
+    _close(stats, rstats, torch.float32)
+    _close(out, rout, dtype)
+    bsums, dgamma, dbeta = f.groupnorm_backward_partial_sums(
+        x, g, gamma, beta, scale, shift, stats, num_groups=G, silu=silu)
+    rb = f.groupnorm_backward_partial_sums_reference(
+        x, g, gamma, beta, scale, shift, stats, num_groups=G, silu=silu)
+    for a, b in zip((bsums, dgamma, dbeta), rb):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        _close(a, b, torch.float32, SUM_TOL)
+    got = f.groupnorm_backward_apply_sums(
+        x, g, gamma, beta, scale, shift, stats, 2 * bsums, length=2 * L,
+        num_groups=G, silu=silu)
+    ref = f.groupnorm_backward_apply_sums_reference(
+        x, g, gamma, beta, scale, shift, stats, 2 * bsums, length=2 * L,
+        num_groups=G, silu=silu)
+    for a, b in zip(got, ref):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, dtype)
+    assert all(getattr(f, k).launches == v + 1 for k, v in counts.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_groupnorm_halves_equal_the_unsplit_kernel(cuda, dtype):
+    """Two row halves through (a), summed, then (b) each: the statistics
+    and the output equal the unsplit cluster kernel's on the whole rows
+    (statistics bit for bit in f32, the output within one rounding)."""
+    N, L, C, G = 4, 512, 256, 32
+    x, _, gamma, beta, scale, shift = _split_inputs(cuda, N, L, C, dtype)
+    whole, wstats = cuda_film.launch(
+        cuda_film.build.library("film"), x, gamma, beta, scale, shift,
+        num_groups=G, silu=True, stream=None, save_stats=True)
+    halves = [x[:, :L // 2], x[:, L // 2:]]
+    sums = sum(cuda_film.groupnorm_partial_sums(h, num_groups=G)
+               for h in halves)
+    outs = []
+    for i, h in enumerate(halves):
+        rows = slice(i * L // 2, (i + 1) * L // 2)
+        out, stats = cuda_film.groupnorm_apply_sums(
+            h, gamma, beta, scale[:, rows], shift[:, rows], sums, length=L,
+            num_groups=G, silu=True)
+        _close(stats, wstats, torch.float32)
+        outs.append(out)
+    _close(torch.cat(outs, dim=1), whole, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_groupnorm_is_bit_identical_run_to_run(cuda, dtype):
+    N, L, C, G = 16, 2048, 128, 32
+    x, g, gamma, beta, scale, shift = _split_inputs(cuda, N, L, C, dtype)
+    f = cuda_film
+
+    def run():
+        sums = f.groupnorm_partial_sums(x, num_groups=G)
+        out, stats = f.groupnorm_apply_sums(x, gamma, beta, scale, shift,
+                                            2 * sums, length=2 * L,
+                                            num_groups=G, silu=True)
+        bs = f.groupnorm_backward_partial_sums(
+            x, g, gamma, beta, scale, shift, stats, num_groups=G, silu=True)
+        dx = f.groupnorm_backward_apply_sums(
+            x, g, gamma, beta, scale, shift, stats, 2 * bs[0], length=2 * L,
+            num_groups=G, silu=True)
+        return [sums, out, stats, *bs, *dx]
+
+    a, b = run(), run()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_split_groupnorm_refuses_wide_groups(cuda):
+    x = torch.zeros(1, 4, 1024, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_film.groupnorm_partial_sums(x, num_groups=2)

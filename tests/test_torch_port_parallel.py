@@ -71,21 +71,29 @@ def test_mesh_config_matches_the_jax_package_field_for_field():
             dataclasses.asdict(getattr(jconfig, make)().mesh)
 
 
-# The tensor-parallel cases (``why`` None) were refusals until the model
-# axis was ported; their ids are kept.
+# The tensor- and context-parallel cases (``why`` None) were refusals
+# until the model axis and the row split were ported; their ids are kept.
 @pytest.mark.parametrize("kw,why", [
     (dict(context_parallel=True), "model_parallel > 1"),
     (dict(param_sharding="tp"), None),
     (dict(param_sharding="fsdp+tp"), None),
     (dict(model_parallel=2), None),
-    (dict(model_parallel=2, context_parallel=True), "A10b"),
+    (dict(model_parallel=2, context_parallel=True), None),
     (dict(param_sharding="zero3"), "not in"),
+    (dict(model_parallel=2, context_parallel=True, param_sharding="fsdp"),
+     "A10b"),
+    (dict(model_parallel=2, context_parallel=True, param_sharding="tp"),
+     "A10b"),
+    (dict(model_parallel=2, context_parallel=True,
+          param_sharding="fsdp+tp"), "A10b"),
 ], ids=["kw0-model_parallel > 1", "kw1-A10b", "kw2-A10b", "kw3-A10b",
-        "kw4-A10b", "kw5-not in"])
+        "kw4-A10b", "kw5-not in", "kw6-cp-fsdp-A10b", "kw7-cp-tp-A10b",
+        "kw8-cp-fsdp+tp-A10b"])
 def test_mesh_config_refusals(kw, why):
-    """Context parallelism stays refused, naming ROADMAP A10b; the
-    ``tp`` / ``fsdp+tp`` placements and a model axis validate, as they do
-    in the JAX package."""
+    """The ``tp`` / ``fsdp+tp`` placements, a model axis and context
+    parallelism over it validate, as they do in the JAX package; context
+    parallelism with a sharded placement stays refused, naming ROADMAP
+    A10b."""
     cfg = dataclasses.replace(pconfig.test_config(),
                               mesh=pconfig.MeshConfig(**kw))
     if why is None:

@@ -236,9 +236,10 @@ def test_eval_cli_mesh_matches_one_process(group, tmp_path):
 
 
 def test_train_cli_lifts_and_refuses_the_parallel_flags():
-    """The data- and tensor-parallel flags and the kernel-naming flags are
-    accepted; ``--context_parallel`` stays refused, naming ROADMAP A10b,
-    and ``--attn_impl xla`` (the plain versions) is refused on the card."""
+    """The data-, tensor- and context-parallel flags and the kernel-naming
+    flags are accepted; ``--context_parallel`` with a sharded placement
+    stays refused, naming ROADMAP A10b, and ``--attn_impl xla`` (the plain
+    versions) is refused on the card."""
     p = train_cli.build_parser()
     args = p.parse_args(["--param_sharding", "fsdp", "--elastic",
                          "--elastic_max_remesh", "3"])
@@ -246,6 +247,7 @@ def test_train_cli_lifts_and_refuses_the_parallel_flags():
     assert train_cli.config_from_args(args).mesh.param_sharding == "fsdp"
     for argv in (["--model_parallel", "2"], ["--param_sharding", "tp"],
                  ["--param_sharding", "fsdp+tp", "--model_parallel", "2"],
+                 ["--context_parallel", "--model_parallel", "2"],
                  ["--attn_impl", "xla", "--device", "cpu"],
                  ["--attn_impl", "pallas"], ["--attn_impl", "auto"],
                  ["--pallas"]):
@@ -255,7 +257,14 @@ def test_train_cli_lifts_and_refuses_the_parallel_flags():
     mesh = train_cli.config_from_args(p.parse_args(
         ["--param_sharding", "fsdp+tp", "--model_parallel", "2"])).mesh
     assert (mesh.param_sharding, mesh.model_parallel) == ("fsdp+tp", 2)
-    with pytest.raises(SystemExit, match="A10b"):
-        train_cli.refuse_unported(p.parse_args(["--context_parallel"]))
+    mesh = train_cli.config_from_args(p.parse_args(
+        ["--context_parallel", "--model_parallel", "2"])).mesh
+    assert (mesh.context_parallel, mesh.model_parallel,
+            mesh.param_sharding) == (True, 2, "replicated")
+    for sharded in ("fsdp", "tp", "fsdp+tp"):
+        with pytest.raises(SystemExit, match="A10b"):
+            train_cli.refuse_unported(p.parse_args(
+                ["--context_parallel", "--model_parallel", "2",
+                 "--param_sharding", sharded]))
     with pytest.raises(SystemExit, match="only off the card"):
         train_cli.refuse_unported(p.parse_args(["--attn_impl", "xla"]))

@@ -582,15 +582,19 @@ def test_train_cli_val_sets_match_the_jax_cli(tmp_path, monkeypatch, data):
 
 
 def test_train_cli_still_refuses_the_parallel_flags():
-    """``--context_parallel`` stays refused, naming ROADMAP A10b (the
-    tensor-parallel flags are lifted: ``--model_parallel`` and
-    ``--param_sharding tp`` pass; ``test_torch_port_tp.py`` trains under
+    """``--context_parallel`` with a sharded placement stays refused,
+    naming ROADMAP A10b (the tensor- and context-parallel flags are
+    lifted: ``--model_parallel``, ``--param_sharding tp`` and
+    ``--context_parallel --model_parallel 2`` pass;
+    ``test_torch_port_tp.py`` and ``test_torch_port_cp.py`` train under
     them); a flag value the parser does not take still exits."""
     p = train_cli.build_parser()
-    for argv in (["--model_parallel", "2"], ["--param_sharding", "tp"]):
-        train_cli.refuse_unported(p.parse_args(argv))
-    for argv in (["--context_parallel"],
+    for argv in (["--model_parallel", "2"], ["--param_sharding", "tp"],
                  ["--context_parallel", "--model_parallel", "2"]):
+        train_cli.refuse_unported(p.parse_args(argv))
+    for argv in (["--context_parallel", "--param_sharding", "tp"],
+                 ["--context_parallel", "--model_parallel", "2",
+                  "--param_sharding", "fsdp"]):
         with pytest.raises(SystemExit, match="A10b"):
             train_cli.refuse_unported(p.parse_args(argv))
     for argv in (["--elastic", "2"], ["--param_sharding", "2"],
