@@ -36,7 +36,7 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      are set to 0 just before it and read after; what ran is the eager
      launches (the first step, before the capture) plus each graph's
      captured launches x its replays.
-  6b. sampler_graph — one srn64 view (32 steps, cut from 256) through
+  6b. sampler_graph — one srn64 view (16 steps, cut from 256) through
      the graph path and through the eager path (``cuda_graphs=False``) from the same generator seed,
      in the order eager, graph, graph, eager: bit-identical views; wall
      ms per step of each, the capture's seconds, launches (captured x
@@ -44,11 +44,11 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
   6c. sampler_many — ``step_many`` over N = 4 objects at record lengths
      1-4: on an f32 copy of the model at 4 steps (cut from 8) against
      ``step`` per object (rel. L2 1e-3); ``synthesize_many`` of one view
-     of 4 objects at 32 steps (cut from 256) in bf16 timed, with finite
+     of 4 objects at 16 steps (cut from 256) in bf16 timed, with finite
      outputs.
  6d. serve — the single-engine service at srn64 full width through
      ``cli/serve_cli.py``'s ``build_service`` (chip_smoke's random weights
-     as a state dict, ``--sampler_steps 16`` (cut from 64), ``--schedules
+     as a state dict, ``--sampler_steps 8`` (cut from 64), ``--schedules
      ddim:16 --max_batch 4 --warmup``) and HTTP on an ephemeral port: the serving
      path, counts set to 0 before ``build_service`` and read after.
      Three concurrent requests (4 lanes, one padding) bit-identical to
@@ -63,8 +63,8 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      serve_groupnorm / serve_attention: rows 1 and 3 at the 4-lane view
      step's sites, checked and timed.
  6e. serve_fleet — two srn64 replicas behind the fleet router
-     (``serve_cli --replicas 2 --sampler_steps 32 --schedules
-     ancestral:32,1@ddim:16 --max_batch 2 --warmup``, each replica with
+     (``serve_cli --replicas 2 --sampler_steps 8 --schedules
+     ancestral:8,1@ddim:16 --max_batch 2 --warmup``, each replica with
      its own weights, samplers and graphs) over HTTP: four sticky
      sessions, two owned by each replica by rendezvous, posted 0.1 s apart
      so both replicas meet their first 2-lane use at once; each replica's
@@ -132,7 +132,7 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      graphs are released before the next captures.
  11. eval — ``cli/eval_cli.py`` on that checkpoint (EMA) on synthetic
      scenes: 2 objects, 3 views, a 32-step dense grid (the parity
-     oracle's, cut from 256), DDIM at 8 steps (cut from 32),
+     oracle's, cut from 256), DDIM at 4 steps (cut from 32),
      ``--w_select 1
      --parity_objects 1 --orbit 4``; finite PSNR / SSIM / fid_randfeat per
      w, the parity and orbit fields, s per object; run again, it
@@ -141,13 +141,13 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      2B = 16: kernel path against plain path (rel. L2 3e-2, as srn64), ms
      and launches per forward, and the ptxas registers and spill bytes of
      every kernel instance its path launches (reported, not gated).
- 13. srn128_sampler — one srn128 view, 32 ancestral steps (cut from
+ 13. srn128_sampler — one srn128 view, 16 ancestral steps (cut from
      256: the step is the same), w = 0..7, the reverse step as a CUDA graph:
      the srn128 sampling path, counts set to 0 before and read after; ms
      per step, s per view, peak memory; then a 16-step view graph against
      eager, bit-identical.
  13b. serve_cascade — ``serve_cli --config srn128 --cascade
-     draft=64:ddim:8,refine=128:ancestral:32@t0.40625 --max_batch 2`` on
+     draft=64:ddim:8,refine=128:ancestral:16@t0.4375 --max_batch 2`` on
      the srn128 weights over HTTP: two concurrent 3-view cascades walked
      through ``?from=K`` (4 events each, each view's draft before its
      refine, a gapless cursor, finite views); one cascade alone
@@ -249,8 +249,22 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      each rank, the ranks in turn, rows 1-6 at the shapes the model axis
      gives them there (C/2 channels, G/2 groups, 2 of 4 heads), held
      against their plain versions and timed beside their bounds (the
-     site phases' functions, run without the extra shapes); the staged
-     collectives' ms per forward and per train step.
+     site phases' functions, run without the extra shapes), and rows 1
+     and 3 without statistics at the train step's sites (the distill
+     teacher's); the staged collectives' ms per forward and per train
+     step; (f) the distill leg (``distill_leg``, its one-rank half
+     ``distill_leg_prepare`` before the ranks): from a world-1 mid-round
+     checkpoint (the train checkpoint's EMA as teacher and student after
+     one one-rank distill step; Adam's state then set so that each update
+     is linear in its gradient), restored into the placed student
+     through ``CheckpointManager``, the teacher's whole weights placed
+     like it, 2 eager distill steps at k = 8 and global batch 8 against
+     one rank's: losses, gradient norms and lrs within 1e-2, each leaf's
+     update within (c)'s gate; then the first step retaken from the start
+     with ``copy``'s backward unsummed, which the gate must refuse with
+     its loss bit-identical; the launch counts set to 0 before the 2
+     steps and read after: rows 1 (teacher and student), 2, 3-4, 5 and 6
+     on each rank, no plain version called.
  11a''. context_parallel — ``MeshConfig.context_parallel`` (the
      ``replicated`` placement) over a model axis of the same two
      processes (after their tp ranks; the one-rank references are 11a''s),
@@ -277,7 +291,11 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      GroupNorm site of the rank's rows against their plain versions (bf16
      and f32; sums and statistics bit-identical over two runs), timed
      beside their bounds, their plain versions and ``F.group_norm`` +
-     FiLM; rows 3-6 at ``Lq = L/2``, ``Lk = L``.
+     FiLM; rows 3-6 at ``Lq = L/2``, ``Lk = L`` (row 3 also at the train
+     sites: the distill teacher's); (f) the distill leg, as (f) of 11a'
+     with the row split, its control the halo's backward add removed:
+     the split-statistics (a)-(d) and rows 3-6 launched on each rank, the
+     unsplit GroupNorm never, no plain version called.
  11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
      (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
@@ -1410,7 +1428,7 @@ def _rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-SAMPLER_GRAPH_STEPS = 32        # graph against eager (cut from 256)
+SAMPLER_GRAPH_STEPS = 16        # graph against eager (cut from 256)
 
 
 def phase_sampler_graph(cfg, model):
@@ -1480,7 +1498,7 @@ def phase_sampler_graph(cfg, model):
     return out
 
 
-SAMPLER_MANY_STEPS = 32         # the timed batched view (cut from 256)
+SAMPLER_MANY_STEPS = 16         # the timed batched view (cut from 256)
 SAMPLER_MANY_F32_STEPS = 4      # step_many vs step (cut from 8)
 
 
@@ -1563,7 +1581,7 @@ def phase_sampler_many(cfg, model):
 
 
 SERVE_WORKDIR = WORKDIR + "_serve"
-SERVE_STEPS = 16                # steps of a served view (cut from 64)
+SERVE_STEPS = 8                 # steps of a served view (cut from 64)
 SERVE_ARGV = ["--config", "srn64", "--port", "0", "--sampler_steps",
               str(SERVE_STEPS),
               "--schedules", "ddim:16", "--max_batch", "4", "--max_wait_ms",
@@ -1624,7 +1642,7 @@ def phase_serve(cfg, model):
     """The single-engine service at srn64 full width, built by
     ``serve_cli``'s own ``build_service`` from chip_smoke's seeded random
     weights (a state dict, ``--model``) and driven over HTTP on an
-    ephemeral port: ``--sampler_steps 32 --schedules ddim:16 --max_batch
+    ephemeral port: ``--sampler_steps 8 --schedules ddim:16 --max_batch
     4 --warmup``.  Three concurrent requests (4 lanes, one padding) must
     be bit-identical to ``synthesize_many`` on the same sampler over the
     three objects plus a fourth repeating object 0 under another seed; a
@@ -1936,8 +1954,8 @@ def _sessions_by_owner(replicas, per):
 
 def phase_serve_fleet(cfg, model):
     """Two srn64 replicas behind the fleet router, built by ``serve_cli``'s
-    ``build_service`` (``--replicas 2 --sampler_steps 32 --schedules
-    ancestral:32,1@ddim:16 --max_batch 2 --warmup``) and driven over HTTP:
+    ``build_service`` (``--replicas 2 --sampler_steps 8 --schedules
+    ancestral:8,1@ddim:16 --max_batch 2 --warmup``) and driven over HTTP:
     four sticky sessions posted 0.1 s apart (two owned by each replica by
     rendezvous) meet both replicas' first use of their 2-lane graph at
     once; each replica's views bit-identical to ``synthesize_many`` on its
@@ -2213,7 +2231,7 @@ def _sigterm(proc):
 
 
 def phase_serve_workers(cfg, model):
-    """``worker_cli --devices 0 --port 0`` (``--sampler_steps 32
+    """``worker_cli --devices 0 --port 0`` (``--sampler_steps 8
     --max_batch 2 --max_views 3``) as a process on the card, on a state
     dict of the same weights, fronted by ``serve_cli --workers`` with no
     engine of its own (the front door allocates no device memory): its
@@ -2345,9 +2363,9 @@ def phase_serve_workers(cfg, model):
     return out
 
 
-# The refine on a 32-step schedule (cut from 64): t0.40625 is its grid
-# point 13 (26 of 64 before).
-CASCADE_PLAN = "draft=64:ddim:8,refine=128:ancestral:32@t0.40625"
+# The refine on a 16-step schedule (cut from 64): t0.4375 is its grid
+# point 7 (13 of 32 before, 26 of 64).
+CASCADE_PLAN = "draft=64:ddim:8,refine=128:ancestral:16@t0.4375"
 CASCADE_ARGV = ["--config", "srn128", "--port", "0", "--cascade",
                 CASCADE_PLAN, "--max_batch", "2", "--max_wait_ms", "500"]
 
@@ -2373,7 +2391,7 @@ def _poll_cascade(port, rid):
 
 def phase_serve_cascade(cfg, model):
     """The served cascade at srn128 full width (ch 256), built by
-    ``serve_cli --cascade draft=64:ddim:8,refine=128:ancestral:32@t0.40625
+    ``serve_cli --cascade draft=64:ddim:8,refine=128:ancestral:16@t0.4375
     --max_batch 2`` on a state dict of the srn128 phases' seeded random
     weights, over HTTP: two concurrent 3-view cascades (posted 0.1 s
     apart, ``block=false``) walked through ``?from=K``: 4 events each,
@@ -3000,7 +3018,7 @@ SRN128_WORKDIR = WORKDIR + "_srn128"
 SRN128_SMALL_BATCH = 2          # remat against no remat (cut from 4)
 SRN128_STEPS = 2                # Trainer steps under "nothing" (the path)
 SRN128_DOTS_STEPS = 2           # and under "dots" (first + one replayed)
-SRN128_VIEW_STEPS = 32          # the srn128 sampling path's view
+SRN128_VIEW_STEPS = 16          # the srn128 sampling path's view
 SRN128_SAMPLE_STEPS = 8         # sample_cli's schedule on the trained model
 HEADROOM_BYTES = 8 * 2 ** 30    # what --accum must leave free of the card
 GRAPH_MARGIN = 2 * 2 ** 30      # the prediction's allowance for the CUDA
@@ -3052,7 +3070,7 @@ def phase_srn128_model(ptxas):
 
 
 def phase_srn128_sampler(cfg, model):
-    """One srn128 view (``SRN128_VIEW_STEPS`` = 32 ancestral steps, w =
+    """One srn128 view (``SRN128_VIEW_STEPS`` = 16 ancestral steps, w =
     0..7) from ``Sampler.synthesize`` on the graph path: the srn128
     sampling path,
     counts set to 0 just before and read after.  Then one view at 16
@@ -3557,7 +3575,7 @@ def phase_srn128_sites(cfg, accum, train_launches_per_step):
 
 def phase_eval():
     """``cli/eval_cli.py`` on the srn64 train phase's checkpoint (EMA) on
-    synthetic scenes: 2 objects, 3 views, a 32-step grid, DDIM at 8 steps, one
+    synthetic scenes: 2 objects, 3 views, a 32-step grid, DDIM at 4 steps, one
     guidance-selection object, a matched-seed oracle object and a 4-frame
     orbit; finite metrics per w, the parity and orbit fields; s per
     object.  Then the same command again: no object re-synthesised, the
@@ -3570,12 +3588,12 @@ def phase_eval():
     from diff3d_tpu_torch.cli import eval_cli
 
     out = os.path.join(WORKDIR, "eval.jsonl")
-    # A 32-step dense grid (the parity oracle's; cut from 256) and 8 DDIM
+    # A 32-step dense grid (the parity oracle's; cut from 256) and 4 DDIM
     # steps (cut from 32).
     argv = ["--model", os.path.join(WORKDIR, "checkpoints"), "--config",
             "srn64", "--synthetic_scenes", "--objects", "2", "--max_views",
             "3", "--steps", "32", "--sampler", "ddim", "--sampler_steps",
-            "8", "--w_select", "1", "--parity_objects", "1", "--orbit",
+            "4", "--w_select", "1", "--parity_objects", "1", "--orbit",
             "4", "--out", out]
     lines, seconds, stamps = [], [], []
     objdir = out + ".objdir"
@@ -4220,6 +4238,26 @@ def _update_sums(got, ref, start):
             float(excess.max())]
 
 
+def _summed(rank_sums):
+    """One leaf's :func:`_update_sums` terms over the ranks' blocks: the
+    sums of squares added, the maxima taken."""
+    out = {}
+    for sums in rank_sums:
+        for n, v in sums.items():
+            acc = out.setdefault(n, [0.0, 0.0, 0.0, -math.inf, -math.inf])
+            acc[:3] = [a + b for a, b in zip(acc[:3], v[:3])]
+            acc[3:] = [max(a, b) for a, b in zip(acc[3:], v[3:])]
+    return out
+
+
+def _scaled(row, n):
+    """A kernel-stats row for ``n`` calls of its site set: every time
+    ``n`` times."""
+    return dict(row, **{k: n * row[k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+        if row.get(k) is not None})
+
+
 def _update_gate(sums):
     """(c)'s gate over ``{leaf: [ss_diff, ss_update, ss_param, max_diff,
     max_excess]}`` (:func:`_update_sums`, summed over the ranks' blocks
@@ -4262,17 +4300,25 @@ class _Sites:
     """The shapes the kernels are called at, counted, while it is entered:
     ``gn[(N, L, C, G, film, silu)]`` and ``attn[(B, Lq, Lk, H, D)]`` (the
     keys of ``record_sites``), read at the dispatch, after the model
-    axis's layout moves (so a rank's blocks)."""
+    axis's layout moves (so a rank's blocks); ``calls[(op, grad)]``, the
+    dispatches with and without autograd recording (a distill step's
+    student and teacher), and ``plain``, those that ran a plain version
+    (asked for, or a tensor off the card)."""
 
     def __init__(self):
-        self.gn, self.attn = {}, {}
+        self.gn, self.attn, self.calls, self.plain = {}, {}, {}, 0
 
     def __enter__(self):
+        import torch
+
         from diff3d_tpu_torch.ops import dispatch
 
         self._orig = orig = dispatch.dispatch
 
         def recording(op, requested, x, *args, **kwargs):
+            key = (op, torch.is_grad_enabled())
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.plain += requested != "cuda" or not x.is_cuda
             if op == "groupnorm":
                 N, L, C = x.shape
                 key = (N, L, C, kwargs["num_groups"],
@@ -4309,6 +4355,291 @@ def _tp_leaves(state):
 
     return {n: t for n, t in state_leaves(state)
             if not n.endswith(".step")}
+
+
+# ---- distillation over the model axis: the tp and cp phases' legs ----------
+
+DISTILL_LEG_K = 8               # the legs' student steps
+DISTILL_LEG_STEPS = 2
+DISTILL_LEG_TOL = 1e-2          # losses, gradient norms, lrs (rel.): bf16
+DISTILL_LEG_DIR = os.path.join(TP_WORKDIR, "distill")
+DISTILL_LEG_TEACHER = os.path.join(TP_WORKDIR, "distill_teacher.pt")
+# One rank's update over the legs' steps, and over the first (the
+# controls' reference).
+DISTILL_LEG_REF = os.path.join(TP_WORKDIR, "distill_ref.pt")
+DISTILL_LEG_CONTROL_REF = os.path.join(TP_WORKDIR, "distill_control_ref.pt")
+
+
+def _leg_cfg():
+    """srn64 at global batch ``TP_BATCH``, its peak lr from the first
+    step (no warmup): the legs' updates stay above the gate's floor."""
+    cfg = _distill_cfg(TP_BATCH)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, warmup_examples=TP_BATCH))
+
+
+def _leg_batches(cfg):
+    return [train_batch(cfg, TP_BATCH, s)
+            for s in range(1, 1 + DISTILL_LEG_STEPS)]
+
+
+def distill_leg_prepare():
+    """The distill legs' one-rank half (before the ranks).  The legs'
+    mid-round start: the train checkpoint's EMA as teacher and student,
+    one eager distill step at global batch ``TP_BATCH`` and k =
+    ``DISTILL_LEG_K``, then Adam's state put where each update is linear
+    in its gradient: the first moments 0, the second ``(2 max(g_leaf,
+    1e-3 g_all))^2``, the count 1000 (no bias correction to speak of),
+    with ``g_leaf`` the leaf's largest gradient element over the legs'
+    steps (taken from this state first) and ``g_all`` the largest of all.
+    Adam's own moments would not do: where they hold few gradients its
+    update of an element is about ``lr * sign(g)``, and the distill
+    loss's i = k samples (alpha_t ~ 4.5e-5) amplify eps^'s rounding into
+    gradient elements whose sign is noise; under these the update's error
+    is the gradient's (a leaf a thousandth of the largest moves less than
+    the floor).  That state is written as a world-1 ``full`` checkpoint,
+    the teacher's weights beside it; then ``DISTILL_LEG_STEPS`` steps from
+    it, whose updates (the first, and all of them) the ranks' gates
+    read."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import (CheckpointManager,
+                                        create_train_state,
+                                        make_distill_step)
+    from diff3d_tpu_torch.train.checkpoint import state_leaves
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    t0 = time.perf_counter()
+    cfg = _leg_cfg()
+    teacher_step, teacher = _teacher_ema(cfg)
+    torch.save({k: v.cpu() for k, v in teacher.items()},
+               DISTILL_LEG_TEACHER)
+    student = XUNet(cfg.model).cuda()
+    t_model = XUNet(cfg.model).cuda().eval().requires_grad_(False)
+    with torch.no_grad():
+        for m in (student, t_model):
+            for name, p in m.named_parameters():
+                p.copy_(teacher[name])
+    del teacher
+    state = create_train_state(student.eval(), cfg.train, capturable=False)
+    step = make_distill_step(cfg)
+    step(state, t_model, train_batch(cfg, TP_BATCH, 0), DISTILL_LEG_K)
+    start_step = state.step
+    saved = {n: t.detach().clone() for n, t in state_leaves(state)}
+    gmax = {n: 0.0 for n, _ in student.named_parameters()}
+    for batch in _leg_batches(cfg):
+        step(state, t_model, batch, DISTILL_LEG_K)
+        for n, p in student.named_parameters():
+            gmax[n] = max(gmax[n], float(p.grad.abs().max()))
+    g_all = max(gmax.values())
+    with torch.no_grad():
+        for n, t in state_leaves(state):
+            t.copy_(saved[n])
+        for n, p in student.named_parameters():
+            st = state.optimizer.state[p]
+            st["exp_avg"].zero_()
+            st["exp_avg_sq"].fill_((2 * max(gmax[n], 1e-3 * g_all)) ** 2)
+            st["step"].fill_(1000.0)
+    set_schedule_step(state, start_step)
+    state.step = start_step
+    del saved
+    CheckpointManager(DISTILL_LEG_DIR).save(state)
+    start = {n: p.detach().float().clone()
+             for n, p in student.named_parameters()}
+    out = {"teacher_step": teacher_step, "start_step": start_step,
+           "grad_max": g_all, "grad_max_by_leaf": gmax, "losses": [],
+           "grad_norms": [], "lrs": [], "step_s": []}
+    for i, batch in enumerate(_leg_batches(cfg)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = step(state, t_model, batch, DISTILL_LEG_K)
+        out["losses"].append(float(m["distill_loss"]))
+        out["step_s"].append(time.perf_counter() - t1)
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["lrs"].append(float(m["lr"]))
+        if i == 0:
+            torch.save({n: (p.detach().float() - start[n]).cpu()
+                        for n, p in student.named_parameters()},
+                       DISTILL_LEG_CONTROL_REF)
+    torch.save({n: (p.detach().float() - start[n]).cpu()
+                for n, p in student.named_parameters()}, DISTILL_LEG_REF)
+    del state, student, t_model, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _leg_sums(env, model, start, ref_path):
+    """:func:`_update_sums` of every parameter of ``model`` (this rank's
+    blocks) against one rank's update in ``ref_path`` (its blocks of
+    it)."""
+    import torch
+
+    from diff3d_tpu_torch.parallel.mesh import block_of
+
+    ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                     weights_only=True)
+    sums = {}
+    for n, p in model.named_parameters():
+        d = env._model_dims.get(n)
+        r = ref[n] if d is None else block_of(
+            ref[n], d, env.model_rank, env.model_size, n in env._halved)
+        sums[n] = _update_sums(p.detach(), start[n] + r.to("cuda"),
+                               start[n])
+    return sums
+
+
+def distill_leg(env, control) -> dict:
+    """One rank's distill leg of phase ``tensor_parallel`` or
+    ``context_parallel`` over ``env``: the teacher and the student placed
+    by ``env.params`` (the student restored from the world-1 mid-round
+    checkpoint through ``CheckpointManager``, the teacher's whole weights
+    copied in as this rank's blocks), ``DISTILL_LEG_STEPS`` eager distill
+    steps at k = ``DISTILL_LEG_K`` on the one-rank run's batches (the
+    launch counts set to 0 before, read after; the dispatches recorded),
+    each parameter's update against one rank's; then back to the start in
+    place, and the first step retaken inside ``control`` (a mutation that
+    the gate must refuse, which leaves the loss as it was)."""
+    import torch
+
+    from diff3d_tpu_torch.models import XUNet
+    from diff3d_tpu_torch.train import (CheckpointManager,
+                                        create_train_state,
+                                        make_distill_step)
+    from diff3d_tpu_torch.train.checkpoint import state_leaves
+    from diff3d_tpu_torch.train.distill import _load_teacher
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    marks = {"start": time.perf_counter()}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the control's loss
+    cfg = _leg_cfg()
+    t_model = env.params(XUNet(cfg.model).cuda().eval()
+                         .requires_grad_(False))
+    _load_teacher(t_model, torch.load(DISTILL_LEG_TEACHER,
+                                      map_location="cpu", mmap=True,
+                                      weights_only=True), env)
+    state = create_train_state(env.params(XUNet(cfg.model).cuda()).eval(),
+                               cfg.train, capturable=False)
+    mgr = CheckpointManager(DISTILL_LEG_DIR)
+    mgr.mesh_info = env.topology_summary()
+    if env.tensor_parallel:
+        mgr.placement = env
+    start_step = mgr.restore(state)
+    saved = {n: t.detach().clone() for n, t in state_leaves(state)}
+    start = {n: p.detach().float().clone()
+             for n, p in state.model.named_parameters()}
+    step = make_distill_step(cfg, env=env)
+    batches = _leg_batches(cfg)
+    marks["build"] = time.perf_counter()
+    out = {"start_step": start_step, "losses": [], "grad_norms": [],
+           "lrs": [], "step_s": [], "eager": not step.cuda_graphs}
+    sites = _Sites()
+    _launch_counts(reset=True, split=True)
+    with sites:
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, t_model, batch, DISTILL_LEG_K)
+            out["losses"].append(float(m["distill_loss"]))
+            out["step_s"].append(time.perf_counter() - t0)
+            out["grad_norms"].append(float(m["grad_norm"]))
+            out["lrs"].append(float(m["lr"]))
+    out["launches"] = _launch_counts(split=True)
+    out["sites"] = {"gn": sites.gn, "attn": sites.attn}
+    out["calls"] = {f"{op}{'' if grad else '@no_grad'}": n
+                    for (op, grad), n in sites.calls.items()}
+    out["plain_calls"] = sites.plain
+    marks["steps"] = time.perf_counter()
+    out["sums"] = _leg_sums(env, state.model, start, DISTILL_LEG_REF)
+    marks["gate"] = time.perf_counter()
+    with torch.no_grad():
+        for n, t in state_leaves(state):
+            t.copy_(saved[n])
+    set_schedule_step(state, start_step)
+    state.step = start_step
+    del saved
+    with control:
+        m = step(state, t_model, batches[0], DISTILL_LEG_K)
+    out["control"] = {
+        "loss": float(m["distill_loss"]), "grad_norm": float(m["grad_norm"]),
+        "sums": _leg_sums(env, state.model, start, DISTILL_LEG_CONTROL_REF)}
+    marks["control"] = time.perf_counter()
+    del state, t_model, start, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = was
+    names = list(marks)
+    out["marks_s"] = {n: round(marks[n] - marks[p], 3)
+                      for p, n in zip(names, names[1:])}
+    return out
+
+
+def _leg_summary(leg_ranks, one, sums_of):
+    """The legs' gates over the ranks' results: the losses, norms and lrs
+    against one rank's (``DISTILL_LEG_TOL``), the update gate
+    (``sums_of``: the ranks' sums -> a leaf's), its control's, and the
+    control's loss against the sound first step's."""
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for r in leg_ranks
+              for k in ("losses", "grad_norms", "lrs")
+              for a, b in zip(r[k], one[k]))
+    gate = _update_gate(sums_of([r["sums"] for r in leg_ranks]))
+    ctl = _update_gate(sums_of([r["control"]["sums"] for r in leg_ranks]))
+    return {"k": DISTILL_LEG_K, "steps": DISTILL_LEG_STEPS,
+            "global_batch": TP_BATCH, "from_step": leg_ranks[0]["start_step"],
+            "teacher": f"the train checkpoint's EMA (step "
+                       f"{one['teacher_step']})",
+            "eager": all(r["eager"] for r in leg_ranks),
+            "losses": [r["losses"] for r in leg_ranks],
+            "one_rank_losses": one["losses"],
+            "grad_norms": [r["grad_norms"] for r in leg_ranks],
+            "one_rank_grad_norms": one["grad_norms"],
+            "lrs": [r["lrs"] for r in leg_ranks], "one_rank_lrs": one["lrs"],
+            "loss_rel": rel, "loss_tolerance": DISTILL_LEG_TOL,
+            "update_gate": _gate_summary(gate),
+            "control": {"loss": [r["control"]["loss"] for r in leg_ranks],
+                        "grad_norm": [r["control"]["grad_norm"]
+                                      for r in leg_ranks],
+                        "loss_equals_sound_step": all(
+                            r["control"]["loss"] == r["losses"][0]
+                            for r in leg_ranks),
+                        "leaves_failed": sum(not row[5] for row in ctl),
+                        "update_gate": _gate_summary(ctl)},
+            "s_per_step": [r["step_s"] for r in leg_ranks],
+            "one_rank_s_per_step": one["step_s"],
+            "calls": [r["calls"] for r in leg_ranks],
+            "plain_calls": [r["plain_calls"] for r in leg_ranks],
+            "launches": [r["launches"] for r in leg_ranks],
+            "rank_marks_s": [r["marks_s"] for r in leg_ranks]}
+
+
+def _check_leg(phase, leg, rows, zero=()):
+    """Raise unless the leg held: its gates, its control refused with the
+    loss unchanged, every kernel of ``rows`` launched on each rank, those
+    of ``zero`` and every plain version never."""
+    gate = leg["update_gate"]
+    if not (leg["loss_rel"] <= DISTILL_LEG_TOL and not gate["failed"]
+            and leg["eager"]):
+        raise AssertionError(f"{phase}: the distill leg off one rank: "
+                             f"losses and norms {leg['loss_rel']}, "
+                             f"{gate['failed']} updates, e.g. "
+                             f"{gate['failed_leaves'][:3]}")
+    ctl = leg["control"]
+    if ctl["leaves_failed"] == 0 or not ctl["loss_equals_sound_step"]:
+        raise AssertionError(f"{phase}: the distill leg's control: "
+                             f"{ctl['leaves_failed']} leaves refused, "
+                             f"losses {ctl['loss']} vs {leg['losses']}")
+    if any(r[k] == 0 for r in leg["launches"] for k in rows) or any(
+            r[k] for r in leg["launches"] for k in zero) or any(
+            leg["plain_calls"]) or any(
+            not (c.get("groupnorm") and c.get("groupnorm@no_grad")
+                 and c.get("sdpa") and c.get("sdpa@no_grad"))
+            for c in leg["calls"]):
+        raise AssertionError(f"{phase}: the distill leg's launches "
+                             f"{leg['launches']}, calls {leg['calls']}, "
+                             f"plain {leg['plain_calls']}")
 
 
 def tp_rank(rank: int, world: int, workdir: str) -> dict:
@@ -4431,7 +4762,12 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     torch.cuda.empty_cache()
     marks["c_control"] = time.perf_counter()
 
-    # (e) Rows 1-6 at this rank's sites, the ranks in turn.
+    # (f) The distill leg; its control: copy's backward unsummed.
+    out["distill"] = distill_leg(env, _CopyNotSummed())
+    marks["f_distill"] = time.perf_counter()
+
+    # (e) Rows 1-6 at this rank's sites, the ranks in turn (and rows 1
+    # and 3 without statistics at the train sites: the distill teacher's).
     out["sample_sites"] = {"gn": sample_sites.gn, "attn": sample_sites.attn}
     out["train_sites"] = {"gn": train_sites.gn, "attn": train_sites.attn}
     for turn in range(world):
@@ -4450,6 +4786,12 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
             out["attn_rows"] = phase_attention_backward(
                 train_sites.attn, 1, phase="tp_attention_backward",
                 extra_shapes=False, f32_max_n=2)
+            out["distill_gn"] = phase_groupnorm(
+                train_sites.gn, phase="tp_distill_groupnorm",
+                odd_shapes=False)
+            out["distill_attn"] = phase_attention(
+                train_sites.attn, phase="tp_distill_attention",
+                extra_shapes=False)
             out["sites_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
     dist.barrier(group)
@@ -4498,8 +4840,9 @@ def tp_prepare():
     one = _tp_one_rank(cfg, wd["one"])
     gc.collect()
     torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
     return {"workdir": wd["tp"], "cp_workdir": wd["cp"], "one": one,
-            "one_rank_s": time.perf_counter() - t0}
+            "distill": distill_leg_prepare(), "one_rank_s": one_s}
 
 
 def _tp_one_rank(cfg, workdir):
@@ -4617,14 +4960,7 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
     gate = _update_gate({
         n: _update_sums(leaves[f"model.{n}"], p, one["start"][n])
         for n, p in one["params"][TP_STEPS].items()})
-    ctl_sums = {}
-    for r in ranks:
-        for n, v in r["control"]["sums"].items():
-            acc = ctl_sums.setdefault(n, [0.0, 0.0, 0.0, -math.inf,
-                                          -math.inf])
-            acc[:3] = [a + b for a, b in zip(acc[:3], v[:3])]
-            acc[3:] = [max(a, b) for a, b in zip(acc[3:], v[3:])]
-    ctl_gate = _update_gate(ctl_sums)
+    ctl_gate = _update_gate(_summed([r["control"]["sums"] for r in ranks]))
     differ = []
     for r in ranks:
         dims, halved = r["model_dims"], set(r["halved"])
@@ -4648,6 +4984,13 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
     launched = all(r["launches_sampling"][k] > 0 for r in ranks
                    for k in sample_rows) and all(
         r["launches_training"][k] > 0 for r in ranks for k in train_rows)
+    # (f) The distill leg against one rank, each leaf's terms summed over
+    # the ranks' blocks.
+    leg = _leg_summary([r["distill"] for r in ranks], prep["distill"],
+                       _summed)
+    leg["at_train_sites"] = all(
+        set(r["distill"]["sites"][k]) == set(r["train_sites"][k])
+        for r in ranks for k in ("gn", "attn"))
 
     def per(r, key):
         c = r[key]
@@ -4716,8 +5059,10 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
                                   for k in ("gn", "attn")}},
            "sites_s": [round(r["sites_s"], 3) for r in ranks],
            "rank_marks_s": [r["marks_s"] for r in ranks],
+           "distill": leg,
            "one_rank_s": round(one_s, 3), "ranks_s": round(ranks_s, 3),
-           "phase_s": round(one_s + ranks_s
+           "distill_one_rank_s": round(prep["distill"]["s"], 3),
+           "phase_s": round(one_s + prep["distill"]["s"] + ranks_s
                             + time.perf_counter() - t_phase, 3)}
     emit(dict(phase="tensor_parallel", **out))
     if not (finite and fwd_rel <= TP_TOL and view_rel <= TP_TOL):
@@ -4740,6 +5085,10 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
         raise AssertionError(f"tensor_parallel: a row was not launched: "
                              f"{out['launches_sampling']}, "
                              f"{out['launches_training']}")
+    _check_leg("tensor_parallel", leg, train_rows)
+    if not leg["at_train_sites"]:
+        raise AssertionError("tensor_parallel: the distill leg's sites are "
+                             "not the train step's")
 
     # The kernels line: the slower rank's times, the worst error, rank
     # 0's launches.
@@ -4759,16 +5108,32 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
         "flash_attention@tp": slowest("attn"),
         "flash_attention[save_lse]@tp": slowest("attn_rows", "lse"),
         "attention_backward_dkdv@tp": slowest("attn_rows", "dkdv"),
-        "attention_backward_dq@tp": slowest("attn_rows", "dq")}
-    ls, lt = r0["launches_sampling"], r0["launches_training"]
+        "attention_backward_dq@tp": slowest("attn_rows", "dq"),
+        # The distill leg: the student's rows at the train step's sites
+        # (the same shapes), the teacher's two forwards.
+        "fused_groupnorm@tp_distill": _scaled(slowest("distill_gn"), 2),
+        "fused_groupnorm[save_stats]@tp_distill": slowest("gn_fwd"),
+        "groupnorm_backward@tp_distill": slowest("gn_bwd"),
+        "flash_attention@tp_distill": _scaled(slowest("distill_attn"), 2),
+        "flash_attention[save_lse]@tp_distill": slowest("attn_rows", "lse"),
+        "attention_backward_dkdv@tp_distill": slowest("attn_rows", "dkdv"),
+        "attention_backward_dq@tp_distill": slowest("attn_rows", "dq")}
+    ld = r0["distill"]["launches"]
     out["kernel_launches"] = {
+        f"{k}@tp_distill": ld[k.split("[")[0]] for k in (
+            "fused_groupnorm", "fused_groupnorm[save_stats]",
+            "groupnorm_backward", "flash_attention",
+            "flash_attention[save_lse]", "attention_backward_dkdv",
+            "attention_backward_dq")}
+    ls, lt = r0["launches_sampling"], r0["launches_training"]
+    out["kernel_launches"].update({
         "fused_groupnorm@tp": ls["fused_groupnorm"],
         "fused_groupnorm[save_stats]@tp": lt["fused_groupnorm"],
         "groupnorm_backward@tp": lt["groupnorm_backward"],
         "flash_attention@tp": ls["flash_attention"],
         "flash_attention[save_lse]@tp": lt["flash_attention"],
         "attention_backward_dkdv@tp": lt["attention_backward_dkdv"],
-        "attention_backward_dq@tp": lt["attention_backward_dq"]}
+        "attention_backward_dq@tp": lt["attention_backward_dq"]})
     return out
 
 
@@ -5128,7 +5493,12 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
     torch.cuda.empty_cache()
     marks["c_control"] = time.perf_counter()
 
-    # (b) The kernels at this rank's sites, the ranks in turn.
+    # (f) The distill leg; its control: the halo's backward add removed.
+    out["distill"] = distill_leg(env, _HaloNotAdded())
+    marks["f_distill"] = time.perf_counter()
+
+    # (b) The kernels at this rank's sites, the ranks in turn (and row 3
+    # at the train sites: the distill teacher's).
     out["sample_sites"] = {"gn": sample_sites.gn, "attn": sample_sites.attn}
     out["train_sites"] = {"gn": train_sites.gn, "attn": train_sites.attn}
     for turn in range(world):
@@ -5142,6 +5512,9 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
             out["attn_rows"] = phase_attention_backward(
                 train_sites.attn, 1, phase="cp_attention_backward",
                 extra_shapes=False, f32_max_n=2)
+            out["distill_attn"] = phase_attention(
+                train_sites.attn, phase="cp_distill_attention",
+                extra_shapes=False)
             out["sites_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
     dist.barrier(group)
@@ -5173,6 +5546,14 @@ def phase_context_parallel(prep, ranks, ranks_s):
     gate = _update_gate(r0["sums"])
     ctl_gate = _update_gate(r0["control"]["sums"])
     same_state = all(r["sums"] == r0["sums"] for r in ranks)
+    # (f) The distill leg against one rank: every parameter whole on each
+    # rank, rank 0's terms (both ranks the same update).
+    leg = _leg_summary([r["distill"] for r in ranks], prep["distill"],
+                       lambda sums: sums[0])
+    leg["ranks_hold_the_same_update"] = all(
+        r["distill"]["sums"] == r0["distill"]["sums"] for r in ranks)
+    leg_unsplit = {k: [r["distill"]["launches"][k] for r in ranks]
+                   for k in ("fused_groupnorm", "groupnorm_backward")}
     ctl_failed = sum(not row[5] for row in ctl_gate)
     mem = {"rank_peak_above_state": [r["step_peak_above_state"]
                                      for r in ranks],
@@ -5264,6 +5645,7 @@ def phase_context_parallel(prep, ranks, ranks_s):
                                   for k in ("gn", "attn")}},
            "sites_s": [round(r["sites_s"], 3) for r in ranks],
            "rank_marks_s": [r["marks_s"] for r in ranks],
+           "distill": dict(leg, unsplit_groupnorm_launches=leg_unsplit),
            "ranks_s": round(ranks_s, 3),
            "phase_s": round(ranks_s + time.perf_counter() - t_phase, 3)}
     emit(dict(phase="context_parallel", **out))
@@ -5288,6 +5670,11 @@ def phase_context_parallel(prep, ranks, ranks_s):
                              f"{out['launches_sampling']}, "
                              f"{out['launches_training']}, unsplit "
                              f"{unsplit}")
+    _check_leg("context_parallel", leg, train_rows,
+               zero=("fused_groupnorm", "groupnorm_backward"))
+    if not leg["ranks_hold_the_same_update"]:
+        raise AssertionError("context_parallel: the distill leg's ranks "
+                             "hold different updates")
 
     def slowest(key, sub=None):
         rows = [r[key] if sub is None else r[key][sub] for r in ranks]
@@ -5306,9 +5693,24 @@ def phase_context_parallel(prep, ranks, ranks_s):
         "flash_attention@cp": slowest("attn"),
         "flash_attention[save_lse]@cp": slowest("attn_rows", "lse"),
         "attention_backward_dkdv@cp": slowest("attn_rows", "dkdv"),
-        "attention_backward_dq@cp": slowest("attn_rows", "dq")}
+        "attention_backward_dq@cp": slowest("attn_rows", "dq"),
+        # The distill leg, at the train step's sites: (a) and (b) in the
+        # teacher's two forwards and the student's, (c) and (d) in its
+        # backward; row 3 in the teacher's forwards, rows 4-6 the
+        # student's.
+        **{f"{k}@cp_distill": _scaled(slowest("gn", k), n) for k, n in (
+            ("groupnorm_partial_sums", 3), ("groupnorm_apply_sums", 3),
+            ("groupnorm_backward_partial_sums", 1),
+            ("groupnorm_backward_apply_sums", 1))},
+        "flash_attention@cp_distill": _scaled(slowest("distill_attn"), 2),
+        "flash_attention[save_lse]@cp_distill": slowest("attn_rows", "lse"),
+        "attention_backward_dkdv@cp_distill": slowest("attn_rows", "dkdv"),
+        "attention_backward_dq@cp_distill": slowest("attn_rows", "dq")}
     ls, lt = r0["launches_sampling"], r0["launches_training"]
+    ld = r0["distill"]["launches"]
     out["kernel_launches"] = {
+        **{f"{k}@cp_distill": ld[k.split("[")[0]] for k in train_rows + (
+            "flash_attention[save_lse]",)},
         "groupnorm_partial_sums@cp": ls["groupnorm_partial_sums"],
         "groupnorm_apply_sums@cp": ls["groupnorm_apply_sums"],
         "groupnorm_backward_partial_sums@cp":
@@ -6052,14 +6454,18 @@ def main() -> None:
                 "one card over gloo): the rank's rows, summed over sites; "
                 f"the slower rank's times; launches: rank 0's {CP_STEPS} "
                 "eager steps")
+    leg_per = {m: (f"one srn64 distill step (k = {DISTILL_LEG_K}) at global "
+                   f"batch {TP_BATCH} on one rank of the {mesh} (dp1 x mp2, 2 "
+                   "ranks on one card over gloo), at the train step's sites "
+                   f"(the rank's {part}): {{}}; the slower rank's times; "
+                   f"launches: rank 0's {DISTILL_LEG_STEPS} eager steps, the "
+                   "wrapper's (teacher and student)")
+               for m, mesh, part in (("tp", "tp mesh", "blocks"),
+                                     ("cp", "context-parallel mesh",
+                                      "rows"))}
     student_per = (f"one distill step (batch {DISTILL_BATCH}) at srn64: "
                    "the student's forward and backward (a train step's "
                    "sites), summed over sites; launches of the wrapper")
-
-    def twice(row):
-        return dict(row, **{k: 2 * row[k] for k in (
-            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
-            if k in row})
 
     cluster = "one thread-block cluster per sample, DSMEM exchange"
     design = {"fused_groupnorm": cluster,
@@ -6132,13 +6538,13 @@ def main() -> None:
         ("attention_backward_dq@srn128", att, dq_at,
          tl128["attention_backward_dq"], attn128_rows["dq"], train128),
         ("fused_groupnorm@distill", film, gn_fwd_at, dl["fused_groupnorm"],
-         twice(gn_teacher), teacher_per),
+         _scaled(gn_teacher, 2), teacher_per),
         ("fused_groupnorm[save_stats]@distill", film, gn_fwd_at,
          dl["fused_groupnorm"], gn_fwd, student_per),
         ("groupnorm_backward@distill", film, gn_bwd_at,
          dl["groupnorm_backward"], gn_bwd, student_per),
         ("flash_attention@distill", att, fa_at, dl["flash_attention"],
-         twice(attn_teacher), teacher_per),
+         _scaled(attn_teacher, 2), teacher_per),
         ("flash_attention[save_lse]@distill", att, fa_at,
          dl["flash_attention"], attn_rows["lse"], student_per),
         ("attention_backward_dkdv@distill", att, dkdv_at,
@@ -6179,7 +6585,44 @@ def main() -> None:
                ("flash_attention@cp", att, fa_at, cp_sample),
                ("flash_attention[save_lse]@cp", att, fa_at, cp_train),
                ("attention_backward_dkdv@cp", att, dkdv_at, cp_train),
-               ("attention_backward_dq@cp", att, dq_at, cp_train))],
+               ("attention_backward_dq@cp", att, dq_at, cp_train))]
+        + [(name, src, at, par_["kernel_launches"][name],
+            par_["kernel_stats"][name], leg_per[m].format(what))
+           for m, par_, rows in (
+               ("tp", tpar, (
+                   ("fused_groupnorm", film, gn_fwd_at,
+                    "the teacher's two forwards"),
+                   ("fused_groupnorm[save_stats]", film, gn_fwd_at,
+                    "the student's forward"),
+                   ("groupnorm_backward", film, gn_bwd_at,
+                    "the student's backward"),
+                   ("flash_attention", att, fa_at,
+                    "the teacher's two forwards"),
+                   ("flash_attention[save_lse]", att, fa_at,
+                    "the student's forward"),
+                   ("attention_backward_dkdv", att, dkdv_at,
+                    "the student's backward"),
+                   ("attention_backward_dq", att, dq_at,
+                    "the student's backward"))),
+               ("cp", cpar, (
+                   ("groupnorm_partial_sums", film, gn_fwd_at,
+                    "the teacher's two forwards and the student's"),
+                   ("groupnorm_apply_sums", film, gn_fwd_at,
+                    "the teacher's two forwards and the student's"),
+                   ("groupnorm_backward_partial_sums", film, gn_bwd_at,
+                    "the student's backward"),
+                   ("groupnorm_backward_apply_sums", film, gn_bwd_at,
+                    "the student's backward"),
+                   ("flash_attention", att, fa_at,
+                    "the teacher's two forwards"),
+                   ("flash_attention[save_lse]", att, fa_at,
+                    "the student's forward"),
+                   ("attention_backward_dkdv", att, dkdv_at,
+                    "the student's backward"),
+                   ("attention_backward_dq", att, dq_at,
+                    "the student's backward"))))
+           for k, src, at, what in rows
+           for name in [f"{k}@{m}_distill"]],
         design)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,8 +50,7 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
 
 _WAITING = ("Not in the port (see ROADMAP.md): --mesh is refused (serving "
             "over several cards needs a multi-process serving loop, "
-            "ROADMAP A10b); --pallas has no counterpart: the port runs one "
-            "implementation per device (ops/dispatch.py).")
+            "ROADMAP A10b).")
 
 _MESH_REFUSED = ("--mesh: serving over a mesh of cards waits for ROADMAP "
                  "A10b (a multi-process serving loop); one engine serves "
@@ -145,6 +144,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split each view's reverse steps into this many "
                         "segments (must divide the per-view step count; "
                         "bit-identical to 1)")
+    p.add_argument("--pallas", action="store_true",
+                   help="the fused GroupNorm kernels: the port runs them on "
+                        "the card anyway (accepted and logged)")
     p.add_argument("--raw_params", action="store_true",
                    help="serve raw weights instead of the EMA")
     p.add_argument("--warmup", action="store_true",
@@ -260,6 +262,10 @@ def build_service(args):
 
     if args.mesh:
         raise SystemExit(_MESH_REFUSED)
+    if args.pallas:
+        logging.info("--pallas: the hand-written CUDA kernels "
+                     "(ops/csrc/film.cu, attention.cu) run on the card; off "
+                     "the card their plain versions run")
     try:
         cfg = _config(args)
     except ValueError as e:

@@ -35,9 +35,11 @@ writes ``full`` and ``ema_bf16`` files and the marker; every rank calls
 one every rank sees), and under ``fsdp`` the full state is gathered first
 (``torch.distributed.checkpoint.state_dict.get_state_dict`` with full
 state dicts), so the files keep the one-process format.  ``full_sliced``
-is one process's format and is refused in a group of more than one rank.
-Under ``tp`` / ``fsdp+tp`` (:attr:`CheckpointManager.placement`, the
-trainer's ``MeshEnv``) every split tensor is gathered whole over the model
+does the same leaf by leaf: every rank takes part in each tensor's gather
+(the snapshot is a collective) and rank 0 writes the whole tensors; a
+restore copies this rank's block and chunk of each.  Under ``tp`` /
+``fsdp+tp`` (:attr:`CheckpointManager.placement`, the trainer's
+``MeshEnv``) every split tensor is gathered whole over the model
 axis too (after FSDP's gather over the data axis), in the JAX package's
 order, and a restore takes each rank's block of the whole tensors: a
 checkpoint of any topology restores into any other.
@@ -198,6 +200,13 @@ def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
             + _adam_leaves(state))
 
 
+def _param_name(leaf: str) -> str:
+    """The parameter a leaf of :func:`state_leaves` is placed like:
+    ``model.<p>`` / ``ema.<p>`` / ``adam.<p>.<key>`` -> ``<p>``."""
+    kind, rest = leaf.split(".", 1)
+    return rest.rsplit(".", 1)[0] if kind == "adam" else rest
+
+
 def _expected(state: TrainState, with_adam: bool, placement=None
               ) -> List[Tuple[str, tuple, str]]:
     """(name, shape, dtype) of every tensor a checkpoint of ``state`` holds
@@ -323,12 +332,11 @@ class CheckpointManager:
                         f"refusing to relabel it mode={self.mode!r} -- use "
                         "a fresh checkpoint directory")
                 os.makedirs(directory, exist_ok=True)
-                with open(marker, "w") as f:
+                # Renamed into place: another rank's manager may read it.
+                tmp = f"{marker}.{os.getpid()}.tmp"
+                with open(tmp, "w") as f:
                     json.dump({"mode": self.mode}, f)
-        if self.mode == "full_sliced" and world_size() > 1:
-            raise ValueError(
-                "ckpt mode 'full_sliced' is single-host only "
-                f"(process_count={world_size()}); use 'full'")
+                os.replace(tmp, marker)
         self._write_retry = write_retry or _DEFAULT_WRITE_RETRY
         self._async = bool(async_writes) and self.mode == "full_sliced"
         self._lock = threading.Lock()
@@ -337,6 +345,9 @@ class CheckpointManager:
         self._queue: queue.Queue = queue.Queue()
         self._inflight = threading.Semaphore(_MAX_INFLIGHT)
         self._writer: Optional[threading.Thread] = None
+        #: Under a process group: the steps this manager snapshotted, so
+        #: every rank takes the same decision (only rank 0 writes).
+        self._taken: set = set()
 
     # ---- listing ------------------------------------------------------
 
@@ -443,6 +454,12 @@ class CheckpointManager:
             torch.cuda.current_stream(dev).synchronize()
         arrays, meta = [], []
         for i, (name, t) in enumerate(leaves):
+            if world_size() > 1:
+                # A collective where the state is split or sharded: every
+                # rank gathers, rank 0 keeps the whole tensor.
+                t = self._whole(_param_name(name), t.detach())
+                if not is_primary():
+                    continue
             host = _FETCH_RETRY.call(
                 lambda t=t: t.detach().to("cpu", copy=True),
                 describe=f"sliced save: tensor {i} ({name}) fetch")
@@ -479,9 +496,13 @@ class CheckpointManager:
         step = state.step
         with self._lock:
             pending = step in self._pending
-        if pending or os.path.exists(self.path(step)):
+        if pending or step in self._taken or os.path.exists(self.path(step)):
             return False
         snap = self._snapshot(state)
+        if world_size() > 1:
+            self._taken.add(step)
+            if not is_primary():
+                return True
         if not self._async:
             self._write_retry.call(lambda: self._commit(snap),
                                    describe=f"ckpt commit (step {step})")
@@ -659,8 +680,8 @@ class CheckpointManager:
         found = [(m["name"], tuple(m["shape"]), m["dtype"])
                  for m in manifest["leaves"]]
         with_adam = any(n.startswith("adam.") for n, _, _ in found)
-        _preflight(found, _expected(state, with_adam), self.path(step),
-                   step)
+        _preflight(found, _expected(state, with_adam, self.placement),
+                   self.path(step), step)
         self._note_reshard(step, manifest.get("mesh"))
         targets = dict(state_leaves(state))
         opt = state.optimizer
@@ -668,15 +689,23 @@ class CheckpointManager:
         with torch.no_grad():
             for i, meta in enumerate(manifest["leaves"]):
                 name, src = meta["name"], self._load_leaf(step, i, meta)
+                mine = (src if src.dim() == 0       # Adam's step count
+                        else self._local(_param_name(name), src))
                 if name in targets:
-                    targets[name].copy_(src)         # in place
+                    _copy_into(targets[name], mine)      # in place
                     continue
                 # Adam has made no state yet: make it as Adam would.
                 pname, key = name[len("adam."):].rsplit(".", 1)
                 p = params[pname]
-                capturable = opt.param_groups[0].get("capturable", False)
-                dev = p.device if (key != "step" or capturable) else "cpu"
-                opt.state[p][key] = src.to(dev, copy=True)
+                if key == "step":
+                    capturable = opt.param_groups[0].get("capturable",
+                                                         False)
+                    opt.state[p][key] = src.to(
+                        p.device if capturable else "cpu", copy=True)
+                else:
+                    buf = torch.zeros_like(p)
+                    _copy_into(buf, mine)
+                    opt.state[p][key] = buf
             if not with_adam:
                 # A checkpoint taken before the first update: Adam's
                 # moments are zero, in place where they exist.

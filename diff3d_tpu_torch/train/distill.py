@@ -27,12 +27,33 @@ reads.  The step's draws are taken before the replay, never inside it,
 and can be passed in (:class:`DistillDraws`), so a test replays the JAX
 package's ``randint`` and ``normal`` draws.
 
-With a data-parallel ``env`` (a ``MeshEnv`` with a process group, the
-replicated policy) each rank distils its ``batch / world`` rows: the draws
-are taken at the global batch's size and the rank keeps its rows, and the
-gradients and the loss are all-reduced over the data group before the
-update (inside the captured graph on the card), as in
-:mod:`~diff3d_tpu_torch.train.step`.
+Under a mesh (``env``, a ``MeshEnv`` with a process group) the step takes
+the train step's placements (:mod:`~diff3d_tpu_torch.train.step`), as the
+JAX package places the distill state by ``env.state_shardings`` and the
+teacher by ``env.params``:
+
+  * ``replicated`` / ``fsdp`` -- each data rank distils its ``batch /
+    data_size`` rows: the draws are taken at the global batch's size and
+    the rank keeps its rows; the whole parameters' gradients and the loss
+    are all-reduced over the data group before the update (inside the
+    captured graph on the card, ``replicated`` only), and under ``fsdp``
+    the sharded parameters' gradients are FSDP2's (reduce-scattered in the
+    backward), their norm summed over the data group.
+  * ``tp`` / ``fsdp+tp`` -- the student and the teacher are both split
+    over the model axis (the same blocks: the placement is keyed by
+    parameter name); the ranks of one model group take the same rows and
+    draws, and the global norm sums the split leaves' blocks over the
+    axis.
+  * ``context_parallel`` (``replicated``) -- both networks run their
+    image rows on each rank of the model axis and gather the output, so
+    every rank takes the whole loss; the bucket is all-reduced over the
+    world and divided by the data size, model rank 0's loss alone in it.
+
+Every placement but ``replicated`` without a model axis runs the step
+eagerly (``MeshEnv.eager_only``: FSDP2's gathers and the model axis's
+collectives are not captured); :func:`distill` then picks the eager step
+and a non-capturable Adam.  Context parallelism with a sharded placement
+stays refused (``MeshConfig.validate``, ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -43,6 +64,7 @@ import os
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from diff3d_tpu_torch.config import Config
 from diff3d_tpu_torch.data.images import dequantize
@@ -50,12 +72,12 @@ from diff3d_tpu_torch.diffusion import (alpha_sigma, ddim_step,
                                         logsnr_schedule_cosine,
                                         make_model_batch, q_sample)
 from diff3d_tpu_torch.graphs import StepGraph, use_cuda_graphs
-from diff3d_tpu_torch.train.checkpoint import CheckpointManager
+from diff3d_tpu_torch.train.checkpoint import CheckpointManager, _copy_into
 from diff3d_tpu_torch.train.state import (TrainState, create_train_state,
                                           set_schedule_step,
                                           warmup_schedule)
-from diff3d_tpu_torch.train.step import (INPUTS, GradSync, step_seed,
-                                         update_step)
+from diff3d_tpu_torch.train.step import (INPUTS, GradSync, _local,
+                                         step_seed, update_step)
 
 log = logging.getLogger(__name__)
 
@@ -164,22 +186,35 @@ def distill_loss(cfg: Config, student: torch.nn.Module,
 
 def _step_body(cfg: Config, state: TrainState, teacher: torch.nn.Module,
                names: Sequence[str], params: Sequence[torch.Tensor],
-               grads: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor],
-               u: torch.Tensor, noise: torch.Tensor, k: torch.Tensor,
-               sync: GradSync):
-    """Loss, its gradients into ``grads`` (the parameters' ``.grad``, views
-    of ``sync``'s bucket), the bucket with the loss all-reduced over the
-    data group (a no-op without one), then the train step's update (global
-    norm, clipping, Adam, EMA).  Returns ``(loss, grad_norm)``; reads no
-    host value."""
-    torch._foreach_zero_(list(grads))
+               batch: Dict[str, torch.Tensor], u: torch.Tensor,
+               noise: torch.Tensor, k: torch.Tensor, sync: GradSync, *,
+               backward: bool = False, shard_group=None, axis=None,
+               split: Sequence[bool] = ()):
+    """Loss, its gradients into the parameters' ``.grad`` (the whole
+    parameters' are views of ``sync``'s bucket), the bucket with the loss
+    all-reduced over its group (a no-op without one), then the train
+    step's update (global norm, clipping, Adam, EMA).  ``backward``
+    (FSDP): ``loss.backward()``, so FSDP2 reduce-scatters the sharded
+    parameters' gradients (their ``.grad`` None before it, zero after it
+    where the loss misses them); ``shard_group`` / ``axis`` / ``split``:
+    :func:`~diff3d_tpu_torch.train.step.update_step`'s.  Returns ``(loss,
+    grad_norm)``; reads no host value."""
+    torch._foreach_zero_(sync.grads)
     loss = distill_loss(cfg, state.model, teacher, batch, u, noise, k)
-    got = torch.autograd.grad(loss, params, allow_unused=True)
-    used = [(a, g) for a, g in zip(grads, got) if g is not None]
-    torch._foreach_add_([a for a, _ in used], [g for _, g in used])
+    if backward:
+        loss.backward()
+    else:
+        got = torch.autograd.grad(loss, params, allow_unused=True)
+        used = [(p.grad, g) for p, g in zip(params, got) if g is not None]
+        torch._foreach_add_([a for a, _ in used], [g for _, g in used])
     sync.total.copy_(loss.detach())
     sync.reduce()
-    return update_step(cfg, state, names, params, grads, sync.total)
+    for p in params:
+        if p.grad is None:               # a sharded leaf the loss misses
+            p.grad = torch.zeros_like(p)
+    return update_step(cfg, state, names, params, [p.grad for p in params],
+                       sync.total, shard_group=shard_group, axis=axis,
+                       split=split)
 
 
 class DistillStep:
@@ -204,19 +239,36 @@ class DistillStep:
         # One microbatch: update_step divides by accum_steps.
         self.cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, accum_steps=1))
-        self.cuda_graphs = cuda_graphs
         self.sched = warmup_schedule(cfg.train)
         self._gen: Optional[torch.Generator] = None
         self._captured: Optional[dict] = None
-        if env is not None and env.cfg.param_sharding != "replicated":
-            raise ValueError("distillation is data-parallel under the "
-                             "replicated policy only")
-        if env is not None and env.context_parallel:
-            raise ValueError("distillation under context_parallel waits "
-                             "for ROADMAP A10c")
+        if env is not None:
+            # Context parallelism with a sharded placement: refused
+            # (ROADMAP A10b).
+            env.cfg.validate()
+        self.env = env
         self.group = None if env is None else env.group
+        # The data axis keys the rows and the draws: the ranks of one
+        # model group take the same ones.
         self.world = 1 if env is None else env.data_size
         self.rank = 0 if env is None else env.data_rank
+        self.fsdp = env is not None and env.cfg.param_sharding in (
+            "fsdp", "fsdp+tp")
+        self.axis = None if env is None else env.model_axis
+        #: Context parallelism: the bucket's group (the world), divisor
+        #: (the data size) and whether this rank's loss enters it.
+        self.rows = None
+        if env is not None and env.context_parallel:
+            self.rows = (dist.group.WORLD, env.data_size,
+                         env.model_rank == 0)
+        if env is not None and env.eager_only and cuda_graphs:
+            raise ValueError(
+                f"param_sharding={env.cfg.param_sharding!r}"
+                f"{' with context_parallel' if self.rows else ''} runs the "
+                "distill step eagerly: FSDP2 all-gathers on side streams "
+                "and the model axis's collectives are not captured "
+                "(cuda_graphs=True refused)")
+        self.cuda_graphs = cuda_graphs
         self._sync: Optional[GradSync] = None
 
     @property
@@ -263,12 +315,18 @@ class DistillStep:
             # attributes, library plans, Adam's state) before a capture.
             self.release()
             sync.zero()
-            grads = sync.grads
+            for p in params:
+                if _local(p) is not p:
+                    p.grad = None            # FSDP2 reduce-scatters into it
             k = torch.full((), float(student_steps), dtype=torch.float32,
                            device=device)
-            loss, grad_norm = _step_body(self.cfg, state, teacher, names,
-                                         params, grads, batch, u, noise, k,
-                                         sync)
+            split = ([self.env.is_split(n) for n in names]
+                     if self.axis is not None else ())
+            loss, grad_norm = _step_body(
+                self.cfg, state, teacher, names, params, batch, u, noise, k,
+                sync, backward=self.fsdp,
+                shard_group=self.group if self.fsdp else None,
+                axis=self.axis, split=split)
             loss = loss.clone()
             if self.cuda_graphs:
                 self._capture(state, teacher, batch, names, params, u,
@@ -278,8 +336,12 @@ class DistillStep:
         return {"distill_loss": loss, "lr": lr, "grad_norm": grad_norm}
 
     def _bucket(self, params) -> GradSync:
-        if self._sync is None or self._sync.key != tuple(map(id, params)):
-            self._sync = GradSync(params, self.group)
+        """The gradient bucket of ``params`` (their unsharded ones under
+        FSDP), made on first use."""
+        whole = [p for p in params if _local(p) is p]
+        if self._sync is None or self._sync.key != tuple(map(id, whole)):
+            self._sync = (GradSync(whole, self.group) if self.rows is None
+                          else GradSync(whole, *self.rows))
         return self._sync
 
     @staticmethod
@@ -307,10 +369,9 @@ class DistillStep:
         inputs = {k: batch[k].clone() for k in INPUTS}
         u_buf, noise_buf = u.clone(), noise.clone()
         k_buf = torch.zeros((), dtype=torch.float32, device=u.device)
-        grads = [p.grad for p in params]
         graph = StepGraph(lambda: _step_body(
-            cfg, state, teacher, names, params, grads, inputs, u_buf,
-            noise_buf, k_buf, self._sync))
+            cfg, state, teacher, names, params, inputs, u_buf, noise_buf,
+            k_buf, self._sync))
         self._captured = {"key": self._key(state, teacher, batch, params),
                           "graph": graph, "inputs": inputs, "u": u_buf,
                           "noise": noise_buf, "k": k_buf}
@@ -320,7 +381,9 @@ def make_distill_step(cfg: Config, cuda_graphs: bool = False,
                       env=None) -> DistillStep:
     """The distill step of ``cfg`` (:class:`DistillStep`); ``cuda_graphs``
     captures it as one CUDA graph (a CUDA device only); ``env`` (a
-    ``MeshEnv`` with a process group) makes it data-parallel."""
+    ``MeshEnv`` with a process group) places it over the mesh (see the
+    module docstring; the state and the teacher placed by
+    ``env.params``)."""
     return DistillStep(cfg, cuda_graphs=cuda_graphs, env=env)
 
 
@@ -330,18 +393,32 @@ def start_round(state: TrainState, teacher: torch.nn.Module) -> None:
     counters zero, the schedule and the step at 0 -- bit for bit
     ``create_train_state`` of a copy of the teacher, with every tensor at
     its address (the JAX package builds a fresh state, ``distill.py:247``,
-    which re-zeroes Adam and restarts the warmup)."""
+    which re-zeroes Adam and restarts the warmup).  The teacher is placed
+    as the student is (the same blocks and FSDP chunks), so the copies go
+    leaf for leaf on each rank's local tensors."""
     with torch.no_grad():
         for (name, p), tp in zip(state.model.named_parameters(),
                                  teacher.parameters()):
-            p.copy_(tp)
-            state.ema[name].copy_(tp)
+            _local(p).copy_(_local(tp))
+            _local(state.ema[name]).copy_(_local(tp))
         for st in state.optimizer.state.values():
             for t in st.values():
                 if torch.is_tensor(t):
-                    t.zero_()
+                    _local(t).zero_()
     set_schedule_step(state, 0)
     state.step = 0
+
+
+def _load_teacher(teacher: torch.nn.Module,
+                  src: Mapping[str, torch.Tensor], env=None) -> None:
+    """Copy the whole weights ``src`` (parameter name -> tensor) into the
+    placed ``teacher``: each parameter takes its model-axis block
+    (``env.local_of``) and, under FSDP, its chunk of that."""
+    with torch.no_grad():
+        for name, p in teacher.named_parameters():
+            whole = src[name].to(p.device)
+            _copy_into(p, whole if env is None else env.local_of(name,
+                                                                 whole))
 
 
 def distill(model: torch.nn.Module, cfg: Config,
@@ -352,23 +429,31 @@ def distill(model: torch.nn.Module, cfg: Config,
             log_every: int = 100,
             step_fn: Optional[DistillStep] = None, env=None):
     """Run the halving rounds; returns ``(params, history)``: the last
-    round's EMA (parameter name -> tensor) and one record per round.
+    round's EMA (parameter name -> whole tensor) and one record per round.
 
-    ``model`` is the student ``XUNet`` on its device (its weights are
-    overwritten), ``teacher_params`` the first teacher's weights by
-    parameter name (e.g. a ``Trainer`` checkpoint's EMA), ``batches`` any
-    iterator of trainer-contract batches on that device (drained across
-    rounds: ``rounds * round_steps`` batches).  Per round ``k``: the
-    student starts from the teacher (:func:`start_round`), trains
-    ``round_steps`` steps at ``k`` student steps, and its EMA becomes the
-    next round's teacher.  With ``workdir`` each round lands in
-    ``<workdir>/steps_<k>/`` through the asynchronous ``full_sliced``
+    ``model`` is the student ``XUNet`` on its device, not yet placed (its
+    weights are overwritten), ``teacher_params`` the first teacher's whole
+    weights by parameter name (e.g. a ``Trainer`` checkpoint's EMA),
+    ``batches`` any iterator of trainer-contract batches on that device
+    (drained across rounds: ``rounds * round_steps`` batches).  Per round
+    ``k``: the student starts from the teacher (:func:`start_round`),
+    trains ``round_steps`` steps at ``k`` student steps, and its EMA
+    becomes the next round's teacher.  With ``workdir`` each round lands
+    in ``<workdir>/steps_<k>/`` through the asynchronous ``full_sliced``
     checkpoint path, saved and awaited before the next round starts, so a
     run cut short restarts from the last finished round.  ``step_fn``: the
-    step to run (default :func:`make_distill_step` on the graph path on a
-    CUDA device, eager elsewhere, data-parallel over ``env``'s group, whose
-    ranks each pass their rows of every batch); its draws come from
-    ``cfg.train.seed``."""
+    step to run (default :func:`make_distill_step` over ``env``, on the
+    graph path on a CUDA device where the placement allows it, eager
+    elsewhere); its draws come from ``cfg.train.seed``.
+
+    ``env`` (a ``MeshEnv``; every rank calls this with the same arguments
+    but its own rows of every batch, ``batch / data_size``): the student
+    and the teacher are placed by ``env.params`` (the model axis's blocks
+    or row split, then FSDP2), the first teacher's weights copied in as
+    each rank's block and chunk, and each round's checkpoint gathered
+    whole (written by rank 0, in the one-process format, the mesh stamped
+    into it), so a round saved on one topology restores on any other.
+    The returned tensors are gathered whole on every rank."""
     from diff3d_tpu_torch.models.xunet import XUNet
 
     rounds = distill_schedule(cfg.diffusion.timesteps,
@@ -376,17 +461,25 @@ def distill(model: torch.nn.Module, cfg: Config,
                               if start_steps is None else start_steps,
                               final_steps)
     device = next(model.parameters()).device
+    eager = env is not None and env.eager_only
     if step_fn is None:
         step_fn = make_distill_step(
-            cfg, cuda_graphs=use_cuda_graphs(None, device), env=env)
+            cfg, cuda_graphs=use_cuda_graphs(False if eager else None,
+                                             device),
+            env=env if env is not None and env.group is not None else None)
     teacher = XUNet(model.cfg).to(device).eval().requires_grad_(False)
-    state = create_train_state(model.eval(), cfg.train)
+    if env is not None:
+        model, teacher = env.params(model), env.params(teacher)
+    state = create_train_state(model.eval(), cfg.train,
+                               capturable=False if eager else None)
     history = []
     for r, k in enumerate(rounds):
-        src = teacher_params if r == 0 else state.ema
-        with torch.no_grad():
-            for name, p in teacher.named_parameters():
-                p.copy_(src[name])
+        if r == 0:
+            _load_teacher(teacher, teacher_params, env)
+        else:
+            with torch.no_grad():
+                for name, p in teacher.named_parameters():
+                    _local(p).copy_(_local(state.ema[name]))
         start_round(state, teacher)
         metrics: Dict[str, object] = {}
         for n in range(round_steps):
@@ -400,9 +493,19 @@ def distill(model: torch.nn.Module, cfg: Config,
             ckpt_dir = os.path.join(workdir, f"steps_{k}")
             mgr = CheckpointManager(ckpt_dir, keep=1, mode="full_sliced",
                                     async_writes=True)
+            if env is not None:
+                mgr.mesh_info = env.topology_summary()
+                if env.tensor_parallel:
+                    mgr.placement = env
             mgr.save(state, force=True)
             mgr.wait_until_finished()
             mgr.close()
+            if env is not None and env.group is not None:
+                # Rank 0 wrote it: every rank returns once it is on disk.
+                dist.barrier(env.cpu_world_group)
             entry["checkpoint"] = ckpt_dir
         history.append(entry)
-    return {k: v.clone() for k, v in state.ema.items()}, history
+    if env is None:
+        return {k: v.clone() for k, v in state.ema.items()}, history
+    return ({k: env.full_of(k, v).clone() for k, v in state.ema.items()},
+            history)

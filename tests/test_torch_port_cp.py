@@ -480,15 +480,32 @@ def test_a_model_whose_rows_do_not_split_is_refused(mp, imgsize, shallow,
 
 
 def test_distillation_under_cp_is_refused_naming_a10c():
-    """Distillation under the row split waits for ROADMAP A10c: its step
-    refuses a context-parallel mesh rather than run the unsplit model on
-    every rank."""
+    """Distillation under the row split (ROADMAP A10c, ported): the cp
+    distill step takes the train step's bucket, all-reduced over the
+    world and divided by the data size, model rank 0's loss alone in it,
+    and runs eagerly (``test_torch_port_distill_parallel.py`` runs it on
+    ranks)."""
     from types import SimpleNamespace
+
+    import torch.distributed as dist
 
     from diff3d_tpu_torch.train.distill import DistillStep
 
-    env = SimpleNamespace(cfg=MeshConfig(model_parallel=2,
-                                         context_parallel=True),
-                          context_parallel=True)
-    with pytest.raises(ValueError, match="A10c"):
-        DistillStep(dp_worker.tiny_config(), env=env)
+    params = list(build_model(dp_worker.tiny_config().model,
+                              "cpu").parameters())
+    for model_rank in (0, 1):
+        env = SimpleNamespace(
+            cfg=MeshConfig(data_parallel=2, model_parallel=2,
+                           context_parallel=True),
+            context_parallel=True, eager_only=True, group=None,
+            data_size=2, data_rank=1, model_rank=model_rank,
+            model_axis=None)
+        step = DistillStep(dp_worker.tiny_config(), env=env)
+        assert step.rows == (dist.group.WORLD, 2, model_rank == 0)
+        assert (step.rank, step.world) == (1, 2)
+        sync = step._bucket(params)
+        assert sync.group is dist.group.WORLD
+        assert (sync.world, sync.with_loss) == (2, model_rank == 0)
+        assert not step.cuda_graphs
+        with pytest.raises(ValueError, match="cuda_graphs=True"):
+            DistillStep(dp_worker.tiny_config(), cuda_graphs=True, env=env)

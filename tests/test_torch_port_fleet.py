@@ -402,7 +402,7 @@ def test_serve_cli_replicas_and_per_replica_schedules():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh"], ["--pallas"], ["--replicas", "0"],
+    ["--mesh"], ["--replicas", "0"],
     ["--schedules", "0@ddim:2"], ["--replicas", "2", "--schedules",
                                   "2@ddim:2"],
     ["--replicas", "2", "--schedules", "x@ddim:2"],
@@ -415,3 +415,26 @@ def test_serve_cli_flags_that_stay_refused_exit_non_zero(argv):
         serve_cli.build_service(serve_cli.build_parser().parse_args(
             BASE + argv))
     assert ei.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("argv,fleet", [([], False),
+                                        (["--replicas", "2"], True)])
+def test_serve_cli_accepts_pallas_and_logs_it(argv, fleet, caplog):
+    """``--pallas`` names the kernels the port runs on the card anyway:
+    accepted and logged, for the single engine and for ``--replicas 2``,
+    and the service serves a request."""
+    import logging
+
+    caplog.set_level(logging.INFO)
+    svc = serve_cli.build_service(serve_cli.build_parser().parse_args(
+        BASE + ["--pallas", "--sampler_steps", "2"] + argv))
+    assert isinstance(svc, prouter.FleetService) == fleet
+    assert any(r.getMessage().startswith("--pallas: the hand-written CUDA")
+               for r in caplog.records)
+    try:
+        svc.start(serve_http=True)
+        status, body = _post(svc.port, _payload(0))
+        assert status == 200 and body["shape"] == [2, 8, H, H, 3]
+        assert np.isfinite(np.asarray(body["views"])).all()
+    finally:
+        svc.stop(drain_s=1.0)

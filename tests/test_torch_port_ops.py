@@ -455,7 +455,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     files += [REPO / "chip_smoke.py",
               REPO / "tests" / "_torch_port_parallel_worker.py",
               REPO / "tests" / "_torch_port_tp_worker.py",
-              REPO / "tests" / "_torch_port_cp_worker.py"]
+              REPO / "tests" / "_torch_port_cp_worker.py",
+              REPO / "tests" / "_torch_port_distill_worker.py"]
     assert len(files) > 15
     for path in files:
         for mod in _imports(path):

@@ -767,7 +767,7 @@ def test_serve_cli_serves_on_the_cpu():
 @pytest.mark.parametrize("argv", [
     ["--replicas", "0"], ["--schedules", "0@ddim:2"],
     ["--schedules", "ddim"], ["--workers", "127.0.0.1:1"], ["--mesh"],
-    ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"], ["--pallas"],
+    ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"],
     ["--sampler_steps", "3"], ["--max_batch", "0"]])
 def test_serve_cli_refuses(argv):
     base = ["--init", "random", "--config", "test", "--device", "cpu",
