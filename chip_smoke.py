@@ -210,10 +210,12 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      --standalone --nproc_per_node 1`` launch of this script
      (``--torchrun-entry-points``) that runs ``train_cli.main
      --param_sharding fsdp`` (2 steps), then ``eval_cli.main --mesh`` on
-     its checkpoint (1 object, DDIM 4), in the group torchrun's
-     environment names (one start-up for both): exit 0,
-     the checkpoint's manifest carries the topology, finite PSNR; the
-     torchrun start-up seconds.  (c) runs after (d).
+     its checkpoint (1 object, DDIM 4), then ``serve_cli.main --mesh``
+     on that checkpoint (rank 0 of the mesh at world 1: 2 HTTP requests,
+     then SIGTERM), in the group torchrun's environment names (one
+     start-up for all three): exit 0, the checkpoint's manifest carries
+     the topology, finite PSNR, two finite answers; the torchrun start-up
+     seconds.  (c) runs after (d).
  11a'. tensor_parallel — the ``tp`` placement over a model axis of two
      processes sharing the card (gloo; its collectives staged through
      pinned host memory; the two processes of 11a (c), which run this
@@ -258,12 +260,12 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      one one-rank distill step; Adam's state then set so that each update
      is linear in its gradient), restored into the placed student
      through ``CheckpointManager``, the teacher's whole weights placed
-     like it, 2 eager distill steps at k = 8 and global batch 8 against
-     one rank's: losses, gradient norms and lrs within 1e-2, each leaf's
+     like it, 1 eager distill step (cut from 2) at k = 8 and global
+     batch 8 against one rank's: losses, gradient norms and lrs within 1e-2, each leaf's
      update within (c)'s gate; then the first step retaken from the start
      with ``copy``'s backward unsummed, which the gate must refuse with
-     its loss bit-identical; the launch counts set to 0 before the 2
-     steps and read after: rows 1 (teacher and student), 2, 3-4, 5 and 6
+     its loss bit-identical; the launch counts set to 0 before the step
+     and read after: rows 1 (teacher and student), 2, 3-4, 5 and 6
      on each rank, no plain version called.
  11a''. context_parallel — ``MeshConfig.context_parallel`` (the
      ``replicated`` placement) over a model axis of the same two
@@ -296,6 +298,37 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      with the row split, its control the halo's backward add removed:
      the split-statistics (a)-(d) and rows 3-6 launched on each rank, the
      unsplit GroupNorm never, no plain version called.
+ 11a'''. serve_mesh — serving over a data=2 mesh of the same two
+     processes (after their cp ranks; the one-process references on this
+     process after them), srn64 at full width, seeded random weights,
+     views of 8 ancestral steps (fewer broke the serve phase's
+     late-request check):
+     a ``ServingService`` over ``Sampler(mesh)`` and a ``RankChannel``
+     (rank 0 leads: its engine sends each view step's plan; rank 1
+     follows), the weights' digests equal; lanes 2 and 4 warmed on both
+     ranks; 3 requests at once (4 lanes, 2 a rank), a fourth admitted and
+     a weights swap (every weight x 1.01) staged after the first view
+     step, both landing at the second; the last view of the fourth alone
+     (2 lanes).  Every rank's views of every step bit-identical; each
+     view step again on one process, each rank's share of the leader's
+     plan (records, lengths, the lanes' generator states, the weights of
+     its generation) at the rank's shape, bit-identical; the swapped
+     weights in float32 (TF32 off) serving the same traffic without the
+     swap at one lane a rank (max_batch 2; views of 4 steps), each
+     request against one process's engine at one lane a call on the same
+     traffic (rel. L2 1e-4: rank 1's lanes end to end, the generator
+     states it hands back included), and the bf16 requests' rel. L2 to one process's
+     engine (4 lanes a call where a rank runs 2) reported beside them (no
+     gate: bf16 rounding at two batch shapes); the launch counts set
+     to 0 before the bf16 service and read after its stop: rows 1 and 3
+     launched on each rank for its share, 101 and 30 a model call, no
+     plain version called; s per view step by lanes beside the serve
+     phase's (one process, the same config),
+     the staged gather's calls, bytes and ms; then ``boot_worker`` over
+     the same two ranks (both on ``cuda:0``, gloo): the boot's seconds,
+     one session through its socket, finite views; rows 1 and 3 at a
+     rank's 2-lane sites, the ranks in turn, against their plain versions
+     and timed.
  11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
      (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
@@ -3975,29 +4008,34 @@ def phase_parallel(graph_run):
     eval_argv = ["--mesh", "--model", ckpts, "--synthetic_scenes",
                  "--objects", "1", "--max_views", "3", "--sampler", "ddim",
                  "--sampler_steps", "4"]
+    serve_argv = ["--mesh", "--model", ckpts, "--sampler_steps",
+                  str(SERVE_STEPS), "--max_batch", "2", "--max_wait_ms", "0",
+                  "--drain_s", "5"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", os.path.abspath(__file__),
            "--torchrun-entry-points", *train_argv, "--then-eval",
-           *eval_argv]
+           *eval_argv, "--then-serve", *serve_argv]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     entry = {"train_cli": {"rc": proc.returncode,
                            "wall_s": round(time.perf_counter() - t0, 3)}}
     if proc.returncode:
-        raise AssertionError(f"parallel: torchrun train_cli + eval_cli "
-                             f"exited {proc.returncode}: "
+        raise AssertionError(f"parallel: torchrun train_cli + eval_cli + "
+                             f"serve_cli exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     lines = proc.stdout.strip().splitlines()
     marks = json.loads(lines[-1])
     entry["eval_cli"] = {"rc": 0, "wall_s": marks["eval_s"],
                          "line": json.loads(lines[-2])}
+    entry["serve_cli"] = {"rc": 0, "wall_s": marks["serve_s"],
+                          "answers": marks["serve_answers"]}
     with open(os.path.join(wd["torchrun"], "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f if ln.strip()]
     entry["train_cli"]["train_wall_s"] = recs[-1]["wall_s"]
     entry["train_cli"]["startup_s"] = round(
-        entry["train_cli"]["wall_s"] - marks["eval_s"] - recs[-1]["wall_s"],
-        3)
+        entry["train_cli"]["wall_s"] - marks["eval_s"] - marks["serve_s"]
+        - recs[-1]["wall_s"], 3)
     saved = torch.load(os.path.join(ckpts, f"ckpt_{FSDP_STEPS}.pt"),
                        map_location="cpu", weights_only=True)
     manifest_mesh = saved.get("mesh")
@@ -4005,6 +4043,10 @@ def phase_parallel(graph_run):
     shutil.rmtree(PARALLEL_WORKDIR, ignore_errors=True)
     evalrec = entry["eval_cli"]["line"]
     eval_ok = all(math.isfinite(evalrec[k]) for k in ("psnr", "ssim"))
+    served = entry["serve_cli"]["answers"]
+    serve_ok = len(served) == 2 and all(
+        a["status"] == 200 and a["finite"] and a["shape"][0] == 2
+        and a["shape"][2:] == [64, 64, 3] for a in served)
 
     # (c) Two processes on the card over gloo: ring and Ulysses, then, in
     # the same processes, phase tensor_parallel's ranks (its one-rank
@@ -4018,9 +4060,11 @@ def phase_parallel(graph_run):
     ranks = [b["ring"] for b in both]
     ring_s = max(b["ring_s"] for b in both)
     cp_s = max(b["cp_s"] for b in both)
+    mesh_s = max(b["mesh_s"] for b in both)
     tp_run = (tp_prep, [b["tp"] for b in both],
-              time.perf_counter() - t0 - ring_s - cp_s)
+              time.perf_counter() - t0 - ring_s - cp_s - mesh_s)
     cp_run = (tp_prep, [b["cp"] for b in both], cp_s)
+    mesh_run = ([b["mesh"] for b in both], mesh_s)
     launched = all(r["ring_launches"]["flash_attention"] > 0
                    and r["ring_launches"]["attention_backward_dkdv"] > 0
                    and r["ring_launches"]["attention_backward_dq"] > 0
@@ -4082,9 +4126,9 @@ def phase_parallel(graph_run):
     if not (out["ring_ulysses"]["within_tol"] and launched):
         raise AssertionError(f"parallel: ring / Ulysses: {ranks}")
     if not (manifest_mesh and manifest_mesh.get("param_sharding") == "fsdp"
-            and eval_ok):
+            and eval_ok and serve_ok):
         raise AssertionError(f"parallel: torchrun: {manifest_mesh}, "
-                             f"{evalrec}")
+                             f"{evalrec}, serve_cli --mesh {served}")
     # The bounds of the work the kernel rows time: one ring block (q of
     # n rows against n keys; the lse and its cotangent in f32) and
     # Ulysses' local heads over all L tokens.
@@ -4118,7 +4162,7 @@ def phase_parallel(graph_run):
             + ranks[0]["ring_launches"]["attention_backward_dq"]),
         "flash_attention@ulysses": ranks[0]["ulysses_launches"][
             "flash_attention"]}
-    return out, tp_run, cp_run
+    return out, tp_run, cp_run, mesh_run
 
 
 # ---- tensor parallelism: the model axis over 2 ranks on the card ------------
@@ -4360,7 +4404,7 @@ def _tp_leaves(state):
 # ---- distillation over the model axis: the tp and cp phases' legs ----------
 
 DISTILL_LEG_K = 8               # the legs' student steps
-DISTILL_LEG_STEPS = 2
+DISTILL_LEG_STEPS = 1           # the legs' eager steps (cut from 2)
 DISTILL_LEG_TOL = 1e-2          # losses, gradient norms, lrs (rel.): bf16
 DISTILL_LEG_DIR = os.path.join(TP_WORKDIR, "distill")
 DISTILL_LEG_TEACHER = os.path.join(TP_WORKDIR, "distill_teacher.pt")
@@ -4805,16 +4849,19 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
 def gloo_rank(rank: int, world: int, tp_workdir: str,
               cp_workdir: str) -> dict:
     """One of phase ``parallel`` (c)'s two processes: its ring and
-    Ulysses rank, then phase ``tensor_parallel``'s rank, then phase
-    ``context_parallel``'s."""
+    Ulysses rank, then phase ``tensor_parallel``'s rank, phase
+    ``context_parallel``'s, then phase ``serve_mesh``'s."""
     t0 = time.perf_counter()
     ring = ring_rank(rank, world)
     t1 = time.perf_counter()
     tp = tp_rank(rank, world, tp_workdir)
     t2 = time.perf_counter()
     cp = cp_rank(rank, world, cp_workdir)
+    t3 = time.perf_counter()
+    mesh = serve_mesh_rank(rank, world)
     return {"ring": ring, "ring_s": t1 - t0, "tp": tp, "tp_s": t2 - t1,
-            "cp": cp, "cp_s": time.perf_counter() - t2}
+            "cp": cp, "cp_s": t3 - t2, "mesh": mesh,
+            "mesh_s": time.perf_counter() - t3}
 
 
 def tp_prepare():
@@ -5724,6 +5771,422 @@ def phase_context_parallel(prep, ranks, ranks_s):
     return out
 
 
+# ---- serving over a data=2 mesh: 2 ranks on the card -------------------------
+
+MESH_LANES = (2, 4)             # the lane counts warmed and served
+MESH_VIEWS = 3                  # views a request (2 view steps)
+MESH_F32_TOL = 1e-4             # the float32 copy's views, rel. L2
+MESH_F32_LANES = 2              # the float32 leg's max_batch (1 a rank)
+MESH_F32_STEPS = 4              # the float32 leg's steps a view
+MESH_ROW_CALLS = {"fused_groupnorm": 101, "flash_attention": 30}
+MESH_WAIT_S = 120.0             # every request's wait
+
+
+def _mesh_cfg(max_batch=max(MESH_LANES)):
+    """srn64 at full width, served at ``SERVE_STEPS`` ancestral steps a
+    view, ``max_batch`` lanes at most."""
+    from diff3d_tpu_torch.config import srn64_config
+
+    cfg = srn64_config()
+    return dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, port=0, max_batch=max_batch, max_views=4,
+        max_wait_ms=500.0))
+
+
+def _mesh_service(cfg, model, mesh=None, ranks=None, steps=SERVE_STEPS):
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.serving import ServingService
+
+    return ServingService(Sampler(model, cfg, device="cuda", mesh=mesh,
+                                  steps=steps), cfg, ranks=ranks)
+
+
+def _mesh_swap(model):
+    """The swap's weights: every floating-point tensor x 1.01 (the serve
+    phase's + 0.05 drives one lane's bf16 view to NaN at 2 lanes a call,
+    on one process as on the mesh: PERF.md section 7)."""
+    return {k: (v * 1.01 if v.is_floating_point() else v.clone())
+            for k, v in model.state_dict().items()}
+
+
+def _mesh_traffic(svc, swap_state=None):
+    """Three requests at once; after the first view step (on the engine
+    thread, so both land at the second) a fourth request and the swap
+    (``swap_state``, if any).  Returns the results in order and each view
+    step's wall seconds and lanes (the leader's, or one process's)."""
+    import torch
+
+    from diff3d_tpu_torch.serving import lane_count
+
+    eng = svc.engine
+    inner, log, late = eng._run_view_step, [], []
+
+    def timed(active):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(active)
+        log.append({"lanes": lane_count(len(active), eng.max_batch,
+                                        eng.lane_multiple),
+                    "live": len(active), "s": time.perf_counter() - t0})
+        if len(log) == 1:
+            if swap_state is not None:
+                eng.registry.swap(swap_state, version="swapped")
+            late.append(svc.submit(_serve_payload(
+                orbit_views(MESH_VIEWS, 64, 73), 73)))
+
+    eng._run_view_step = timed
+    svc.start(serve_http=False)
+    reqs = [svc.submit(_serve_payload(orbit_views(MESH_VIEWS, 64, 70 + i),
+                                      70 + i)) for i in range(3)]
+    out = [r.result(timeout=MESH_WAIT_S) for r in reqs]
+    out += [late[0].result(timeout=MESH_WAIT_S)]
+    svc.stop()
+    return out, log
+
+
+def _mesh_bucket(cfg):
+    from diff3d_tpu_torch.sampling import record_capacity
+    from diff3d_tpu_torch.serving import Bucket
+
+    return Bucket(cfg.model.H, cfg.model.W,
+                  record_capacity(cfg.serving.max_views), SERVE_STEPS,
+                  "ancestral")
+
+
+def _mesh_recorder(eng):
+    """Every view step the engine's program cache runs on this rank:
+    lanes, the weights generation, the returned views (every lane's)."""
+    steps, inner = [], eng.programs.step_many
+
+    def step_many(bucket, lanes, *args, **kw):
+        got = inner(bucket, lanes, *args, **kw)
+        steps.append({"lanes": int(lanes),
+                      "generation": kw.get("generation", 0),
+                      "views": got[0].float().cpu()})
+        return got
+
+    eng.programs.step_many = step_many
+    return steps
+
+
+def serve_mesh_rank(rank: int, world: int) -> dict:
+    """One rank of phase ``serve_mesh`` (see the module docstring), on
+    the card with the other rank over gloo: rank 0 leads."""
+    import torch
+    import torch.distributed as dist
+
+    from diff3d_tpu_torch.config import MeshConfig
+    from diff3d_tpu_torch.parallel import make_mesh
+    from diff3d_tpu_torch.serving.ranks import RankChannel
+
+    marks = {"start": time.perf_counter()}
+    torch.cuda.set_device(0)
+    group = dist.group.WORLD
+    cfg = _mesh_cfg()
+    env = make_mesh(MeshConfig())
+    ranks = RankChannel(env)
+    model = random_model(cfg)
+    out = {"rank": rank, "backend": dist.get_backend(group),
+           "digest": ranks.sync_weights(model)}
+    marks["model"] = time.perf_counter()
+
+    # The bf16 service: the launch counts set to 0 before, read after.
+    sites = _Sites()
+    _launch_counts(reset=True)
+    with sites:
+        svc = _mesh_service(cfg, model, env, ranks)
+        eng = svc.engine
+        sampler = eng.sampler
+        steps = _mesh_recorder(eng)
+        plans, make_plan = [], eng._plan
+
+        def plan_of(active):        # the leader's plans, kept
+            plans.append(make_plan(active))
+            return plans[-1]
+
+        eng._plan = plan_of
+        if rank:
+            svc.engine.follow()
+        else:
+            t0 = time.perf_counter()
+            for lanes in MESH_LANES:
+                eng.warmup(_mesh_bucket(cfg), lanes)
+            out["warmup_s"] = time.perf_counter() - t0
+            out["results"], out["step_log"] = _mesh_traffic(
+                svc, _mesh_swap(model))
+    out["launches"] = _launch_counts(graphs=list(sampler.graphs.values()))
+    out["plain_calls"] = sites.plain
+    out["steps"] = steps
+    out["plans"] = plans
+    out["model_calls"] = SERVE_STEPS * len(steps)
+    out["gather"] = dict(sampler.gather_stats)
+    out["counts"] = dict(ranks.counts)
+    marks["bf16"] = time.perf_counter()
+    del svc, eng, sampler
+
+    # The same weights computing in float32 (after the swap, as every
+    # rank holds them; TF32 off): the bf16 service's traffic without its
+    # swap, one lane a rank (a call of the shape one process runs at
+    # max_batch 1), so rank 1's requests are held end to end.
+    cfg32, f32 = _tp_f32(_mesh_cfg(MESH_F32_LANES), model)
+    svc = _mesh_service(cfg32, f32, env, RankChannel(env),
+                        steps=MESH_F32_STEPS)
+    steps32 = _mesh_recorder(svc.engine)
+    with _NoTF32():
+        if rank:
+            svc.engine.follow()
+        else:
+            out["f32"], out["f32_log"] = _mesh_traffic(svc)
+    out["steps_f32"] = steps32
+    del svc, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["f32"] = time.perf_counter()
+
+    # The worker over the same two ranks, both on cuda:0: one session
+    # through its socket.
+    out["worker"] = _mesh_worker(rank, cfg)
+    marks["worker"] = time.perf_counter()
+
+    # Rows 1 and 3 at a rank's sites (2 of 4 lanes), the ranks in turn
+    # (the sites' shapes, read from a forward of the float32 copy).
+    B = len(cfg.diffusion.guidance_weights)
+    gn_sites, attn_sites = record_sites(
+        model, *model_batch(cfg, 2 * 2 * B, seed=7))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for turn in range(world):
+        dist.barrier(group)
+        if turn == rank:
+            out["gn"] = phase_groupnorm(gn_sites, phase="mesh_groupnorm",
+                                        odd_shapes=False)
+            out["attn"] = phase_attention(attn_sites, phase="mesh_attention",
+                                          extra_shapes=False)
+        torch.cuda.synchronize()
+    dist.barrier(group)
+    marks["sites"] = time.perf_counter()
+    names = list(marks)
+    out["marks_s"] = {n: round(marks[n] - marks[p], 3)
+                      for p, n in zip(names, names[1:])}
+    return out
+
+
+def _mesh_worker(rank, cfg):
+    """``boot_worker`` over the group (both ranks on ``cuda:0``): rank 0's
+    boot seconds and one session's views through its socket."""
+    from diff3d_tpu_torch.serving.server import build_request
+    from diff3d_tpu_torch.serving.transport import RemoteReplica
+    from diff3d_tpu_torch.serving.worker import boot_worker
+
+    t0 = time.perf_counter()
+    worker = boot_worker(cfg, name="mesh", devices=[0, 1],
+                         rank_devices=["cuda:0", "cuda:0"],
+                         steps=SERVE_STEPS)
+    if worker is None:                      # a follower, now stopped
+        return {"followed": True}
+    boot_s = time.perf_counter() - t0
+    worker.start()
+    remote = None
+    try:
+        remote = RemoteReplica("127.0.0.1", worker.port).start()
+        req = build_request(dict(_serve_payload(orbit_views(
+            MESH_VIEWS, 64, 80), 80), session_id="mesh-session"), cfg)
+        remote.submit(req)
+        views = req.result(timeout=MESH_WAIT_S)
+    finally:
+        if remote is not None:
+            remote.stop()
+        worker.stop()
+    return {"boot_s": boot_s, "rank_programs": worker.rank_programs,
+            "views": views}
+
+
+def _mesh_reference(plans, steps):
+    """The one-process references of phase ``serve_mesh``, after its
+    ranks: (1) each served view step again, each rank's share of the
+    leader's plan (its records, lengths, intrinsics and every lane's
+    generator state; the weights of the plan's generation) through a
+    one-process ``Sampler`` at the rank's shape; per step, the gathered
+    views' rel. L2 to it, whether they are bit-identical, and their NaNs;
+    (2) one process's engine (4 lanes a call where a rank runs 2) on the
+    bf16 service's traffic and swap: its results; (3) one process's
+    engine at one lane a call (a rank's shape in the float32 leg) on the
+    float32 copy of the swapped weights (TF32 off) and the float32
+    traffic: its results."""
+    import torch
+
+    from diff3d_tpu_torch.diffusion import Draws
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.serving.ranks import lane_generators
+
+    cfg = _mesh_cfg()
+    model = random_model(cfg)
+    weights = [{k: v.clone() for k, v in model.state_dict().items()},
+               _mesh_swap(model)]
+    sampler = Sampler(model, cfg, device="cuda", steps=SERVE_STEPS)
+    rows = []
+    for plan, got in zip(plans, steps):
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(weights[plan.generation][k])
+        draws = [Draws(g) for g in lane_generators(plan.gen_states,
+                                                   sampler.device)]
+        draws += [Draws(torch.Generator("cuda").manual_seed(plan.pad_seed))
+                  for _ in range(plan.lanes - plan.n)]
+        m = plan.lanes // RING_WORLD          # a rank's lanes
+        outs = []
+        for r in range(RING_WORLD):
+            sl = slice(r * m, (r + 1) * m)
+
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a[sl])).cuda()
+
+            out, _, _ = sampler.step_many(
+                t(plan.record_imgs), t(plan.record_R), t(plan.record_T),
+                plan.steps[sl], t(plan.K), draws[sl])
+            outs.append(out.float().cpu())
+        want, view = torch.cat(outs), got["views"]
+        rows.append({
+            "lanes": plan.lanes, "generation": plan.generation,
+            "rel_l2": _rel_l2(view, want),
+            "bit_identical": bool((view.view(torch.int32)
+                                   == want.view(torch.int32)).all()),
+            "nan_served": int(torch.isnan(view).sum()),
+            "nan_one_process": int(torch.isnan(want).sum())})
+    del sampler
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(weights[0][k])
+    bf16, _ = _mesh_traffic(_mesh_service(cfg, model), weights[1])
+    del weights             # the swap left the model at weights[1]
+    cfg32, f32 = _tp_f32(_mesh_cfg(MESH_F32_LANES // RING_WORLD), model)
+    with _NoTF32():
+        views32, log32 = _mesh_traffic(_mesh_service(
+            cfg32, f32, steps=MESH_F32_STEPS))
+    del f32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, bf16, views32, log32
+
+
+def phase_serve_mesh(ranks, ranks_s, one_process_s):
+    """Serving over the data=2 mesh (see the module docstring): ``ranks``
+    the ranks' results of :func:`serve_mesh_rank` (run by phase
+    ``parallel``'s processes, ``ranks_s`` seconds), ``one_process_s`` the
+    serve phase's s per view step by lanes (one process, the same
+    config)."""
+    import torch
+
+    r0, r1 = ranks
+
+    # Each rank's steps: the warm-ups, then the served view steps.
+    def bits(a, b):
+        return bool(a.shape == b.shape and (a.view(torch.int32)
+                                            == b.view(torch.int32)).all())
+
+    same = (len(r0["steps"]) == len(r1["steps"]) > len(MESH_LANES)
+            and all(a["lanes"] == b["lanes"]
+                    and a["generation"] == b["generation"]
+                    and bits(a["views"], b["views"])
+                    for a, b in zip(r0["steps"], r1["steps"])))
+    same32 = (len(r0["steps_f32"]) == len(r1["steps_f32"]) > 0
+              and all(a["lanes"] == b["lanes"] and bits(a["views"],
+                                                        b["views"])
+                      for a, b in zip(r0["steps_f32"], r1["steps_f32"])))
+    t0 = time.perf_counter()
+    per_step, bf16_one, views32, log32 = _mesh_reference(
+        r0["plans"], r0["steps"][len(MESH_LANES):])
+    reference_s = time.perf_counter() - t0
+    step_bits = all(row["bit_identical"] for row in per_step)
+    f32_rel = [_rel_l2(a, b) for a, b in zip(r0["f32"], views32)]
+    bf16_rel = [_rel_l2(a, b) for a, b in zip(r0["results"], bf16_one)]
+    generations = [s["generation"] for s in r1["steps"][len(MESH_LANES):]]
+    finite = all(np.isfinite(v).all() for v in r0["results"] + r0["f32"]) \
+        and np.isfinite(r0["worker"]["views"]).all()
+
+    def per_lanes(log):
+        by = {}
+        for row in log:
+            by.setdefault(row["lanes"], []).append(row["s"])
+        return {str(k): v for k, v in sorted(by.items())}
+
+    launches = [{k: r["launches"][k] for k in MESH_ROW_CALLS}
+                for r in ranks]
+    launched = all(
+        r["launches"][k] == n * r["model_calls"] and r["model_calls"] > 0
+        for r in ranks for k, n in MESH_ROW_CALLS.items())
+    plain = [r["plain_calls"] for r in ranks]
+    out = {"config": "srn64", "steps_per_view": SERVE_STEPS,
+           "backend": "gloo, 2 ranks on one card (lanes split over the "
+                      "data axis; plans over a gloo group of their own; "
+                      "the views' gather staged through pinned memory)",
+           "digests_equal": r0["digest"] == r1["digest"],
+           "views_bit_identical_across_ranks": same and same32,
+           "weights_generation_by_step": generations,
+           "bf16_per_step_vs_one_process": per_step,
+           "f32_rel_l2_vs_one_process_engine": f32_rel,
+           "bf16_rel_l2_vs_one_process_engine": bf16_rel,
+           "lanes_a_call": {
+               "mesh_rank": [row["lanes"] // RING_WORLD
+                             for row in r0["f32_log"]],
+               "one_process": [row["lanes"] for row in log32]},
+           "tolerance": {"bf16_per_step": "bit-identical",
+                         "f32": MESH_F32_TOL,
+                         "bf16_engine": "reported, no gate"},
+           "s_per_view_step": {"mesh_leader": per_lanes(r0["step_log"]),
+                               "one_process_serve_phase": one_process_s,
+                               "f32_mesh_leader": per_lanes(r0["f32_log"]),
+                               "f32_one_process": per_lanes(log32)},
+           "warmup_s": r0["warmup_s"],
+           "gather": [r["gather"] for r in ranks],
+           "messages": [r["counts"] for r in ranks],
+           "launches": launches,
+           "model_calls": [r["model_calls"] for r in ranks],
+           "plain_calls": plain,
+           "worker": {"boot_s": r0["worker"]["boot_s"],
+                      "rank_programs": r0["worker"]["rank_programs"],
+                      "session_shape": list(r0["worker"]["views"].shape)},
+           "rank_marks_s": [r["marks_s"] for r in ranks],
+           "reference_s": round(reference_s, 3),
+           "ranks_s": round(ranks_s, 3)}
+    emit(dict(phase="serve_mesh", **out))
+    if not (out["digests_equal"] and same and same32 and finite):
+        raise AssertionError(f"serve_mesh: ranks differ or not finite: "
+                             f"{out['digests_equal']}, {same}, {same32}, "
+                             f"{finite}")
+    if generations[:1] != [0] or set(generations[1:]) != {1}:
+        raise AssertionError(f"serve_mesh: the swap landed at "
+                             f"{generations}")
+    if not (step_bits and len(f32_rel) == 4
+            and max(f32_rel) <= MESH_F32_TOL):
+        raise AssertionError(f"serve_mesh: off one process: bf16 per "
+                             f"step {per_step}, f32 {f32_rel}")
+    if not launched or any(plain):
+        raise AssertionError(f"serve_mesh: launches {launches} for "
+                             f"{out['model_calls']} model calls, plain "
+                             f"{plain}")
+    if r0["worker"]["rank_programs"] != [len(MESH_LANES)] * 2:
+        raise AssertionError(f"serve_mesh: the worker's ranks warmed "
+                             f"{r0['worker']['rank_programs']}")
+
+    def slowest(key):
+        rows = [r[key] for r in ranks]
+        got = dict(rows[0])
+        for k in ("ms", "device_ms", "plain_ms", "library_ms"):
+            if got.get(k) is not None:
+                got[k] = max(r[k] for r in rows)
+        got["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return got
+
+    out["kernel_stats"] = {"fused_groupnorm@serve_mesh": slowest("gn"),
+                           "flash_attention@serve_mesh": slowest("attn")}
+    out["kernel_launches"] = {
+        "fused_groupnorm@serve_mesh": r0["launches"]["fused_groupnorm"],
+        "flash_attention@serve_mesh": r0["launches"]["flash_attention"]}
+    return out
+
+
 # ---- distillation, conversion, 64^2 -> 128^2 transfer --------------------
 
 DISTILL_BATCH = 128             # the reference's batch, one microbatch
@@ -6328,11 +6791,12 @@ def main() -> None:
                  for e in train["preemption_and_eval"]["evals"])
           for k in ("fused_groupnorm", "flash_attention")}
     phase_eval()
-    par, tp_run, cp_run = phase_parallel(graph_run)
+    par, tp_run, cp_run, mesh_run = phase_parallel(graph_run)
     del graph_run
     tpar = phase_tensor_parallel(*tp_run)
     cpar = phase_context_parallel(*cp_run)
-    del tp_run, cp_run
+    mpar = phase_serve_mesh(*mesh_run, serve["s_per_view_step"])
+    del tp_run, cp_run, mesh_run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6401,6 +6865,12 @@ def main() -> None:
                    "worker's warm-up runs 1 and 2 lanes); launches: the "
                    "first worker process's (warm-up captures, the served "
                    "request), read over the wire")
+    mesh_per = (f"one denoise step of a served view step at 4 lanes on "
+                f"one rank of the data=2 mesh (2 ranks on one card over "
+                f"gloo): the rank's 2 lanes (N*2B = {lanes2}) at srn64, "
+                "summed over sites; the slower rank's times; launches: "
+                "rank 0's serve_mesh service (warm-up captures at 2 and 4 "
+                "lanes, every served view step)")
     casc_lanes = 2 * 2 * len(cfg128.diffusion.guidance_weights)
     casc_per = {p: (f"one denoise step of the served cascade's {p} phase at "
                     f"2 lanes (N*2B = {casc_lanes}, {res}^2, srn128 "
@@ -6516,7 +6986,13 @@ def main() -> None:
         ("fused_groupnorm@serve_workers", film, gn_fwd_at,
          workers["launches"]["fused_groupnorm"], gn_fleet, workers_per),
         ("flash_attention@serve_workers", att, fa_at,
-         workers["launches"]["flash_attention"], attn_fleet, workers_per)]
+         workers["launches"]["flash_attention"], attn_fleet, workers_per),
+        ("fused_groupnorm@serve_mesh", film, gn_fwd_at,
+         mpar["kernel_launches"]["fused_groupnorm@serve_mesh"],
+         mpar["kernel_stats"]["fused_groupnorm@serve_mesh"], mesh_per),
+        ("flash_attention@serve_mesh", att, fa_at,
+         mpar["kernel_launches"]["flash_attention@serve_mesh"],
+         mpar["kernel_stats"]["flash_attention@serve_mesh"], mesh_per)]
         + [(f"{k}@cascade_{p}", src, at,
             cascade["launches_by_phase"][p][k], stats[p], casc_per[p])
            for k, src, at, stats in (
@@ -6632,27 +7108,61 @@ def main() -> None:
 
 def torchrun_entry_points(argv) -> None:
     """Phase ``parallel`` (d) under torchrun: ``train_cli.main`` on the
-    argv before ``--then-eval``, then ``eval_cli.main`` on the rest, in
-    the one group torchrun's environment names (each CLI uses a group its
-    caller made and leaves it up).  The eval's line is printed second to
-    last, its seconds last."""
-    from diff3d_tpu_torch.cli import eval_cli, train_cli
+    argv before ``--then-eval``, ``eval_cli.main`` on the argv up to
+    ``--then-serve``, then ``serve_cli.main --mesh`` on the rest (a
+    client thread posts two requests to it, then SIGTERMs this process),
+    in the one group torchrun's environment names (each CLI uses a group
+    its caller made and leaves it up).  The eval's line is printed second
+    to last; last, the seconds of eval and serve and the two answers."""
+    import threading
+
+    from diff3d_tpu_torch.cli import eval_cli, serve_cli, train_cli
     from diff3d_tpu_torch.parallel import (maybe_initialize_distributed,
                                            shutdown_distributed)
 
-    cut = argv.index("--then-eval")
+    cut, serve_at = argv.index("--then-eval"), argv.index("--then-serve")
     if not maybe_initialize_distributed():
         raise SystemExit("--torchrun-entry-points: no group (run it under "
                          "torchrun)")
+    port = _free_port()
+    answers = []
+
+    def client():
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while True:
+            try:
+                _serve_http(port, "/healthz")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        try:
+            for seed in (61, 62):
+                status, body = _serve_http(port, "/synthesize",
+                                           _serve_payload(orbit_views(
+                                               3, 64, seed), seed))
+                views = _views_of(json.loads(body))
+                answers.append({"status": status,
+                                "shape": list(views.shape),
+                                "finite": bool(np.isfinite(views).all())})
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
     try:
         train_cli.main(argv[:cut])
         t0 = time.perf_counter()
-        eval_cli.main(argv[cut + 1:])
+        eval_cli.main(argv[cut + 1:serve_at])
         eval_s = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        threading.Thread(target=client, daemon=True).start()
+        serve_cli.main(argv[serve_at + 1:] + ["--port", str(port)])
+        serve_s = round(time.perf_counter() - t0, 3)
     finally:
         shutdown_distributed()
     sys.stdout.flush()
-    print(json.dumps({"eval_s": eval_s}), flush=True)
+    print(json.dumps({"eval_s": eval_s, "serve_s": serve_s,
+                      "serve_answers": answers}), flush=True)
 
 
 if __name__ == "__main__":

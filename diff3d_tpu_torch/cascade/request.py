@@ -46,7 +46,9 @@ class CascadeRequest(ViewRequest):
     refine phase must match the payload's H/W.  The request resolves
     with the refined result ``[n_views-1, B, H, W, 3]``; draft frames
     are preview-only and reachable exclusively through the event
-    surface.
+    surface.  ``draws`` (None by default) may map each phase to one draw
+    source per generated view, as ``CascadeSampler.synthesize_cascade``
+    takes them; each child then replays its phase's.
     """
 
     def __init__(self, views: dict, plan: CascadePlan, **kwargs):
@@ -218,6 +220,11 @@ class _PhaseRequest(ViewRequest):
         # The engine's slot seeds its generator with this instead of the
         # request seed: each phase runs its own stream (module docstring).
         self.stream_seed = phase_seed(parent.seed, phase)
+        # A parent that brought its own draw sources (``draws``: phase ->
+        # one per view, as ``CascadeSampler.synthesize_cascade`` takes
+        # them) hands each phase its own.
+        if parent.draws is not None:
+            self.draws = parent.draws[phase]
         self._on_resolve = on_resolve
         self.drafts: Optional[np.ndarray] = None  # refine phase only
 

@@ -121,12 +121,15 @@ class CascadeSampler:
         resolution; ``None`` shares the served weights (see the module
         docstring).
       cuda_graphs: as :class:`~diff3d_tpu_torch.sampling.Sampler`'s.
+      mesh: a :class:`~diff3d_tpu_torch.parallel.MeshEnv` both phases
+        split their lanes over (``Sampler(mesh=)``), so their
+        ``lane_multiple``s agree.
     """
 
     def __init__(self, model: XUNet, cfg: Config, plan: CascadePlan, *,
                  device: Optional[Union[str, torch.device]] = None,
                  draft_params: Optional[Mapping[str, torch.Tensor]] = None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None, mesh=None):
         if (cfg.model.H, cfg.model.W) != (plan.refine.resolution,) * 2:
             raise ValueError(
                 f"cfg.model is {cfg.model.H}x{cfg.model.W} but the plan "
@@ -141,12 +144,12 @@ class CascadeSampler:
         self.refine = Sampler(
             model, cfg, device=device, sampler_kind=plan.refine.sampler_kind,
             steps=plan.refine.steps, start_t=plan.refine.start_t,
-            cuda_graphs=cuda_graphs)
+            cuda_graphs=cuda_graphs, mesh=mesh)
         self.draft = Sampler(
             _draft_model(self.refine.model, self.draft_cfg, draft_params),
             self.draft_cfg, device=self.refine.device,
             sampler_kind=plan.draft.sampler_kind, steps=plan.draft.steps,
-            cuda_graphs=cuda_graphs)
+            cuda_graphs=cuda_graphs, mesh=mesh)
         self.device = self.refine.device
 
     @property

@@ -28,12 +28,26 @@ Usage:
     # front worker processes (cli/worker_cli.py), no local engine:
     python -m diff3d_tpu_torch.cli.serve_cli --workers 127.0.0.1:9100
 
+    # one service over the cards of a host (rank 0 serves HTTP, the other
+    # ranks follow its view steps; lanes split over the ranks):
+    torchrun --standalone --nproc_per_node 4 \
+        -m diff3d_tpu_torch.cli.serve_cli --mesh --model ckpt.pt
+
 Endpoints: ``POST /synthesize``, ``POST /trajectory``, ``POST /cascade``
 (with ``--cascade``), ``GET /result/<id>``, ``GET /healthz``, ``GET
 /metrics`` (text; ``?format=json`` for the structured snapshot), ``GET
 /stats``, and ``GET /fleet`` behind the fleet router (``--replicas`` > 1
 or ``--workers``).  With ``--workers`` alone no engine is built and the
 process touches no device.
+
+``--mesh`` serves over ``make_mesh(cfg.mesh)``: the data axis over every
+rank of the process group (torchrun's, or one its caller already made),
+one process per card.  Each rank holds the whole model (rank 0's weights,
+checked by digest on every rank at boot) and runs its share of each view
+step's lanes; the lane counts and ``--max_batch`` round up to the number
+of ranks.  Rank 0 takes every decision (``serving/ranks.py``); the other
+ranks follow it and exit 0 when it stops.  ``--mesh`` with
+``--replicas`` > 1 is refused.
 """
 
 from __future__ import annotations
@@ -48,23 +62,23 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           apply_model_width_overrides,
                                           load_eval_params)
 
-_WAITING = ("Not in the port (see ROADMAP.md): --mesh is refused (serving "
-            "over several cards needs a multi-process serving loop, "
-            "ROADMAP A10b).")
-
-_MESH_REFUSED = ("--mesh: serving over a mesh of cards waits for ROADMAP "
-                 "A10b (a multi-process serving loop); one engine serves "
-                 "one card")
+_MESH_REPLICAS_REFUSED = (
+    "--mesh with --replicas {n}: each in-process replica would need a mesh "
+    "of ranks of its own (ROADMAP A10b); serve one replica over the mesh, "
+    "or several replicas without it")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
-        formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog=_WAITING)
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--mesh", action="store_true",
-                   help="refused: serving over a mesh of cards waits for "
-                        "ROADMAP A10b")
+                   help="serve over the process group's ranks (cfg.mesh; "
+                        "launch with torchrun, one rank per card): each "
+                        "view step's lanes split over the data axis, every "
+                        "rank holds the whole model, lane counts round up "
+                        "to the data-axis size; rank 0 serves HTTP and the "
+                        "other ranks follow it")
     p.add_argument("--model", default=None,
                    help="checkpoint directory, ckpt_<step>.pt, port state "
                         "dict (.pt) or Flax params (.npz); omit with "
@@ -260,8 +274,6 @@ def build_service(args):
     ``max_views`` bucket are already captured."""
     from diff3d_tpu_torch.serving import FleetService
 
-    if args.mesh:
-        raise SystemExit(_MESH_REFUSED)
     if args.pallas:
         logging.info("--pallas: the hand-written CUDA kernels "
                      "(ops/csrc/film.cu, attention.cu) run on the card; off "
@@ -291,7 +303,27 @@ def build_service(args):
     if any(i is not None for i, _ in extra_specs) and n_local < 2:
         raise SystemExit("per-replica 'i@kind:steps' schedules require "
                          "--replicas > 1")
+    if args.mesh and n_local > 1:
+        raise SystemExit(_MESH_REPLICAS_REFUSED.format(n=n_local))
     return _local_service(args, cfg, n_local, extra_specs, worker_addrs)
+
+
+def _serving_mesh(cfg):
+    """``make_mesh(cfg.mesh)`` over the process group and its
+    :class:`~diff3d_tpu_torch.serving.ranks.RankChannel` (None without a
+    group: one process serves alone)."""
+    from diff3d_tpu_torch.parallel import make_mesh
+    from diff3d_tpu_torch.serving.ranks import RankChannel
+
+    try:
+        mesh = make_mesh(cfg.mesh)
+        ranks = (RankChannel(mesh) if mesh.device_mesh is not None
+                 else None)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+    logging.info("serving on mesh data=%d x model=%d (lane multiple %d)",
+                 mesh.data_size, mesh.model_size, mesh.data_size)
+    return mesh, ranks
 
 
 def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
@@ -304,6 +336,7 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
     from diff3d_tpu_torch.serving.fleet import build_fleet
 
     device = resolve_device(args.device)
+    mesh, ranks = _serving_mesh(cfg) if args.mesh else (None, None)
     model = build_model(cfg.model, device)
     if args.init == "random":
         version = "random-init"
@@ -315,12 +348,17 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
         except ValueError as e:
             raise SystemExit(str(e))
         version = f"{args.model}@step{step}"
+    if ranks is not None:
+        digest = ranks.sync_weights(model)
+        logging.info("rank %d/%d holds rank 0's weights (sha256 %s)",
+                     ranks.rank, ranks.world, digest[:16])
     logging.info("serving %s weights on %s", version, device)
 
     def sampler(kind, steps):
         try:
             return Sampler(model, cfg, device=device, sampler_kind=kind,
-                           steps=steps, scan_chunks=args.scan_chunks)
+                           steps=steps, scan_chunks=args.scan_chunks,
+                           mesh=mesh)
         except ValueError as e:
             raise SystemExit(f"schedule {kind}:{steps}: {e}")
 
@@ -336,7 +374,8 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
                     f"refine resolution {plan.refine.resolution} must "
                     f"equal the config's image size {cfg.model.H} "
                     f"(--config {args.config})")
-            cascade = CascadeSampler(model, cfg, plan, device=device)
+            cascade = CascadeSampler(model, cfg, plan, device=device,
+                                     mesh=mesh)
         except ValueError as e:
             raise SystemExit(f"--cascade: {e}")
         logging.info("cascade plan %s (draft %d^2 -> refine %d^2 from "
@@ -348,15 +387,21 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
             continue                        # already the default sampler
         target = extra if idx is None else per_replica.setdefault(idx, {})
         target[sched] = sampler(*sched)
+    if ranks is not None and not ranks.leader:
+        # A follower: the leader's engine without its front door.
+        return ServingService(default, cfg, params_version=version,
+                              extra_samplers=extra or None,
+                              cascade=cascade, ranks=ranks)
     if worker_addrs or n_local > 1:
         service = FleetService(build_fleet(
             default, cfg, n_local, extra_samplers=extra or None,
             per_replica_extra=per_replica or None, params_version=version,
-            cascade=cascade) + _remotes(worker_addrs, cfg), cfg)
+            cascade=cascade, ranks=ranks) + _remotes(worker_addrs, cfg),
+            cfg)
     else:
         service = ServingService(default, cfg, params_version=version,
                                  extra_samplers=extra or None,
-                                 cascade=cascade)
+                                 cascade=cascade, ranks=ranks)
     if args.warmup:
         engines = ([service.engine] if hasattr(service, "engine")
                    else [rep.engine for rep in service.replicas
@@ -367,8 +412,9 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
 
 
 def warmup(eng, cfg) -> None:
-    """Capture ``eng``'s single-lane view step of the ``max_views``
-    bucket for every schedule and cascade phase."""
+    """Capture ``eng``'s single-lane view step (one lane per rank on a
+    serving mesh) of the ``max_views`` bucket for every schedule and
+    cascade phase."""
     from diff3d_tpu_torch.sampling import record_capacity
     from diff3d_tpu_torch.serving import Bucket
 
@@ -378,15 +424,38 @@ def warmup(eng, cfg) -> None:
     for phase, s in [(None, s) for s in eng.samplers.values()] + phases:
         bucket = Bucket(s.cfg.model.H, s.cfg.model.W, cap, s.steps,
                         s.sampler_kind, phase)
-        secs = eng.programs.warmup(bucket, s.lane_multiple, eng.guidance_B)
+        secs = eng.warmup(bucket, s.lane_multiple)
         logging.info("warmed bucket %s in %.1fs", tuple(bucket), secs)
 
 
 def main(argv=None) -> None:
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    owned = False
+    if args.mesh and not dist.is_initialized():
+        # Before anything touches the card: NCCL takes LOCAL_RANK's card.
+        from diff3d_tpu_torch.parallel import maybe_initialize_distributed
 
+        owned = maybe_initialize_distributed(device=args.device)
+    try:
+        _serve(args)
+    finally:
+        if owned:
+            from diff3d_tpu_torch.parallel import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _serve(args) -> None:
     service = build_service(args)
+    ranks = getattr(service, "ranks", None)
+    if ranks is not None and not ranks.leader:
+        logging.info("rank %d of %d follows rank 0", ranks.rank, ranks.world)
+        service.engine.follow()
+        logging.info("rank 0 stopped: rank %d exits", ranks.rank)
+        return
     service.start(serve_http=True)
     fleet = ", GET /fleet" if hasattr(service, "fleet_snapshot") else ""
     logging.info("listening on http://%s:%d (POST /synthesize, POST "

@@ -1,22 +1,33 @@
-"""Fleet worker process: one replica on one card (counterpart:
+"""Fleet worker process: one replica on a slice of cards (counterpart:
 ``diff3d_tpu/cli/worker_cli.py``).
 
-Boots a single serving replica in THIS process on one CUDA device and
-serves the framed socket protocol (``serving/transport.py``) that
-``serve_cli --workers`` fronts.  N workers on one host each take a card
-of their own::
+Boots a single serving replica in THIS process on one CUDA device, or on
+a slice of several, and serves the framed socket protocol
+(``serving/transport.py``) that ``serve_cli --workers`` fronts.  N
+workers on one host split its cards::
 
     python -m diff3d_tpu_torch.cli.worker_cli --model ckpt.pt \\
-        --devices 0 --port 0 --name w0
+        --devices 0-1 --port 0 --name w0
     python -m diff3d_tpu_torch.cli.worker_cli --model ckpt.pt \\
-        --devices 1 --port 0 --name w1
+        --devices 2-3 --port 0 --name w1
+
+A slice of N cards makes this process rank 0 on ``cuda:<first>``; it
+starts N-1 follower processes (this module again, rank r on the slice's
+r-th card) over a private rendezvous on localhost (NCCL across the cards,
+gloo with ``--device cpu``), and the replica's view steps split their
+lanes over the ranks (``serving/ranks.py``).  Only rank 0 talks to the
+router.  On SIGTERM rank 0 drains, then stops its followers; a follower
+whose rank 0 dies (even by SIGKILL) exits within about a second (its
+collective fails on the closed socket, or it sees its parent gone), and
+at the latest after the serving group's timeout.
 
 With ``--port 0`` the worker binds an ephemeral port and prints one
 JSON ready line to stdout (``{"ready": true, "port": ..., "name":
-..., "http_port": ...}``) so a supervisor can harvest the address.  It
-captures its graphs before that line (every lane count up to
-``--max_batch`` of every schedule, at the ``--max_views`` record
-capacity), and their first-use bytes are the admission gate's pins.
+..., "http_port": ..., "ranks": N, "followers": [pid, ...]}``) so a
+supervisor can harvest the address.  Every rank captures its graphs
+before that line (every lane count up to ``--max_batch`` of every
+schedule, at the ``--max_views`` record capacity), and their largest
+first-use bytes over the ranks are the admission gate's pins.
 
 ``--hbm_budget_bytes`` arms the admission gate: requests whose
 resident-records + program-peak arithmetic exceeds the budget are
@@ -24,9 +35,9 @@ rejected at the door with a typed ``ReplicaOverBudget``.  On SIGTERM or
 SIGINT the worker drains (no new admissions; in-flight requests finish,
 up to ``--drain_s``), stops and exits 0.
 
-Runs on the card (``--devices`` names it) unless ``--device`` names
-another torch device.  Refused, each with its reason: a ``--devices``
-slice of several cards (a multi-process serving loop, ROADMAP A10b), ``--compile_cache``
+Runs on the cards ``--devices`` names unless ``--device`` names another
+torch device (every rank on it).  Refused, each with its reason: a
+duplicate or out-of-range index in ``--devices``, ``--compile_cache``
 (XLA's persistent compile cache; a worker captures its CUDA graphs at
 boot), ``--host_device_count`` (XLA's virtual host devices) and
 ``--memcheck_dir`` (the JAX package's StableHLO memory manifests; the
@@ -37,10 +48,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import logging
 import os
 import signal
+import socket
+import subprocess
+import sys
 import threading
 
 from diff3d_tpu_torch.cli._common import (add_model_width_args,
@@ -84,10 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(/healthz /metrics /stats) on this port "
                         "(0 = ephemeral)")
     p.add_argument("--devices", required=True,
-                   help="the CUDA device this replica owns, by index "
-                        "('0'); a slice of several waits for a "
-                        "multi-process serving loop (ROADMAP A10b) and is "
-                        "refused")
+                   help="the CUDA devices this replica owns: '0', '0-3' "
+                        "(inclusive range) or '0,2' (list); a slice of "
+                        "several runs one rank per card, disjoint across "
+                        "workers on one host")
     p.add_argument("--device", default=None,
                    help="torch device instead of the card --devices names "
                         "(the CPU only when named, as the tests do)")
@@ -140,10 +155,10 @@ def parse_schedules(spec: str):
     return scheds
 
 
-def build_worker(args):
-    """Config + weights -> Worker (not started)."""
+def _worker_config(args):
+    """The worker's config and device slice from its flags."""
     from diff3d_tpu_torch import config as config_lib
-    from diff3d_tpu_torch.serving.worker import boot_worker, device_slice
+    from diff3d_tpu_torch.serving.worker import device_slice
 
     for flag, why in _NO_COUNTERPART.items():
         if getattr(args, flag) is not None:
@@ -172,18 +187,25 @@ def build_worker(args):
         devices = device_slice(args.devices)
     except ValueError as e:
         raise SystemExit(str(e))
-    if len(devices) != 1:
-        raise SystemExit(
-            f"--devices {args.devices}: a worker runs on one card; a slice "
-            "of several waits for a multi-process serving loop "
-            "(ROADMAP A10b)")
+    import torch
+
+    if args.device is None and torch.cuda.is_available():
+        bad = [d for d in devices if d >= torch.cuda.device_count()]
+        if bad:           # before a slice starts any rank
+            raise SystemExit(f"--devices {args.devices}: indices {bad} out "
+                             f"of range ({torch.cuda.device_count()} CUDA "
+                             "devices)")
+    return cfg, devices
+
+
+def _boot(args, cfg, devices):
+    from diff3d_tpu_torch.serving.worker import boot_worker
 
     weights, version = None, "random-init"
     if args.init == "checkpoint":
         if not args.model:
             raise SystemExit("--model is required unless --init random")
         weights, version = args.model, args.model
-
     name = args.name or f"w{os.getpid()}"
     try:
         return boot_worker(
@@ -199,17 +221,122 @@ def build_worker(args):
         raise SystemExit(str(e))
 
 
+def _join_group(init_method: str, world: int, rank: int, device,
+                devices) -> None:
+    """Join the slice's private process group as ``rank``: NCCL on the
+    rank's card, gloo with ``--device cpu``."""
+    import torch
+    import torch.distributed as dist
+
+    kw = {}
+    backend = "gloo"
+    if device is None or torch.device(device).type == "cuda":
+        backend = "nccl"
+        card = torch.device("cuda", devices[rank])
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600), **kw)
+
+
+def _start_slice(argv, devices, device) -> list:
+    """Rank 0 of a slice: start ranks 1..N-1 (this module, each told its
+    rank) and join the group with them; returns their processes."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init = f"tcp://127.0.0.1:{port}"
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")     # a rendezvous on lo
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = []
+    try:
+        for r in range(1, len(devices)):
+            spec = json.dumps({"argv": list(argv), "rank": r,
+                               "world": len(devices), "init": init,
+                               "parent": os.getpid()})
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "from diff3d_tpu_torch.cli.worker_cli import "
+                 "follower_main; follower_main()", spec],
+                env=env, stdout=subprocess.DEVNULL))
+        _join_group(init, len(devices), 0, device, devices)
+    except BaseException:
+        _end_followers(procs, 0.0)
+        raise
+    return procs
+
+
+def _end_followers(procs, timeout: float) -> None:
+    """Wait up to ``timeout`` for the followers to exit, then kill what
+    is left."""
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def follower_main() -> None:
+    """A slice's rank r > 0 (started by rank 0, its spec the JSON in
+    ``sys.argv[1]``): join the group, build the same replica, follow rank
+    0's engine until it stops, exit 0."""
+    import torch.distributed as dist
+
+    from diff3d_tpu_torch.serving.ranks import watch_parent
+
+    spec = json.loads(sys.argv[1])
+    watch_parent(spec["parent"])
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(spec["argv"])
+    cfg, devices = _worker_config(args)
+    _join_group(spec["init"], spec["world"], spec["rank"], args.device,
+                devices)
+    try:
+        _boot(args, cfg, devices)
+    finally:
+        dist.destroy_process_group()
+
+
+def build_worker(args, argv=None):
+    """Config + weights -> Worker (not started).  A slice of several
+    cards first starts its follower ranks (``argv``: this process's flags,
+    which they take too); their processes are the worker's
+    ``followers``."""
+    cfg, devices = _worker_config(args)
+    procs = []
+    if len(devices) > 1:
+        if argv is None:
+            raise SystemExit(f"--devices {args.devices}: a slice of "
+                             "several cards starts from the command line")
+        procs = _start_slice(argv, devices, args.device)
+    try:
+        worker = _boot(args, cfg, devices)
+    except BaseException:
+        _end_followers(procs, 0.0)
+        raise
+    worker.followers = procs
+    return worker
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    worker = build_worker(args)
+    worker = build_worker(args, argv)
     worker.start(http_port=args.http_port)
     # Machine-readable ready line: supervisors (serve_cli --workers, the
     # tests) harvest the ephemeral port.
     print(json.dumps({"ready": True, "name": worker.replica.name,
                       "port": worker.port,
-                      "http_port": worker.http_port}), flush=True)
+                      "http_port": worker.http_port,
+                      "ranks": 1 + len(worker.followers),
+                      "followers": [p.pid for p in worker.followers],
+                      "rank_programs": worker.rank_programs}),
+          flush=True)
     logging.info("worker %s: transport on %s:%d",
                  worker.replica.name, args.host, worker.port)
 
@@ -226,7 +353,12 @@ def main(argv=None) -> None:
         drained = worker.replica.drain(timeout=args.drain_s)
         logging.info("drain %s", "complete" if drained else "incomplete")
     finally:
-        worker.stop()
+        worker.stop()                 # the followers leave their loop
+        _end_followers(worker.followers, 30.0)
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
         logging.info("stopped")
 
 

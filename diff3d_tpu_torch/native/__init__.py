@@ -113,7 +113,8 @@ def build_error() -> Optional[str]:
     """Why the decoder is unavailable (the build's error line, or the load
     error); None when it is available."""
     _load()
-    return _error
+    with _lock:
+        return _error
 
 
 _shared_pool: Optional["DecoderPool"] = None  # guarded-by: _pool_lock
@@ -137,7 +138,9 @@ def decode_image(path: str, size: int) -> np.ndarray:
     runtime; raises ``IOError`` with the decoder's error code's meaning."""
     lib = _load()
     if lib is None:
-        raise RuntimeError(f"native decoder unavailable: {_error}")
+        with _lock:
+            why = _error
+        raise RuntimeError(f"native decoder unavailable: {why}")
     out = np.empty((size, size, 3), np.float32)
     err = lib.d3d_decode(path.encode(), size,
                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))

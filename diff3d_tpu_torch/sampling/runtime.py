@@ -34,7 +34,8 @@ MeshEnv` whose data axis spans ``n`` ranks) the object axis of
 :meth:`Sampler.step_many` and :meth:`Sampler.synthesize_many` is split
 over the ranks: rank ``r`` runs objects ``[r N/n, (r+1) N/n)`` in its own
 loop (its own CUDA graph), and the views are all-gathered, so every rank
-returns all ``N`` objects' views and keeps the same records.
+returns all ``N`` objects' views and keeps the same records (over gloo,
+ranks sharing one card, the gather is staged through pinned host memory).
 :attr:`Sampler.lane_multiple` becomes ``n``: ``step_many`` refuses an
 object count that is not a multiple of it, ``synthesize_many`` pads.
 Under ``tp`` / ``fsdp+tp`` the model is split over the mesh's model axis
@@ -56,6 +57,7 @@ A11.
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -119,6 +121,21 @@ def record_capacity(n_views: int) -> int:
         raise ValueError(f"n_views={n_views}: need at least 2 views "
                          "(one conditioning + one target)")
     return 1 << (n_views - 1).bit_length()
+
+
+def _agreed(agree, run):
+    """``run()``; with ``agree``, this rank's outcome is agreed with the
+    other ranks' before anyone goes on (a failure anywhere raises
+    everywhere)."""
+    if agree is None:
+        return run()
+    try:
+        result = run()
+    except Exception as e:  # noqa: BLE001 - reported to the other ranks
+        agree(e)            # raises e
+        raise
+    agree(None)
+    return result
 
 
 class Sampler:
@@ -222,6 +239,9 @@ class Sampler:
         self._loops: Dict[tuple, ReverseLoop] = {}
         self.graphs: Dict[tuple, StepGraph] = {}
         self.graph_pool = None
+        #: The views' gathers staged through host memory on a gloo mesh:
+        #: calls, bytes this rank put in, host seconds.
+        self.gather_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
     @property
     def model_calls_per_view(self) -> int:
@@ -276,7 +296,8 @@ class Sampler:
     def step_many(self, record_imgs: torch.Tensor, record_R: torch.Tensor,
                   record_T: torch.Tensor, steps: Sequence[int],
                   K: torch.Tensor, draws: Sequence, *,
-                  drafts: Optional[torch.Tensor] = None) -> tuple:
+                  drafts: Optional[torch.Tensor] = None,
+                  agree=None) -> tuple:
         """One view step for N objects in one batched loop: every model
         call holds ``N * 2B`` examples.
 
@@ -290,7 +311,10 @@ class Sampler:
         Returns ``(out [N, B, H, W, 3], record_imgs, steps + 1)`` with the
         records updated in place.  On a mesh N must be a multiple of
         :attr:`lane_multiple`; each rank runs its share of the objects and
-        the views are all-gathered.
+        the views are all-gathered.  ``agree`` (a serving mesh's
+        agreement, ``serving/ranks.py``) is called with this rank's
+        error, or None, once its share has run and before the views are
+        gathered; it raises on every rank when any rank's share failed.
         """
         self._check_draft(drafts, batched=True)
         self._split_rows(False)
@@ -307,10 +331,10 @@ class Sampler:
                              f"{n} draw sources, got {len(lens)} and "
                              f"{len(draws)}")
         if self.lane_multiple == 1:
-            return self._view(record_imgs, record_R, record_T, lens, K,
-                              draws, drafts)
+            return _agreed(agree, lambda: self._view(
+                record_imgs, record_R, record_T, lens, K, draws, drafts))
         return self._view_split(record_imgs, record_R, record_T, lens, K,
-                                draws, drafts)
+                                draws, drafts, agree)
 
     def _split_rows(self, on: bool) -> None:
         """Under context parallelism, the model split by rows (``on``:
@@ -320,24 +344,45 @@ class Sampler:
             place_rows(self.model, self._rows if on else None)
 
     def _view_split(self, record_imgs, record_R, record_T, lens, K, draws,
-                    drafts) -> tuple:
+                    drafts, agree=None) -> tuple:
         """:meth:`_view` of this rank's objects, then the views of all
         ranks all-gathered and written into every rank's records."""
         world, rank = self.lane_multiple, self.mesh.data_rank
         m = int(record_imgs.shape[0]) // world
         mine = slice(rank * m, (rank + 1) * m)
         rec = record_imgs[mine].clone()
-        out, _, _ = self._view(
+        out, _, _ = _agreed(agree, lambda: self._view(
             rec, record_R[mine], record_T[mine], lens[mine], K[mine],
-            draws[mine], None if drafts is None else drafts[mine])
-        full = torch.empty((world * m,) + tuple(out.shape[1:]),
-                           dtype=out.dtype, device=out.device)
-        dist.all_gather_into_tensor(full, out.contiguous(),
-                                    group=self.mesh.group)
+            draws[mine], None if drafts is None else drafts[mine]))
+        full = self._gather_views(out.contiguous(), world)
         at = torch.arange(world * m, device=record_imgs.device)
         record_imgs[at, torch.tensor(lens, device=record_imgs.device)] = \
             full.to(record_imgs.dtype)
         return full, record_imgs, [s + 1 for s in lens]
+
+    def _gather_views(self, out: torch.Tensor, world: int) -> torch.Tensor:
+        """Every rank's views, rank-major.  Over NCCL the card's tensors go
+        as they are; over gloo (ranks sharing one card) a CUDA tensor is
+        staged through pinned host memory, as the model axis stages its
+        collectives (``parallel/tensor.py``), and :attr:`gather_stats`
+        counts the staged calls, bytes and host seconds."""
+        group = self.mesh.group
+        if not (out.is_cuda and dist.get_backend(group) == "gloo"):
+            full = torch.empty((world * out.shape[0],) + tuple(out.shape[1:]),
+                               dtype=out.dtype, device=out.device)
+            dist.all_gather_into_tensor(full, out, group=group)
+            return full
+        t0 = time.perf_counter()
+        host = torch.empty((world,) + tuple(out.shape), dtype=out.dtype,
+                           pin_memory=True)
+        host[self.mesh.data_rank].copy_(out)
+        for r, src in enumerate(dist.get_process_group_ranks(group)):
+            dist.broadcast(host[r], src=src, group=group)
+        full = host.to(out.device).flatten(0, 1)
+        self.gather_stats["calls"] += 1
+        self.gather_stats["bytes"] += out.numel() * out.element_size()
+        self.gather_stats["seconds"] += time.perf_counter() - t0
+        return full
 
     def _loop(self, N: int, capacity: int, H: int, W: int,
               dtype: torch.dtype) -> tuple:

@@ -88,28 +88,37 @@ class ParamsRegistry:
             self._pending = (self._version, dict(state_dict))
             return self._version
 
-    def apply(self) -> str:
+    def apply(self, publish: Optional[Callable[[str, dict], None]] = None
+              ) -> str:
         """Copy a staged swap into the model (the engine's thread, between
-        view steps) and return the version now live.
+        view steps) and return the version now live.  ``publish(version,
+        state_dict)`` (the serving mesh's leader: it sends the swap to
+        its followers) runs first, on a swap that is applied now.
 
         The engine issues its work on a stream of its own, so a staged
         device tensor is waited for first (the caller's stream may still
         be writing it), and the copies are waited for after (the caller's
         tensors may be freed and their memory reused once dropped)."""
         with self._lock:
-            if self._pending is not None:
-                version, new = self._pending
-                self._pending = None
-                on_card = any(t.is_cuda for t in new.values())
-                if on_card:
-                    torch.cuda.synchronize()
-                with torch.no_grad():
-                    for k, t in new.items():
-                        self._live[k].copy_(t)
-                if on_card:
-                    torch.cuda.current_stream().synchronize()
-                self._applied = version
-                self.applied += 1
+            pending, self._pending = self._pending, None
+            if pending is None:
+                return self._applied
+        # Only the engine thread applies, so the copies need no lock; a
+        # swap staged meanwhile waits for the next view step.
+        version, new = pending
+        if publish is not None:
+            publish(version, new)
+        on_card = any(t.is_cuda for t in new.values())
+        if on_card:
+            torch.cuda.synchronize()
+        with torch.no_grad():
+            for k, t in new.items():
+                self._live[k].copy_(t)
+        if on_card:
+            torch.cuda.current_stream().synchronize()
+        with self._lock:
+            self._applied = version
+            self.applied += 1
             return self._applied
 
 
@@ -203,13 +212,14 @@ class ProgramCache:
 
     def step_many(self, bucket, lanes: int, record_imgs, record_R,
                   record_T, steps, K, draws, *, drafts=None,
-                  generation: int = 0):
+                  generation: int = 0, agree=None):
         """One batched view step on device tensors (``Sampler.step_many``'s
         arguments: the pose buffers carry every view's pose, ``draws``
         one draw source per lane).  ``drafts`` is the refine phase's
         ``[N, B, H, W, 3]`` upsampled-draft operand (None elsewhere);
-        ``generation`` the weights registry's count of applied swaps.
-        Returns its ``(out, record_imgs, steps + 1)``."""
+        ``generation`` the weights registry's count of applied swaps;
+        ``agree`` the serving mesh's agreement step (``Sampler.
+        step_many``'s).  Returns its ``(out, record_imgs, steps + 1)``."""
         sampler = self._sampler_for(bucket)
         if bucket.phase is not None:
             self._adapt_phase(bucket.phase, generation)
@@ -236,6 +246,8 @@ class ProgramCache:
         graphs_before = set(sampler.graphs)
         t0 = time.monotonic()
         kw = {} if drafts is None else {"drafts": drafts}
+        if agree is not None:
+            kw["agree"] = agree
         out = sampler.step_many(record_imgs, record_R, record_T, steps, K,
                                 draws, **kw)
         if first:

@@ -24,7 +24,8 @@ as ``Sampler.synthesize_many`` does with the same seed, so a served
 result is bit-identical to ``synthesize_many`` over the same lanes (the
 lane count decides the batch shape, and with it the kernels' algorithms).
 A request may carry its own per-view draw sources instead
-(``ViewRequest.draws``).
+(``ViewRequest.draws``; over a mesh they travel in the step's plan to the
+rank that runs the lane).
 
 Batch shapes are quantised: the active set is padded to the next power of
 two lanes (<= ``ServingConfig.max_batch``), so each bucket owns a
@@ -52,6 +53,16 @@ call can fall inside another's capture, and a first use's peak-memory
 reading is its own.  Each engine issues its work on a CUDA stream of its
 own.
 
+Over a mesh of ranks (``ranks``, a
+:class:`~diff3d_tpu_torch.serving.ranks.RankChannel`; every sampler built
+with ``Sampler(mesh=...)``) the engine of rank 0 runs as above and is the
+only one that decides anything: each view step is built as a
+:class:`~diff3d_tpu_torch.serving.ranks.StepPlan` (host data) and sent
+to the other ranks once per attempt before it runs; their engines run
+only :meth:`Engine.follow`, which runs the plans, warm-ups and swaps in
+the order they were sent.  A lost rank breaks the mesh: the engine
+rejects everything it holds and stops.
+
 A cascade (:class:`~diff3d_tpu_torch.cascade.CascadeSampler`) adds two
 phase samplers reached only through phase-tagged buckets: a
 :class:`~diff3d_tpu_torch.cascade.CascadeRequest` never queues itself;
@@ -78,6 +89,8 @@ from diff3d_tpu_torch.runtime.retry import (RetryPolicy,
 from diff3d_tpu_torch.serving.cache import (ParamsRegistry, ProgramCache,
                                            ResultCache)
 from diff3d_tpu_torch.serving.metrics import MetricsRegistry
+from diff3d_tpu_torch.serving.ranks import (MeshBroken, RankStepFailed,
+                                           StepPlan, lane_generators)
 from diff3d_tpu_torch.serving.scheduler import (EngineDraining,
                                                EngineOverloaded,
                                                EngineStepError,
@@ -162,6 +175,37 @@ def lane_count(n: int, max_batch: int, multiple: int = 1) -> int:
     return min(lanes, max_batch)
 
 
+def _step_retryable(exc: BaseException) -> bool:
+    """A view step's retry classification: a broken serving mesh never
+    retries; another rank's failure retries when it was transient."""
+    if isinstance(exc, MeshBroken):
+        return False
+    if isinstance(exc, RankStepFailed):
+        return exc.transient
+    return is_transient_backend_error(exc)
+
+
+class _Agreement:
+    """One attempt's agreement step on a serving mesh (``Sampler.
+    step_many``'s ``agree``): this rank's outcome and its lanes'
+    generator states reported, every other rank's lanes' states taken
+    (see ``serving/ranks.py``)."""
+
+    def __init__(self, ranks, plan: StepPlan,
+                 gens: List[Optional[torch.Generator]]):
+        self.ranks, self.plan, self.gens = ranks, plan, gens
+        self.done = False
+
+    def __call__(self, err: Optional[BaseException]) -> None:
+        self.done = True
+        owned = self.ranks.owned(self.plan.lanes)
+        mine = {i: self.gens[i].get_state() for i in owned
+                if i < self.plan.n and self.gens[i] is not None}
+        for i, state in self.ranks.agree(err, mine).items():
+            if i not in owned:
+                self.gens[i].set_state(state)
+
+
 class _Slot:
     """Engine-side state of one admitted request (built on the engine
     thread: its generator lives on the card)."""
@@ -214,7 +258,7 @@ class Engine:
                  result_cache: Optional[ResultCache] = None,
                  program_cache: Optional[ProgramCache] = None,
                  extra_samplers: Optional[dict] = None,
-                 cascade=None):
+                 cascade=None, ranks=None):
         self.sampler = sampler
         self.scheduler = scheduler
         self.metrics = metrics
@@ -250,6 +294,13 @@ class Engine:
                     "sampler's model — the served model IS the refine "
                     "phase")
             phase_samplers = [cascade.draft, cascade.refine]
+            for phase, s in (("draft", cascade.draft),
+                             ("refine", cascade.refine)):
+                if s.lane_multiple != sampler.lane_multiple:
+                    raise ValueError(
+                        f"cascade {phase} sampler: lane_multiple differs "
+                        "from the default sampler's — all programs must "
+                        "share a mesh")
         if sampler.cuda_graphs:
             pool = torch.cuda.graph_pool_handle()
             for s in list(self.samplers.values()) + phase_samplers:
@@ -275,6 +326,15 @@ class Engine:
                           * self.lane_multiple)
         self.step_timer = StepTimer(window=512)
         self._last_version = self.registry.version
+        # The serving mesh (serving/ranks.py): on the leader (rank 0) this
+        # engine runs as everywhere else and sends each view step's plan
+        # to the followers; a follower's engine runs only :meth:`follow`.
+        self.ranks = ranks
+        if ranks is not None and ranks.world != self.lane_multiple:
+            raise ValueError(
+                f"serving mesh of {ranks.world} ranks, but the sampler's "
+                f"lanes split over {self.lane_multiple}: build it with "
+                "Sampler(mesh=...) over the same mesh")
 
         m = metrics
         self._submitted = m.counter("serving_requests_total",
@@ -355,7 +415,7 @@ class Engine:
             max_attempts=max(1, cfg.step_retry_attempts),
             base_delay_s=cfg.step_retry_backoff_s,
             max_delay_s=max(cfg.step_retry_backoff_s * 8, 1e-9),
-            classify=is_transient_backend_error)
+            classify=_step_retryable)
         self._health = HEALTH_OK  # guarded-by: self._health_lock
         self._health_lock = threading.Lock()
         # Clean steps since the last fault.
@@ -505,6 +565,29 @@ class Engine:
                     f"engine worker {thread.name!r} did not exit within "
                     f"{timeout}s — thread leaked (likely wedged in a "
                     "device call)")
+        if self.ranks is not None and self.ranks.leader:
+            try:
+                self.ranks.stop()       # the followers leave their loop
+            except MeshBroken as e:
+                log.warning("serving mesh: stop not delivered (%s)", e)
+
+    def warmup(self, bucket, lanes: int) -> float:
+        """Capture the ``(bucket, lanes)`` view step ahead of traffic
+        (``ProgramCache.warmup``); on the serving mesh's leader every
+        follower captures its share at the same time.  Before
+        :meth:`start`."""
+        if self.ranks is not None:
+            self.ranks.send(("warmup", bucket, int(lanes)))
+        return self.programs.warmup(bucket, lanes, self.guidance_B)
+
+    def rank_program_stats(self) -> List[dict]:
+        """``ProgramCache.stats(include_memory=True)`` of every rank of the
+        serving mesh (just this engine's without one).  Before
+        :meth:`start`."""
+        own = self.programs.stats(include_memory=True)
+        if self.ranks is None:
+            return [own]
+        return self.ranks.gather_stats(own)
 
     def drain(self, timeout: Optional[float] = 30.0,
               poll_s: float = 0.05) -> bool:
@@ -575,6 +658,7 @@ class Engine:
                 "restarts": self._restarts,
                 "params_version": self.registry.version,
                 "lane_multiple": self.lane_multiple,
+                "mesh_ranks": 1 if self.ranks is None else self.ranks.world,
                 "max_batch": self.max_batch,
                 "effective_max_batch": self._effective_max_batch(),
                 "num_devices": self.num_devices,
@@ -759,6 +843,12 @@ class Engine:
             while not self._stop.is_set():
                 active = self._admit(active)
                 if not active:
+                    if self.ranks is not None:
+                        try:
+                            self.ranks.tick()
+                        except MeshBroken as e:
+                            self._mesh_lost(e)
+                            return
                     continue
                 try:
                     self._run_view_step(active)
@@ -766,6 +856,11 @@ class Engine:
                     log.exception("view step failed (after retries)")
                     self._note_fault(str(e).splitlines()[0][:120]
                                      if str(e) else type(e).__name__)
+                    if isinstance(e, MeshBroken):
+                        # New work is refused before the in-flight
+                        # requests learn of the loss.
+                        self._stop.set()
+                        self.scheduler.close(reject_pending=True)
                     for slot in active:
                         self._failed.inc()
                         self._unregister(slot.req)
@@ -775,6 +870,9 @@ class Engine:
                             retry_after_s=self.cfg.retry_after_s))
                     active = []
                     self._active_g.set(0)
+                    if isinstance(e, MeshBroken):
+                        self._mesh_lost(e)
+                        return
                     continue
                 self._note_step_ok()
                 active = self._retire(active)
@@ -784,6 +882,15 @@ class Engine:
                 slot.req._reject(EngineStopped(
                     f"{slot.req.id}: engine stopped"))
             self._active_g.set(0)
+
+    def _mesh_lost(self, exc: BaseException) -> None:
+        """A rank of the serving mesh is gone: nothing more can run, so
+        every queued and admitted request is rejected (typed, retryable)
+        and the engine stops for good."""
+        log.error("serving mesh lost a rank (%s): engine stops", exc)
+        self.kill(EngineStepError(
+            f"serving mesh lost a rank ({exc}); retry elsewhere",
+            retry_after_s=self.cfg.retry_after_s))
 
     def _admit(self, active: List[_Slot]) -> List[_Slot]:
         # Drop slots whose request was resolved out from under the loop
@@ -810,22 +917,16 @@ class Engine:
             self._active_g.set(len(active))
         return active
 
-    def _run_view_step(self, active: List[_Slot]) -> None:
+    def _plan(self, active: List[_Slot]) -> StepPlan:
+        """The view step of ``active`` as host data: what every rank of a
+        serving mesh needs to run it (see ``serving/ranks.py``)."""
         n = len(active)
         lanes = lane_count(n, self.max_batch, self.lane_multiple)
-        pad = lanes - n
         # Padding lanes repeat lane 0's record (live data: zero-filled
         # lanes would still run the whole loop, and denormal/NaN paths
         # can be slower) with draws of their own; their views are
         # discarded.
-        idx = list(range(n)) + [0] * pad
-        record_imgs = np.stack([active[i].record_imgs for i in idx])
-        record_R = np.stack([active[i].record_R for i in idx])
-        record_T = np.stack([active[i].record_T for i in idx])
-        steps = [active[i].step for i in idx]
-        Ks = np.stack([active[i].req.K for i in idx])
-        self._upload_bytes.inc(record_imgs.nbytes + record_R.nbytes
-                               + record_T.nbytes + Ks.nbytes)
+        idx = list(range(n)) + [0] * (lanes - n)
         bucket = active[0].req.bucket
         # Refine-phase batches add the per-lane draft operand: lane i's
         # upsampled draft of the view it synthesises now (slot.step is
@@ -834,10 +935,67 @@ class Engine:
         if bucket.phase == "refine":
             drafts = np.stack([active[i].drafts[active[i].step - 1]
                                for i in idx])
-            self._upload_bytes.inc(drafts.nbytes)
+        return StepPlan(
+            bucket=bucket, lanes=lanes, n=n,
+            record_imgs=np.stack([active[i].record_imgs for i in idx]),
+            record_R=np.stack([active[i].record_R for i in idx]),
+            record_T=np.stack([active[i].record_T for i in idx]),
+            K=np.stack([active[i].req.K for i in idx]),
+            steps=[active[i].step for i in idx], drafts=drafts,
+            gen_states=[None if s.gen is None else s.gen.get_state()
+                        for s in active],
+            draws=[None if s.draws is None else s.view_draws()
+                   for s in active],
+            pad_seed=PAD_SEED, generation=self.registry.applied)
+
+    def _run_plan(self, plan: StepPlan, draws: list,
+                  gens: List[Optional[torch.Generator]]) -> np.ndarray:
+        """Run ``plan`` with one draw source per live lane (``gens``: the
+        lanes' generators, which a serving mesh brings to the states the
+        lanes' ranks left them in); returns the live lanes' views."""
+        device = self.device
+        draws = list(draws) + [
+            Draws(torch.Generator(device).manual_seed(plan.pad_seed))
+            for _ in range(plan.lanes - plan.n)]
+        agreement = None if self.ranks is None else _Agreement(
+            self.ranks, plan, gens)
+        try:
+            out, _, _ = self.programs.step_many(
+                plan.bucket, plan.lanes,
+                torch.from_numpy(plan.record_imgs).to(device),
+                torch.from_numpy(plan.record_R).to(device),
+                torch.from_numpy(plan.record_T).to(device), plan.steps,
+                torch.from_numpy(plan.K).to(device), draws,
+                drafts=(None if plan.drafts is None
+                        else torch.from_numpy(plan.drafts).to(device)),
+                generation=plan.generation,
+                agree=agreement)
+        except (MeshBroken, RankStepFailed):
+            raise
+        except Exception as e:  # noqa: BLE001 - the ranks agree first
+            if agreement is not None and not agreement.done:
+                agreement(e)    # the others learn of it; raises e
+            raise
+        return out[:plan.n].cpu().numpy()  # the step's one sync
+
+    def _run_view_step(self, active: List[_Slot]) -> None:
+        # One weights version per view step: a staged swap lands here,
+        # between steps, and never inside one (on a serving mesh it goes
+        # to the followers first, so it lands there at the same step).
+        with self.turns:
+            version = self.registry.apply(
+                publish=None if self.ranks is None else
+                self.ranks.send_state)
+        plan = self._plan(active)
+        n, lanes, pad = plan.n, plan.lanes, plan.lanes - plan.n
+        bucket = plan.bucket
+        self._upload_bytes.inc(
+            plan.record_imgs.nbytes + plan.record_R.nbytes
+            + plan.record_T.nbytes + plan.K.nbytes
+            + (0 if plan.drafts is None else plan.drafts.nbytes))
         saved = [(s.gen, s.gen.get_state()) for s in active
                  if s.gen is not None]
-        device = self.device
+        gens = [s.gen for s in active]
 
         def _dispatch():
             # Arm the watchdog per attempt: a retry gets a fresh step
@@ -852,26 +1010,13 @@ class Engine:
                 try:
                     for gen, state in saved:  # a retry redraws the same
                         gen.set_state(state)
-                    draws = [s.view_draws() for s in active] + [
-                        Draws(torch.Generator(device).manual_seed(PAD_SEED))
-                        for _ in range(pad)]
-                    out, _, _ = self.programs.step_many(
-                        bucket, lanes,
-                        torch.from_numpy(record_imgs).to(device),
-                        torch.from_numpy(record_R).to(device),
-                        torch.from_numpy(record_T).to(device), steps,
-                        torch.from_numpy(Ks).to(device), draws,
-                        drafts=(None if drafts is None
-                                else torch.from_numpy(drafts).to(device)),
-                        generation=self.registry.applied)
-                    return out[:n].cpu().numpy()  # the step's one sync
+                    if self.ranks is not None:   # once per attempt
+                        self.ranks.send(("plan", plan))
+                    return self._run_plan(
+                        plan, [s.view_draws() for s in active], gens)
                 finally:
                     self._step_deadline = None
 
-        # One weights version per view step: a staged swap lands here,
-        # between steps, and never inside one.
-        with self.turns:
-            version = self.registry.apply()
         t0 = time.monotonic()
 
         out = self.step_policy.call(_dispatch,
@@ -904,6 +1049,63 @@ class Engine:
         # Remember the version for the result-cache key of requests that
         # finish this step.
         self._last_version = version
+
+    # -- the serving mesh's followers ----------------------------------
+
+    def follow(self) -> None:
+        """A follower's loop (ranks 1.. of a serving mesh): run the
+        leader's messages in their order until it stops (returns) or the
+        mesh breaks (:class:`~diff3d_tpu_torch.serving.ranks.MeshBroken`).
+        It takes no decision of its own: a failed attempt waits for the
+        leader's retry."""
+        if self.ranks is None or self.ranks.leader:
+            raise RuntimeError("follow() runs on a serving mesh's "
+                               "followers")
+        if self.device.type == "cuda":
+            with torch.cuda.stream(torch.cuda.Stream(self.device)):
+                self._follow()
+        else:
+            self._follow()
+
+    def _follow(self) -> None:
+        ranks = self.ranks
+        while True:
+            msg = ranks.recv()
+            kind = msg[0]
+            if kind == "stop":
+                return
+            if kind == "plan":
+                self._follow_plan(msg[1])
+            elif kind == "warmup":
+                self.programs.warmup(msg[1], msg[2], self.guidance_B)
+            elif kind == "stats":
+                ranks.gather(self.programs.stats(include_memory=True))
+            elif kind == "swap":
+                self.registry.swap(ranks.recv_state(msg[2]), msg[1])
+            elif kind != "tick":
+                raise RuntimeError(f"serving mesh: unknown message {kind!r}")
+
+    def _follow_plan(self, plan: StepPlan) -> None:
+        self.registry.apply()
+        if self.registry.applied != plan.generation:
+            raise RuntimeError(
+                f"serving mesh: the leader's step runs weights generation "
+                f"{plan.generation}, this rank holds "
+                f"{self.registry.applied}")
+        gens = lane_generators(plan.gen_states, self.device)
+        draws = [Draws(g) if d is None else d
+                 for d, g in zip(plan.draws, gens)]
+        t0 = time.monotonic()
+        try:
+            self._run_plan(plan, draws, gens)
+        except MeshBroken:
+            raise
+        except Exception as e:  # noqa: BLE001 - agreed on every rank
+            log.warning("view step attempt failed on the mesh (%s); the "
+                        "leader decides", e)
+            return
+        self.step_timer.tick()
+        self._view_lat.observe(time.monotonic() - t0)
 
     def _retire(self, active: List[_Slot]) -> List[_Slot]:
         still: List[_Slot] = []

@@ -77,7 +77,7 @@ class Replica:
 
     def __init__(self, name: str, sampler, cfg: Config,
                  extra_samplers: Optional[dict] = None,
-                 params_version: str = "v0", cascade=None):
+                 params_version: str = "v0", cascade=None, ranks=None):
         """``extra_samplers`` maps ``(sampler_kind, steps)`` to extra
         Sampler instances over ``sampler``'s model — the schedules this
         replica serves beyond the default sampler's own (per replica, so
@@ -85,7 +85,8 @@ class Replica:
         replicas and parity traffic on teacher replicas).  ``cascade`` is
         an optional :class:`~diff3d_tpu_torch.cascade.CascadeSampler`
         over the same model enabling the progressive-preview surface on
-        this replica."""
+        this replica.  ``ranks`` serves it over a mesh of ranks (see
+        :class:`~diff3d_tpu_torch.serving.ServingService`)."""
         cfg.serving.validate()
         self.name = str(name)
         self.cfg = cfg
@@ -106,7 +107,7 @@ class Replica:
                                      self.metrics),
             program_cache=ProgramCache(
                 samplers if len(samplers) > 1 else sampler, self.metrics),
-            extra_samplers=extra_samplers, cascade=cascade)
+            extra_samplers=extra_samplers, cascade=cascade, ranks=ranks)
         self.weights_bytes = sum(
             t.numel() * t.element_size()
             for t in sampler.model.state_dict().values())
@@ -271,7 +272,7 @@ def _sampler_over(template, model):
                    sampler_kind=template.sampler_kind, steps=template.steps,
                    scan_chunks=template.scan_chunks,
                    start_t=template.start_t,
-                   cuda_graphs=template.cuda_graphs)
+                   cuda_graphs=template.cuda_graphs, mesh=template.mesh)
 
 
 def _cascade_over(template, model):
@@ -283,14 +284,16 @@ def _cascade_over(template, model):
              if template.owns_draft_weights else None)
     return CascadeSampler(model, template.cfg, template.plan,
                           device=template.device, draft_params=draft,
-                          cuda_graphs=template.refine.cuda_graphs)
+                          cuda_graphs=template.refine.cuda_graphs,
+                          mesh=template.refine.mesh)
 
 
 def build_fleet(sampler, cfg: Config, n: Optional[int] = None,
                 extra_samplers: Optional[dict] = None,
                 per_replica_extra: Optional[Dict[int, dict]] = None,
                 params_version: str = "v0",
-                name_prefix: str = "r", cascade=None) -> List[Replica]:
+                name_prefix: str = "r", cascade=None,
+                ranks=None) -> List[Replica]:
     """Build ``n`` replicas (default ``cfg.serving.replicas``).
 
     Replica 0 serves ``sampler`` (and ``extra_samplers``,
@@ -300,10 +303,15 @@ def build_fleet(sampler, cfg: Config, n: Optional[int] = None,
     applies to every replica; ``per_replica_extra[i]`` adds
     replica-``i``-only schedules — the heterogeneous-fleet shape (e.g.
     one distilled-student schedule in a teacher fleet).  A ``cascade``
-    enables the progressive-preview surface fleet-wide."""
+    enables the progressive-preview surface fleet-wide.  ``ranks``
+    serves the one replica over a mesh of ranks (a fleet of several
+    in-process replicas on a mesh is refused)."""
     n = cfg.serving.replicas if n is None else int(n)
     if n < 1:
         raise ValueError(f"fleet size {n} must be >= 1")
+    if ranks is not None and n > 1:
+        raise ValueError(f"{n} in-process replicas on a serving mesh: each "
+                         "would need a mesh of its own (ROADMAP A10b)")
     per_replica_extra = per_replica_extra or {}
     replicas = []
     for i in range(n):
@@ -319,5 +327,5 @@ def build_fleet(sampler, cfg: Config, n: Optional[int] = None,
         replicas.append(Replica(f"{name_prefix}{i}", default, cfg,
                                 extra_samplers=extra or None,
                                 params_version=params_version,
-                                cascade=casc))
+                                cascade=casc, ranks=ranks))
     return replicas

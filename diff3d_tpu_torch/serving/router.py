@@ -578,7 +578,7 @@ class FleetService:
         payload (``session_id`` keys the affinity contract)."""
         req = build_request(payload, self.cfg)
         self.router.submit(req)
-        remember_request(self._requests, self._requests_lock, req,
+        remember_request(self._requests, self._requests_lock, req,  # lockcheck: disable=LC302(reference passed; remember_request locks)
                          4 * self.cfg.serving.max_queue)
         return req
 
@@ -589,7 +589,7 @@ class FleetService:
         and the zero-migration contract keeps it there."""
         req = build_trajectory_request(payload, self.cfg)
         self.router.submit(req)
-        remember_request(self._requests, self._requests_lock, req,
+        remember_request(self._requests, self._requests_lock, req,  # lockcheck: disable=LC302(reference passed; remember_request locks)
                          4 * self.cfg.serving.max_queue)
         return req
 
@@ -611,7 +611,7 @@ class FleetService:
                 "(boot with --cascade)")
         req = build_cascade_request(payload, self.cfg, plan)
         self.router.submit(req)
-        remember_request(self._requests, self._requests_lock, req,
+        remember_request(self._requests, self._requests_lock, req,  # lockcheck: disable=LC302(reference passed; remember_request locks)
                          4 * self.cfg.serving.max_queue)
         return req
 

@@ -324,14 +324,19 @@ class ServingService:
     """
 
     def __init__(self, sampler, cfg: Config, params_version: str = "v0",
-                 extra_samplers: Optional[dict] = None, cascade=None):
+                 extra_samplers: Optional[dict] = None, cascade=None,
+                 ranks=None):
         """``extra_samplers`` maps ``(sampler_kind, steps)`` to extra
         :class:`~diff3d_tpu_torch.sampling.Sampler` instances over the
         default sampler's model — the additional schedules this replica
         serves beyond the default sampler's own.  ``cascade`` is an
         optional :class:`~diff3d_tpu_torch.cascade.CascadeSampler` over
         the same model enabling the progressive-preview surface
-        (``POST /cascade``)."""
+        (``POST /cascade``).  ``ranks`` (a
+        :class:`~diff3d_tpu_torch.serving.ranks.RankChannel`) serves over
+        a mesh of ranks, every sampler built with ``mesh=``: rank 0
+        starts the service as usual, every other rank runs
+        ``engine.follow()`` instead."""
         cfg.serving.validate()
         self.cfg = cfg
         self.metrics = MetricsRegistry()
@@ -351,7 +356,8 @@ class ServingService:
                                      self.metrics),
             program_cache=ProgramCache(
                 samplers if len(samplers) > 1 else sampler, self.metrics),
-            extra_samplers=extra_samplers, cascade=cascade)
+            extra_samplers=extra_samplers, cascade=cascade, ranks=ranks)
+        self.ranks = ranks
         self._requests_lock = threading.Lock()
         self._requests: "OrderedDict[str, ViewRequest]" = OrderedDict()
         self._httpd: Optional[ThreadingHTTPServer] = None

@@ -29,10 +29,16 @@ resident and headroom surface on the ``state`` RPC, ``health()`` and
 ``GET /stats`` so the router and operators see the same arithmetic that
 rejected the request.
 
-**One card per worker.**  :func:`boot_worker` runs the replica on one
-CUDA device (``--devices 3`` = ``cuda:3``); a slice of several devices
-waits for a multi-process serving loop (ROADMAP A10b), so it is refused.  XLA's persistent compile cache has no counterpart:
-each worker captures its graphs at boot.
+**A slice of cards per worker.**  :func:`boot_worker` runs the replica
+on one CUDA device (``--devices 3`` = ``cuda:3``), or on a slice of N
+(``--devices 0-3``) as N ranks of one process group, rank ``r`` on
+``cuda:<devices[r]>``: a serving mesh whose lanes split over the ranks
+(``serving/ranks.py``).  Rank 0 is the worker: its engine leads, its
+socket and admission gate face the router; the other ranks only follow
+its view steps.  Every rank warms every lane count before rank 0 returns
+(the warm-up goes to every rank at once), and the admission pins are the
+largest first-use bytes over the ranks.  XLA's persistent compile cache
+has no counterpart: each worker captures its graphs at boot.
 """
 
 from __future__ import annotations
@@ -218,6 +224,10 @@ class Worker:
         self.admission = admission or HbmAdmission(
             0, replica_name=replica.name)
         self._default_kind = default_sampler_kind
+        #: A slice's follower processes (``worker_cli`` starts them).
+        self.followers: list = []
+        #: Graphs each rank captured at boot (:func:`boot_worker`).
+        self.rank_programs: List[int] = []
         self.max_frame_bytes = int(getattr(
             cfg.serving, "max_frame_bytes", DEFAULT_MAX_FRAME_BYTES))
         self._lock = threading.Lock()
@@ -581,11 +591,23 @@ def device_slice(spec: str) -> List[int]:
     return idx
 
 
-def warm_lanes(max_batch: int) -> List[int]:
-    """Every lane count the engine launches up to ``max_batch``."""
+def warm_lanes(max_batch: int, multiple: int = 1) -> List[int]:
+    """Every lane count the engine launches up to ``max_batch`` (lanes in
+    multiples of ``multiple``, a serving mesh's rank count)."""
     from diff3d_tpu_torch.serving.engine import lane_count
 
-    return sorted({lane_count(n, max_batch) for n in range(1, max_batch + 1)})
+    return sorted({lane_count(n, max_batch, multiple)
+                   for n in range(1, max_batch + 1)})
+
+
+def rank_pins(rank_stats: List[dict]) -> Dict[str, int]:
+    """Per program name, the largest pin over the ranks' statistics
+    (:func:`pins_from_stats` of each)."""
+    pins: Dict[str, int] = {}
+    for stats in rank_stats:
+        for name, b in pins_from_stats(stats).items():
+            pins[name] = max(pins.get(name, 0), b)
+    return pins
 
 
 def boot_worker(cfg: Config, *, name: str, devices: List[int],
@@ -595,18 +617,28 @@ def boot_worker(cfg: Config, *, name: str, devices: List[int],
                 weights: Optional[str] = None, raw_params: bool = False,
                 params_version: str = "v0",
                 host: str = "127.0.0.1", port: int = 0,
-                hbm_budget_bytes: int = 0, scan_chunks: int = 1) -> Worker:
-    """Build a worker (not started): model + samplers on one card,
-    replica, warm-up, admission gate, socket server.
+                hbm_budget_bytes: int = 0, scan_chunks: int = 1,
+                rank_devices: Optional[List[str]] = None
+                ) -> Optional[Worker]:
+    """Build a worker (not started): model + samplers on its card or
+    slice, replica, warm-up, admission gate, socket server.
 
-    ``devices`` must name one card (``cuda:<index>``); ``device`` names
-    another torch device instead (the CPU tests).  ``weights`` is
-    anything ``cli/_common.py::load_eval_params`` reads; ``None`` serves
-    the seeded random initialisation.  The warm-up captures every lane
-    count up to ``max_batch`` of every schedule at the ``max_views``
-    record capacity; on the card their first-use bytes become the
-    admission pins."""
+    ``devices`` names the worker's cards; ``device`` names another torch
+    device for every rank instead (the CPU tests).  A slice of several
+    runs as the ranks of the default process group, which must be up
+    (one rank per card: ``worker_cli`` starts the ranks and makes it);
+    ``rank_devices`` maps each rank to its torch device
+    (default ``cuda:<devices[rank]>``, or ``device``): a card test puts
+    two ranks on ``cuda:0`` over gloo.  ``weights`` is anything
+    ``cli/_common.py::load_eval_params`` reads; ``None`` serves the
+    seeded random initialisation (rank 0's, on every rank).  The warm-up
+    captures every lane count up to ``max_batch`` of every schedule at
+    the ``max_views`` record capacity; on the card their first-use bytes
+    become the admission pins.  Rank 0 returns the worker once every rank
+    warmed up; every other rank follows rank 0's engine until it stops
+    and returns None."""
     import torch
+    import torch.distributed as dist
 
     from diff3d_tpu_torch.cli._common import load_eval_params
     from diff3d_tpu_torch.device import resolve_device
@@ -615,50 +647,76 @@ def boot_worker(cfg: Config, *, name: str, devices: List[int],
     from diff3d_tpu_torch.serving.fleet import Replica
     from diff3d_tpu_torch.serving.scheduler import Bucket
 
-    if len(devices) != 1:
+    sliced = len(devices) > 1
+    if sliced and not dist.is_initialized():
         raise ValueError(
-            f"device slice {devices}: a worker runs on one card; a slice "
-            "of several waits for a multi-process serving loop "
-            "(ROADMAP A10b)")
-    if device is None:
-        resolve_device(None)                  # raises without CUDA
-        if devices[0] >= torch.cuda.device_count():
+            f"device slice {devices}: a slice of several cards runs one "
+            "rank per card in a process group (worker_cli starts them)")
+    rank = 0
+    if sliced:
+        rank = dist.get_rank()
+        if dist.get_world_size() != len(devices):
             raise ValueError(
-                f"device index {devices[0]} out of range: "
-                f"{torch.cuda.device_count()} CUDA devices")
-        dev = torch.device("cuda", devices[0])
-    else:
-        dev = torch.device(device)
+                f"device slice {devices}: {len(devices)} ranks, but the "
+                f"process group has {dist.get_world_size()}")
+    if rank_devices is None:
+        if device is None:
+            resolve_device(None)                  # raises without CUDA
+            bad = [d for d in devices if d >= torch.cuda.device_count()]
+            if bad:
+                raise ValueError(
+                    f"device indices {bad} out of range: "
+                    f"{torch.cuda.device_count()} CUDA devices")
+            rank_devices = [f"cuda:{d}" for d in devices]
+        else:
+            rank_devices = [device] * len(devices)
+    dev = torch.device(rank_devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = ranks = None
+    if sliced:
+        from diff3d_tpu_torch.parallel import make_mesh
+        from diff3d_tpu_torch.serving.ranks import RankChannel
+
+        mesh = make_mesh(cfg.mesh)
+        ranks = RankChannel(mesh)
     model = build_model(cfg.model, dev)
     if weights is not None:
         load_eval_params(weights, model, raw_params)
+    if ranks is not None:
+        ranks.sync_weights(model)
     default_steps = steps if steps is not None else cfg.diffusion.timesteps
     sampler = Sampler(model, cfg, device=dev, scan_chunks=scan_chunks,
-                      sampler_kind=sampler_kind, steps=default_steps)
+                      sampler_kind=sampler_kind, steps=default_steps,
+                      mesh=mesh)
     extra = {}
     for kind, n_steps in (extra_schedules or []):
         if (kind, n_steps) == (sampler_kind, default_steps):
             continue
         extra[(kind, n_steps)] = Sampler(
             model, cfg, device=dev, scan_chunks=scan_chunks,
-            sampler_kind=kind, steps=n_steps)
+            sampler_kind=kind, steps=n_steps, mesh=mesh)
 
     replica = Replica(name, sampler, cfg, extra_samplers=extra or None,
-                      params_version=params_version)
+                      params_version=params_version, ranks=ranks)
     eng = replica.engine
+    if ranks is not None and not ranks.leader:
+        eng.follow()
+        return None
     cap = record_capacity(cfg.serving.max_views)
     for s in eng.samplers.values():
-        for lanes in warm_lanes(eng.max_batch):
-            secs = eng.programs.warmup(
+        for lanes in warm_lanes(eng.max_batch, eng.lane_multiple):
+            secs = eng.warmup(
                 Bucket(cfg.model.H, cfg.model.W, cap, s.steps,
-                       s.sampler_kind), lanes, eng.guidance_B)
+                       s.sampler_kind), lanes)
             log.info("worker %s: warmed %s:%d at %d lanes in %.1fs", name,
                      s.sampler_kind, s.steps, lanes, secs)
+    rank_stats = eng.rank_program_stats()
     admission = HbmAdmission(
-        hbm_budget_bytes,
-        program_peaks=pins_from_stats(eng.programs.stats(
-            include_memory=True)),
+        hbm_budget_bytes, program_peaks=rank_pins(rank_stats),
         replica_name=name, retry_after_s=cfg.serving.retry_after_s,
         guidance_B=eng.guidance_B)
-    return Worker(replica, cfg, host=host, port=port, admission=admission,
-                  default_sampler_kind=sampler_kind)
+    worker = Worker(replica, cfg, host=host, port=port, admission=admission,
+                    default_sampler_kind=sampler_kind)
+    worker.rank_programs = [st["num_programs"] for st in rank_stats]
+    return worker

@@ -8,9 +8,10 @@ in a temporary directory (no port to pick), runs ``"module:function"`` in
 each as ``function(rank, world_size, *args)`` with one torch thread, and
 returns the ranks' results in rank order (each written with
 ``torch.save``, so tensors and numpy arrays pass).  A function that
-raises, a rank that dies, or a group that outlives ``timeout_s`` fails
-the whole call with the ranks' errors; every child is stopped before
-:func:`spawn` returns.  The named module is imported in the child, so it
+raises, a rank that dies (unless listed in ``may_exit``: a test of a
+rank's death; its result is then None), or a group that outlives
+``timeout_s`` fails the whole call with the ranks' errors; every child
+is stopped before :func:`spawn` returns.  The named module is imported in the child, so it
 should import only what the ranks need (``torch`` and this package: no
 JAX).
 """
@@ -57,9 +58,10 @@ def _child(target: str, rank: int, world_size: int, workdir: str) -> None:
 
 
 def spawn(target: str, world_size: int, *args,
-          timeout_s: float = 300.0) -> List[Any]:
+          timeout_s: float = 300.0, may_exit=()) -> List[Any]:
     """``[result of rank 0, ..., rank world_size - 1]`` of ``target``
-    (``"module:function"``) run on ``world_size`` gloo ranks."""
+    (``"module:function"``) run on ``world_size`` gloo ranks; the ranks in
+    ``may_exit`` may end without a result (None)."""
     import torch
 
     workdir = tempfile.mkdtemp(prefix="d3d_gloo_")
@@ -84,13 +86,19 @@ def spawn(target: str, world_size: int, *args,
             if time.monotonic() > deadline:
                 raise RuntimeError(f"spawn({target}): the group did not "
                                    f"finish within {timeout_s} s")
-            failed = [p for p in procs if p.poll() not in (None, 0)]
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0) and r not in may_exit]
             if failed:
                 break
             time.sleep(0.05)
         results, errors = [], []
         for r, p in enumerate(procs):
             path = os.path.join(workdir, f"rank_{r}.pt")
+            if not os.path.exists(path) and r in may_exit:
+                p.kill()
+                p.wait()
+                results.append(None)
+                continue
             if not os.path.exists(path):
                 p.kill()
                 p.wait()

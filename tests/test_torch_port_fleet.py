@@ -197,7 +197,8 @@ def _scenario(name, rmod, smod):
 @pytest.mark.parametrize("name", ["least_loaded", "failover", "sticky",
                                   "claim_release", "churn", "schedules",
                                   "rollout"])
-def test_router_decisions_match_jax(name):
+@pytest.mark.lock_witness
+def test_router_decisions_match_jax(name, lock_witness):
     want = _scenario(name, jrouter, jsched)
     got = _scenario(name, prouter, psched)
     assert got == want
@@ -246,7 +247,8 @@ def _offline(rep, seeds):
                               for i in seeds])
 
 
-def test_fleet_serves_sessions_bit_identical_per_replica(model):
+@pytest.mark.lock_witness
+def test_fleet_serves_sessions_bit_identical_per_replica(model, lock_witness):
     """Two replicas behind the router over HTTP: every replica owns its
     weights and samplers; sticky sessions land on their rendezvous
     owner, a replica-only schedule lands on that replica, and each
@@ -304,7 +306,8 @@ def test_fleet_serves_sessions_bit_identical_per_replica(model):
         svc.stop()
 
 
-def test_fleet_rollout_kill_and_failover(model):
+@pytest.mark.lock_witness
+def test_fleet_rollout_kill_and_failover(model, lock_witness):
     """A rolling rollout changes every replica's views and rolling back
     restores them bit for bit with every parameter at its address; then
     replica r0 dies mid-dispatch: its session gets ``SessionLost`` (503,
@@ -402,7 +405,7 @@ def test_serve_cli_replicas_and_per_replica_schedules():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh"], ["--replicas", "0"],
+    ["--replicas", "0"],
     ["--schedules", "0@ddim:2"], ["--replicas", "2", "--schedules",
                                   "2@ddim:2"],
     ["--replicas", "2", "--schedules", "x@ddim:2"],

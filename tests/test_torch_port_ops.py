@@ -446,6 +446,18 @@ def _imports(path):
             yield node.module
 
 
+def test_port_holds_zero_unsuppressed_lockcheck_findings():
+    """The JAX package's concurrency analyzer over the whole port: every
+    guarded field read under its lock, no callback under a lock, ...; a
+    suppression carries its reason in the source."""
+    from diff3d_tpu.analysis.lockcheck import lockcheck_paths
+
+    live = [f for f in lockcheck_paths([str(REPO / "diff3d_tpu_torch")])
+            if not f.suppressed]
+    assert not live, "unsuppressed lockcheck findings:\n" + "\n".join(
+        f.render() for f in live)
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((REPO / "diff3d_tpu_torch").rglob("*.py"))
     assert {"mesh.py", "multihost.py", "ring_attention.py", "tensor.py",
@@ -456,7 +468,9 @@ def test_port_imports_no_jax_and_no_reference_package():
               REPO / "tests" / "_torch_port_parallel_worker.py",
               REPO / "tests" / "_torch_port_tp_worker.py",
               REPO / "tests" / "_torch_port_cp_worker.py",
-              REPO / "tests" / "_torch_port_distill_worker.py"]
+              REPO / "tests" / "_torch_port_distill_worker.py",
+              REPO / "tests" / "_torch_port_serving_mesh_worker.py",
+              REPO / "tools" / "serve_nan_witness.py"]
     assert len(files) > 15
     for path in files:
         for mod in _imports(path):

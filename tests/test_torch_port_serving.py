@@ -320,7 +320,8 @@ def test_serving_config_defaults_match_jax():
 # --- the port's service against the JAX service ---------------------------
 
 
-def test_served_views_match_the_jax_service(tiny):
+@pytest.mark.lock_witness
+def test_served_views_match_the_jax_service(tiny, lock_witness):
     """Three concurrent requests (lanes 4, one of them padding) on the
     same weights and payloads: the JAX service draws from PRNGKey(seed),
     the port's requests replay those draws."""
@@ -402,7 +403,8 @@ def test_concurrent_requests_are_synthesize_many_over_the_same_lanes(
             np.asarray(results[s]["views"], np.float32), ref[s])
 
 
-def test_padding_lane_leaves_lane_zero_stream_intact(service):
+@pytest.mark.lock_witness
+def test_padding_lane_leaves_lane_zero_stream_intact(service, lock_witness):
     """Lane 0's views do not depend on what the padding lane draws: a
     padding lane that took lane 0's generator would advance its stream
     twice and change them."""
@@ -431,7 +433,8 @@ def test_padding_lane_leaves_lane_zero_stream_intact(service):
     assert not np.array_equal(twice[0], outs[0])
 
 
-def test_request_admitted_mid_job(tiny):
+@pytest.mark.lock_witness
+def test_request_admitted_mid_job(tiny, lock_witness):
     """A 5-view request posted after an 8-view one (same bucket, record
     capacity 8) has committed its first view joins at a view boundary
     and finishes first.  Each view step is slowed to 0.5 s, so the
@@ -535,7 +538,8 @@ def test_params_swap_refuses_a_mismatch_and_names_it(tiny, fault):
         assert torch.equal(t, before[k]), k
 
 
-def test_queue_full_429_and_degraded_health(tiny):
+@pytest.mark.lock_witness
+def test_queue_full_429_and_degraded_health(tiny, lock_witness):
     """With the engine not started and a 1-deep queue, the second
     submission gets 429 and ``/healthz`` reports degraded."""
     _, _, _, _, model, _ = tiny
@@ -672,7 +676,8 @@ def _faulty_service(model, wrap, **serving):
 
 
 @pytest.mark.parametrize("where", ["before", "after"])
-def test_transient_fault_retries_bit_exactly(tiny, where):
+@pytest.mark.lock_witness
+def test_transient_fault_retries_bit_exactly(tiny, where, lock_witness):
     _, _, _, _, model, _ = tiny
     inj = FaultInjector(seed=0)
     inj.add("engine.step", first_n=1)
@@ -691,7 +696,8 @@ def test_transient_fault_retries_bit_exactly(tiny, where):
     assert svc.engine.health == "ok"
 
 
-def test_stuck_step_trips_the_watchdog(tiny):
+@pytest.mark.lock_witness
+def test_stuck_step_trips_the_watchdog(tiny, lock_witness):
     _, _, _, _, model, _ = tiny
     inj = FaultInjector(seed=0)
     inj.add("engine.step", kind="slow", delay_s=1.0, first_n=1)
@@ -725,7 +731,8 @@ def test_sticky_cuda_error_is_not_transient(msg):
     assert not is_transient_backend_error(ValueError("bad shape"))
 
 
-def test_sticky_cuda_error_fails_the_step_without_a_retry(tiny):
+@pytest.mark.lock_witness
+def test_sticky_cuda_error_fails_the_step_without_a_retry(tiny, lock_witness):
     _, _, _, _, model, _ = tiny
     inj = FaultInjector(seed=0)
     inj.add("engine.step", first_n=1, exc=lambda: RuntimeError(STICKY[0]))
@@ -766,8 +773,8 @@ def test_serve_cli_serves_on_the_cpu():
 
 @pytest.mark.parametrize("argv", [
     ["--replicas", "0"], ["--schedules", "0@ddim:2"],
-    ["--schedules", "ddim"], ["--workers", "127.0.0.1:1"], ["--mesh"],
-    ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"],
+    ["--schedules", "ddim"], ["--workers", "127.0.0.1:1"],
+    ["--mesh", "--replicas", "2"], ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"],
     ["--sampler_steps", "3"], ["--max_batch", "0"]])
 def test_serve_cli_refuses(argv):
     base = ["--init", "random", "--config", "test", "--device", "cpu",
@@ -777,7 +784,8 @@ def test_serve_cli_refuses(argv):
             base + argv))
     assert ei.value.code not in (0, None)
     why = {"--replicas": "needs --workers", "--schedules": "--replicas > 1",
-           "--workers": "unreachable", "--cascade": "refine resolution"}
+           "--workers": "unreachable", "--cascade": "refine resolution",
+           "--mesh": "--mesh with --replicas 2"}
     if argv[0] in why and argv != ["--schedules", "ddim"]:
         assert why[argv[0]] in str(ei.value.code)
 

@@ -436,7 +436,6 @@ def test_worker_cli_without_device_and_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--devices", "0-1"], ["--devices", "0,1"],
     ["--compile_cache", "/tmp/c"], ["--host_device_count", "8"],
     ["--memcheck_dir", "runs/memcheck"], ["--devices", ""]])
 def test_worker_cli_refuses_flags_without_a_counterpart(argv):
