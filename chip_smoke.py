@@ -274,7 +274,7 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      level 0 (16, 8, 4 below): (a) one forward at 2B = 16 against one
      rank's (rel. L2 3e-2), the staged collectives per forward (calls,
      bytes, ms); (d) ``Sampler(mesh).synthesize`` on a float32 copy (TF32
-     off), its single-object path split by rows: one view of 2 DDIM steps
+     off), its single-object path split by rows: one view of 1 DDIM step
      against one rank's (3e-2); (c) the ``Trainer`` built by ``train_cli
      --context_parallel --model_parallel 2`` from the train phase's
      checkpoint, 2 eager steps at global batch 8 against one rank's:
@@ -297,7 +297,19 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      sites: the distill teacher's); (f) the distill leg, as (f) of 11a'
      with the row split, its control the halo's backward add removed:
      the split-statistics (a)-(d) and rows 3-6 launched on each rank, the
-     unsplit GroupNorm never, no plain version called.
+     unsplit GroupNorm never, no plain version called; (g) cp with the
+     ``tp`` placement (split leaves held as this rank's blocks, each layer
+     gathering them whole): one forward of the same seeded weights at
+     2B = 16, bit-identical to (a)'s, its leaf gathers' calls, bytes and
+     host ms; the ``Trainer`` of ``train_cli --context_parallel
+     --model_parallel 2 --param_sharding tp`` from the same checkpoint,
+     one eager step on (c)'s first batch, each leaf's update (blocks
+     summed over the ranks) against one rank's first update by (c)'s
+     gate, the bytes a rank holds for the parameters, Adam's moments and
+     the EMA at most 0.6x (c)'s, the step's peak above its start at most
+     0.75x one process's; the launch counts set to 0 before the forward
+     and before the step: (a)-(d) and rows 3-6 on each rank, the unsplit
+     GroupNorm never, no plain version called.
  11a'''. serve_mesh — serving over a data=2 mesh of the same two
      processes (after their cp ranks; the one-process references on this
      process after them), srn64 at full width, seeded random weights,
@@ -4173,7 +4185,8 @@ TP_BATCH = 8                    # (c)'s global batch
 TP_STEPS = 1                    # (c)'s eager steps (cut from 2)
 TP_SAMPLER_STEPS = 1            # (b): DDIM steps of one view (cut from 2)
 CP_STEPS = 2                    # the context phase's (c) eager steps
-CP_SAMPLER_STEPS = 2            # the context phase's (d) DDIM steps
+CP_SAMPLER_STEPS = 1            # the context phase's (d) DDIM steps (cut
+                                # from 2 in PR 18)
 TP_TOL = 3e-2                   # (a), (b): the model gate, rel. L2
 # (c)'s limits; PERF.md section 6 (PR 14) gives the readings: losses and
 # norms 2.1e-5, the worst update beyond the floor 0.0158, the floor's
@@ -4253,6 +4266,33 @@ def _tp_steps(trainer, n, batches=None):
         norms.append(float(m["grad_norm"]))
         used.append(batch)
     return losses, norms, lrs, used
+
+
+def _rewind_point(trainer):
+    """``(step, copies)``: the step and a copy on the card of every tensor
+    of ``trainer``'s state, for :func:`_rewind`."""
+    from diff3d_tpu_torch.train.checkpoint import state_leaves
+
+    return trainer.state.step, {n: t.detach().clone()
+                                for n, t in state_leaves(trainer.state)}
+
+
+def _rewind(trainer, point) -> None:
+    """Put ``trainer``'s state back to ``point`` (:func:`_rewind_point`)
+    in place: the parameters, the EMA, Adam's moments and counts, the
+    step and the schedule, as a restore of the checkpoint it was built
+    from leaves them (a device copy instead of reading the file again)."""
+    import torch
+
+    from diff3d_tpu_torch.train.checkpoint import state_leaves
+    from diff3d_tpu_torch.train.state import set_schedule_step
+
+    step, saved = point
+    with torch.no_grad():
+        for n, t in state_leaves(trainer.state):
+            t.copy_(saved[n])
+    trainer.state.step = step
+    set_schedule_step(trainer.state, step)
 
 
 def _tp_params(trainer):
@@ -4696,7 +4736,6 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     from diff3d_tpu_torch.parallel import make_mesh
     from diff3d_tpu_torch.parallel.mesh import block_of
     from diff3d_tpu_torch.sampling import Sampler
-    from diff3d_tpu_torch.train.state import set_schedule_step
 
     marks = {"start": time.perf_counter()}
     torch.cuda.set_device(0)
@@ -4749,6 +4788,7 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     tenv = trainer.env
     out["restored_step"] = trainer.state.step
     out["eager"] = not trainer.step_fn.cuda_graphs
+    point = _rewind_point(trainer)
     train_sites = _Sites()
     step_s, coll, got = [], [], ([], [], [], [])
     marks["c_build"] = time.perf_counter()
@@ -4779,11 +4819,12 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     out["halved"] = sorted(tenv._halved)
     marks["d_hash"] = time.perf_counter()
 
-    # (c) The control: back to the checkpoint, the first step retaken on
-    # its batch with ``copy``'s gradient unsummed; this rank's terms of
-    # the gate against one rank's first update (``TP_CONTROL_REF``).
-    trainer.ckpt.restore(trainer.state, step=out["restored_step"])
-    set_schedule_step(trainer.state, trainer.state.step)
+    # (c) The control: back to the checkpoint's state, the first step
+    # retaken on its batch with ``copy``'s gradient unsummed; this rank's
+    # terms of the gate against one rank's first update
+    # (``TP_CONTROL_REF``).
+    _rewind(trainer, point)
+    del point
     marks["c_restore"] = time.perf_counter()
     start = _tp_params(trainer)
     with _CopyNotSummed():
@@ -5191,6 +5232,7 @@ CP_MEMORY_RATIO = 0.75          # (e): a rank's activation peak over one's
 # one-rank trainer of tp_prepare, from the same checkpoint and batches).
 CP_REF = os.path.join(TP_WORKDIR, "one_params.pt")
 SPLIT_SUM_TOL = 1e-9            # (b): the f64 sums, relative to 1 + max|ref|
+CP_TP_STATE_RATIO = 0.6         # (g): a cp + tp rank's state bytes over cp's
 
 
 class _HaloNotAdded:
@@ -5419,6 +5461,108 @@ def phase_split_groupnorm(gn_sites, phase="cp_groupnorm"):
     return stats
 
 
+def _state_bytes(state) -> dict:
+    """The bytes this rank holds for ``state``'s parameters, Adam's
+    moments and the EMA (local blocks and shards)."""
+    import torch
+
+    def nbytes(ts):
+        ts = [getattr(t, "to_local", lambda: t)() for t in ts]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    adam = [t for st in state.optimizer.state.values() for t in st.values()
+            if torch.is_tensor(t) and t.dim() > 0]
+    return {"params": nbytes(state.model.parameters()), "adam": nbytes(adam),
+            "ema": nbytes(state.ema.values())}
+
+
+def _cp_tp_forward(cfg, world, batch, cond_mask, want) -> dict:
+    """(g) one bf16 forward at 2B = 16 of :func:`random_model` placed
+    under cp + ``tp``: each layer gathers its split leaves whole and runs
+    on this rank's rows, so the output must be the cp forward's ``want``
+    bit for bit; the leaf gathers' calls, bytes and host ms."""
+    import torch
+
+    from diff3d_tpu_torch.config import MeshConfig
+    from diff3d_tpu_torch.parallel import make_mesh
+
+    env = make_mesh(MeshConfig(model_parallel=world, context_parallel=True,
+                               param_sharding="tp"), model=cfg.model)
+    model = env.params(random_model(cfg))
+    axis = env.model_axis
+    _launch_counts(reset=True, split=True)
+    axis.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = model(batch, cond_mask)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = got.float().cpu()
+    out = {"ms_per_forward": ms,
+           "bit_identical": bool(torch.equal(got, want)),
+           "max_abs_diff": float((got - want).abs().max()),
+           "split_leaves": len(env._model_dims),
+           "collectives_per_forward": dict(axis.stats),
+           "gathers_per_forward": dict(axis.leaf_stats),
+           "launches": _launch_counts(split=True)}
+    del model
+    return out
+
+
+def _cp_tp_train(workdir, world, batch) -> dict:
+    """(g) the ``Trainer`` of ``train_cli --context_parallel
+    --model_parallel 2 --param_sharding tp`` from the train checkpoint,
+    one eager step on the cp leg's first batch: this rank's blocks' terms
+    of the update gate against one rank's first update
+    (``TP_CONTROL_REF``: ``CP_REF`` holds one rank's parameters after
+    ``CP_STEPS`` steps), its s/step, the bytes it holds for the state and
+    the step's peak above what it starts with (the step's first-use
+    allocations included: the bucket, Adam's temporaries)."""
+    import torch
+
+    from diff3d_tpu_torch.parallel.mesh import block_of
+
+    trainer = _tp_trainer(_tp_argv(workdir, "--context_parallel",
+                                   "--model_parallel", str(world),
+                                   "--param_sharding", "tp"))
+    env = trainer.env
+    axis = env.model_axis
+    out = {"eager": not trainer.step_fn.cuda_graphs,
+           "state_bytes": _state_bytes(trainer.state)}
+    start = _tp_params(trainer)
+    _launch_counts(reset=True, split=True)
+    axis.reset_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, norms, lrs, _ = _tp_steps(trainer, 1, [batch])
+    torch.cuda.synchronize()
+    out["step_peak_above_state"] = torch.cuda.max_memory_allocated() - base
+    out["step_s"] = [time.perf_counter() - t0]
+    out["collectives_per_step"] = [{"all": dict(axis.stats),
+                                    "gathers": dict(axis.leaf_stats)}]
+    out["launches"] = _launch_counts(split=True)
+    out["losses"], out["grad_norms"], out["lrs"] = losses, norms, lrs
+    ref = torch.load(TP_CONTROL_REF, map_location="cpu", mmap=True,
+                     weights_only=True)
+    sums = {}
+    for n, p in trainer.state.model.named_parameters():
+        d = env._model_dims.get(n)
+        r = ref[n] if d is None else block_of(
+            ref[n], d, env.model_rank, world, n in env._halved)
+        sums[n] = _update_sums(p.detach(), start[n] + r.to("cuda"),
+                               start[n])
+    out["sums"] = sums
+    out["split_leaves"] = len(env._model_dims)
+    trainer.loader.close()
+    del trainer, start, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def cp_rank(rank: int, world: int, workdir: str) -> dict:
     """One rank of phase ``context_parallel`` (see the module docstring,
     11a''), on the card with the other rank over gloo."""
@@ -5428,7 +5572,6 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
     from diff3d_tpu_torch.config import MeshConfig, srn64_config
     from diff3d_tpu_torch.parallel import make_mesh
     from diff3d_tpu_torch.sampling import Sampler
-    from diff3d_tpu_torch.train.state import set_schedule_step
 
     marks = {"start": time.perf_counter()}
     torch.cuda.set_device(0)
@@ -5461,6 +5604,12 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
     out["forward"] = fwd.float().cpu()
     out["collectives_per_forward"] = dict(rows.stats)
     marks["a_forward"] = time.perf_counter()
+    # (g) the same weights under cp + tp, one forward.
+    out["cp_tp"] = {"forward": _cp_tp_forward(cfg, world, batch, cond_mask,
+                                              out["forward"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["g_forward"] = time.perf_counter()
     cfg32, f32 = _tp_f32(cfg, model)
     sampler = Sampler(f32, cfg32, device="cuda", mesh=env,
                       sampler_kind="ddim", steps=CP_SAMPLER_STEPS)
@@ -5487,6 +5636,7 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
     out["restored_step"] = trainer.state.step
     out["eager"] = not trainer.step_fn.cuda_graphs
     start = _tp_params(trainer)
+    point = _rewind_point(trainer)
     train_sites = _Sites()
     step_s, coll, got = [], [], ([], [], [], [])
     marks["c_build"] = time.perf_counter()
@@ -5513,6 +5663,7 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
     out["losses"], out["grad_norms"], out["lrs"], batches = got
     out["step_s"], out["collectives_per_step"] = step_s, coll
     out["state_bytes"] = base
+    out["state_split_bytes"] = _state_bytes(trainer.state)
     marks["c_steps"] = time.perf_counter()
     ref = torch.load(CP_REF, map_location="cpu", mmap=True,
                      weights_only=True)
@@ -5520,10 +5671,11 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
                    for n, p in trainer.state.model.named_parameters()}
     marks["c_gate"] = time.perf_counter()
 
-    # (c) The control: back to the checkpoint, the first step retaken on
-    # its batch with the halo's backward not adding the neighbours' share.
-    trainer.ckpt.restore(trainer.state, step=out["restored_step"])
-    set_schedule_step(trainer.state, trainer.state.step)
+    # (c) The control: back to the checkpoint's state, the first step
+    # retaken on its batch with the halo's backward not adding the
+    # neighbours' share.
+    _rewind(trainer, point)
+    del point
     with _HaloNotAdded():
         ctl = _tp_steps(trainer, 1, batches)
     ref = torch.load(TP_CONTROL_REF, map_location="cpu", mmap=True,
@@ -5533,12 +5685,17 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
         "sums": {n: _update_sums(p.detach(), start[n] + ref[n].to("cuda"),
                                  start[n])
                  for n, p in trainer.state.model.named_parameters()}}
-    del start, ref, batches
+    del start, ref
     trainer.loader.close()
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
     marks["c_control"] = time.perf_counter()
+
+    # (g) the Trainer under cp + tp on (c)'s batches.
+    out["cp_tp"]["train"] = _cp_tp_train(workdir, world, batches[0])
+    del batches
+    marks["g_train"] = time.perf_counter()
 
     # (f) The distill leg; its control: the halo's backward add removed.
     out["distill"] = distill_leg(env, _HaloNotAdded())
@@ -5628,6 +5785,70 @@ def phase_context_parallel(prep, ranks, ranks_s):
         return {"calls": c["calls"], "bytes": c["bytes"],
                 "ms": round(1e3 * c["seconds"], 3)}
 
+    # (g) cp + tp: the forward bit for bit cp's, every leaf's update
+    # (blocks summed over the ranks) against one rank's, the state bytes
+    # and the step peak.
+    g_fwd = [r["cp_tp"]["forward"] for r in ranks]
+    g_train = [r["cp_tp"]["train"] for r in ranks]
+    g_gate = _update_gate(_summed([t["sums"] for t in g_train]))
+    g_failed = [row[:5] for row in g_gate if not row[5]]
+    g_loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for t in g_train
+                     for k in ("losses", "grad_norms", "lrs")
+                     for a, b in zip(t[k], one[k]))
+    g_bytes = [{k: t["state_bytes"][k] / r["state_split_bytes"][k]
+                for k in ("params", "adam", "ema")}
+               for t, r in zip(g_train, ranks)]
+    g_peak = (max(t["step_peak_above_state"] for t in g_train)
+              / one["step_peak_above_state"])
+    g_launched = all(f["launches"][k] > 0 for f in g_fwd
+                     for k in split_rows + ("flash_attention",)) and all(
+        t["launches"][k] > 0 for t in g_train for k in train_rows)
+    g_unsplit = [x["launches"][k] for x in g_fwd + g_train
+                 for k in ("fused_groupnorm", "groupnorm_backward")]
+    cp_tp = {
+        "mesh": "dp1 x mp2, context_parallel, tp: split leaves held as "
+                "blocks, gathered whole in each layer's forward",
+        "forward": {"bit_identical_to_cp": [f["bit_identical"]
+                                            for f in g_fwd],
+                    "max_abs_diff": [f["max_abs_diff"] for f in g_fwd],
+                    "ms_per_forward": [round(f["ms_per_forward"], 3)
+                                       for f in g_fwd],
+                    "cp_ms_per_forward": [round(r["ms_per_forward"], 3)
+                                          for r in ranks],
+                    "split_leaves": g_fwd[0]["split_leaves"],
+                    "gathers": [per(f["gathers_per_forward"])
+                                for f in g_fwd],
+                    "collectives": [per(f["collectives_per_forward"])
+                                    for f in g_fwd]},
+        "train": {"steps": 1, "batch": "(c)'s first",
+                  "reference": "one rank's first update (TP_CONTROL_REF)",
+                  "eager": all(t["eager"] for t in g_train),
+                  "losses": [t["losses"] for t in g_train],
+                  "grad_norms": [t["grad_norms"] for t in g_train],
+                  "loss_rel": g_loss_rel, "loss_tolerance": TP_LOSS_TOL,
+                  "update_gate": _gate_summary(g_gate),
+                  "s_per_step": [t["step_s"] for t in g_train],
+                  "cp_s_per_step": [r["step_s"] for r in ranks],
+                  "collectives_per_step": [
+                      [{k: per(v) for k, v in c.items()}
+                       for c in t["collectives_per_step"]]
+                      for t in g_train]},
+        "state_bytes": [t["state_bytes"] for t in g_train],
+        "cp_state_bytes": [r["state_split_bytes"] for r in ranks],
+        "state_ratio": g_bytes, "state_limit": CP_TP_STATE_RATIO,
+        "memory": {"rank_peak_above_state": [t["step_peak_above_state"]
+                                             for t in g_train],
+                   "what": "the cp + tp step's peak allocated bytes above "
+                           "those allocated before it (its first step: the "
+                           "bucket's first allocation included), over one "
+                           "process's second step's",
+                   "ratio": g_peak, "limit": CP_MEMORY_RATIO},
+        "launches_forward": [{k: f["launches"][k] for k in split_rows
+                              + ("flash_attention",)} for f in g_fwd],
+        "launches_training": [{k: t["launches"][k] for k in train_rows}
+                              for t in g_train],
+        "unsplit_groupnorm_launches": g_unsplit}
+
     out = {"config": "srn64", "mesh": "dp1 x mp2, context_parallel, "
                                       "replicated",
            "transport": "gloo, 2 ranks on one card: each collective's CUDA "
@@ -5693,6 +5914,7 @@ def phase_context_parallel(prep, ranks, ranks_s):
            "sites_s": [round(r["sites_s"], 3) for r in ranks],
            "rank_marks_s": [r["marks_s"] for r in ranks],
            "distill": dict(leg, unsplit_groupnorm_launches=leg_unsplit),
+           "cp_tp": cp_tp,
            "ranks_s": round(ranks_s, 3),
            "phase_s": round(ranks_s + time.perf_counter() - t_phase, 3)}
     emit(dict(phase="context_parallel", **out))
@@ -5717,6 +5939,26 @@ def phase_context_parallel(prep, ranks, ranks_s):
                              f"{out['launches_sampling']}, "
                              f"{out['launches_training']}, unsplit "
                              f"{unsplit}")
+    if not all(f["bit_identical"] for f in g_fwd):
+        raise AssertionError(f"context_parallel: the cp + tp forward off "
+                             f"cp's: {cp_tp['forward']['max_abs_diff']}")
+    if g_failed or not g_loss_rel <= TP_LOSS_TOL \
+            or not cp_tp["train"]["eager"]:
+        raise AssertionError(f"context_parallel: cp + tp training off one "
+                             f"rank: losses and norms {g_loss_rel}, "
+                             f"{len(g_failed)} updates, e.g. "
+                             f"{g_failed[:3]}")
+    if not all(v <= CP_TP_STATE_RATIO for b in g_bytes for v in b.values()):
+        raise AssertionError(f"context_parallel: cp + tp state bytes "
+                             f"{g_bytes} of cp's")
+    if not g_peak <= CP_MEMORY_RATIO:
+        raise AssertionError(f"context_parallel: a cp + tp rank's step "
+                             f"peak {g_peak:.3f} of one process's")
+    if not g_launched or any(g_unsplit):
+        raise AssertionError(f"context_parallel: cp + tp launches "
+                             f"{cp_tp['launches_forward']}, "
+                             f"{cp_tp['launches_training']}, unsplit "
+                             f"{g_unsplit}")
     _check_leg("context_parallel", leg, train_rows,
                zero=("fused_groupnorm", "groupnorm_backward"))
     if not leg["ranks_hold_the_same_update"]:

@@ -27,18 +27,18 @@ trains ``global_batch / data_size`` rows of each global batch;
 ``--param_sharding`` picks ``replicated`` (DDP: gradients all-reduced,
 the step a CUDA graph), ``fsdp`` (FSDP2, eager), ``tp`` (the parameters
 split Megatron-style over the model axis, eager) or ``fsdp+tp`` (both);
-``--context_parallel`` (with ``--model_parallel N`` and the
-``replicated`` placement) splits the activations' image rows over the
-model axis instead, eager; rank 0 writes metrics and checkpoints.  ``--elastic`` runs under the
+``--context_parallel`` (with ``--model_parallel N``) splits the
+activations' image rows over the model axis, eager, with any of the
+placements (under ``tp`` / ``fsdp+tp`` the parameters stay split and each
+layer gathers its split leaves whole); rank 0 writes metrics and
+checkpoints.  ``--elastic`` runs under the
 elastic supervisor (re-mesh and resume after a preemption or a transient
 fault; ``--elastic_max_remesh`` cycles in a row without progress give
 up).  ``--pallas`` and ``--attn_impl auto|pallas`` name the kernels the
 port runs on the card anyway (accepted and logged); ``--attn_impl xla``
 asks for the plain versions, which the port runs only off the card: it is
-accepted with ``--device cpu`` and refused on the card.  Refused until
-ROADMAP A10b: ``--context_parallel`` with ``--param_sharding
-fsdp|tp|fsdp+tp``.  The JAX package's other flags are unknown here (exit
-code 2).
+accepted with ``--device cpu`` and refused on the card.  The JAX
+package's other flags are unknown here (exit code 2).
 
 Usage:
     python -m diff3d_tpu_torch.cli.train_cli --synthetic --steps 10 \\
@@ -69,6 +69,10 @@ Usage:
         diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
         --synthetic --steps 2 --context_parallel --model_parallel 2 \\
         --workdir /tmp/port_train_cp
+    torchrun --standalone --nproc_per_node 2 -m \\
+        diff3d_tpu_torch.cli.train_cli --device cpu --config test \\
+        --imgsize 16 --synthetic --steps 2 --context_parallel \\
+        --model_parallel 2 --param_sharding tp --workdir /tmp/port_train_cptp
 
 (``--init_from`` keeps every width: srn64 is ch 128, srn128 ch 256, so a
 64^2 -> 128^2 transfer takes ``--ch 128``.)
@@ -85,16 +89,11 @@ from diff3d_tpu_torch.cli._common import (add_mesh_args,
                                           apply_mesh_overrides,
                                           apply_model_width_overrides)
 
-_A10B = ("Refused until ROADMAP A10b: --context_parallel with "
-         "--param_sharding fsdp, tp or fsdp+tp (context parallelism takes "
-         "the replicated placement).")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
-        formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog=_A10B)
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--transfer", action="store_true",
                    help="resume from the latest checkpoint in --workdir")
     p.add_argument("--train_data", default="./data/SRN/cars_train")
@@ -174,9 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
     add_mesh_args(p)
     p.add_argument("--context_parallel", action="store_true",
                    help="split the activations' image rows over the "
-                        "model axis (--model_parallel N > 1, the replicated "
-                        "placement; the step eager).  With --param_sharding "
-                        "fsdp|tp|fsdp+tp: refused, ROADMAP A10b")
+                        "model axis (--model_parallel N > 1; the step "
+                        "eager).  With --param_sharding tp|fsdp+tp the "
+                        "parameters stay split over the model axis and each "
+                        "layer gathers its split leaves whole")
     p.add_argument("--attn_impl", default=None,
                    choices=["auto", "pallas", "xla"],
                    help="'auto' / 'pallas': the hand-written kernels, which "
@@ -202,13 +202,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    """Exit naming ROADMAP A10b for ``--context_parallel`` with a sharded
-    placement, and ``--attn_impl xla`` on the card (the card's path runs
-    the kernels, never their plain versions)."""
-    if args.context_parallel and args.param_sharding not in (
-            None, "replicated"):
-        raise SystemExit(f"--context_parallel --param_sharding "
-                         f"{args.param_sharding}: {_A10B}")
+    """Exit for ``--attn_impl xla`` on the card (the card's path runs the
+    kernels, never their plain versions)."""
     if args.attn_impl == "xla" and (
             args.device is None or not str(args.device).startswith("cpu")):
         raise SystemExit(

@@ -143,8 +143,8 @@ class MeshConfig:
     (FSDP2); ``'tp'`` splits them Megatron-style over the model axis;
     ``'fsdp+tp'`` does both.  ``context_parallel`` splits the
     activations' image rows over the model axis (``model_parallel > 1``)
-    with the ``replicated`` placement; :meth:`validate` refuses it with
-    the other placements until ROADMAP A10b."""
+    with any of the placements (with ``tp`` / ``fsdp+tp`` each layer
+    takes its split leaves whole: ``parallel/mesh.py``)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -162,17 +162,6 @@ class MeshConfig:
         if self.param_sharding not in PARAM_SHARDINGS:
             raise ValueError(f"param_sharding={self.param_sharding!r} not "
                              f"in {PARAM_SHARDINGS}")
-        if self.context_parallel and self.param_sharding != "replicated":
-            why = ("FSDP2's replicate dim averages the gradients over the "
-                   "model axis, and context parallelism needs their sum"
-                   if self.param_sharding == "fsdp" else
-                   "the model axis then carries the channel blocks, and "
-                   "splitting both rows and channels over it is not "
-                   "ported")
-            raise ValueError(
-                f"context_parallel=True with param_sharding="
-                f"{self.param_sharding!r}: {why} (ROADMAP A10b); context "
-                "parallelism takes the 'replicated' placement")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,6 +43,16 @@ order, its backward summed over the ranks); dropout's
 mask is drawn whole and sliced to the rows; FiLM, the residuals and the
 resampling are local (each rank's rows are even at a level that
 downsamples).
+
+Both at once (context parallelism with the ``tp`` / ``fsdp+tp``
+placement): the split leaves stay this rank's blocks, but no layer takes
+a channel-block path (``tp`` None everywhere).  A :class:`Dense` /
+:class:`Conv` whose leaves are split holds ``leaves`` (a
+:class:`~diff3d_tpu_torch.parallel.tensor.LeafGather`) and takes each
+split leaf whole through it in its forward, whose backward sums the
+leaf's gradient over the model axis and keeps the block; every layer then
+computes whole channels on this rank's rows, as under context
+parallelism alone.
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ class Dense(nn.Module):
         self.compute_dtype = compute_dtype
         self.tp = None
         self.tp_mode: Optional[str] = None
+        self.leaves = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -103,7 +114,7 @@ class Dense(nn.Module):
             # once, then one rounding: the unsharded layer's arithmetic.
             part = F.linear(x.to(dt).float(), self.weight.to(dt).float())
             return (self.tp.reduce(part) + self.bias.to(dt).float()).to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt),
+        return F.linear(x.to(dt), _leaf(self, "weight").to(dt),
                         _bias_block(self).to(dt))
 
 
@@ -126,6 +137,7 @@ class Conv(nn.Module):
         self.zero_init = zero_init
         self.tp = None
         self.tp_mode: Optional[str] = None
+        self.leaves = None
         self.cp = None
 
     def forward(self, x: torch.Tensor,
@@ -141,18 +153,26 @@ class Conv(nn.Module):
                 raise ValueError("a strided conv split by rows takes its "
                                  "input rows padded (rows_padded=True)")
             x, rows_padded = self.cp.halo(x, pad), True
-        w = self.weight.to(dt, memory_format=torch.channels_last)
+        w = _leaf(self, "weight").to(dt, memory_format=torch.channels_last)
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w,
                      _bias_block(self).to(dt), stride=self.stride,
                      padding=(0, pad) if rows_padded else pad)
         return y.permute(0, 2, 3, 1)
 
 
+def _leaf(layer, name: str) -> torch.Tensor:
+    """``layer``'s leaf ``name``, whole where its split leaves are
+    gathered (``leaves``: in the compute dtype), else as the layer holds
+    it."""
+    g = layer.leaves
+    return getattr(layer, name) if g is None else g(layer, name)
+
+
 def _bias_block(layer) -> torch.Tensor:
     """The bias a column-parallel layer adds: its block (the JAX rule
     leaves a bias of at most 4 entries whole where it splits the
     kernel)."""
-    b = layer.bias
+    b = _leaf(layer, "bias")
     if layer.tp_mode == "column" and b.shape[0] != layer.weight.shape[0]:
         return layer.tp.scatter(b)
     return b

@@ -45,13 +45,34 @@ Parameter placement (``MeshConfig.param_sharding``):
     ``n * 128`` elements) is sharded over the data axis by FSDP2, as
     ``fsdp`` does.
 
-``context_parallel`` (with ``'replicated'`` and a model axis of more than
-one rank): every parameter stays whole on every rank, and the
-activations' image rows are split over the model axis instead
+``context_parallel`` (a model axis of more than one rank): the
+activations' image rows are split over the model axis
 (:meth:`MeshEnv.place_context_axis`; the collectives are
-:mod:`diff3d_tpu_torch.parallel.context`'s).  Its combinations with
-``fsdp``, ``tp`` and ``fsdp+tp`` wait for ROADMAP A10b:
-:meth:`MeshConfig.validate` refuses them.
+:mod:`diff3d_tpu_torch.parallel.context`'s), with any placement:
+
+  * ``'replicated'`` -- every parameter stays whole on every rank.
+  * ``'tp'`` / ``'fsdp+tp'`` -- ZeRO-3 over the model axis: each split
+    leaf (and its Adam moments and EMA) is still this rank's block, as
+    under ``tp``, but no layer enters a column or row mode: each layer
+    takes its split leaves whole through
+    :meth:`~diff3d_tpu_torch.parallel.tensor.ModelAxis.gather_leaf` and
+    computes whole channels on this rank's rows.  The activations never
+    switch between rows and channel blocks inside the network (gathering
+    them would undo the memory the row split saves).  The gather's
+    backward sums the whole leaf's gradient over the model axis and keeps
+    the block.  :meth:`MeshEnv.split_rows` switches a placed model between
+    this and ``tp``'s column / row modes (the sampler's batched path runs
+    without the row split, as the JAX package's does).
+  * ``'fsdp'`` / ``'fsdp+tp'`` -- FSDP2 over the 1-D data mesh, as
+    without the row split (it averages the sharded gradients over the
+    data axis); the train step then sums each sharded leaf's local
+    gradient over the model axis (each rank's covers its rows only),
+    except a split leaf's, which the gather's backward has summed
+    already.  (A 2-D replicate x shard mesh with
+    ``set_gradient_divide_factor(data_size)`` would do the same sum
+    inside FSDP2, but FSDP2's replicate dim would then also hold the
+    model axis's blocks of ``fsdp+tp``, which are not replicas; the 1-D
+    mesh serves both placements alike.)
 """
 
 from __future__ import annotations
@@ -68,7 +89,9 @@ from torch import nn
 from diff3d_tpu_torch.config import MeshConfig
 from diff3d_tpu_torch.parallel.context import (RowAxis, check_rows,
                                                place_rows)
-from diff3d_tpu_torch.parallel.tensor import ModelAxis, model_axis_of
+from diff3d_tpu_torch.parallel.tensor import (LeafGather, ModelAxis,
+                                              block_of, join_blocks,
+                                              model_axis_of)
 
 log = logging.getLogger(__name__)
 
@@ -415,8 +438,10 @@ class MeshEnv:
         """Split ``model``'s (whole, identical on every rank) parameters
         over the model axis, in place: each sharded leaf becomes this
         rank's block, and every layer learns the axis and its mode
-        (column-parallel, row-parallel or replicated).  A no-op unless
-        :attr:`tensor_parallel`, or for a model already placed."""
+        (column-parallel, row-parallel or replicated; under
+        :attr:`context_parallel`, the split leaves gathered whole, see
+        :meth:`split_rows`).  A no-op unless :attr:`tensor_parallel`, or
+        for a model already placed."""
         axis = self.model_axis
         if axis is None or model_axis_of(model) is not None:
             return model
@@ -441,33 +466,64 @@ class MeshEnv:
                     continue
                 self._model_dims[name] = d
                 p.data = self.local_of(name, p.detach())
-        for m, pre in prefix.items():
-            if not hasattr(m, "tp"):
-                continue
-            m.tp = axis
-            if hasattr(m, "tp_mode"):
-                d = self._model_dims.get(f"{pre}weight")
-                m.tp_mode = {0: "column", 1: "row", None: None}[d]
-            if hasattr(m, "halves"):
-                m.halves = f"{pre}Dense_0.weight" in self._halved
+        self._layout(model, rows=self.context_parallel)
         log.info("model axis: %d of %d parameters split over %d ranks",
                  len(self._model_dims),
                  sum(1 for _ in model.parameters()), axis.size)
         return model
 
+    def _layout(self, model: nn.Module, rows: bool) -> None:
+        """Set every layer of a model placed over the model axis to
+        ``tp``'s modes (``rows`` False: the axis, column / row / replicated,
+        FiLM's halves) or to whole channels with its split leaves gathered
+        (``rows`` True: ``tp`` None, ``leaves`` set)."""
+        axis = self._axis()
+        for n, m in model.named_modules():
+            if not hasattr(m, "tp"):
+                continue
+            pre = f"{n}." if n else ""
+            m.tp = None if rows else axis
+            if hasattr(m, "tp_mode"):
+                d = self._model_dims.get(f"{pre}weight")
+                m.tp_mode = (None if rows else
+                             {0: "column", 1: "row", None: None}[d])
+                dims = {leaf: (self._model_dims[name], name in self._halved)
+                        for leaf in ("weight", "bias")
+                        for name in (f"{pre}{leaf}",)
+                        if name in self._model_dims}
+                m.leaves = LeafGather(axis, dims) if rows and dims else None
+            if hasattr(m, "halves"):
+                m.halves = f"{pre}Dense_0.weight" in self._halved
+
+    def split_rows(self, model: nn.Module, on: bool) -> nn.Module:
+        """Under :attr:`context_parallel`, run ``model`` split by image
+        rows (``on``) or on whole rows, every rank of a model group
+        computing the same (off: the sampler's batched path), in place.
+        A model placed over the model axis switches with it between its
+        split leaves gathered whole (on) and ``tp``'s column / row modes
+        (off).  A no-op without the row split."""
+        rows = self.context_axis
+        if rows is None:
+            return model
+        if self.tensor_parallel and model_axis_of(model) is not None:
+            self._layout(model, rows=on)
+        return place_rows(model, rows if on else None)
+
     def place_context_axis(self, model: nn.Module) -> nn.Module:
         """Split ``model``'s activations by image rows over the model axis:
         every layer that takes the row split (a ``cp`` attribute) learns
-        the axis; the parameters stay whole.  Refuses a model whose rows
-        do not split at every level (:func:`~diff3d_tpu_torch.parallel.
-        context.check_rows`).  A no-op unless :attr:`context_parallel`."""
+        the axis; the parameters stay where the placement put them (whole,
+        or blocks gathered per layer, :meth:`split_rows`).  Refuses a
+        model whose rows do not split at every level (its config read,
+        not its leaves: :func:`~diff3d_tpu_torch.parallel.context.
+        check_rows`).  A no-op unless :attr:`context_parallel`."""
         axis = self.context_axis
         if axis is None:
             return model
         cfg = getattr(model, "cfg", None)
         if cfg is not None:
             check_rows(cfg, axis.size)
-        return place_rows(model, axis)
+        return self.split_rows(model, True)
 
     def local_of(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole tensor placed like parameter
@@ -491,10 +547,7 @@ class MeshEnv:
         g = self.model_axis.all_gather(t.movedim(d, -1)).movedim(-1, d)
         if name not in self._halved:
             return g
-        parts = g.chunk(self.model_size, dim=d)
-        halves = [p.chunk(2, dim=d) for p in parts]
-        return torch.cat([h[0] for h in halves] + [h[1] for h in halves],
-                         dim=d)
+        return join_blocks(g.chunk(self.model_size, dim=d), d, True)
 
     def is_split(self, name: str) -> bool:
         """Whether the model axis split parameter ``name``."""
@@ -512,21 +565,6 @@ class MeshEnv:
         for the host)."""
         return (self.cfg.param_sharding in ("fsdp", "fsdp+tp")
                 or self.tensor_parallel or self.context_parallel)
-
-
-def block_of(whole: torch.Tensor, dim: int, rank: int, size: int,
-             halves: bool = False) -> torch.Tensor:
-    """Rank ``rank`` of ``size``'s block of ``whole`` along ``dim`` (a
-    copy); ``halves``: the block of each half (``[scale | shift]``), the
-    two joined."""
-    if halves:
-        F = whole.shape[dim] // 2
-        f = F // size
-        idx = torch.cat([torch.arange(rank * f, (rank + 1) * f),
-                         torch.arange(F + rank * f, F + (rank + 1) * f)])
-        return whole.index_select(dim, idx.to(whole.device)).contiguous()
-    n = whole.shape[dim] // size
-    return whole.narrow(dim, rank * n, n).contiguous().clone()
 
 
 def _is_dtensor(t) -> bool:

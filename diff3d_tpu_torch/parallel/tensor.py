@@ -24,6 +24,17 @@ conventions:
   ``gather_in``  all-gather               all-reduce (sum), then the block
   ============== ======================== ===============================
 
+A parameter's block goes through :meth:`ModelAxis.gather_leaf` (context
+parallelism with a split placement: each layer computes whole channels on
+this rank's image rows): its forward casts the block to the layer's
+compute dtype and all-gathers the blocks along the leaf's split dim into
+the whole leaf, in the JAX package's order (the same bits as a cast of
+the gathered float32 leaf, in half the bytes under bf16); its backward
+sums the whole leaf's gradients over the ranks in float32 and keeps this
+rank's block, in the parameter's dtype.  Each rank's gradient of the whole leaf covers
+its own rows only, so that sum is exactly the block's gradient, and the
+train step must not sum it over the model axis again.
+
 A column-parallel layer (its output channels sharded) computes a block
 from a whole input, so the input's gradient it gives back is this rank's
 share of a sum over the ranks: its input goes through ``copy`` (a whole
@@ -79,6 +90,9 @@ class ModelAxis:
         self.ranks = (list(range(self.size)) if group is None
                       else dist.get_process_group_ranks(group))
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        #: The parameter gathers alone (:meth:`gather_leaf`'s forwards,
+        #: counted in :attr:`stats` too).
+        self.leaf_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
     def __repr__(self) -> str:
         return (f"ModelAxis(rank={self.rank}, size={self.size}, "
@@ -86,6 +100,7 @@ class ModelAxis:
 
     def reset_stats(self) -> None:
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self.leaf_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
     # ---- raw collectives (no autograd) ------------------------------
 
@@ -150,6 +165,13 @@ class ModelAxis:
 
     def gather_in(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherIn.apply(x, self)
+
+    def gather_leaf(self, p: torch.Tensor, dim: int, halves: bool,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """The whole leaf of this rank's block ``p`` (split along ``dim``;
+        ``halves``: a FiLM ``[scale | shift]`` block, see
+        :func:`block_of`) in ``dtype``, in the JAX package's order."""
+        return _GatherLeaf.apply(p, self, dim, halves, dtype)
 
     # ---- layouts ------------------------------------------------------
 
@@ -255,11 +277,80 @@ class _GatherIn(torch.autograd.Function):
         return ctx.axis.block(ctx.axis.all_reduce(g)).to(g.dtype), None
 
 
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, axis, dim, halves, dtype):
+        ctx.axis, ctx.dim, ctx.halves, ctx.dtype = axis, dim, halves, p.dtype
+        t0 = time.perf_counter()
+        q = p.to(dtype)
+        parts = axis._parts(q)
+        if dim == 0 and not halves:          # rank-major is the order
+            out = parts.reshape((axis.size * q.shape[0],)
+                                + tuple(q.shape[1:]))
+        else:
+            out = join_blocks(parts.unbind(0), dim, halves)
+        axis._count(t0, q)
+        for k, v in (("calls", 1), ("bytes", q.numel() * q.element_size()),
+                     ("seconds", time.perf_counter() - t0)):
+            axis.leaf_stats[k] += v
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a = ctx.axis
+        return (block_of(a.all_reduce(g), ctx.dim, a.rank, a.size,
+                         ctx.halves).to(ctx.dtype), None, None, None, None)
+
+
+def block_of(whole: torch.Tensor, dim: int, rank: int, size: int,
+             halves: bool = False) -> torch.Tensor:
+    """Rank ``rank`` of ``size``'s block of ``whole`` along ``dim`` (a
+    copy); ``halves``: the block of each half (``[scale | shift]``), the
+    two joined."""
+    if halves:
+        F = whole.shape[dim] // 2
+        f = F // size
+        idx = torch.cat([torch.arange(rank * f, (rank + 1) * f),
+                         torch.arange(F + rank * f, F + (rank + 1) * f)])
+        return whole.index_select(dim, idx.to(whole.device)).contiguous()
+    n = whole.shape[dim] // size
+    return whole.narrow(dim, rank * n, n).contiguous().clone()
+
+
+def join_blocks(parts, dim: int, halves: bool = False) -> torch.Tensor:
+    """The whole tensor of every rank's :func:`block_of` ``parts`` (in
+    rank order): the inverse of :func:`block_of`."""
+    if not halves:
+        return torch.cat(list(parts), dim=dim)
+    h = [p.chunk(2, dim=dim) for p in parts]
+    return torch.cat([x[0] for x in h] + [x[1] for x in h], dim=dim)
+
+
+class LeafGather(NamedTuple):
+    """A layer's split leaves, taken whole through
+    :meth:`ModelAxis.gather_leaf` in its forward: ``dims`` maps a leaf
+    name (``"weight"`` / ``"bias"``) to ``(split dim, halves)``."""
+
+    axis: ModelAxis
+    dims: dict
+
+    def __call__(self, layer: torch.nn.Module, leaf: str) -> torch.Tensor:
+        """``layer``'s leaf ``leaf``, whole; a split one cast to the
+        layer's compute dtype before its gather."""
+        p = getattr(layer, leaf)
+        spec = self.dims.get(leaf)
+        return (p if spec is None else
+                self.axis.gather_leaf(p, *spec, layer.compute_dtype))
+
+
 def model_axis_of(module: torch.nn.Module) -> Optional[ModelAxis]:
     """The :class:`ModelAxis` a placed model's layers carry (None: not
-    placed over a model axis)."""
+    placed over a model axis): a layer's ``tp``, or the axis its split
+    leaves are gathered over (``leaves``)."""
     for m in module.modules():
         axis = getattr(m, "tp", None)
+        if axis is None and getattr(m, "leaves", None) is not None:
+            axis = m.leaves.axis
         if axis is not None:
             return axis
     return None

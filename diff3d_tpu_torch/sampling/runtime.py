@@ -50,6 +50,10 @@ same object with the same draws; the object-batched path
 (:meth:`Sampler.step_many`, :meth:`Sampler.synthesize_many`) leaves the
 row split out, as the JAX package does (``diff3d_tpu/sampling/
 runtime.py:312-317``), and the model ranks then compute the same thing.
+Under context parallelism with ``tp`` / ``fsdp+tp`` the single-object
+path runs by rows with each layer's split leaves gathered whole, and the
+batched path runs ``tp``'s column and row modes on the same placed model:
+the mode is set on every call (``MeshEnv.split_rows``).
 ``lower_step_many`` (the JAX package's StableHLO hook) waits for ROADMAP
 A11.
 """
@@ -70,7 +74,6 @@ from diff3d_tpu_torch.diffusion import (SAMPLER_KINDS, Draws, ReverseLoop,
                                        draw_steps, sample_loop_prepare,
                                        schedule_start_index)
 from diff3d_tpu_torch.graphs import StepGraph, use_cuda_graphs
-from diff3d_tpu_torch.parallel.context import place_rows
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -338,10 +341,11 @@ class Sampler:
 
     def _split_rows(self, on: bool) -> None:
         """Under context parallelism, the model split by rows (``on``:
-        the single-object path) or whole on every rank (the batched
-        path)."""
+        the single-object path) or whole on every rank (the batched path;
+        under ``tp`` / ``fsdp+tp`` it then runs ``tp``'s column and row
+        modes, :meth:`MeshEnv.split_rows`)."""
         if self._rows is not None:
-            place_rows(self.model, self._rows if on else None)
+            self.mesh.split_rows(self.model, on)
 
     def _view_split(self, record_imgs, record_R, record_T, lens, K, draws,
                     drafts, agree=None) -> tuple:

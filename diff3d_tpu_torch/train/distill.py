@@ -44,16 +44,20 @@ teacher by ``env.params``:
     parameter name); the ranks of one model group take the same rows and
     draws, and the global norm sums the split leaves' blocks over the
     axis.
-  * ``context_parallel`` (``replicated``) -- both networks run their
-    image rows on each rank of the model axis and gather the output, so
-    every rank takes the whole loss; the bucket is all-reduced over the
-    world and divided by the data size, model rank 0's loss alone in it.
+  * ``context_parallel`` -- both networks run their image rows on each
+    rank of the model axis and gather the output, so every rank takes the
+    whole loss; the bucket is all-reduced over the world and divided by
+    the data size, model rank 0's loss alone in it.  With ``tp`` /
+    ``fsdp+tp`` both networks keep their blocks and each layer gathers its
+    split leaves whole (the teacher's two no-grad forwards too); with
+    ``fsdp`` / ``fsdp+tp`` FSDP2 shards them over the data axis.  The
+    bucket and the norm are the train step's (split leaves' blocks over
+    the data axis, FSDP2's shards summed over the model axis).
 
 Every placement but ``replicated`` without a model axis runs the step
 eagerly (``MeshEnv.eager_only``: FSDP2's gathers and the model axis's
 collectives are not captured); :func:`distill` then picks the eager step
-and a non-capturable Adam.  Context parallelism with a sharded placement
-stays refused (``MeshConfig.validate``, ROADMAP A10b).
+and a non-capturable Adam.
 """
 
 from __future__ import annotations
@@ -77,7 +81,8 @@ from diff3d_tpu_torch.train.state import (TrainState, create_train_state,
                                           set_schedule_step,
                                           warmup_schedule)
 from diff3d_tpu_torch.train.step import (INPUTS, GradSync, _local,
-                                         step_seed, update_step)
+                                         make_bucket, step_seed,
+                                         update_step)
 
 log = logging.getLogger(__name__)
 
@@ -242,10 +247,6 @@ class DistillStep:
         self.sched = warmup_schedule(cfg.train)
         self._gen: Optional[torch.Generator] = None
         self._captured: Optional[dict] = None
-        if env is not None:
-            # Context parallelism with a sharded placement: refused
-            # (ROADMAP A10b).
-            env.cfg.validate()
         self.env = env
         self.group = None if env is None else env.group
         # The data axis keys the rows and the draws: the ranks of one
@@ -298,7 +299,7 @@ class DistillStep:
         noise = draws.noise((B * self.world,) + tuple(imgs.shape[2:]),
                             device)[rows]
         names, params = zip(*state.model.named_parameters())
-        sync = self._bucket(params)
+        sync = self._bucket(params, names)
         lr = self.sched(state.step)
         c = self._captured
         if self.cuda_graphs and c is not None \
@@ -335,13 +336,13 @@ class DistillStep:
         state.step += 1
         return {"distill_loss": loss, "lr": lr, "grad_norm": grad_norm}
 
-    def _bucket(self, params) -> GradSync:
-        """The gradient bucket of ``params`` (their unsharded ones under
-        FSDP), made on first use."""
-        whole = [p for p in params if _local(p) is p]
-        if self._sync is None or self._sync.key != tuple(map(id, whole)):
-            self._sync = (GradSync(whole, self.group) if self.rows is None
-                          else GradSync(whole, *self.rows))
+    def _bucket(self, params, names=None) -> GradSync:
+        """The gradient bucket of ``params`` (the train step's,
+        :func:`~diff3d_tpu_torch.train.step.make_bucket`), made again when
+        they change."""
+        names = [""] * len(params) if names is None else names
+        self._sync = make_bucket(names, params, self.group, self.rows,
+                                 self.env, self._sync)
         return self._sync
 
     @staticmethod

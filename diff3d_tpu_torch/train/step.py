@@ -76,7 +76,15 @@ model axis makes each data rank's gradient whole, the division the mean
 over the data axis.  Every model rank takes the same loss (the output is
 gathered whole), so only model rank 0 puts its loss sum into the bucket.
 The global norm is taken on the reduced, whole gradients.  The step runs
-eagerly.
+eagerly.  With ``tp`` / ``fsdp+tp`` a split leaf's gradient is this rank's
+block, already summed over the model axis by the leaf's gather
+(``parallel/tensor.py``): it sits in a second part of the bucket,
+all-reduced over the data axis only and divided by the data size, and the
+global norm sums its blocks' squares over the model axis.  With ``fsdp`` /
+``fsdp+tp`` FSDP2 averages a sharded leaf's gradient over the data axis,
+and the bucket's reduction then sums its local shard over the model axis
+(not a split leaf's: its gather summed it); the norm counts each shard
+once per model group.
 
 ``retry`` (a :class:`~diff3d_tpu_torch.runtime.retry.RetryPolicy`, the
 ``Trainer``'s ``_STEP_RETRY``) wraps the microbatch phase only: it zeroes
@@ -159,30 +167,53 @@ class GradSync:
     does nothing.  ``divisor`` overrides that size (context parallelism:
     the group is the world, the divisor the data size); ``with_loss``
     False leaves this rank's loss sum out of the all-reduce (a rank whose
-    model-axis peer adds the same loss)."""
+    model-axis peer adds the same loss).
+
+    Context parallelism with a split placement adds two kinds of leaves:
+    ``blocks`` (model-axis blocks, their gradients summed over the axis
+    already) sit after the loss and are all-reduced over ``block_group``
+    (the data axis) and divided by the same divisor; ``shards`` (FSDP2's
+    sharded parameters, averaged over the data axis by FSDP2) have their
+    local gradients summed over ``axis`` (the model axis's
+    :class:`~diff3d_tpu_torch.parallel.tensor.ModelAxis`)."""
 
     #: Each gradient starts on a multiple of this many elements (256
     #: bytes), so the foreach kernels see aligned views.
     ALIGN = 64
 
     def __init__(self, params: Sequence[torch.Tensor], group=None,
-                 divisor: Optional[int] = None, with_loss: bool = True):
+                 divisor: Optional[int] = None, with_loss: bool = True, *,
+                 blocks: Sequence[torch.Tensor] = (), block_group=None,
+                 shards: Sequence[torch.Tensor] = (), axis=None):
         self.group = group
         self.world = (divisor if divisor is not None else
                       1 if group is None else dist.get_world_size(group))
         self.with_loss = with_loss
-        offsets, n = [], 0
-        for p in params:
-            offsets.append(n)
-            n += -(-p.numel() // self.ALIGN) * self.ALIGN
-        device = params[0].device if params else torch.device("cpu")
-        self.flat = torch.zeros((n + 1,), dtype=torch.float32,
+        self.block_group, self.shards, self.axis = (block_group,
+                                                    list(shards), axis)
+
+        def place(ts, n):
+            offsets = []
+            for p in ts:
+                offsets.append(n)
+                n += -(-p.numel() // self.ALIGN) * self.ALIGN
+            return offsets, n
+
+        offsets, n = place(params, 0)
+        #: Where the blocks' part starts (after the loss).
+        self.split_at = n + 1
+        more, end = place(blocks, -(-(n + 1) // self.ALIGN) * self.ALIGN)
+        if blocks:
+            self.split_at = more[0]
+        every = list(params) + list(blocks)
+        device = every[0].device if every else torch.device("cpu")
+        self.flat = torch.zeros((max(end, n + 1),), dtype=torch.float32,
                                 device=device)
-        self.params = list(params)
+        self.params = every
         self.grads = [self.flat[off:off + p.numel()].view_as(p)
-                      for p, off in zip(params, offsets)]
+                      for p, off in zip(every, offsets + more)]
         self.total = self.flat[n]
-        self.key = tuple(id(p) for p in params)
+        self.key = tuple(id(p) for p in every + self.shards)
         self.zero()
 
     def zero(self) -> None:
@@ -200,8 +231,44 @@ class GradSync:
             return
         if not self.with_loss:
             self.total.zero_()
-        dist.all_reduce(self.flat, group=self.group)
+        if self.split_at >= self.flat.numel():
+            dist.all_reduce(self.flat, group=self.group)
+        else:
+            dist.all_reduce(self.flat[:self.split_at], group=self.group)
+            dist.all_reduce(self.flat[self.split_at:],
+                            group=self.block_group)
         self.flat.div_(float(self.world))
+        for p in self.shards:
+            if p.grad is not None:
+                g = _local(p.grad)
+                g.copy_(self.axis.all_reduce(g))
+
+
+def make_bucket(names: Sequence[str], params: Sequence[torch.Tensor],
+                group=None, rows=None, env=None,
+                old: Optional[GradSync] = None) -> GradSync:
+    """The gradient bucket of a step's parameters (FSDP2's sharded ones
+    left out): over the data ``group``, or under context parallelism
+    (``rows``: ``(group, divisor, with_loss)``) over the world with, where
+    the model axis splits leaves (``env.model_axis``), their blocks over
+    the data ``group`` and FSDP2's shards summed over the model axis
+    (:class:`GradSync`).  ``old`` is returned where it holds the same
+    parameters."""
+    axis = None if rows is None else getattr(env, "model_axis", None)
+    split = [axis is not None and env.is_split(n) for n in names]
+    sharded = [_local(p) is not p for p in params]
+    whole = [p for p, s, f in zip(params, split, sharded) if not (s or f)]
+    blocks = [p for p, s, f in zip(params, split, sharded) if s and not f]
+    shards = ([] if rows is None else
+              [p for p, s, f in zip(params, split, sharded) if f and not s])
+    if old is not None and old.key == tuple(
+            id(p) for p in whole + blocks + shards):
+        return old
+    if rows is None:
+        return GradSync(whole, group)
+    return GradSync(whole, *rows, blocks=blocks, block_group=group,
+                    shards=shards,
+                    axis=env.context_axis.axis if shards else None)
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -377,13 +444,11 @@ class TrainStep:
         """Drop the captured graphs (their memory pool goes with them)."""
         self._captured = None
 
-    def _bucket(self, params) -> GradSync:
-        """The gradient bucket of ``params`` (their unsharded ones under
-        FSDP), made on first use."""
-        whole = [p for p in params if _local(p) is p]
-        if self._sync is None or self._sync.key != tuple(map(id, whole)):
-            self._sync = (GradSync(whole, self.group) if self.rows is None
-                          else GradSync(whole, *self.rows))
+    def _bucket(self, names, params) -> GradSync:
+        """The gradient bucket of ``params`` (:func:`make_bucket`), made
+        again when they change."""
+        self._sync = make_bucket(names, params, self.group, self.rows,
+                                 self.env, self._sync)
         return self._sync
 
     def _draws(self, d):
@@ -412,7 +477,7 @@ class TrainStep:
             draws = [TrainDraws(gen)] * accum
         draws = [self._draws(d) for d in draws]
         mb = batch["imgs"].shape[0] // accum
-        sync = self._bucket(params)
+        sync = self._bucket(names, params)
 
         def accumulate():
             if gen is not None:
@@ -507,7 +572,7 @@ class TrainStep:
         mb = batch["imgs"].shape[0] // accum
         inputs = {k: batch[k][:mb].clone() for k in INPUTS}
         grads = [p.grad for p in params]
-        sync = self._bucket(params)
+        sync = self._bucket(names, params)
         total = sync.total
         draws = self._draws(TrainDraws(self._gen))
         model = state.model

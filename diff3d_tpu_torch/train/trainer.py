@@ -36,8 +36,10 @@ their data rank (its loader rows, the step's draws) and the parameters,
 Adam's moments and the EMA are split over the model axis; checkpoints
 gather them whole (:mod:`~diff3d_tpu_torch.train.checkpoint`).  Under
 ``context_parallel`` the ranks of one model group share their data rank
-too, each runs the model on its image rows, and the state is whole on
-every rank (rank 0 writes it); the step runs eagerly.
+too and each runs the model on its image rows; the state is whole on
+every rank (rank 0 writes it), or placed as ``fsdp`` / ``tp`` /
+``fsdp+tp`` place it (gathered whole for a checkpoint); the step runs
+eagerly.
 :class:`ElasticSupervisor` re-meshes and resumes around
 :meth:`Trainer.train` after preemptions and transient faults.
 

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 import _torch_port_parallel_worker as dp_worker
-from _torch_port_tp_worker import array, forward, model_config, seed_params
+from _torch_port_tp_worker import (array, forward, model_config, seed_params,
+                                   tp_state_arrays)
 
 #: ``(N, H, W)`` of the layer tests' activations (N = 2 examples x 2
 #: frames); 8 rows split over 2 or 4 ranks.
@@ -181,11 +182,100 @@ def block_rows(env, flat, batch, mask) -> dict:
     return seen
 
 
-def _cp(mp, dp=None):
+#: The placements context parallelism runs with besides ``replicated``.
+SHARDED = ("fsdp", "tp", "fsdp+tp")
+#: The JAX-step comparison's global batch.
+JAX_B = 8
+
+
+def _cp(mp, dp=None, policy="replicated"):
     from diff3d_tpu_torch.config import MeshConfig
 
     kw = {} if dp is None else {"data_parallel": dp}
-    return MeshConfig(model_parallel=mp, context_parallel=True, **kw)
+    return MeshConfig(model_parallel=mp, context_parallel=True,
+                      param_sharding=policy, **kw)
+
+
+class LeafNotSummed:
+    """The control of the split placements: while entered, a split leaf's
+    gather hands back this rank's block of its own gradient, not summed
+    over the model axis (each rank's covers its rows only)."""
+
+    def __enter__(self):
+        from diff3d_tpu_torch.parallel import tensor
+
+        self._orig = tensor._GatherLeaf.backward
+
+        def backward(ctx, g):
+            a = ctx.axis
+            return (tensor.block_of(g, ctx.dim, a.rank, a.size,
+                                    ctx.halves).to(ctx.dtype),
+                    None, None, None, None)
+
+        tensor._GatherLeaf.backward = staticmethod(backward)
+
+    def __exit__(self, *exc):
+        from diff3d_tpu_torch.parallel import tensor
+
+        tensor._GatherLeaf.backward = self._orig
+
+
+def jax_step_config(mesh=None):
+    """The JAX-step comparison's config: the shallow tiny X-UNet without
+    dropout (the JAX draws are replayed), lr 0.1 (``test_torch_port_
+    train.py``'s settings)."""
+    from diff3d_tpu_torch.config import MeshConfig, test_config
+
+    cfg = test_config(imgsize=8, ch=8, shallow=True)
+    return dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, lr=0.1,
+                                       global_batch=JAX_B),
+        mesh=mesh if mesh is not None else MeshConfig())
+
+
+class Replay:
+    """The four draws of one JAX ``p_losses`` call (the global batch's),
+    replayed: ``draws`` maps ``t`` / ``noise`` / ``cond_u`` / ``x_noise``
+    to numpy arrays."""
+
+    generator = None
+
+    def __init__(self, draws):
+        self.draws = draws
+
+    def _get(self, key, n):
+        a = self.draws[key]
+        assert len(a) == n, (key, len(a), n)
+        return torch.from_numpy(a)
+
+    def t(self, n, device):
+        return self._get("t", n)
+
+    def noise(self, shape, device):
+        return self._get("noise", shape[0])
+
+    def cond_u(self, n, device):
+        return self._get("cond_u", n)
+
+    def x_noise(self, shape, device):
+        return self._get("x_noise", shape[0])
+
+
+def jax_step(env, workdir, batch, draws) -> dict:
+    """One train step at ``env`` from the carried JAX state (a world-1
+    checkpoint in ``workdir``), on this data rank's rows of ``batch``
+    with the JAX draws replayed: the metrics and the state, whole."""
+    from diff3d_tpu_torch.train import Trainer
+
+    tr = Trainer(jax_step_config(env.cfg), workdir=workdir, device="cpu",
+                 env=env, transfer=True)
+    n = JAX_B // env.data_size
+    rows = slice(env.data_rank * n, (env.data_rank + 1) * n)
+    m = tr.step_fn(tr.state, {k: torch.from_numpy(np.ascontiguousarray(
+        v[rows])) for k, v in batch.items()}, draws=[Replay(draws)])
+    return {"metrics": {k: float(m[k]) for k in ("loss", "grad_norm",
+                                                 "lr")},
+            "step": tr.state.step, "state": tp_state_arrays(tr)}
 
 
 def _train(env, workdir, steps=None, **model_kw):
@@ -202,10 +292,26 @@ def _train(env, workdir, steps=None, **model_kw):
     start = tr.state.step
     tr.loader = dp_worker._Batches(dp_worker.loader(cfg, env))
     tr.train()
-    return {"start": start, "state": dp_worker.state_arrays(tr.state),
+    sync = tr.step_fn._sync
+    return {"start": start, "state": tp_state_arrays(tr),
             "losses": _losses(workdir), "graphs": tr.step_fn.cuda_graphs,
             "ckpt_steps": tr.ckpt.steps(),
-            "bucket": (tr.step_fn._sync.world, tr.step_fn._sync.with_loss)}
+            "bucket": (sync.world, sync.with_loss),
+            # FSDP2's shards, the model axis's blocks, and the bucket's
+            # parts: whole leaves, blocks, shards summed over the model
+            # axis.
+            "placed": (sum(hasattr(p, "full_tensor")
+                           for p in tr.state.model.parameters()),
+                       len(env._model_dims)),
+            "parts": (len(sync.params) - _blocks(sync), _blocks(sync),
+                      len(sync.shards))}
+
+
+def _blocks(sync) -> int:
+    """How many of a bucket's gradients sit in its blocks' part."""
+    base = sync.flat.data_ptr()
+    return sum((g.data_ptr() - base) // g.element_size() >= sync.split_at
+               for g in sync.grads)
 
 
 def _losses(workdir):
@@ -289,15 +395,84 @@ def group_of_two(rank: int, world: int, workdir: str, flat, batch,
                     "16", "--synthetic", "--steps", "2", "--num_workers",
                     "0", "--context_parallel", "--model_parallel", "2",
                     "--workdir", cli])
+    out.update(group_of_two_tp(env, workdir, flat, batch, mask))
+    return out
+
+
+def group_of_two_tp(cp_env, workdir, flat, batch, mask) -> dict:
+    """cp with the split placements at ``mp == 2``: the meshes of every
+    placement, the whole forward under ``tp``, 3 train steps from the warm
+    start, the control (one step, the gathers' backward unsummed), the
+    checkpoints both ways, ``Sampler(mesh)``'s two paths and
+    ``train_cli``."""
+    from diff3d_tpu_torch.cli import train_cli
+    from diff3d_tpu_torch.models import build_model
+    from diff3d_tpu_torch.parallel import make_mesh
+    from diff3d_tpu_torch.sampling import Sampler
+    from diff3d_tpu_torch.train import Trainer
+
+    out = {"meshes": {}}
+    for policy in SHARDED:
+        env = make_mesh(_cp(2, policy=policy), model=model_config().model)
+        out["meshes"][policy] = (env.topology_summary(),
+                                 env.context_parallel, env.tensor_parallel)
+    env = make_mesh(_cp(2, policy="tp"))
+    out["forward_tp"] = forward(env, flat, batch, mask)
+
+    # Training from the warm start, and the checkpoints both ways.
+    wd = os.path.join(workdir, "train_tp")
+    cfg = dataclasses.replace(dp_worker.tiny_config(), mesh=env.cfg)
+    tr = Trainer(cfg, workdir=wd, device="cpu", env=env, transfer=True)
+    out["tp_restored"] = tp_state_arrays(tr)
+    out["tp_local_shapes"] = {n: tuple(p.shape) for n, p in
+                              tr.state.model.named_parameters()}
+    del tr
+    out["train_tp"] = _train(env, wd)
+    again = Trainer(cfg, workdir=wd, device="cpu", env=env, transfer=True)
+    out["tp_again_step"] = again.state.step
+    out["tp_again"] = tp_state_arrays(again)
+    del again
+    with LeafNotSummed():
+        out["control_tp"] = _train(env, os.path.join(workdir, "control_tp"))
+
+    # Sampler(mesh): the single-object path by rows (leaves gathered),
+    # the batched path in tp's modes, then the single-object path again.
+    cfg = dp_worker.tiny_config()
+    torch.manual_seed(0)
+    sampler = Sampler(build_model(cfg.model, "cpu"), cfg, device="cpu",
+                      mesh=env)
+    axis = env.model_axis
+    views = dp_worker.sampler_views()
+    counts = {}
+    for key, run in (
+            ("one", lambda: sampler.synthesize(
+                views[0], torch.Generator().manual_seed(10), max_views=3)),
+            ("many", lambda: sampler.synthesize_many(
+                views, [torch.Generator().manual_seed(10 + i)
+                        for i in range(3)], max_views=3)),
+            ("one_again", lambda: sampler.synthesize(
+                views[0], torch.Generator().manual_seed(10), max_views=3))):
+        axis.reset_stats()
+        out[f"views_{key}"] = run()
+        counts[key] = (axis.leaf_stats["calls"], axis.stats["calls"])
+    out["sampler_counts"] = counts
+    out["sampler_graphs_tp"] = sampler.cuda_graphs
+
+    cli = os.path.join(workdir, "cli_tp")
+    train_cli.main(["--device", "cpu", "--config", "test", "--imgsize",
+                    "16", "--synthetic", "--steps", "2", "--num_workers",
+                    "0", "--context_parallel", "--model_parallel", "2",
+                    "--param_sharding", "tp", "--workdir", cli])
     return out
 
 
 def group_of_four(rank: int, world: int, workdir: str, flat, batch,
-                  mask) -> dict:
+                  mask, jax_batch, jax_draws) -> dict:
     """At 4 ranks: the statistics, the attention cases and the whole
     forward at ``mp == 4``; then at dp2 x mp2 the attention cases (the
     model-rank token order), the whole forward and 3 train steps from the
-    warm start."""
+    warm start, and the same under each split placement
+    (:func:`_four_sharded`)."""
     from diff3d_tpu_torch.parallel import make_mesh
 
     out = {}
@@ -319,4 +494,24 @@ def group_of_four(rank: int, world: int, workdir: str, flat, batch,
                          if name.startswith("attn")}
     out["forward_dp2"] = forward(env, flat, batch, mask)
     out["train_dp2"] = _train(env, workdir)
+    out.update(_four_sharded(workdir, flat, batch, mask, jax_batch,
+                             jax_draws))
+    return out
+
+
+def _four_sharded(workdir, flat, batch, mask, jax_batch, jax_draws) -> dict:
+    """cp with each placement but ``replicated`` at dp2 x mp2: the whole
+    forward, 3 train steps from the warm start (in
+    ``<workdir>/<placement>``) and one step from the carried JAX state
+    (``<workdir>/jax``) with the JAX draws replayed."""
+    from diff3d_tpu_torch.parallel import make_mesh
+
+    out = {}
+    for policy in SHARDED:
+        env = make_mesh(_cp(2, dp=2, policy=policy))
+        out.setdefault("ranks", (env.data_rank, env.model_rank))
+        out[f"forward_{policy}"] = forward(env, flat, batch, mask)
+        out[f"train_{policy}"] = _train(env, os.path.join(workdir, policy))
+        out[f"jax_{policy}"] = jax_step(env, os.path.join(workdir, "jax"),
+                                        jax_batch, jax_draws)
     return out

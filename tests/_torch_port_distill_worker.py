@@ -32,8 +32,10 @@ MESHES = {
     "fsdp+tp": dict(data_parallel=2, model_parallel=2,
                     param_sharding="fsdp+tp"),
     "cp_dp2": dict(data_parallel=2, model_parallel=2, context_parallel=True),
+    "cp_fsdp_tp": dict(data_parallel=2, model_parallel=2,
+                       context_parallel=True, param_sharding="fsdp+tp"),
 }
-GROUPS = {2: ("fsdp", "tp", "cp"), 4: ("fsdp+tp", "cp_dp2")}
+GROUPS = {2: ("fsdp", "tp", "cp"), 4: ("fsdp+tp", "cp_dp2", "cp_fsdp_tp")}
 #: The placements the whole loop runs under, by group size.
 LOOPS = {2: ("tp", "cp", "fsdp"), 4: ("fsdp+tp",)}
 #: The whole loop: ``distill(start_steps=4, final_steps=1)``, rounds k = 2

@@ -275,12 +275,15 @@ def test_two_distill_steps_match_one_process(runs, name):
 
 def test_placements_split_and_shard_what_they_name(runs):
     """fsdp shards (and splits nothing), tp splits (and shards nothing),
-    fsdp+tp does both, cp does neither; the ranks' (data, model) ranks."""
+    fsdp+tp does both, with the row split too; cp does neither; the ranks'
+    (data, model) ranks."""
     r2, r4 = runs["ranks"][2], runs["ranks"][4]
     assert [r["fsdp"]["sharded"] for r in r2] == [True, True]
     assert r2[0]["fsdp"]["split"] == 0
     assert r2[0]["tp"]["split"] > 0 and not r2[0]["tp"]["sharded"]
-    assert r4[0]["fsdp+tp"]["split"] > 0 and r4[0]["fsdp+tp"]["sharded"]
+    for name in ("fsdp+tp", "cp_fsdp_tp"):
+        assert r4[0][name]["split"] > 0 and r4[0][name]["sharded"]
+        assert r4[0][name]["split"] == r4[0]["fsdp+tp"]["split"]
     for r in r2 + r4:
         for name in ("cp", "cp_dp2"):
             if name in r:
@@ -291,7 +294,8 @@ def test_placements_split_and_shard_what_they_name(runs):
         (0, 0), (0, 1), (1, 0), (1, 1)]
 
 
-@pytest.mark.parametrize("name,data", [("cp", 1), ("cp_dp2", 2)])
+@pytest.mark.parametrize("name,data", [("cp", 1), ("cp_dp2", 2),
+                                       ("cp_fsdp_tp", 2)])
 def test_cp_bucket_spans_the_world_divided_by_the_data_size(runs, name,
                                                             data):
     """Under the row split the bucket is all-reduced over every rank and
@@ -303,6 +307,25 @@ def test_cp_bucket_spans_the_world_divided_by_the_data_size(runs, name,
     for r in runs["ranks"][2]:
         assert r["fsdp"]["bucket"] == (2, True)
         assert r["tp"]["bucket"] == (1, True)
+
+
+def test_cp_fsdp_tp_distill_steps_match_one_process_at_1e_5(runs):
+    """Under the row split with ``fsdp+tp`` at dp2 x mp2 (the teacher's
+    two forwards and the student's gathering their split leaves per
+    layer; the bucket's blocks over the data axis, FSDP2's shards over the
+    model axis): every leaf of the state within 1e-5 relative L2 of one
+    process's two steps, and of the row split's own run with every leaf
+    whole (``cp_dp2``)."""
+    one = runs["one"]
+    ranks = sorted(runs["ranks"][4], key=lambda r: r["ranks"]["cp_fsdp_tp"])
+    got = ranks[0]["cp_fsdp_tp"]["state"]
+    whole = ranks[0]["cp_dp2"]["state"]
+    bad = [(k, _rel(v, one["state"][k])) for k, v in got.items()
+           if _rel(v, one["state"][k]) > 1e-5]
+    assert not bad, bad[:5]
+    bad = [(k, _rel(v, whole[k])) for k, v in got.items()
+           if _rel(v, whole[k]) > 1e-5]
+    assert not bad, bad[:5]
 
 
 # ---- against the JAX package --------------------------------------------
@@ -432,16 +455,23 @@ def test_world_one_round_restores_at_tp2(runs):
 
 @pytest.mark.parametrize("policy", ["fsdp", "tp", "fsdp+tp"])
 def test_sharded_placement_with_cp_is_refused(policy):
-    """Context parallelism with a sharded placement stays refused for
-    distillation, naming ROADMAP A10b (the mesh cannot be made, and a step
-    handed such a mesh refuses it)."""
+    """Refused until context parallelism took the split placements (the
+    name is kept): the config validates, a mesh of one process is refused
+    only for lacking ranks, and a step takes such a mesh, with the row
+    split's bucket (``cp_fsdp_tp`` runs it on ranks)."""
+    import torch.distributed as dist
+
     cfg = MeshConfig(model_parallel=2, context_parallel=True,
                      param_sharding=policy)
-    with pytest.raises(ValueError, match="A10b"):
+    cfg.validate()
+    with pytest.raises(ValueError, match="spans every rank"):
         make_mesh(cfg)
-    env = SimpleNamespace(cfg=cfg, context_parallel=True, eager_only=True)
-    with pytest.raises(ValueError, match="A10b"):
-        DistillStep(worker.config(), env=env)
+    env = SimpleNamespace(cfg=cfg, context_parallel=True, eager_only=True,
+                          group=None, data_size=1, data_rank=0,
+                          model_rank=1, model_axis=None)
+    step = DistillStep(worker.config(), env=env)
+    assert step.rows == (dist.group.WORLD, 1, False)
+    assert not step.cuda_graphs
 
 
 @pytest.mark.parametrize("mesh", [dict(param_sharding="fsdp"),

@@ -72,7 +72,8 @@ def test_mesh_config_matches_the_jax_package_field_for_field():
 
 
 # The tensor- and context-parallel cases (``why`` None) were refusals
-# until the model axis and the row split were ported; their ids are kept.
+# until the model axis, the row split and the row split with the split
+# placements were ported; their ids are kept.
 @pytest.mark.parametrize("kw,why", [
     (dict(context_parallel=True), "model_parallel > 1"),
     (dict(param_sharding="tp"), None),
@@ -81,19 +82,19 @@ def test_mesh_config_matches_the_jax_package_field_for_field():
     (dict(model_parallel=2, context_parallel=True), None),
     (dict(param_sharding="zero3"), "not in"),
     (dict(model_parallel=2, context_parallel=True, param_sharding="fsdp"),
-     "A10b"),
+     None),
     (dict(model_parallel=2, context_parallel=True, param_sharding="tp"),
-     "A10b"),
+     None),
     (dict(model_parallel=2, context_parallel=True,
-          param_sharding="fsdp+tp"), "A10b"),
+          param_sharding="fsdp+tp"), None),
 ], ids=["kw0-model_parallel > 1", "kw1-A10b", "kw2-A10b", "kw3-A10b",
         "kw4-A10b", "kw5-not in", "kw6-cp-fsdp-A10b", "kw7-cp-tp-A10b",
         "kw8-cp-fsdp+tp-A10b"])
 def test_mesh_config_refusals(kw, why):
     """The ``tp`` / ``fsdp+tp`` placements, a model axis and context
-    parallelism over it validate, as they do in the JAX package; context
-    parallelism with a sharded placement stays refused, naming ROADMAP
-    A10b."""
+    parallelism over it, with any placement, validate, as they do in the
+    JAX package (``test_torch_port_cp.py`` builds those meshes on
+    ranks)."""
     cfg = dataclasses.replace(pconfig.test_config(),
                               mesh=pconfig.MeshConfig(**kw))
     if why is None:

@@ -237,9 +237,8 @@ def test_eval_cli_mesh_matches_one_process(group, tmp_path):
 
 def test_train_cli_lifts_and_refuses_the_parallel_flags():
     """The data-, tensor- and context-parallel flags and the kernel-naming
-    flags are accepted; ``--context_parallel`` with a sharded placement
-    stays refused, naming ROADMAP A10b, and ``--attn_impl xla`` (the plain
-    versions) is refused on the card."""
+    flags are accepted, ``--context_parallel`` with every placement too;
+    ``--attn_impl xla`` (the plain versions) is refused on the card."""
     p = train_cli.build_parser()
     args = p.parse_args(["--param_sharding", "fsdp", "--elastic",
                          "--elastic_max_remesh", "3"])
@@ -262,9 +261,12 @@ def test_train_cli_lifts_and_refuses_the_parallel_flags():
     assert (mesh.context_parallel, mesh.model_parallel,
             mesh.param_sharding) == (True, 2, "replicated")
     for sharded in ("fsdp", "tp", "fsdp+tp"):
-        with pytest.raises(SystemExit, match="A10b"):
-            train_cli.refuse_unported(p.parse_args(
-                ["--context_parallel", "--model_parallel", "2",
-                 "--param_sharding", sharded]))
+        args = p.parse_args(["--context_parallel", "--model_parallel", "2",
+                             "--param_sharding", sharded])
+        train_cli.refuse_unported(args)
+        mesh = train_cli.config_from_args(args).mesh
+        mesh.validate()
+        assert (mesh.context_parallel, mesh.model_parallel,
+                mesh.param_sharding) == (True, 2, sharded)
     with pytest.raises(SystemExit, match="only off the card"):
         train_cli.refuse_unported(p.parse_args(["--attn_impl", "xla"]))

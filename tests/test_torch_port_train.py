@@ -513,10 +513,13 @@ def test_train_cli_on_cpu(tmp_path, data):
     trainer.loader.close()
     model_cfg = trainer.state.model.cfg
     assert model_cfg.remat and model_cfg.remat_policy == "dots"
-    with pytest.raises(SystemExit, match="A10b"):   # not ported yet
-        train_cli.main(["--device", "cpu", "--model_parallel", "2",
-                        "--context_parallel", "--param_sharding", "fsdp"])
-    # Lifted: without a process group of 2 ranks the mesh is refused.
+    # Lifted (with every placement): without a process group of 2 ranks
+    # the mesh is refused.
+    with pytest.raises(SystemExit, match="a mesh spans every rank"):
+        train_cli.main(["--device", "cpu", "--config", "test",
+                        "--model_parallel", "2", "--context_parallel",
+                        "--param_sharding", "fsdp",
+                        "--workdir", str(tmp_path / "cp_fsdp")])
     with pytest.raises(SystemExit, match="a mesh spans every rank"):
         train_cli.main(["--device", "cpu", "--config", "test",
                         "--model_parallel", "2", "--context_parallel",
