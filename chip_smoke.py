@@ -210,9 +210,9 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      --standalone --nproc_per_node 1`` launch of this script
      (``--torchrun-entry-points``) that runs ``train_cli.main
      --param_sharding fsdp`` (2 steps), then ``eval_cli.main --mesh`` on
-     its checkpoint (1 object, DDIM 4), then ``serve_cli.main --mesh``
-     on that checkpoint (rank 0 of the mesh at world 1: 2 HTTP requests,
-     then SIGTERM), in the group torchrun's environment names (one
+     its checkpoint (1 object, DDIM 4), then ``serve_cli.main --mesh
+     --replicas 2`` on that checkpoint (both replicas over the mesh at
+     world 1, led by rank 0: 2 HTTP requests, then SIGTERM), in the group torchrun's environment names (one
      start-up for all three): exit 0, the checkpoint's manifest carries
      the topology, finite PSNR, two finite answers; the torchrun start-up
      seconds.  (c) runs after (d).
@@ -248,7 +248,8 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      (gathered, written by rank 0) restored at world 1 (into the one-rank
      trainer of (c)): each rank's blocks of every tensor (parameters, EMA, Adam's moments) cut from
      the restored whole tensors bit-identical to the rank's own; (e) on
-     each rank, the ranks in turn, rows 1-6 at the shapes the model axis
+     rank 0 (rank 1's sites are the same shapes, the inputs seeded by
+     shape), rows 1-6 at the shapes the model axis
      gives them there (C/2 channels, G/2 groups, 2 of 4 heads), held
      against their plain versions and timed beside their bounds (the
      site phases' functions, run without the extra shapes), and rows 1
@@ -288,8 +289,9 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      batch 8 (at most 0.75x); the launch counts set to 0 before (a) + (d)
      and before (c), read after each: the split-statistics GroupNorm (a)
      and (b) and row 3 in the first window, (a)-(d) and rows 4-6 in the
-     second, the unsplit GroupNorm kernels never; (b) on each rank, the
-     ranks in turn, the four split-statistics entry points at every
+     second, the unsplit GroupNorm kernels never; (b) on rank 0 (rank
+     1's rows are the same shapes), the four split-statistics entry
+     points at every
      GroupNorm site of the rank's rows against their plain versions (bf16
      and f32; sums and statistics bit-identical over two runs), timed
      beside their bounds, their plain versions and ``F.group_norm`` +
@@ -321,26 +323,40 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      ranks; 3 requests at once (4 lanes, 2 a rank), a fourth admitted and
      a weights swap (every weight x 1.01) staged after the first view
      step, both landing at the second; the last view of the fourth alone
-     (2 lanes).  Every rank's views of every step bit-identical; each
+     (2 lanes); then the fleet leg's pair of requests at once (2 lanes,
+     its reference).  Every rank's views of every step bit-identical; each
      view step again on one process, each rank's share of the leader's
      plan (records, lengths, the lanes' generator states, the weights of
      its generation) at the rank's shape, bit-identical; the swapped
      weights in float32 (TF32 off) serving the same traffic without the
-     swap at one lane a rank (max_batch 2; views of 4 steps), each
+     swap at one lane a rank (max_batch 2; views of 2 steps), each
      request against one process's engine at one lane a call on the same
      traffic (rel. L2 1e-4: rank 1's lanes end to end, the generator
-     states it hands back included), and the bf16 requests' rel. L2 to one process's
-     engine (4 lanes a call where a rank runs 2) reported beside them (no
-     gate: bf16 rounding at two batch shapes); the launch counts set
-     to 0 before the bf16 service and read after its stop: rows 1 and 3
-     launched on each rank for its share, 101 and 30 a model call, no
+     states it hands back included); the launch counts
+     set to 0 before the bf16 service and read after its stop: rows 1 and
+     3 launched on each rank for its share, 101 and 30 a model call, no
      plain version called; s per view step by lanes beside the serve
      phase's (one process, the same config),
-     the staged gather's calls, bytes and ms; then ``boot_worker`` over
+     the staged gather's calls, bytes and ms; then the fleet leg:
+     ``serve_cli.build_service`` with ``--mesh --replicas 2 --warmup``
+     on both ranks from the swapped weights (every replica over both
+     ranks, each with its own channel and views' gather; replica 1 a
+     copy checked by digest on each rank), the launch counts set to 0
+     before and read after: two sessions on each replica at once (2
+     lanes, one a rank), a rollout (x 1.01) named for replica 1, one more
+     request in its session, replica 1 killed (its session's next
+     request lost), the fleet stopped; each replica's view steps
+     bit-identical across the ranks and, for the pair, to the one-replica
+     service's tail; replica 1's rollout landing at one step on both
+     ranks (generation 1), replica 0's never moving; replica 1's
+     follower loop ended within 5 s of the kill, before replica 0's;
+     rows 1 and 3 launched by each replica's graphs on each rank, no
+     plain version; the leader's s per view step per replica (wall and
+     held), each channel's messages; then ``boot_worker`` over
      the same two ranks (both on ``cuda:0``, gloo): the boot's seconds,
      one session through its socket, finite views; rows 1 and 3 at a
-     rank's 2-lane sites, the ranks in turn, against their plain versions
-     and timed.
+     rank's 2-lane sites, on rank 0 (both ranks record the same sites),
+     against their plain versions and timed.
  11b. distill — ``distill(start_steps=8, final_steps=2, round_steps=2)``
      (round_steps cut from 3)
      at srn64 full width, batch 128, the teacher the train checkpoint's
@@ -1945,6 +1961,9 @@ class _HeldTurns:
         self.held += time.perf_counter() - self.t
         self.turns.__exit__(*exc)
 
+    def __getattr__(self, name):            # the mesh's tickets
+        return getattr(self.turns, name)
+
 
 def _log_view_steps(name, eng, log):
     """Wrap ``eng``'s view step to append, per step, the replica, the
@@ -1960,7 +1979,8 @@ def _log_view_steps(name, eng, log):
     def timed(active):
         b = active[0].req.bucket
         key = (b.phase or f"{b.sampler}:{b.steps}",
-               lane_count(len(active), eng.max_batch), b.capacity)
+               lane_count(len(active), eng.max_batch, eng.lane_multiple),
+               b.capacity)
         t, held = time.perf_counter(), eng.turns.held
         inner(active)
         log.append({"replica": name, "schedule": key[0], "lanes": key[1],
@@ -4020,9 +4040,9 @@ def phase_parallel(graph_run):
     eval_argv = ["--mesh", "--model", ckpts, "--synthetic_scenes",
                  "--objects", "1", "--max_views", "3", "--sampler", "ddim",
                  "--sampler_steps", "4"]
-    serve_argv = ["--mesh", "--model", ckpts, "--sampler_steps",
-                  str(SERVE_STEPS), "--max_batch", "2", "--max_wait_ms", "0",
-                  "--drain_s", "5"]
+    serve_argv = ["--mesh", "--replicas", "2", "--model", ckpts,
+                  "--sampler_steps", str(SERVE_STEPS), "--max_batch", "2",
+                  "--max_wait_ms", "0", "--drain_s", "5"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", os.path.abspath(__file__),
            "--torchrun-entry-points", *train_argv, "--then-eval",
@@ -4851,34 +4871,36 @@ def tp_rank(rank: int, world: int, workdir: str) -> dict:
     out["distill"] = distill_leg(env, _CopyNotSummed())
     marks["f_distill"] = time.perf_counter()
 
-    # (e) Rows 1-6 at this rank's sites, the ranks in turn (and rows 1
-    # and 3 without statistics at the train sites: the distill teacher's).
+    # (e) Rows 1-6 at a rank's sites (and rows 1 and 3 without statistics
+    # at the train sites: the distill teacher's), on rank 0 while rank 1
+    # waits: the ranks' sites are the same shapes (equal blocks), and the
+    # inputs are seeded by shape, so a pass on rank 1 would repeat rank
+    # 0's.
     out["sample_sites"] = {"gn": sample_sites.gn, "attn": sample_sites.attn}
     out["train_sites"] = {"gn": train_sites.gn, "attn": train_sites.attn}
-    for turn in range(world):
-        dist.barrier(group)
-        if turn == rank:
-            t0 = time.perf_counter()
-            out["gn"] = phase_groupnorm(sample_sites.gn,
-                                        phase="tp_groupnorm",
-                                        odd_shapes=False)
-            out["attn"] = phase_attention(sample_sites.attn,
-                                          phase="tp_attention",
-                                          extra_shapes=False)
-            out["gn_fwd"], out["gn_bwd"] = phase_groupnorm_backward(
-                train_sites.gn, 1, phase="tp_groupnorm_backward",
-                edges=False, f32_max_n=2)
-            out["attn_rows"] = phase_attention_backward(
-                train_sites.attn, 1, phase="tp_attention_backward",
-                extra_shapes=False, f32_max_n=2)
-            out["distill_gn"] = phase_groupnorm(
-                train_sites.gn, phase="tp_distill_groupnorm",
-                odd_shapes=False)
-            out["distill_attn"] = phase_attention(
-                train_sites.attn, phase="tp_distill_attention",
-                extra_shapes=False)
-            out["sites_s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
+    dist.barrier(group)
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["gn"] = phase_groupnorm(sample_sites.gn,
+                                    phase="tp_groupnorm",
+                                    odd_shapes=False)
+        out["attn"] = phase_attention(sample_sites.attn,
+                                      phase="tp_attention",
+                                      extra_shapes=False)
+        out["gn_fwd"], out["gn_bwd"] = phase_groupnorm_backward(
+            train_sites.gn, 1, phase="tp_groupnorm_backward",
+            edges=False, f32_max_n=2)
+        out["attn_rows"] = phase_attention_backward(
+            train_sites.attn, 1, phase="tp_attention_backward",
+            extra_shapes=False, f32_max_n=2)
+        out["distill_gn"] = phase_groupnorm(
+            train_sites.gn, phase="tp_distill_groupnorm",
+            odd_shapes=False)
+        out["distill_attn"] = phase_attention(
+            train_sites.attn, phase="tp_distill_attention",
+            extra_shapes=False)
+        out["sites_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
     dist.barrier(group)
     marks["e_sites"] = time.perf_counter()
     names = list(marks)
@@ -5145,7 +5167,8 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
                      "training": {k: {str(kk): v for kk, v in
                                       r0["train_sites"][k].items()}
                                   for k in ("gn", "attn")}},
-           "sites_s": [round(r["sites_s"], 3) for r in ranks],
+           "sites_s": [round(r["sites_s"], 3) for r in ranks
+                       if "sites_s" in r],
            "rank_marks_s": [r["marks_s"] for r in ranks],
            "distill": leg,
            "one_rank_s": round(one_s, 3), "ranks_s": round(ranks_s, 3),
@@ -5178,10 +5201,11 @@ def phase_tensor_parallel(prep, ranks, ranks_s):
         raise AssertionError("tensor_parallel: the distill leg's sites are "
                              "not the train step's")
 
-    # The kernels line: the slower rank's times, the worst error, rank
-    # 0's launches.
+    # The kernels line: the times and errors of the rank that timed the
+    # sites (rank 0), rank 0's launches.
     def slowest(key, sub=None):
-        rows = [r[key] if sub is None else r[key][sub] for r in ranks]
+        rows = [r[key] if sub is None else r[key][sub] for r in ranks
+                if key in r]
         got = dict(rows[0])
         for k in ("ms", "device_ms", "plain_ms", "library_ms"):
             if k in got:
@@ -5701,26 +5725,27 @@ def cp_rank(rank: int, world: int, workdir: str) -> dict:
     out["distill"] = distill_leg(env, _HaloNotAdded())
     marks["f_distill"] = time.perf_counter()
 
-    # (b) The kernels at this rank's sites, the ranks in turn (and row 3
-    # at the train sites: the distill teacher's).
+    # (b) The kernels at a rank's sites (and row 3 at the train sites: the
+    # distill teacher's), on rank 0 while rank 1 waits: the ranks' rows
+    # are the same shapes and the inputs are seeded by shape, so a pass on
+    # rank 1 would repeat rank 0's.
     out["sample_sites"] = {"gn": sample_sites.gn, "attn": sample_sites.attn}
     out["train_sites"] = {"gn": train_sites.gn, "attn": train_sites.attn}
-    for turn in range(world):
-        dist.barrier(group)
-        if turn == rank:
-            t0 = time.perf_counter()
-            out["gn"] = phase_split_groupnorm(train_sites.gn)
-            out["attn"] = phase_attention(sample_sites.attn,
-                                          phase="cp_attention",
-                                          extra_shapes=False)
-            out["attn_rows"] = phase_attention_backward(
-                train_sites.attn, 1, phase="cp_attention_backward",
-                extra_shapes=False, f32_max_n=2)
-            out["distill_attn"] = phase_attention(
-                train_sites.attn, phase="cp_distill_attention",
-                extra_shapes=False)
-            out["sites_s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
+    dist.barrier(group)
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["gn"] = phase_split_groupnorm(train_sites.gn)
+        out["attn"] = phase_attention(sample_sites.attn,
+                                      phase="cp_attention",
+                                      extra_shapes=False)
+        out["attn_rows"] = phase_attention_backward(
+            train_sites.attn, 1, phase="cp_attention_backward",
+            extra_shapes=False, f32_max_n=2)
+        out["distill_attn"] = phase_attention(
+            train_sites.attn, phase="cp_distill_attention",
+            extra_shapes=False)
+        out["sites_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
     dist.barrier(group)
     marks["b_sites"] = time.perf_counter()
     names = list(marks)
@@ -5911,7 +5936,8 @@ def phase_context_parallel(prep, ranks, ranks_s):
                      "training": {k: {str(kk): v for kk, v in
                                       r0["train_sites"][k].items()}
                                   for k in ("gn", "attn")}},
-           "sites_s": [round(r["sites_s"], 3) for r in ranks],
+           "sites_s": [round(r["sites_s"], 3) for r in ranks
+                       if "sites_s" in r],
            "rank_marks_s": [r["marks_s"] for r in ranks],
            "distill": dict(leg, unsplit_groupnorm_launches=leg_unsplit),
            "cp_tp": cp_tp,
@@ -5966,7 +5992,8 @@ def phase_context_parallel(prep, ranks, ranks_s):
                              "hold different updates")
 
     def slowest(key, sub=None):
-        rows = [r[key] if sub is None else r[key][sub] for r in ranks]
+        rows = [r[key] if sub is None else r[key][sub] for r in ranks
+                if key in r]
         got = dict(rows[0])
         for k in ("ms", "device_ms", "plain_ms", "library_ms"):
             if got.get(k) is not None:
@@ -6019,9 +6046,14 @@ MESH_LANES = (2, 4)             # the lane counts warmed and served
 MESH_VIEWS = 3                  # views a request (2 view steps)
 MESH_F32_TOL = 1e-4             # the float32 copy's views, rel. L2
 MESH_F32_LANES = 2              # the float32 leg's max_batch (1 a rank)
-MESH_F32_STEPS = 4              # the float32 leg's steps a view
+MESH_F32_STEPS = 2              # the float32 leg's steps a view
 MESH_ROW_CALLS = {"fused_groupnorm": 101, "flash_attention": 30}
 MESH_WAIT_S = 120.0             # every request's wait
+MESH_FLEET_SEEDS = (90, 91)     # the fleet leg's pair on each replica, and
+                                # the bf16 service's tail (its reference)
+MESH_FLEET_WEIGHTS = os.path.join(WORKDIR + "_mesh", "weights.pt")
+MESH_KILL_EXIT_S = 5.0          # a killed replica's follower loop ends
+MESH_ROWS = ("fused_groupnorm", "flash_attention")
 
 
 def _mesh_cfg(max_batch=max(MESH_LANES)):
@@ -6051,11 +6083,12 @@ def _mesh_swap(model):
             for k, v in model.state_dict().items()}
 
 
-def _mesh_traffic(svc, swap_state=None):
+def _mesh_traffic(svc, swap_state=None, tail=()):
     """Three requests at once; after the first view step (on the engine
     thread, so both land at the second) a fourth request and the swap
-    (``swap_state``, if any).  Returns the results in order and each view
-    step's wall seconds and lanes (the leader's, or one process's)."""
+    (``swap_state``, if any); once they are done, the ``tail`` payloads
+    at once.  Returns the results in order and each view step's wall
+    seconds and lanes (the leader's, or one process's)."""
     import torch
 
     from diff3d_tpu_torch.serving import lane_count
@@ -6082,6 +6115,8 @@ def _mesh_traffic(svc, swap_state=None):
                                       70 + i)) for i in range(3)]
     out = [r.result(timeout=MESH_WAIT_S) for r in reqs]
     out += [late[0].result(timeout=MESH_WAIT_S)]
+    reqs = [svc.submit(p) for p in tail]
+    out += [r.result(timeout=MESH_WAIT_S) for r in reqs]
     svc.stop()
     return out, log
 
@@ -6097,13 +6132,15 @@ def _mesh_bucket(cfg):
 
 def _mesh_recorder(eng):
     """Every view step the engine's program cache runs on this rank:
-    lanes, the weights generation, the returned views (every lane's)."""
+    lanes, the weights generation, whether it served requests (a warm-up
+    passes no generation), the returned views (every lane's)."""
     steps, inner = [], eng.programs.step_many
 
     def step_many(bucket, lanes, *args, **kw):
         got = inner(bucket, lanes, *args, **kw)
         steps.append({"lanes": int(lanes),
                       "generation": kw.get("generation", 0),
+                      "served": "generation" in kw,
                       "views": got[0].float().cpu()})
         return got
 
@@ -6155,7 +6192,7 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
                 eng.warmup(_mesh_bucket(cfg), lanes)
             out["warmup_s"] = time.perf_counter() - t0
             out["results"], out["step_log"] = _mesh_traffic(
-                svc, _mesh_swap(model))
+                svc, _mesh_swap(model), tail=_fleet_payloads())
     out["launches"] = _launch_counts(graphs=list(sampler.graphs.values()))
     out["plain_calls"] = sites.plain
     out["steps"] = steps
@@ -6165,6 +6202,11 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
     out["counts"] = dict(ranks.counts)
     marks["bf16"] = time.perf_counter()
     del svc, eng, sampler
+
+    # serve_cli's service with --mesh --replicas 2 over the same ranks and
+    # weights (every rank's model now holds the swapped ones).
+    out["fleet"] = _mesh_fleet_leg(rank, model)
+    marks["fleet"] = time.perf_counter()
 
     # The same weights computing in float32 (after the swap, as every
     # rank holds them; TF32 off): the bf16 service's traffic without its
@@ -6190,24 +6232,132 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
     out["worker"] = _mesh_worker(rank, cfg)
     marks["worker"] = time.perf_counter()
 
-    # Rows 1 and 3 at a rank's sites (2 of 4 lanes), the ranks in turn
-    # (the sites' shapes, read from a forward of the float32 copy).
+    # Rows 1 and 3 at a rank's sites (2 of 4 lanes; the sites' shapes,
+    # read from a forward of the float32 copy).
     B = len(cfg.diffusion.guidance_weights)
     gn_sites, attn_sites = record_sites(
         model, *model_batch(cfg, 2 * 2 * B, seed=7))
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    for turn in range(world):
-        dist.barrier(group)
-        if turn == rank:
-            out["gn"] = phase_groupnorm(gn_sites, phase="mesh_groupnorm",
-                                        odd_shapes=False)
-            out["attn"] = phase_attention(attn_sites, phase="mesh_attention",
-                                          extra_shapes=False)
-        torch.cuda.synchronize()
+    # On rank 0 while rank 1 waits: both ranks recorded the same sites
+    # from the same model and batch, and the inputs are seeded by shape,
+    # so a pass on rank 1 would repeat rank 0's.
+    dist.barrier(group)
+    if rank == 0:
+        out["gn"] = phase_groupnorm(gn_sites, phase="mesh_groupnorm",
+                                    odd_shapes=False)
+        out["attn"] = phase_attention(attn_sites, phase="mesh_attention",
+                                      extra_shapes=False)
+    torch.cuda.synchronize()
     dist.barrier(group)
     marks["sites"] = time.perf_counter()
+    names = list(marks)
+    out["marks_s"] = {n: round(marks[n] - marks[p], 3)
+                      for p, n in zip(names, names[1:])}
+    return out
+
+
+def _fleet_payloads(sids=(None, None), seeds=MESH_FLEET_SEEDS):
+    """The fleet leg's requests (``MESH_VIEWS`` views each), one a seed,
+    each in its session of ``sids`` (None: none)."""
+    return [_serve_payload(orbit_views(MESH_VIEWS, 64, seed), seed,
+                           **({} if sid is None else {"session_id": sid}))
+            for seed, sid in zip(seeds, sids)]
+
+
+def _replica_graphs(eng):
+    return [g for s in eng.samplers.values() for g in s.graphs.values()]
+
+
+def _mesh_fleet_leg(rank: int, model) -> dict:
+    """Phase ``serve_mesh``'s fleet leg on one rank: ``serve_cli``'s
+    ``build_service`` with ``--mesh --replicas 2 --warmup`` over the
+    group, from ``model``'s weights (saved by rank 0); the launch counts
+    set to 0 before, read after.  Rank 0 serves two sessions on each
+    replica at once (2 lanes, one a rank), rolls out ``x 1.01`` on
+    replica 1 alone, serves one more request on replica 1, kills it
+    (its session's next request must be lost), then stops.  Rank 1 follows
+    both replicas, recording when each loop ended."""
+    import torch
+    import torch.distributed as dist
+
+    from diff3d_tpu_torch.cli import serve_cli
+    from diff3d_tpu_torch.graphs import graph_launches
+    from diff3d_tpu_torch.serving.engine import follow_all
+    from diff3d_tpu_torch.serving.scheduler import SessionLost
+
+    marks = {"start": time.perf_counter()}
+    if rank == 0:
+        os.makedirs(os.path.dirname(MESH_FLEET_WEIGHTS), exist_ok=True)
+        torch.save(model.state_dict(), MESH_FLEET_WEIGHTS)
+    dist.barrier()
+    argv = ["--mesh", "--replicas", "2", "--model", MESH_FLEET_WEIGHTS,
+            "--config", "srn64", "--sampler_steps", str(SERVE_STEPS),
+            "--max_batch", "2", "--max_views", str(MESH_VIEWS),
+            "--max_wait_ms", "500", "--port", "0", "--warmup"]
+    out, sites = {}, _Sites()
+    _launch_counts(reset=True)
+    with sites:
+        svc = serve_cli.build_service(serve_cli.build_parser().parse_args(
+            argv))
+        engines = serve_cli._local_engines(svc)
+        steps = [_mesh_recorder(eng) for eng in engines]
+        marks["boot"] = time.perf_counter()
+        if rank == 0:           # both ranks loaded it before the sync
+            shutil.rmtree(os.path.dirname(MESH_FLEET_WEIGHTS),
+                          ignore_errors=True)
+        if rank:
+            ended = {}
+            for i, eng in enumerate(engines):
+                def follow(i=i, inner=eng.follow):
+                    try:
+                        inner()
+                    finally:
+                        ended[i] = time.time()
+                eng.follow = follow
+            follow_all(engines)
+            out["ended"] = ended
+        else:
+            log = []
+            for rep in svc.replicas:
+                _log_view_steps(rep.name, rep.engine, log)
+            r1 = svc.replicas[1]
+            up = _mesh_swap(r1.engine.sampler.model)
+            by = _sessions_by_owner(svc.replicas, 2)
+            svc.start(serve_http=False)
+            reqs = {name: [svc.submit(p) for p in _fleet_payloads(sids)]
+                    for name, sids in by.items()}
+            out["views"] = {name: [r.result(timeout=MESH_WAIT_S)
+                                   for r in rs]
+                            for name, rs in reqs.items()}
+            out["rollout"] = svc.rollout(up, version="x1.01",
+                                         replicas=["r1"])
+            del up
+            req = svc.submit(_fleet_payloads(by["r1"][:1], seeds=(92,))[0])
+            out["after_rollout"] = {"r1": req.result(timeout=MESH_WAIT_S)}
+            out["fleet_snapshot"] = svc.fleet_snapshot()
+            out["killed_at"] = time.time()
+            r1.kill()
+            try:
+                svc.submit(_fleet_payloads(by["r1"][:1], seeds=(93,))[0])
+                out["lost"] = None
+            except SessionLost as e:
+                out["lost"] = type(e).__name__
+            svc.stop()
+            out["step_log"] = log
+    marks["served"] = time.perf_counter()
+    graphs = [_replica_graphs(eng) for eng in engines]
+    out["launches"] = _launch_counts(graphs=[g for gs in graphs for g in gs])
+    out["replica_launches"] = [{k: graph_launches(gs).get(k, 0)
+                                for k in MESH_ROWS} for gs in graphs]
+    out["plain_calls"] = sites.plain
+    out["steps"] = steps
+    out["counts"] = [dict(eng.ranks.counts) for eng in engines]
+    out["gather"] = [dict(eng.sampler.gather_stats) for eng in engines]
+    del svc, engines, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
     names = list(marks)
     out["marks_s"] = {n: round(marks[n] - marks[p], 3)
                       for p, n in zip(names, names[1:])}
@@ -6251,11 +6401,9 @@ def _mesh_reference(plans, steps):
     generator state; the weights of the plan's generation) through a
     one-process ``Sampler`` at the rank's shape; per step, the gathered
     views' rel. L2 to it, whether they are bit-identical, and their NaNs;
-    (2) one process's engine (4 lanes a call where a rank runs 2) on the
-    bf16 service's traffic and swap: its results; (3) one process's
-    engine at one lane a call (a rank's shape in the float32 leg) on the
-    float32 copy of the swapped weights (TF32 off) and the float32
-    traffic: its results."""
+    (2) one process's engine at one lane a call (a rank's shape in the
+    float32 leg) on the float32 copy of the swapped weights (TF32 off)
+    and the float32 traffic: its results."""
     import torch
 
     from diff3d_tpu_torch.diffusion import Draws
@@ -6299,9 +6447,8 @@ def _mesh_reference(plans, steps):
     del sampler
     with torch.no_grad():
         for k, v in model.state_dict().items():
-            v.copy_(weights[0][k])
-    bf16, _ = _mesh_traffic(_mesh_service(cfg, model), weights[1])
-    del weights             # the swap left the model at weights[1]
+            v.copy_(weights[1][k])
+    del weights
     cfg32, f32 = _tp_f32(_mesh_cfg(MESH_F32_LANES // RING_WORLD), model)
     with _NoTF32():
         views32, log32 = _mesh_traffic(_mesh_service(
@@ -6309,7 +6456,7 @@ def _mesh_reference(plans, steps):
     del f32, model
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, bf16, views32, log32
+    return rows, views32, log32
 
 
 def phase_serve_mesh(ranks, ranks_s, one_process_s):
@@ -6337,12 +6484,13 @@ def phase_serve_mesh(ranks, ranks_s, one_process_s):
                                                         b["views"])
                       for a, b in zip(r0["steps_f32"], r1["steps_f32"])))
     t0 = time.perf_counter()
-    per_step, bf16_one, views32, log32 = _mesh_reference(
+    per_step, views32, log32 = _mesh_reference(
         r0["plans"], r0["steps"][len(MESH_LANES):])
     reference_s = time.perf_counter() - t0
     step_bits = all(row["bit_identical"] for row in per_step)
     f32_rel = [_rel_l2(a, b) for a, b in zip(r0["f32"], views32)]
-    bf16_rel = [_rel_l2(a, b) for a, b in zip(r0["results"], bf16_one)]
+    fleet = _fleet_summary(ranks, r0["steps"][-len(MESH_FLEET_SEEDS):],
+                           bits)
     generations = [s["generation"] for s in r1["steps"][len(MESH_LANES):]]
     finite = all(np.isfinite(v).all() for v in r0["results"] + r0["f32"]) \
         and np.isfinite(r0["worker"]["views"]).all()
@@ -6368,14 +6516,13 @@ def phase_serve_mesh(ranks, ranks_s, one_process_s):
            "weights_generation_by_step": generations,
            "bf16_per_step_vs_one_process": per_step,
            "f32_rel_l2_vs_one_process_engine": f32_rel,
-           "bf16_rel_l2_vs_one_process_engine": bf16_rel,
            "lanes_a_call": {
                "mesh_rank": [row["lanes"] // RING_WORLD
                              for row in r0["f32_log"]],
                "one_process": [row["lanes"] for row in log32]},
            "tolerance": {"bf16_per_step": "bit-identical",
                          "f32": MESH_F32_TOL,
-                         "bf16_engine": "reported, no gate"},
+                         "fleet_leg": "bit-identical"},
            "s_per_view_step": {"mesh_leader": per_lanes(r0["step_log"]),
                                "one_process_serve_phase": one_process_s,
                                "f32_mesh_leader": per_lanes(r0["f32_log"]),
@@ -6390,6 +6537,7 @@ def phase_serve_mesh(ranks, ranks_s, one_process_s):
                       "rank_programs": r0["worker"]["rank_programs"],
                       "session_shape": list(r0["worker"]["views"].shape)},
            "rank_marks_s": [r["marks_s"] for r in ranks],
+           "fleet_leg": fleet,
            "reference_s": round(reference_s, 3),
            "ranks_s": round(ranks_s, 3)}
     emit(dict(phase="serve_mesh", **out))
@@ -6411,9 +6559,11 @@ def phase_serve_mesh(ranks, ranks_s, one_process_s):
     if r0["worker"]["rank_programs"] != [len(MESH_LANES)] * 2:
         raise AssertionError(f"serve_mesh: the worker's ranks warmed "
                              f"{r0['worker']['rank_programs']}")
+    if not fleet["ok"]:
+        raise AssertionError(f"serve_mesh: the fleet leg: {fleet}")
 
     def slowest(key):
-        rows = [r[key] for r in ranks]
+        rows = [r[key] for r in ranks if key in r]
         got = dict(rows[0])
         for k in ("ms", "device_ms", "plain_ms", "library_ms"):
             if got.get(k) is not None:
@@ -6425,7 +6575,76 @@ def phase_serve_mesh(ranks, ranks_s, one_process_s):
                            "flash_attention@serve_mesh": slowest("attn")}
     out["kernel_launches"] = {
         "fused_groupnorm@serve_mesh": r0["launches"]["fused_groupnorm"],
-        "flash_attention@serve_mesh": r0["launches"]["flash_attention"]}
+        "flash_attention@serve_mesh": r0["launches"]["flash_attention"],
+        "fused_groupnorm@serve_mesh_replicas":
+            r0["fleet"]["launches"]["fused_groupnorm"],
+        "flash_attention@serve_mesh_replicas":
+            r0["fleet"]["launches"]["flash_attention"]}
+    return out
+
+
+def _fleet_summary(ranks, reference, bits) -> dict:
+    """The fleet leg's results over both ranks (``ranks``' ``fleet``),
+    ``reference`` the one-replica service's view steps of the same pair
+    (its tail, at the same lanes, draws and weights), ``bits`` the
+    bit-identity of two view tensors; ``ok`` unless a check failed.  The
+    served view steps are compared (a follower also records the warm-ups
+    it follows, which rank 0 ran inside ``build_service``)."""
+    f0, f1 = ({**r["fleet"], "steps": [[s for s in steps if s["served"]]
+                                        for steps in r["fleet"]["steps"]]}
+              for r in ranks)
+    names = ("r0", "r1")
+    across = [len(a) == len(b) > 0 and all(
+        x["lanes"] == y["lanes"] and x["generation"] == y["generation"]
+        and bits(x["views"], y["views"]) for x, y in zip(a, b))
+        for a, b in zip(f0["steps"], f1["steps"])]
+    to_ref = [all(len(f["steps"][i]) >= len(reference) and all(
+        x["lanes"] == y["lanes"] == 2 and bits(x["views"], y["views"])
+        for x, y in zip(f["steps"][i], reference)) for f in (f0, f1))
+        for i in range(2)]
+    gens = [[s["generation"] for s in f["steps"][i]]
+            for f in (f0, f1) for i in range(2)]
+    ended = f1["ended"]
+    exit_s = ended.get(1, math.inf) - f0["killed_at"]
+    launched = [[all(f["replica_launches"][i][k] > 0 for k in MESH_ROWS)
+                 for i in range(2)] for f in (f0, f1)]
+    log = f0["step_log"]
+    snap = f0["fleet_snapshot"]["replicas"]
+    finite = all(np.isfinite(v).all() for vs in f0["views"].values()
+                 for v in vs) and all(
+        np.isfinite(v).all() for v in f0["after_rollout"].values())
+    out = {
+        "argv": "serve_cli --mesh --replicas 2 --warmup --max_batch 2 "
+                f"--max_views {MESH_VIEWS} --sampler_steps {SERVE_STEPS}",
+        "bit_identical_across_ranks": across,
+        "bit_identical_to_one_replica": to_ref,
+        "generations": {"rank0": gens[:2], "rank1": gens[2:]},
+        "rollout": f0["rollout"],
+        "lost_session": f0["lost"],
+        "killed_follower_exit_s": round(exit_s, 3),
+        "follower_loops_ended_in_order": ended.get(0, 0) > ended.get(1, 0),
+        "replica_launches": {"rank0": f0["replica_launches"],
+                             "rank1": f1["replica_launches"]},
+        "launches": [f["launches"] for f in (f0, f1)],
+        "plain_calls": [f["plain_calls"] for f in (f0, f1)],
+        "s_per_view_step_leader": {
+            n: {"wall": _steady(log, "s", replica=n, lanes=2),
+                "held": _steady(log, "held_s", replica=n, lanes=2),
+                "steps": [round(r["s"], 4) for r in log
+                          if r["replica"] == n]} for n in names},
+        "messages": {"rank0": f0["counts"], "rank1": f1["counts"]},
+        "snapshot_channels": {n: snap[n]["channel"] for n in names},
+        "gather": [f["gather"] for f in (f0, f1)],
+        "rank_marks_s": [f["marks_s"] for f in (f0, f1)]}
+    out["ok"] = bool(
+        all(across) and all(to_ref) and finite
+        and all(g == [0] * len(g) for g in gens[0::2])
+        and all(g[:2] == [0, 0] and set(g[2:]) == {1} for g in gens[1::2])
+        and f0["rollout"]["ok"] and f0["lost"] == "SessionLost"
+        and 0 <= exit_s < MESH_KILL_EXIT_S
+        and out["follower_loops_ended_in_order"]
+        and all(all(r) for r in launched)
+        and not any(out["plain_calls"]))
     return out
 
 
@@ -7110,9 +7329,17 @@ def main() -> None:
     mesh_per = (f"one denoise step of a served view step at 4 lanes on "
                 f"one rank of the data=2 mesh (2 ranks on one card over "
                 f"gloo): the rank's 2 lanes (N*2B = {lanes2}) at srn64, "
-                "summed over sites; the slower rank's times; launches: "
+                "summed over sites; rank 0's times; launches: "
                 "rank 0's serve_mesh service (warm-up captures at 2 and 4 "
                 "lanes, every served view step)")
+    mesh_fleet_per = ("one denoise step of a served view step at 2 lanes "
+                      "on one rank of the data=2 mesh under serve_cli "
+                      "--mesh --replicas 2 (2 gloo ranks on one card): the "
+                      "rank's 1 lane (N*2B = 16) at srn64, summed over "
+                      "sites, which are the sampler's (timed in phases "
+                      "groupnorm and attention); launches: rank 0's fleet "
+                      "leg, both replicas (warm-up captures, every served "
+                      "view step)")
     casc_lanes = 2 * 2 * len(cfg128.diffusion.guidance_weights)
     casc_per = {p: (f"one denoise step of the served cascade's {p} phase at "
                     f"2 lanes (N*2B = {casc_lanes}, {res}^2, srn128 "
@@ -7148,28 +7375,28 @@ def main() -> None:
     tp_sample = ("one srn64 forward at 2B=16 on one rank of the tp mesh "
                  "(dp1 x mp2, 2 ranks on one card over gloo): the rank's "
                  "blocks (C/2 channels, G/2 groups, 2 of 4 heads), summed "
-                 "over sites; the slower rank's times; launches: rank 0's "
+                 "over sites; rank 0's times; launches: rank 0's "
                  f"bf16 forward and {TP_SAMPLER_STEPS}-step float32 "
                  "Sampler(mesh) view")
     tp_train = (f"one srn64 train step at global batch {TP_BATCH} on one "
                 "rank of the tp mesh (dp1 x mp2, 2 ranks on one card over "
-                "gloo): the rank's blocks, summed over sites; the slower "
-                f"rank's times; launches: rank 0's {TP_STEPS} eager steps")
+                "gloo): the rank's blocks, summed over sites; rank 0's "
+                f"times; launches: rank 0's {TP_STEPS} eager steps")
     cp_sample = ("one srn64 forward at 2B=16 on one rank of the context-"
                  "parallel mesh (dp1 x mp2, 2 ranks on one card over gloo): "
                  "the rank's 32 of 64 rows at every level (attention: its "
-                 "queries against all keys), summed over sites; the slower "
-                 "rank's times; launches: rank 0's bf16 forward and "
+                 "queries against all keys), summed over sites; rank 0's "
+                 "times; launches: rank 0's bf16 forward and "
                  f"{CP_SAMPLER_STEPS}-step float32 Sampler(mesh) view")
     cp_train = (f"one srn64 train step at global batch {TP_BATCH} on one "
                 "rank of the context-parallel mesh (dp1 x mp2, 2 ranks on "
                 "one card over gloo): the rank's rows, summed over sites; "
-                f"the slower rank's times; launches: rank 0's {CP_STEPS} "
+                f"rank 0's times; launches: rank 0's {CP_STEPS} "
                 "eager steps")
     leg_per = {m: (f"one srn64 distill step (k = {DISTILL_LEG_K}) at global "
                    f"batch {TP_BATCH} on one rank of the {mesh} (dp1 x mp2, 2 "
                    "ranks on one card over gloo), at the train step's sites "
-                   f"(the rank's {part}): {{}}; the slower rank's times; "
+                   f"(the rank's {part}): {{}}; rank 0's times; "
                    f"launches: rank 0's {DISTILL_LEG_STEPS} eager steps, the "
                    "wrapper's (teacher and student)")
                for m, mesh, part in (("tp", "tp mesh", "blocks"),
@@ -7234,7 +7461,13 @@ def main() -> None:
          mpar["kernel_stats"]["fused_groupnorm@serve_mesh"], mesh_per),
         ("flash_attention@serve_mesh", att, fa_at,
          mpar["kernel_launches"]["flash_attention@serve_mesh"],
-         mpar["kernel_stats"]["flash_attention@serve_mesh"], mesh_per)]
+         mpar["kernel_stats"]["flash_attention@serve_mesh"], mesh_per),
+        ("fused_groupnorm@serve_mesh_replicas", film, gn_fwd_at,
+         mpar["kernel_launches"]["fused_groupnorm@serve_mesh_replicas"], gn,
+         mesh_fleet_per),
+        ("flash_attention@serve_mesh_replicas", att, fa_at,
+         mpar["kernel_launches"]["flash_attention@serve_mesh_replicas"],
+         attn, mesh_fleet_per)]
         + [(f"{k}@cascade_{p}", src, at,
             cascade["launches_by_phase"][p][k], stats[p], casc_per[p])
            for k, src, at, stats in (

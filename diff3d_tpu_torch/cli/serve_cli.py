@@ -29,9 +29,13 @@ Usage:
     python -m diff3d_tpu_torch.cli.serve_cli --workers 127.0.0.1:9100
 
     # one service over the cards of a host (rank 0 serves HTTP, the other
-    # ranks follow its view steps; lanes split over the ranks):
+    # ranks follow its view steps; lanes split over the ranks), and two
+    # replicas over them (each over every card):
     torchrun --standalone --nproc_per_node 4 \
         -m diff3d_tpu_torch.cli.serve_cli --mesh --model ckpt.pt
+    torchrun --standalone --nproc_per_node 4 \
+        -m diff3d_tpu_torch.cli.serve_cli --mesh --replicas 2 \
+        --model ckpt.pt --schedules 'ancestral:64,1@ddim:16'
 
 Endpoints: ``POST /synthesize``, ``POST /trajectory``, ``POST /cascade``
 (with ``--cascade``), ``GET /result/<id>``, ``GET /healthz``, ``GET
@@ -46,8 +50,13 @@ one process per card.  Each rank holds the whole model (rank 0's weights,
 checked by digest on every rank at boot) and runs its share of each view
 step's lanes; the lane counts and ``--max_batch`` round up to the number
 of ranks.  Rank 0 takes every decision (``serving/ranks.py``); the other
-ranks follow it and exit 0 when it stops.  ``--mesh`` with
-``--replicas`` > 1 is refused.
+ranks follow it and exit 0 when it stops.  With ``--replicas N`` every
+rank builds the same N replicas (the same ``--schedules``, ``i@`` entries
+included, and ``--cascade``), each over every rank with a channel of its
+own, as the JAX package's replicas share its mesh; they take turns on
+each card in rank 0's order.  Rank 0 fronts them (and any ``--workers``)
+with the fleet router; the other ranks follow every replica and exit 0
+once each has stopped, non-zero if any channel broke.
 """
 
 from __future__ import annotations
@@ -62,12 +71,6 @@ from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           apply_model_width_overrides,
                                           load_eval_params)
 
-_MESH_REPLICAS_REFUSED = (
-    "--mesh with --replicas {n}: each in-process replica would need a mesh "
-    "of ranks of its own (ROADMAP A10b); serve one replica over the mesh, "
-    "or several replicas without it")
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -78,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "view step's lanes split over the data axis, every "
                         "rank holds the whole model, lane counts round up "
                         "to the data-axis size; rank 0 serves HTTP and the "
-                        "other ranks follow it")
+                        "other ranks follow it.  With --replicas N each "
+                        "replica spans every rank, over a channel of its "
+                        "own")
     p.add_argument("--model", default=None,
                    help="checkpoint directory, ckpt_<step>.pt, port state "
                         "dict (.pt) or Flax params (.npz); omit with "
@@ -95,6 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bind port (default: config, 8080; 0 = ephemeral)")
     p.add_argument("--max_batch", type=int, default=None,
                    help="device-batch lane ceiling per shape bucket")
+    p.add_argument("--max_views", type=int, default=None,
+                   help="views a request may span (default: config, 16); "
+                        "--warmup captures the bucket of this many")
     p.add_argument("--max_wait_ms", type=float, default=None,
                    help="microbatch flush deadline after the first "
                         "request of a bucket arrives")
@@ -185,7 +193,8 @@ def _config(args):
             cfg.diffusion, timesteps=args.steps))
     cfg = apply_model_width_overrides(cfg, args)
     over = {k: getattr(args, k) for k in
-            ("host", "port", "max_batch", "max_queue", "max_wait_ms")
+            ("host", "port", "max_batch", "max_queue", "max_wait_ms",
+             "max_views")
             if getattr(args, k) is not None}
     if args.replicas:            # 0 = remote-only fleet, keep cfg valid
         over["replicas"] = args.replicas
@@ -303,8 +312,6 @@ def build_service(args):
     if any(i is not None for i, _ in extra_specs) and n_local < 2:
         raise SystemExit("per-replica 'i@kind:steps' schedules require "
                          "--replicas > 1")
-    if args.mesh and n_local > 1:
-        raise SystemExit(_MESH_REPLICAS_REFUSED.format(n=n_local))
     return _local_service(args, cfg, n_local, extra_specs, worker_addrs)
 
 
@@ -388,10 +395,16 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
         target = extra if idx is None else per_replica.setdefault(idx, {})
         target[sched] = sampler(*sched)
     if ranks is not None and not ranks.leader:
-        # A follower: the leader's engine without its front door.
-        return ServingService(default, cfg, params_version=version,
-                              extra_samplers=extra or None,
-                              cascade=cascade, ranks=ranks)
+        # A follower: the leader's local replicas without the front door
+        # (the leader alone fronts the remote workers).
+        if n_local == 1:
+            return ServingService(default, cfg, params_version=version,
+                                  extra_samplers=extra or None,
+                                  cascade=cascade, ranks=ranks)
+        return FleetService(build_fleet(
+            default, cfg, n_local, extra_samplers=extra or None,
+            per_replica_extra=per_replica or None, params_version=version,
+            cascade=cascade, ranks=ranks), cfg)
     if worker_addrs or n_local > 1:
         service = FleetService(build_fleet(
             default, cfg, n_local, extra_samplers=extra or None,
@@ -403,10 +416,7 @@ def _local_service(args, cfg, n_local, extra_specs, worker_addrs):
                                  extra_samplers=extra or None,
                                  cascade=cascade, ranks=ranks)
     if args.warmup:
-        engines = ([service.engine] if hasattr(service, "engine")
-                   else [rep.engine for rep in service.replicas
-                         if hasattr(rep, "engine")])
-        for eng in engines:
+        for eng in _local_engines(service):
             warmup(eng, cfg)
     return service
 
@@ -448,12 +458,23 @@ def main(argv=None) -> None:
             shutdown_distributed()
 
 
+def _local_engines(service) -> list:
+    """The engines of ``service``'s in-process replicas."""
+    if hasattr(service, "engine"):
+        return [service.engine]
+    return [rep.engine for rep in service.replicas if hasattr(rep, "engine")]
+
+
 def _serve(args) -> None:
+    from diff3d_tpu_torch.serving.engine import follow_all
+
     service = build_service(args)
-    ranks = getattr(service, "ranks", None)
+    engines = _local_engines(service)
+    ranks = engines[0].ranks if engines else None
     if ranks is not None and not ranks.leader:
-        logging.info("rank %d of %d follows rank 0", ranks.rank, ranks.world)
-        service.engine.follow()
+        logging.info("rank %d of %d follows rank 0's %d replica(s)",
+                     ranks.rank, ranks.world, len(engines))
+        follow_all(engines)
         logging.info("rank 0 stopped: rank %d exits", ranks.rank)
         return
     service.start(serve_http=True)

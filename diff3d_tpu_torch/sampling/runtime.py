@@ -245,6 +245,12 @@ class Sampler:
         #: The views' gathers staged through host memory on a gloo mesh:
         #: calls, bytes this rank put in, host seconds.
         self.gather_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        #: The group the views are gathered over: None is the mesh's data
+        #: axis; a serving replica on a mesh shared with other replicas
+        #: gives its samplers a group of its own
+        #: (``RankChannel.gather_group``), so two replicas' gathers never
+        #: pair.
+        self.gather_group = None
 
     @property
     def model_calls_per_view(self) -> int:
@@ -365,12 +371,14 @@ class Sampler:
         return full, record_imgs, [s + 1 for s in lens]
 
     def _gather_views(self, out: torch.Tensor, world: int) -> torch.Tensor:
-        """Every rank's views, rank-major.  Over NCCL the card's tensors go
+        """Every rank's views, rank-major, over :attr:`gather_group` (the
+        mesh's data axis by default).  Over NCCL the card's tensors go
         as they are; over gloo (ranks sharing one card) a CUDA tensor is
         staged through pinned host memory, as the model axis stages its
         collectives (``parallel/tensor.py``), and :attr:`gather_stats`
         counts the staged calls, bytes and host seconds."""
-        group = self.mesh.group
+        group = (self.mesh.group if self.gather_group is None
+                 else self.gather_group)
         if not (out.is_cuda and dist.get_backend(group) == "gloo"):
             full = torch.empty((world * out.shape[0],) + tuple(out.shape[1:]),
                                dtype=out.dtype, device=out.device)

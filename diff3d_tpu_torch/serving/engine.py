@@ -61,7 +61,24 @@ only one that decides anything: each view step is built as a
 to the other ranks once per attempt before it runs; their engines run
 only :meth:`Engine.follow`, which runs the plans, warm-ups and swaps in
 the order they were sent.  A lost rank breaks the mesh: the engine
-rejects everything it holds and stops.
+rejects everything it holds and stops.  When the leader's engine stops
+(``stop``, or a replica's ``kill``) it tells its followers to leave their
+loop at the same step boundary.
+
+Several replicas may serve over one mesh, each with a channel of its own
+(:func:`~diff3d_tpu_torch.serving.fleet.build_fleet`).  Their engines
+take turns on each rank's card, and every rank must take them in the
+same order: a follower that ran replica B's step while the leader ran
+A's would wait in B's gather holding the card that its A needs, while
+the leader waits in A's gather for it.  So the leader's turn lock hands
+out a ticket with each plan and warm-up it sends (:meth:`_Turns.ticket`,
+under the turn that runs it), and a follower's turn admits the tickets
+in their order (:meth:`_Turns.ordered`).  The leader sends a replica's
+plan only while it holds the card, and a step's collectives end before
+it lets go, so every ticket before a follower's has reached its own
+follower; the follower's turn holds no collective of another ticket.
+:func:`follow_all` runs each replica's follower loop on a thread of its
+own.
 
 A cascade (:class:`~diff3d_tpu_torch.cascade.CascadeSampler`) adds two
 phase samplers reached only through phase-tagged buckets: a
@@ -74,6 +91,7 @@ queue, on the engine thread.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import threading
 import time
@@ -120,13 +138,21 @@ PAD_SEED = 0x5EED
 
 class _Turns:
     """A FIFO lock: waiters enter in the order they asked, so an engine
-    that releases and at once asks again cannot starve another."""
+    that releases and at once asks again cannot starve another.
+
+    On a serving mesh it also orders the ranks' turns: the leader's
+    engines take a :meth:`ticket` in each turn that sends a follower work
+    for the card, and a follower runs that work in :meth:`ordered`, which
+    admits the tickets one after another in their order."""
 
     def __init__(self):
         self._cv = threading.Condition()
         self._queue: collections.deque = (
             collections.deque())  # guarded-by: self._cv
         self._held = False  # guarded-by: self._cv
+        self._issued = 0  # guarded-by: self._cv
+        self._next = 0  # guarded-by: self._cv
+        self._failed: Optional[str] = None  # guarded-by: self._cv
 
     def __enter__(self) -> "_Turns":
         me = object()
@@ -141,6 +167,48 @@ class _Turns:
     def __exit__(self, *exc) -> None:
         with self._cv:
             self._held = False
+            self._cv.notify_all()
+
+    def ticket(self) -> int:
+        """The next ticket, for the follower work that the holder of the
+        turn sends now (the leader of a serving mesh)."""
+        with self._cv:
+            self._issued += 1
+            return self._issued - 1
+
+    @contextlib.contextmanager
+    def ordered(self, ticket: int):
+        """The turn of the leader's ``ticket`` on a follower: entered once
+        every earlier ticket has had its turn.  Raises
+        :class:`~diff3d_tpu_torch.serving.ranks.MeshBroken` once
+        :meth:`fail` was called (an earlier ticket will never come)."""
+        with self._cv:
+            while self._failed is None and (self._held
+                                            or self._next != ticket):
+                self._cv.wait()
+            if self._failed is not None:
+                raise MeshBroken(f"ticket {ticket} not run: {self._failed}")
+            self._held = True
+        try:
+            yield self
+        finally:
+            with self._cv:
+                self._held = False
+                self._next = ticket + 1
+                self._cv.notify_all()
+
+    @property
+    def failed(self) -> Optional[str]:
+        """Why a follower's turns gave up (None while they run)."""
+        with self._cv:
+            return self._failed
+
+    def fail(self, why: str) -> None:
+        """A follower's channel broke: a ticket sent over it may never
+        come, so every waiter in :meth:`ordered` gives up."""
+        with self._cv:
+            if self._failed is None:
+                self._failed = why
             self._cv.notify_all()
 
 
@@ -162,6 +230,37 @@ class EngineStopTimeout(RuntimeError):
     """``Engine.stop(timeout)`` could not join the worker thread — it is
     leaked (most likely wedged in a device call).  Operator-facing and
     NOT retryable: the process needs external attention."""
+
+
+def follow_all(engines) -> None:
+    """A follower rank's loops, one per replica over its own channel
+    (:meth:`Engine.follow`), each on a thread of its own (one replica:
+    this thread), until every one has ended.  Returns when every channel
+    stopped; raises the first error once all have ended (a broken
+    channel breaks the others at their next message: their tickets may
+    never come)."""
+    engines = list(engines)
+    if len(engines) == 1:
+        engines[0].follow()
+        return
+    errors: List[BaseException] = []
+
+    def run(eng):
+        try:
+            eng.follow()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            log.error("%s: follower loop failed (%s)", eng.ranks.label, e)
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(eng,), daemon=True,
+                                name=f"diff3d-serving-follow-{i}")
+               for i, eng in enumerate(engines)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def lane_count(n: int, max_batch: int, multiple: int = 1) -> int:
@@ -305,6 +404,11 @@ class Engine:
             pool = torch.cuda.graph_pool_handle()
             for s in list(self.samplers.values()) + phase_samplers:
                 s.graph_pool = pool
+        if ranks is not None and ranks.gather_group is not None:
+            # A replica sharing the mesh with others gathers its views
+            # over a group of its own.
+            for s in list(self.samplers.values()) + phase_samplers:
+                s.gather_group = ranks.gather_group
         self.num_devices = (torch.cuda.device_count()
                             if self.device.type == "cuda" else 1)
         self.registry = params_registry or ParamsRegistry(sampler.model)
@@ -565,20 +669,29 @@ class Engine:
                     f"engine worker {thread.name!r} did not exit within "
                     f"{timeout}s — thread leaked (likely wedged in a "
                     "device call)")
-        if self.ranks is not None and self.ranks.leader:
-            try:
-                self.ranks.stop()       # the followers leave their loop
-            except MeshBroken as e:
-                log.warning("serving mesh: stop not delivered (%s)", e)
+        # The engine thread told the followers as it left; this covers
+        # an engine that never started.
+        self._release_followers()
 
     def warmup(self, bucket, lanes: int) -> float:
         """Capture the ``(bucket, lanes)`` view step ahead of traffic
-        (``ProgramCache.warmup``); on the serving mesh's leader every
-        follower captures its share at the same time.  Before
-        :meth:`start`."""
-        if self.ranks is not None:
-            self.ranks.send(("warmup", bucket, int(lanes)))
-        return self.programs.warmup(bucket, lanes, self.guidance_B)
+        (``ProgramCache.warmup``), in a turn on the card; on the serving
+        mesh's leader every follower captures its share at the same time.
+        Before :meth:`start`."""
+        with self.turns:
+            if self.ranks is not None:
+                self.ranks.send(("warmup", bucket, int(lanes),
+                                 self._ticket()))
+            return self.programs.warmup(bucket, lanes, self.guidance_B)
+
+    def _ticket(self) -> int:
+        """The turn's ticket for the plan or warm-up sent now (the leader,
+        holding its turn); a broken channel raises before one is
+        taken."""
+        why = self.ranks.broken
+        if why is not None:
+            raise MeshBroken(f"broken earlier: {why}")
+        return self.turns.ticket()
 
     def rank_program_stats(self) -> List[dict]:
         """``ProgramCache.stats(include_memory=True)`` of every rank of the
@@ -836,6 +949,19 @@ class Engine:
                 self._serve()
         else:
             self._serve()
+        if self._stop.is_set():
+            self._release_followers()
+
+    def _release_followers(self) -> None:
+        """On a serving mesh's leader, tell the followers to leave their
+        loop (once; from the engine thread, between view steps, so the
+        message never falls inside a step's collectives)."""
+        if self.ranks is None or not self.ranks.leader:
+            return
+        try:
+            self.ranks.stop()
+        except MeshBroken as e:
+            log.warning("%s: stop not delivered (%s)", self.ranks.label, e)
 
     def _serve(self) -> None:
         active: List[_Slot] = []
@@ -1011,7 +1137,7 @@ class Engine:
                     for gen, state in saved:  # a retry redraws the same
                         gen.set_state(state)
                     if self.ranks is not None:   # once per attempt
-                        self.ranks.send(("plan", plan))
+                        self.ranks.send(("plan", plan, self._ticket()))
                     return self._run_plan(
                         plan, [s.view_draws() for s in active], gens)
                 finally:
@@ -1057,15 +1183,22 @@ class Engine:
         leader's messages in their order until it stops (returns) or the
         mesh breaks (:class:`~diff3d_tpu_torch.serving.ranks.MeshBroken`).
         It takes no decision of its own: a failed attempt waits for the
-        leader's retry."""
+        leader's retry.  Work for the card runs in the turn of the
+        leader's ticket (see the module docstring)."""
         if self.ranks is None or self.ranks.leader:
             raise RuntimeError("follow() runs on a serving mesh's "
                                "followers")
-        if self.device.type == "cuda":
-            with torch.cuda.stream(torch.cuda.Stream(self.device)):
+        try:
+            if self.device.type == "cuda":
+                with self.turns:
+                    stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(stream):
+                    self._follow()
+            else:
                 self._follow()
-        else:
-            self._follow()
+        except MeshBroken as e:
+            self.turns.fail(str(e))
+            raise
 
     def _follow(self) -> None:
         ranks = self.ranks
@@ -1074,10 +1207,15 @@ class Engine:
             kind = msg[0]
             if kind == "stop":
                 return
+            failed = self.turns.failed
+            if failed is not None:       # another replica's channel broke
+                raise MeshBroken(f"{ranks.label}: {failed}")
             if kind == "plan":
-                self._follow_plan(msg[1])
+                with self.turns.ordered(msg[2]):
+                    self._follow_plan(msg[1])
             elif kind == "warmup":
-                self.programs.warmup(msg[1], msg[2], self.guidance_B)
+                with self.turns.ordered(msg[3]):
+                    self.programs.warmup(msg[1], msg[2], self.guidance_B)
             elif kind == "stats":
                 ranks.gather(self.programs.stats(include_memory=True))
             elif kind == "swap":

@@ -42,6 +42,16 @@ the weights, its own samplers (and cascade), and with them its own
 graphs and graph memory pool; the engines of one card take turns
 (``engine.device_turns``).  :meth:`Replica.snapshot` reports each
 replica's weight bytes.
+
+**Over a mesh of ranks** (``ranks``, ``serve_cli --mesh --replicas N``)
+every replica spans every rank, as the JAX package's replicas share its
+one mesh: each rank builds the same N replicas, and each replica's
+engine leads on rank 0 and follows there elsewhere, over a channel of
+its own (``serving/ranks.py``; replicas past the first also gather their
+views over a group of their own).  Every rank's copies hold rank 0's
+weights, checked by digest at boot; a rollout swaps one replica on every
+rank of it, through its channel; killing a replica tells its followers
+to leave its loop while the others serve on.
 """
 
 from __future__ import annotations
@@ -86,7 +96,8 @@ class Replica:
         an optional :class:`~diff3d_tpu_torch.cascade.CascadeSampler`
         over the same model enabling the progressive-preview surface on
         this replica.  ``ranks`` serves it over a mesh of ranks (see
-        :class:`~diff3d_tpu_torch.serving.ServingService`)."""
+        :class:`~diff3d_tpu_torch.serving.ServingService`): this replica's
+        channel."""
         cfg.serving.validate()
         self.name = str(name)
         self.cfg = cfg
@@ -157,7 +168,9 @@ class Replica:
         """Simulate replica death: non-blocking, idempotent.  In-flight
         and queued requests resolve with typed retryable errors; the
         replica reports ``dead`` forever after.  Its records die with it
-        — the router owns telling sessions so."""
+        — the router owns telling sessions so.  On a mesh its engine
+        tells the replica's followers to leave their loop as it leaves
+        its own (at the next step boundary)."""
         with self._lock:
             if self._killed:
                 return
@@ -242,7 +255,8 @@ class Replica:
         return self.registry.swap(params, version)
 
     def snapshot(self) -> dict:
-        """Per-replica block of ``GET /fleet``."""
+        """Per-replica block of ``GET /fleet`` (and ``/stats``)."""
+        ranks = self.engine.ranks
         return {
             "name": self.name,
             "health": self.health,
@@ -257,6 +271,9 @@ class Replica:
                 self.session_records().values()),
             "engine_restarts": self.engine._restarts,
             "weights_bytes": self.weights_bytes,
+            # The ranks this replica spans and its channel's messages.
+            "mesh_ranks": 1 if ranks is None else ranks.world,
+            "channel": None if ranks is None else ranks.snapshot(),
             # Per-trajectory progress (frames committed / path length)
             # for every camera-path request in flight on this replica.
             "trajectories": self.engine.trajectory_progress(),
@@ -303,29 +320,48 @@ def build_fleet(sampler, cfg: Config, n: Optional[int] = None,
     applies to every replica; ``per_replica_extra[i]`` adds
     replica-``i``-only schedules — the heterogeneous-fleet shape (e.g.
     one distilled-student schedule in a teacher fleet).  A ``cascade``
-    enables the progressive-preview surface fleet-wide.  ``ranks``
-    serves the one replica over a mesh of ranks (a fleet of several
-    in-process replicas on a mesh is refused)."""
+    enables the progressive-preview surface fleet-wide.
+
+    ``ranks`` (a :class:`~diff3d_tpu_torch.serving.ranks.RankChannel`,
+    every sampler built with ``mesh=``) serves every replica over the
+    mesh of ranks (see the module docstring): replica 0 over ``ranks``,
+    each other over a channel of its own made here, its copy's digest
+    checked on every rank.  Call it on every rank with the same
+    arguments: the channels' groups are made in one order everywhere."""
     n = cfg.serving.replicas if n is None else int(n)
     if n < 1:
         raise ValueError(f"fleet size {n} must be >= 1")
-    if ranks is not None and n > 1:
-        raise ValueError(f"{n} in-process replicas on a serving mesh: each "
-                         "would need a mesh of its own (ROADMAP A10b)")
     per_replica_extra = per_replica_extra or {}
+    if ranks is not None and n > 1 and ranks.name is None:
+        ranks.name = f"{name_prefix}0"
     replicas = []
     for i in range(n):
         extra = dict(extra_samplers or {})
         extra.update(per_replica_extra.get(i, {}))
-        default, casc = sampler, cascade
+        default, casc, chan = sampler, cascade, ranks
         if i > 0:
             model = copy.deepcopy(sampler.model)
             default = _sampler_over(sampler, model)
             extra = {k: _sampler_over(s, model) for k, s in extra.items()}
             casc = None if cascade is None else _cascade_over(cascade,
                                                               model)
+            if ranks is not None:
+                chan = _channel_over(ranks, f"{name_prefix}{i}", model)
         replicas.append(Replica(f"{name_prefix}{i}", default, cfg,
                                 extra_samplers=extra or None,
                                 params_version=params_version,
-                                cascade=casc, ranks=ranks))
+                                cascade=casc, ranks=chan))
     return replicas
+
+
+def _channel_over(ranks, name: str, model):
+    """A replica's own channel on ``ranks``' mesh (with its own views'
+    gather group), once every rank holds the same copy ``model`` (a
+    rank whose copy differs fails the boot)."""
+    from diff3d_tpu_torch.serving.ranks import RankChannel
+
+    chan = RankChannel(ranks.mesh, name=name, own_gather=True)
+    digest = chan.check_weights(model)
+    log.info("replica %s: rank %d/%d holds rank 0's weights (sha256 %s)",
+             name, chan.rank, chan.world, digest[:16])
+    return chan

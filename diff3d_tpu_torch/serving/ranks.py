@@ -9,20 +9,21 @@ the same inputs.  The engine's decisions depend on time and traffic
 they are taken on rank 0 alone, the *leader*, and reach the others, the
 *followers*, as messages of one ordered stream:
 
-  * ``("plan", StepPlan)`` -- one attempt at one view step: the bucket,
-    the lane count, the padded records, poses, intrinsics and record
-    lengths, the refine phase's drafts, each live lane's generator state
-    (or the draw source its request brought), the padding lanes' seed and
-    the weights generation.  Every rank runs
+  * ``("plan", StepPlan, ticket)`` -- one attempt at one view step: the
+    bucket, the lane count, the padded records, poses, intrinsics and
+    record lengths, the refine phase's drafts, each live lane's generator
+    state (or the draw source its request brought), the padding lanes'
+    seed and the weights generation; the ticket of the leader's turn
+    (``engine._Turns``) that runs it.  Every rank runs
     its share of the lanes through the same ``ProgramCache.step_many``
     (``Sampler._view_split``: rank ``r`` takes lanes ``[r m, (r+1) m)`` of
     ``m = lanes / world``) and the views are all-gathered there.  A retry
     restores the saved generator states and sends the plan again, so the
     plan goes out once per *attempt* and every rank redraws the same
     noise.
-  * ``("warmup", bucket, lanes)`` -- capture a graph ahead of traffic, on
-    every rank at once (a follower that captured on first traffic would
-    put its capture inside the leader's watchdog budget).
+  * ``("warmup", bucket, lanes, ticket)`` -- capture a graph ahead of
+    traffic, on every rank at once (a follower that captured on first
+    traffic would put its capture inside the leader's watchdog budget).
   * ``("swap", version, layout)`` then the state dict's bytes -- the
     leader's pending weights, sent as it applies them at the start of a
     view step, so the swap lands between the same two view steps on every
@@ -39,6 +40,22 @@ reached.  A failure on any rank fails the attempt on every rank before
 anyone enters the gather, so the leader's retry finds every follower
 waiting for the next message; the states let the leader's slots follow
 lanes that another rank ran.
+
+Several in-process replicas serve over one mesh (``serve_cli --mesh
+--replicas N``, :func:`~diff3d_tpu_torch.serving.fleet.build_fleet`),
+each over every rank: each replica has a channel of its own (its own gloo
+group, its own message counts, its name in its log lines and
+:class:`MeshBroken` messages) and, past the first, a group of its own for
+its views' gathers (``gather_group``, which its engine gives its
+samplers), so two replicas' messages and gathers never pair with each
+other's.  Every group is built on every rank in the same order, at boot,
+before any engine thread starts (``dist.new_group`` is collective).  The
+engines of one card take turns (``engine.device_turns``); the plans and
+warm-ups carry the leader's ticket of its turn, and a follower's turn
+admits them in that order (``engine._Turns.ordered``), so every rank
+runs the replicas' steps in one order and no rank waits in one
+replica's collective while holding the card another replica's peer
+needs.
 
 The messages travel over a gloo group of their own (host-side, like
 ``MeshEnv.cpu_world_group``, but with the serving timeout on every
@@ -131,9 +148,16 @@ class RankChannel:
     """The leader's stream of plans and control messages to its followers
     (see the module docstring), over a gloo group of every rank of
     ``mesh`` (a serving mesh: the data axis over every rank, a model axis
-    of one).  Built on every rank, in the same order (it makes a group)."""
+    of one).  Built on every rank, in the same order (it makes a group).
 
-    def __init__(self, mesh):
+    ``name`` (a replica's) goes into its log lines and errors.  With
+    ``own_gather`` it also makes :attr:`gather_group`, a group over the
+    data axis of its own (the mesh's backend) that the replica's samplers
+    gather their views over; without it (one replica on the mesh) they
+    gather over the mesh's group, as ``Sampler(mesh)`` does anywhere."""
+
+    def __init__(self, mesh, name: Optional[str] = None,
+                 own_gather: bool = False):
         if mesh.device_mesh is None:
             raise ValueError("a serving mesh needs a process group: "
                              "launch the ranks with torchrun")
@@ -147,8 +171,16 @@ class RankChannel:
         if mesh.data_size != self.world:
             raise ValueError(f"the serving mesh's data axis ({mesh.data_size}"
                              f") must span every rank ({self.world})")
+        self.name = name
         self.group = dist.new_group(
             backend="gloo", timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        #: The group this replica's views are gathered over (None: the
+        #: mesh's own).
+        self.gather_group = None
+        if own_gather:
+            self.gather_group = dist.new_group(
+                ranks=dist.get_process_group_ranks(mesh.group),
+                backend=dist.get_backend(mesh.group))
         # One collective at a time (the engine thread's plans, the boot's
         # and the stop's messages never overlap, but the order must hold).
         self._io = threading.Lock()
@@ -169,6 +201,21 @@ class RankChannel:
         return range(self.rank * m, (self.rank + 1) * m)
 
     @property
+    def label(self) -> str:
+        """``"serving mesh"``, with the replica's name when it has one."""
+        return ("serving mesh" if self.name is None
+                else f"serving mesh ({self.name})")
+
+    def snapshot(self) -> dict:
+        """The channel's block of a replica's ``/fleet`` and ``/stats``
+        entry: its name, this rank, the ranks, the messages by kind and
+        why it broke (None while it serves).  Host reads only."""
+        with self._lock:
+            return {"name": self.name, "rank": self.rank,
+                    "mesh_ranks": self.world, "messages": dict(self.counts),
+                    "broken": self._broken}
+
+    @property
     def broken(self) -> Optional[str]:
         """Why the mesh broke (None while it serves)."""
         with self._lock:
@@ -185,7 +232,7 @@ class RankChannel:
             try:
                 yield
             except Exception as e:  # noqa: BLE001 - any failure is fatal
-                why = f"serving mesh: {what} on rank {self.rank}: {e}"
+                why = f"{self.label}: {what} on rank {self.rank}: {e}"
                 with self._lock:
                     self._broken = why
                 raise MeshBroken(why) from e
@@ -328,10 +375,16 @@ class RankChannel:
             with torch.no_grad():
                 for k, t in self.recv_state(layout).items():
                     state[k].copy_(t)
-        digest = state_digest(state)
+        return self.check_weights(model)
+
+    def check_weights(self, model: torch.nn.Module) -> str:
+        """Every rank's digest of ``model``'s state gathered: a rank that
+        holds other weights than rank 0 fails the boot.  Returns the
+        digest."""
+        digest = state_digest(model.state_dict())
         digests = self.gather(digest)
         if len(set(digests)) != 1:
-            raise RuntimeError(f"serving mesh: the ranks hold different "
+            raise RuntimeError(f"{self.label}: the ranks hold different "
                                f"weights (digests {digests})")
         return digest
 

@@ -26,7 +26,10 @@ pinned to the replica holding its state.  The router therefore moves
   time, swaps its weights through its ``ParamsRegistry`` (copied in
   place by its engine), re-admits, repeats.  In-flight requests finish
   on the old weights before their replica swaps; a drain that times out
-  resumes WITHOUT swapping (reported, never dropped).
+  resumes WITHOUT swapping (reported, never dropped).  ``replicas=``
+  rolls out to the named ones only (a canary, or a rollback of one).  A
+  replica over a mesh of ranks swaps on every rank of it: its engine
+  sends the weights over its own channel at its next view step.
 * **Schedule-aware placement** — replicas declare supported
   ``(sampler_kind, steps)`` schedules; the router places each request on
   a replica that serves its schedule or rejects with
@@ -407,15 +410,21 @@ class Router:
     # -- blue/green rollout ----------------------------------------------
 
     def rollout(self, params, version: Optional[str] = None,
-                drain_timeout_s: float = 60.0) -> dict:
+                drain_timeout_s: float = 60.0,
+                replicas: Optional[List[str]] = None) -> dict:
         """Rolling weights rollout (``params``: a state dict by the
-        port's names): for each live replica in turn, drain (in-flight
-        work finishes on the old weights) -> swap through its
-        ParamsRegistry -> resume.  At every instant N-1
-        replicas serve, so the fleet never goes dark; a drain timeout
-        resumes the replica un-swapped and marks the rollout failed
-        rather than dropping its in-flight requests.  Single-flight:
-        concurrent rollouts are rejected."""
+        port's names): for each live replica in turn (those named in
+        ``replicas``, default all), drain (in-flight work finishes on
+        the old weights) -> swap through its ParamsRegistry -> resume.
+        At every instant N-1 replicas serve, so the fleet never goes
+        dark; a drain timeout resumes the replica un-swapped and marks
+        the rollout failed rather than dropping its in-flight requests.
+        Single-flight: concurrent rollouts are rejected."""
+        if replicas is not None:
+            unknown = sorted(set(replicas) - {r.name for r in
+                                              self.replica_list()})
+            if unknown:
+                raise ValueError(f"rollout: no replica named {unknown}")
         with self._lock:
             if self._rollout_active:
                 raise RuntimeError("rollout already in progress")
@@ -425,6 +434,8 @@ class Router:
         ok = True
         try:
             for rep in self.replica_list():
+                if replicas is not None and rep.name not in replicas:
+                    continue
                 if rep.health == HEALTH_DEAD:
                     steps_log.append({"replica": rep.name,
                                       "status": "skipped-dead"})
@@ -623,9 +634,11 @@ class FleetService:
         return result_payload(req)
 
     def rollout(self, params, version: Optional[str] = None,
-                drain_timeout_s: float = 60.0) -> dict:
+                drain_timeout_s: float = 60.0,
+                replicas: Optional[List[str]] = None) -> dict:
         return self.router.rollout(params, version=version,
-                                   drain_timeout_s=drain_timeout_s)
+                                   drain_timeout_s=drain_timeout_s,
+                                   replicas=replicas)
 
     # -- observability ----------------------------------------------------
 

@@ -470,7 +470,9 @@ def test_port_imports_no_jax_and_no_reference_package():
               REPO / "tests" / "_torch_port_cp_worker.py",
               REPO / "tests" / "_torch_port_distill_worker.py",
               REPO / "tests" / "_torch_port_serving_mesh_worker.py",
-              REPO / "tools" / "serve_nan_witness.py"]
+              REPO / "tests" / "_torch_port_serving_mesh_fleet_worker.py",
+              REPO / "tools" / "serve_nan_witness.py",
+              REPO / "tools" / "chip_smoke_parallel_phases.py"]
     assert len(files) > 15
     for path in files:
         for mod in _imports(path):

@@ -774,7 +774,7 @@ def test_serve_cli_serves_on_the_cpu():
 @pytest.mark.parametrize("argv", [
     ["--replicas", "0"], ["--schedules", "0@ddim:2"],
     ["--schedules", "ddim"], ["--workers", "127.0.0.1:1"],
-    ["--mesh", "--replicas", "2"], ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"],
+    ["--mesh", "--replicas", "2", "--schedules", "2@ddim:2"], ["--cascade", "draft=8:ddim:2,refine=16:ddim:4@t0.5"],
     ["--sampler_steps", "3"], ["--max_batch", "0"]])
 def test_serve_cli_refuses(argv):
     base = ["--init", "random", "--config", "test", "--device", "cpu",
@@ -785,7 +785,7 @@ def test_serve_cli_refuses(argv):
     assert ei.value.code not in (0, None)
     why = {"--replicas": "needs --workers", "--schedules": "--replicas > 1",
            "--workers": "unreachable", "--cascade": "refine resolution",
-           "--mesh": "--mesh with --replicas 2"}
+           "--mesh": "outside --replicas 2"}
     if argv[0] in why and argv != ["--schedules", "ddim"]:
         assert why[argv[0]] in str(ei.value.code)
 

@@ -448,16 +448,6 @@ def test_serve_cli_mesh_in_a_group_answers_and_both_ranks_return(group):
         assert np.isfinite(views).all()
 
 
-def test_serve_cli_mesh_with_replicas_is_refused():
-    """(g) ``--mesh --replicas 2`` exits non-zero with its own reason,
-    before any mesh is built."""
-    with pytest.raises(SystemExit) as ei:
-        serve_cli.build_service(serve_cli.build_parser().parse_args(
-            ["--mesh", "--replicas", "2", "--init", "random", "--config",
-             "test", "--device", "cpu", "--imgsize", "8"]))
-    assert "--mesh with --replicas 2" in str(ei.value.code)
-
-
 # --- (f) a follower that exits mid-job --------------------------------------------
 
 
