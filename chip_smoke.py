@@ -81,11 +81,13 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      the card, fronted by ``serve_cli --workers`` (no engine of its own,
      no device memory allocated): its views against the in-process
      engine's for the same payload and seed (bit-identical, else rel. L2
-     1e-3); SIGTERM drains it, exit 0; a second worker with
-     ``--hbm_budget_bytes`` one byte above the first's pin plus one
-     record admits one request and refuses a second ``ReplicaOverBudget``
-     (503, Retry-After), exit 0.  Boot seconds; the worker's launches
-     read over the wire.
+     1e-3); the pins its warm-up measured non-zero and within 10% of the
+     in-process engine's at the same lane counts; booted with
+     ``--memcheck_dir`` (a manifest holding the in-process engine's pin,
+     which replaces the measured one) and ``--hbm_budget_bytes`` one
+     byte above that pin plus one record, it admits one request and
+     refuses a second ``ReplicaOverBudget`` (503, Retry-After); SIGTERM
+     drains it, exit 0.  Boot seconds; the worker's launches read over the wire.
   7. groupnorm_backward — at every GroupNorm site shape of one srn64
      training microbatch (recorded with hooks), bf16 and f32, random
      upstream gradients: ``fused_groupnorm`` as autograd records it (with
@@ -137,6 +139,22 @@ Phases, one JSON line each; any failure raises and the run exits nonzero:
      --parity_objects 1 --orbit 4``; finite PSNR / SSIM / fid_randfeat per
      w, the parity and orbit fields, s per object; run again, it
      re-synthesises nothing and prints the same line.
+ 11b. programs — the port's programs traced on fake CUDA tensors
+     (``diff3d_tpu_torch/analysis``) in three child processes
+     (``--programs-registry served|train|registry``) run at once beside
+     phase convert, which times no kernel (its line comes after
+     convert's): the srn64 served view step at 4 lanes
+     (``Sampler.lower_step_many``, serve's steps and capacity), whose
+     kernel nodes per model call must equal what each serve graph
+     captured per model call (101 row 1, 30 row 3), and its traced peak
+     beside the bytes its first use added in phase serve (reported with
+     their ratio); the srn64 train step at batch 128, whose kernel nodes
+     must equal phase train's launches per step (101 rows 1-2, 30 rows
+     4-6); the card's allocated bytes grown by at most 1 MiB across the
+     traces (their constants; no kernel runs); the tier-1 registry's
+     four checks against the committed manifests
+     (clean where the card's torch is the pinned version; else the
+     version findings and the fingerprint diff are printed).
  12. srn128_model — the srn128 X-UNet (bf16, seeded random weights) at
      2B = 16: kernel path against plain path (rel. L2 3e-2, as srn64), ms
      and launches per forward, and the ptxas registers and spill bytes of
@@ -349,8 +367,8 @@ Between 11 and 12 (after eval, on the srn64 train checkpoint):
      bit-identical across the ranks and, for the pair, to the one-replica
      service's tail; replica 1's rollout landing at one step on both
      ranks (generation 1), replica 0's never moving; replica 1's
-     follower loop ended within 5 s of the kill, before replica 0's;
-     rows 1 and 3 launched by each replica's graphs on each rank, no
+     follower loop ended within 5 s of the kill, replica 0's at its
+     stop and not before (the two may end in either order); rows 1 and 3 launched by each replica's graphs on each rank, no
      plain version; the leader's s per view step per replica (wall and
      held), each channel's messages; then ``boot_worker`` over
      the same two ranks (both on ``cuda:0``, gloo): the boot's seconds,
@@ -2253,7 +2271,7 @@ WORKER_ARGV = WORKER_SERVE + ["--max_views", "3", "--devices", "0",
 WORKER_BOOT_S = 600.0
 
 
-def _worker_proc(weights, name, budget=0):
+def _worker_proc(weights, name, budget=0, memcheck_dir=None):
     """``worker_cli`` as a process on the card: ``(process, ready line,
     seconds to the ready line)``."""
     import select
@@ -2262,6 +2280,8 @@ def _worker_proc(weights, name, budget=0):
            "--model", weights, "--name", name] + WORKER_ARGV
     if budget:
         cmd += ["--hbm_budget_bytes", str(budget)]
+    if memcheck_dir:
+        cmd += ["--memcheck_dir", memcheck_dir]
     root = os.path.dirname(os.path.abspath(__file__))
     err = open(os.path.join(SERVE_WORKDIR, f"{name}.log"), "w")
     t0 = time.perf_counter()
@@ -2295,24 +2315,52 @@ def _sigterm(proc):
     return proc.wait(timeout=120), time.perf_counter() - t0
 
 
+def _worker_manifest(pin: int, programs: dict) -> str:
+    """A memory manifest directory (``analysis/memcheck``'s format) whose
+    ``step_many`` pin is ``pin``, the largest first use the in-process
+    engine measured over its ``programs`` (``ProgramCache.stats``)."""
+    from diff3d_tpu_torch.analysis import manifests, memcheck
+
+    mdir = os.path.join(SERVE_WORKDIR, "memcheck")
+    manifests.write(manifests.manifest_path("step_many", mdir),
+                    manifests.make(memcheck.TOOL, "step_many",
+                                   {"peak_bytes": pin},
+                                   {"source": "the in-process engine's "
+                                              "first-use bytes",
+                                    "programs": programs}))
+    return mdir
+
+
+MEASURED_PIN_BAND = (0.9, 1.1)  # worker's warm-up pin / the in-process one
+
+
 def phase_serve_workers(cfg, model):
     """``worker_cli --devices 0 --port 0`` (``--sampler_steps 8
     --max_batch 2 --max_views 3``) as a process on the card, on a state
     dict of the same weights, fronted by ``serve_cli --workers`` with no
     engine of its own (the front door allocates no device memory): its
     views equal to the in-process engine's (``serve_cli`` without
-    ``--workers``) for the same payload and seed; SIGTERM drains it and
-    it exits 0.  A second worker, booted with ``--hbm_budget_bytes`` one
-    byte above the first worker's pin plus one request's record, admits
-    one request and refuses a second concurrent one
-    ``ReplicaOverBudget`` (503 with Retry-After), then exits 0 on
-    SIGTERM.  The phase's launches are the in-process engine's (a
+    ``--workers``) for the same payload and seed.  The in-process engine
+    first captures every lane count the worker's warm-up captures, at its
+    bucket, so that their first-use bytes are the same programs'.  The
+    worker reports the pins its warm-up measured (its default admission
+    pins), which must be non-zero and within ``MEASURED_PIN_BAND`` of the
+    in-process engine's; it takes its admission pin from
+    ``--memcheck_dir`` (a manifest holding the in-process engine's pin,
+    :func:`_worker_manifest`), which must replace the measured one, and a
+    budget one byte above that pin plus one request's record: it then
+    admits one request and refuses a second concurrent one
+    ``ReplicaOverBudget`` (503 with Retry-After); SIGTERM drains it and it
+    exits 0.  The phase's launches are the in-process engine's (a
     worker's run in its own process)."""
     import torch
 
     from diff3d_tpu_torch.cli import serve_cli
-    from diff3d_tpu_torch.serving import ViewRequest
-    from diff3d_tpu_torch.serving.worker import HbmAdmission
+    from diff3d_tpu_torch.sampling import record_capacity
+    from diff3d_tpu_torch.serving import Bucket, ViewRequest
+    from diff3d_tpu_torch.serving.worker import (HbmAdmission,
+                                                 pins_from_stats,
+                                                 warm_lanes)
 
     H = cfg.model.H
     os.makedirs(SERVE_WORKDIR, exist_ok=True)
@@ -2322,20 +2370,33 @@ def phase_serve_workers(cfg, model):
     payload = _serve_payload(obj, 95)
     _launch_counts(reset=True)
     local = serve_cli.build_service(serve_cli.build_parser().parse_args(
-        ["--model", weights, "--port", "0"] + WORKER_SERVE)).start(
-        serve_http=True)
+        ["--model", weights, "--port", "0"] + WORKER_SERVE))
+    eng = local.engine
+    cap = record_capacity(int(WORKER_ARGV[WORKER_ARGV.index(
+        "--max_views") + 1]))
+    for s in eng.samplers.values():
+        for lanes in warm_lanes(eng.max_batch, eng.lane_multiple):
+            eng.warmup(Bucket(H, cfg.model.W, cap, s.steps, s.sampler_kind),
+                       lanes)
+    local.start(serve_http=True)
     (want,) = _post_all(local.port, [payload])
-    local_graphs = [g for s in local.engine.samplers.values()
+    local_graphs = [g for s in eng.samplers.values()
                     for g in s.graphs.values()]
     launches = _launch_counts(graphs=local_graphs)
+    stats = eng.programs.stats(include_memory=True)
+    pin = pins_from_stats(stats)["step_many"]
+    mdir = _worker_manifest(pin, stats["programs"])
     local.stop(drain_s=10.0)
     del local
     gc.collect()
     torch.cuda.empty_cache()
 
+    record = HbmAdmission(guidance_B=len(cfg.diffusion.guidance_weights)
+                          ).record_bytes(ViewRequest(obj))
+    budget = pin + record + 1
     procs = []
     try:
-        proc, ready, boot_s = _worker_proc(weights, "w0")
+        proc, ready, boot_s = _worker_proc(weights, "w0", budget, mdir)
         procs.append(proc)
         torch.cuda.synchronize()
         allocated = torch.cuda.memory_allocated()
@@ -2345,31 +2406,23 @@ def phase_serve_workers(cfg, model):
         (got,) = _post_all(front.port, [payload])
         snap = front.replicas[0].snapshot()
         worker_launches = snap["kernel_launches"]
-        front.stop()
-        torch.cuda.synchronize()
-        no_device_memory = (torch.cuda.memory_allocated() == allocated
-                            and torch.cuda.memory_reserved() == reserved)
-        identical = np.array_equal(_views_of(got), _views_of(want))
-        rel = _rel_l2(_views_of(got), _views_of(want))
-        rc0, drain0_s = _sigterm(proc)
-
-        pins = snap["hbm"]["program_peaks"]
-        if not pins:
-            raise AssertionError("serve_workers: the worker's warm-up "
-                                 "measured no pins")
-        record = HbmAdmission(guidance_B=len(cfg.diffusion.guidance_weights)
-                              ).record_bytes(ViewRequest(obj))
-        budget = max(pins.values()) + record + 1
-        proc, ready1, boot1_s = _worker_proc(weights, "w1", budget)
-        procs.append(proc)
-        front = _front_door(ready1["port"])
-        (held,) = _post_all(front.port, [dict(payload, block=False)])
+        pins, measured, sources = (snap["hbm_pins"][k] for k in (
+            "program_peaks", "measured_program_peaks", "pin_sources"))
+        deadline = time.perf_counter() + SERVE_WAIT_S
+        while front.replicas[0].snapshot()["hbm"]["resident_bytes"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError("serve_workers: the first request's "
+                                     "record was never released")
+            time.sleep(0.05)
+        # Another seed than the first request's: a cached answer would
+        # release its record at once.
+        (held,) = _post_all(front.port, [dict(_serve_payload(obj, 97),
+                                              block=False)])
         # A session's first request: the router re-raises the worker's
         # ReplicaOverBudget itself (a sessionless one would fail over and
         # come back FleetOverloaded).
         refused = _http_error(front.port, "/synthesize", _serve_payload(
             obj, 96, session_id="over-budget"))
-        deadline = time.perf_counter() + SERVE_WAIT_S
         while True:
             status, body = _serve_http(front.port, f"/result/{held['id']}")
             if status == 200:
@@ -2381,7 +2434,12 @@ def phase_serve_workers(cfg, model):
         held_views = np.asarray(json.loads(body)["views"], np.float32)
         gate = front.replicas[0].snapshot()["hbm"]
         front.stop()
-        rc1, drain1_s = _sigterm(proc)
+        torch.cuda.synchronize()
+        no_device_memory = (torch.cuda.memory_allocated() == allocated
+                            and torch.cuda.memory_reserved() == reserved)
+        identical = np.array_equal(_views_of(got), _views_of(want))
+        rel = _rel_l2(_views_of(got), _views_of(want))
+        rc0, drain0_s = _sigterm(proc)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2390,24 +2448,27 @@ def phase_serve_workers(cfg, model):
             p.stdout.close()
     os.remove(weights)
     out = {"config": "srn64", "argv": WORKER_ARGV,
-           "worker_boot_s": [round(boot_s, 3), round(boot1_s, 3)],
-           "ready": [ready, ready1], "remote_only": remote_only,
+           "worker_boot_s": round(boot_s, 3), "ready": ready,
+           "remote_only": remote_only,
            "front_door_allocates_nothing": no_device_memory,
            "bit_identical_to_in_process": identical,
            "rel_l2_to_in_process": rel, "pins": pins,
-           "pins_second_worker": gate["program_peaks"],
+           "pin_sources": sources, "measured_pins": measured,
+           "in_process_pin": pin,
+           "measured_over_in_process": (round(measured.get(
+               "step_many", 0) / pin, 4) if pin else None),
            "record_bytes": record, "budget_bytes": budget,
            "refused": {"status": refused[0], "retry_after": refused[1],
                        "error": refused[2]["error"][:200]},
            "gate": gate, "admitted_views_finite":
                bool(np.isfinite(held_views).all()),
-           "sigterm_exit_codes": [rc0, rc1],
-           "sigterm_to_exit_s": [round(drain0_s, 3), round(drain1_s, 3)],
+           "sigterm_exit_code": rc0,
+           "sigterm_to_exit_s": round(drain0_s, 3),
            "launches": {k: worker_launches[k] for k in ("fused_groupnorm",
                                                         "flash_attention")},
-           "launches_note": "the first worker's, counted in its process "
-                            "from its start (warm-up captures, the served "
-                            "request) and read over the wire",
+           "launches_note": "the worker's, counted in its process from "
+                            "its start (warm-up captures, the served "
+                            "requests) and read over the wire",
            "in_process_launches": {k: launches[k] for k in (
                "fused_groupnorm", "flash_attention")}}
     emit(dict(phase="serve_workers", **out))
@@ -2416,11 +2477,18 @@ def phase_serve_workers(cfg, model):
         ("front_door_allocates_nothing", no_device_memory),
         ("views_match_in_process", identical or rel <= 1e-3),
         ("views_finite", bool(np.isfinite(_views_of(got)).all())),
+        ("measured_pins", bool(measured) and all(
+            v > 0 for v in measured.values())
+         and MEASURED_PIN_BAND[0] <= (out["measured_over_in_process"] or 0)
+         <= MEASURED_PIN_BAND[1]),
+        ("pins_from_memcheck_dir", pins.get("step_many") == pin
+         and sources.get("step_many") == os.path.join(mdir,
+                                                      "step_many.json")),
         ("over_budget_503", refused[0] == 503 and refused[1] is not None
          and f"> budget {budget}" in refused[2]["error"]),
         ("gate_counted", gate["rejects"] == 1),
         ("admitted_views_finite", out["admitted_views_finite"]),
-        ("sigterm_exit_0", rc0 == 0 and rc1 == 0),
+        ("sigterm_exit_0", rc0 == 0),
         ("launches", all(n > 0 for n in out["launches"].values())))
         if not ok]
     if failed:
@@ -6344,6 +6412,7 @@ def _mesh_fleet_leg(rank: int, model) -> dict:
                 out["lost"] = None
             except SessionLost as e:
                 out["lost"] = type(e).__name__
+            out["stopped_at"] = time.time()
             svc.stop()
             out["step_log"] = log
     marks["served"] = time.perf_counter()
@@ -6622,7 +6691,10 @@ def _fleet_summary(ranks, reference, bits) -> dict:
         "rollout": f0["rollout"],
         "lost_session": f0["lost"],
         "killed_follower_exit_s": round(exit_s, 3),
-        "follower_loops_ended_in_order": ended.get(0, 0) > ended.get(1, 0),
+        "follower_loops_ended": {
+            "r1_after_kill_s": round(exit_s, 3),
+            "r0_after_stop_s": round(ended.get(0, -math.inf)
+                                     - f0["stopped_at"], 3)},
         "replica_launches": {"rank0": f0["replica_launches"],
                              "rank1": f1["replica_launches"]},
         "launches": [f["launches"] for f in (f0, f1)],
@@ -6642,7 +6714,7 @@ def _fleet_summary(ranks, reference, bits) -> dict:
         and all(g[:2] == [0, 0] and set(g[2:]) == {1} for g in gens[1::2])
         and f0["rollout"]["ok"] and f0["lost"] == "SessionLost"
         and 0 <= exit_s < MESH_KILL_EXIT_S
-        and out["follower_loops_ended_in_order"]
+        and ended.get(0, -math.inf) >= f0["stopped_at"]
         and all(all(r) for r in launched)
         and not any(out["plain_calls"]))
     return out
@@ -7171,6 +7243,249 @@ def phase_srn128_init_from(accum):
     return out
 
 
+PROGRAM_LANES = 4               # the served view step traced (serve's 4)
+PROGRAM_ROW_CALLS = {"fused_groupnorm": 101, "flash_attention": 30}
+PROGRAM_PARTS = ("served", "train", "registry")  # one child each
+REGISTRY_WAIT_S = 600.0         # the children's limit
+TRACE_CONSTANT_BYTES = 2 ** 20  # what the traces may leave on the card
+
+
+def _served_trace(capacity: int) -> dict:
+    """The srn64 served view step at ``PROGRAM_LANES`` lanes and record
+    ``capacity`` through ``Sampler.lower_step_many``: its kernel nodes
+    per model call and its peak by liveness.  The model's parameters
+    are allocated, not initialised (their values do not enter a trace)."""
+    import torch
+
+    from diff3d_tpu_torch.analysis import ir, mem
+    from diff3d_tpu_torch.config import srn64_config
+    from diff3d_tpu_torch.models.xunet import XUNet
+    from diff3d_tpu_torch.sampling import Sampler
+
+    cfg = srn64_config()
+    with torch.device("meta"):
+        model = XUNet(cfg.model).eval()
+    sampler = Sampler(model.to_empty(device="cuda"), cfg, device="cuda",
+                      steps=SERVE_STEPS)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    program = sampler.lower_step_many(PROGRAM_LANES, capacity)
+    trace_s = time.perf_counter() - t1
+    rep, m = ir.analyze(program), mem.analyze_memory(program)
+    calls = rep.parts["step"]["kernels"]
+    before = sum(t.numel() * t.element_size()
+                 for k, t in program.inputs.items()
+                 if not k.startswith("loop."))
+    torch.cuda.synchronize()
+    return {"lanes": PROGRAM_LANES, "capacity": capacity,
+            "steps": program.part("step").replays,
+            "trace_s": round(trace_s, 3), "parts": rep.parts,
+            "kernel_nodes_per_call": {
+                "fused_groupnorm": calls.get("gn_forward", 0),
+                "flash_attention": calls.get("flash_forward", 0)},
+            "traced_peak_bytes": m.peak_bytes,
+            "traced_argument_bytes": m.argument_bytes,
+            "traced_added_bytes": m.peak_bytes - before,
+            "random_draws": len(rep.random),
+            "device_memory_grown_bytes":
+                torch.cuda.memory_allocated() - allocated}
+
+
+def _train_trace() -> dict:
+    """The srn64 train step at global batch ``TRAIN_BATCH`` (one
+    microbatch) on fake CUDA tensors, state and batch included: its
+    kernel nodes."""
+    import torch
+
+    from diff3d_tpu_torch.analysis import ir
+    from diff3d_tpu_torch.config import srn64_config
+    from diff3d_tpu_torch.models.xunet import XUNet
+    from diff3d_tpu_torch.train import create_train_state
+    from diff3d_tpu_torch.train.step import TrainStep
+
+    cfg = srn64_config()
+    tr = ir.Tracer("cuda")
+    with tr.mode, tr.device:
+        state = create_train_state(XUNet(cfg.model).train(), cfg.train)
+    B, H = TRAIN_BATCH, cfg.model.H
+    batch = {"imgs": tr.empty((B, 2, H, H, 3), torch.uint8),
+             "R": tr.empty((B, 2, 3, 3)), "T": tr.empty((B, 2, 3)),
+             "K": tr.empty((B, 3, 3))}
+    step = TrainStep(cfg)
+    gen = torch.Generator("cuda")
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    graph = tr.trace(lambda: step._eager(state, batch, None, gen=gen))
+    rep = ir.analyze(ir.Program("train_step", "cuda",
+                                [ir.Part("step", graph)], {}))
+    torch.cuda.synchronize()
+    return {"global_batch": B, "nodes": rep.parts["step"]["nodes"],
+            "kernel_nodes_per_step": rep.launches,
+            "collectives": rep.collectives,
+            "random_draws": len(rep.random),
+            "trace_s": round(time.perf_counter() - t1, 3),
+            "device_memory_grown_bytes":
+                torch.cuda.memory_allocated() - allocated}
+
+
+def _registry_check() -> dict:
+    """The four checks over the tier-1 registry on fake CUDA tensors
+    against the committed manifests, in the fake world of 8 ranks (this
+    process holds no other group), and ``step_many``'s canonical
+    fingerprint traced on fake CPU tensors beside the fake-CUDA one."""
+    from diff3d_tpu_torch.analysis import __main__ as cli
+    from diff3d_tpu_torch.analysis import equiv, ir, manifests, shardcheck
+
+    ir.fake_world()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tools, pinned = {}, set()
+    for tool, mod in cli.TOOLS.items():
+        mdir = os.path.join(root, mod.MANIFEST_DIR)
+        found, _ = cli.check(tool, shardcheck.TIER1_PROGRAMS, "cuda", mdir)
+        tools[tool] = [dataclasses.asdict(f) for f in found
+                       if not f.suppressed]
+        for name in shardcheck.TIER1_PROGRAMS:
+            pinned.add(manifests.load(manifests.manifest_path(name, mdir),
+                                      mod.TOOL).get("torch"))
+    fp = {d: equiv.analyze_equiv(shardcheck.build_program(
+        "step_many", d)).fingerprint for d in ("cuda", "cpu")}
+    return {"torch": manifests.torch_version(),
+            "pinned_torch": sorted(pinned), "findings": tools,
+            "step_many_fingerprint": fp}
+
+
+def programs_registry(part: str, capacity: int) -> None:
+    """``--programs-registry PART CAPACITY``, one of phase programs' child
+    processes (``PROGRAM_PARTS``, run at once beside phase convert, which
+    times no kernel): ``served`` (:func:`_served_trace` at serve's record
+    ``capacity``), ``train`` (:func:`_train_trace`) or ``registry``
+    (:func:`_registry_check`).  No kernel runs in any of them; a trace
+    keeps the tensors the traced code makes from Python data, such as
+    the records' depths, as constants on their device, which the traces'
+    ``device_memory_grown_bytes`` count.  One JSON line."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = (_served_trace(capacity) if part == "served" else
+           _train_trace() if part == "train" else _registry_check())
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    print(json.dumps(out), flush=True)
+
+
+def _served_key(cfg, serve) -> str:
+    """The serve phase's program at ``PROGRAM_LANES`` lanes of its default
+    schedule (``ProgramCache.stats``' name)."""
+    return next(k for k in serve["programs"]
+                if re.fullmatch(rf"H{cfg.model.H}xW{cfg.model.W}xcap\d+x"
+                                rf"lanes{PROGRAM_LANES}", k))
+
+
+def programs_start(cfg, serve) -> dict:
+    """Start phase programs' children (:func:`programs_registry`, one per
+    ``PROGRAM_PARTS``) at serve's record capacity; their stderr goes to
+    files (warnings never fill a pipe)."""
+    import tempfile
+
+    cap = int(re.search(r"cap(\d+)", _served_key(cfg, serve)).group(1))
+    started = {}
+    for part in PROGRAM_PARTS:
+        err = tempfile.TemporaryFile("w+")
+        started[part] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--programs-registry", part, str(cap)],
+            stdout=subprocess.PIPE, stderr=err, text=True), err)
+    return {"t0": time.perf_counter(), "children": started}
+
+
+def _programs_collect(started) -> dict:
+    """Each child's JSON line, by part; raises with the stderr of the
+    first that failed.  Every child has ended on return."""
+    out, failed = {}, []
+    deadline = started["t0"] + REGISTRY_WAIT_S
+    for part, (child, err) in started["children"].items():
+        try:
+            text, _ = child.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            text = ""
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        err.seek(0)
+        err_text = err.read()
+        err.close()
+        if child.returncode != 0:
+            failed.append(f"{part}: {err_text[-3000:]}")
+            continue
+        out[part] = json.loads(text.strip().splitlines()[-1])
+    if failed:
+        raise AssertionError(f"programs: a child failed: {failed}")
+    return out
+
+
+def phase_programs(cfg, started, serve, train) -> dict:
+    """Phase programs: the children's traces against what this run
+    counted and measured.  Hard: the served step's kernel nodes per
+    model call equal to the launches each serve graph captured per model
+    call (one reverse step) and to 101 / 30; the train step's kernel
+    nodes equal to phase train's launches per step; the traces leave at
+    most ``TRACE_CONSTANT_BYTES`` on the card (their constants); the
+    traced and the first-use pins non-zero and finite; the registry
+    clean where the card's torch is the version the manifests were
+    pinned under (else its version findings and the fingerprint and
+    stream diffs are printed).  Reported: the traced served step's added
+    bytes (its peak less the parameters and records that exist before
+    its first use) over the bytes its first use added in phase serve;
+    the children's seconds and this phase's wait for them after
+    convert."""
+    t1 = time.perf_counter()
+    got = _programs_collect(started)
+    wait_s = time.perf_counter() - t1
+    served, traced, registry = (got[p] for p in PROGRAM_PARTS)
+    key = _served_key(cfg, serve)
+    first_use = serve["programs"][key]["peak_bytes"]
+    served.update(
+        program=key, first_use_peak_bytes=first_use,
+        traced_over_first_use=(round(served["traced_added_bytes"]
+                                     / first_use, 4) if first_use else None),
+        counted_launches_per_call=[
+            {k: g["captured"].get(k, 0) for k in PROGRAM_ROW_CALLS}
+            for g in serve["graphs"]])
+    per_step = {k: v for k, v in train["launches_per_step"].items()
+                if k in UNSPLIT_ROWS}
+    grown = (served["device_memory_grown_bytes"]
+             + traced["device_memory_grown_bytes"])
+    same_torch = registry["pinned_torch"] == [registry["torch"]]
+    live = {t: f for t, f in registry["findings"].items() if f}
+    out = {"served": served,
+           "train": dict(traced, counted_launches_per_step=per_step),
+           "registry": registry, "registry_clean": not live,
+           "torch_matches_manifests": same_torch,
+           "device_memory_grown_bytes": grown,
+           "children_s": {p: got[p]["seconds"] for p in PROGRAM_PARTS},
+           "wait_s": round(wait_s, 3)}
+    emit(dict(phase="programs", **out))
+    pins = (served["traced_peak_bytes"], first_use)
+    failed = [k for k, ok in (
+        ("served_nodes_equal_counted",
+         served["kernel_nodes_per_call"] == PROGRAM_ROW_CALLS
+         and all(c == PROGRAM_ROW_CALLS
+                 for c in served["counted_launches_per_call"])),
+        ("train_nodes_equal_counted",
+         traced["kernel_nodes_per_step"] == per_step),
+        ("device_memory_constants_only",
+         0 <= grown <= TRACE_CONSTANT_BYTES),
+        ("pins", all(p and math.isfinite(p) and p > 0 for p in pins)),
+        ("registry_clean", not live or not same_torch)) if not ok]
+    if failed:
+        raise AssertionError(f"programs: {failed}")
+    return out
+
+
 def kernel_entries(rows, design):
     """The ``kernels`` line's entries: ``rows`` of ``(name, source,
     replaces, launches, stats, per)``."""
@@ -7272,7 +7587,12 @@ def main() -> None:
                                  odd_shapes=False)
     attn_teacher = phase_attention(attn_train, phase="distill_attention",
                                    extra_shapes=False)
+    # Phase programs' children trace beside phase convert (host work; it
+    # times no kernel).
+    started = programs_start(cfg, serve)
     phase_convert()
+    phase_programs(cfg, started, serve, train)
+    del started
 
     # srn128: the model, its sampling path, its training path (the
     # Trainer's run decides accum_steps), then its kernel sites.
@@ -7645,5 +7965,7 @@ if __name__ == "__main__":
         graph_trial(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--torchrun-entry-points"]:
         torchrun_entry_points(sys.argv[2:])
+    elif sys.argv[1:2] == ["--programs-registry"]:
+        programs_registry(sys.argv[2], int(sys.argv[3]))
     else:
         main()

@@ -35,13 +35,17 @@ rejected at the door with a typed ``ReplicaOverBudget``.  On SIGTERM or
 SIGINT the worker drains (no new admissions; in-flight requests finish,
 up to ``--drain_s``), stops and exits 0.
 
+``--memcheck_dir DIR`` takes the admission pins of the serving programs
+from the port's memory manifests in DIR (``runs/torch_memcheck``, written
+by ``python -m diff3d_tpu_torch.analysis memcheck --update``) in place of
+the warm-up's measured ones, and logs the config each pin was traced at
+beside the worker's own; a missing directory or manifest pins nothing.
+
 Runs on the cards ``--devices`` names unless ``--device`` names another
 torch device (every rank on it).  Refused, each with its reason: a
 duplicate or out-of-range index in ``--devices``, ``--compile_cache``
 (XLA's persistent compile cache; a worker captures its CUDA graphs at
-boot), ``--host_device_count`` (XLA's virtual host devices) and
-``--memcheck_dir`` (the JAX package's StableHLO memory manifests; the
-port pins what its warm-up measures).
+boot) and ``--host_device_count`` (XLA's virtual host devices).
 """
 
 from __future__ import annotations
@@ -61,16 +65,13 @@ import threading
 from diff3d_tpu_torch.cli._common import (add_model_width_args,
                                           apply_model_width_overrides)
 
-#: Flags of the JAX worker with no CUDA counterpart, and why.
-_NO_COUNTERPART = {
+#: Flags of the JAX worker that configure XLA (refused here), and why.
+_XLA_FLAGS = {
     "compile_cache": "XLA's persistent compilation cache has no CUDA "
                      "counterpart: a worker captures its CUDA graphs at "
                      "boot",
     "host_device_count": "XLA's virtual host devices have no CUDA "
                          "counterpart",
-    "memcheck_dir": "the JAX package's StableHLO memory manifests have no "
-                    "counterpart: the port's admission pins are the bytes "
-                    "its warm-up measures on the card",
 }
 
 
@@ -124,13 +125,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device memory budget for admission control "
                         "(0 disables): resident records + program peak "
                         "past it -> typed ReplicaOverBudget 503")
+    p.add_argument("--memcheck_dir", default=None,
+                   help="memory manifest dir whose serving-program peak "
+                        "pins replace the warm-up's measured ones "
+                        "(runs/torch_memcheck; default: the measured "
+                        "pins)")
     p.add_argument("--drain_s", type=float, default=30.0,
                    help="on SIGTERM/SIGINT, stop admitting work and wait "
                         "up to this long for in-flight requests before "
                         "stopping")
-    for flag in _NO_COUNTERPART:
+    for flag in _XLA_FLAGS:
         p.add_argument(f"--{flag}", default=None,
-                       help="refused: " + _NO_COUNTERPART[flag])
+                       help="refused: " + _XLA_FLAGS[flag])
     p.add_argument("--shallow", action="store_true",
                    help="with --config test: shallow 2-level UNet")
     p.add_argument("--max_views", type=int, default=None)
@@ -160,7 +166,7 @@ def _worker_config(args):
     from diff3d_tpu_torch import config as config_lib
     from diff3d_tpu_torch.serving.worker import device_slice
 
-    for flag, why in _NO_COUNTERPART.items():
+    for flag, why in _XLA_FLAGS.items():
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag}: {why}")
     if args.config == "test":
@@ -216,7 +222,7 @@ def _boot(args, cfg, devices):
             weights=weights, raw_params=args.raw_params,
             params_version=version, host=args.host, port=args.port,
             hbm_budget_bytes=args.hbm_budget_bytes,
-            scan_chunks=args.scan_chunks)
+            scan_chunks=args.scan_chunks, memcheck_dir=args.memcheck_dir)
     except ValueError as e:
         raise SystemExit(str(e))
 

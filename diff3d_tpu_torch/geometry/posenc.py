@@ -16,12 +16,28 @@ import torch
 
 
 @functools.lru_cache(maxsize=None)
+def _cached_table(values: tuple, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _tracing() -> bool:
+    """Whether a fake-tensor or tracing mode is active (a table made there
+    is fake and must not be cached for real calls)."""
+    key = torch._C._TorchDispatchModeKey
+    return any(torch._C._get_dispatch_mode(k) is not None
+               for k in (key.FAKE, key.PROXY))
+
+
 def _table(values: tuple, dtype: torch.dtype,
            device: torch.device) -> torch.Tensor:
     """``values`` as a tensor on ``device``, made once (a plain tensor even
-    when first asked for under ``inference_mode``)."""
-    with torch.inference_mode(False):
+    when first asked for under ``inference_mode``); under a trace on fake
+    tensors (``analysis/ir.py``) made anew each time."""
+    if _tracing():
         return torch.tensor(values, dtype=dtype, device=device)
+    return _cached_table(values, dtype, device)
 
 
 def posenc_ddpm(timesteps: torch.Tensor, emb_ch: int,

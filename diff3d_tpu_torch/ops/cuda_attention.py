@@ -17,9 +17,11 @@ explicit f32 matmuls.
 Layout is the JAX package's ``[B, L, H, D]``.  The kernels take q/k/v (and
 o, dO) as strided views (head-dim stride 1), so the ``[B, L, C]``
 projection outputs are passed as ``view(B, L, H, D)`` with no permute copy.
-The lse residual is f32 ``[B, H, Lq]``.  The wrappers run the plain
-versions only for a tensor on the CPU; for a CUDA tensor they launch the
-kernel or raise.  Each launch adds one to ``flash_attention.launches``
+The lse residual is f32 ``[B, H, Lq]``.  Each kernel entry point is a
+dispatcher op (:mod:`diff3d_tpu_torch.ops.library`: ``flash_forward``,
+``flash_forward_lse``, ``flash_backward_dkdv``, ``flash_backward_dq``):
+the plain versions run only for a tensor on the CPU; for a CUDA tensor
+the wrappers launch the kernel or raise.  Each launch adds one to ``flash_attention.launches``
 (the forward, with or without lse), ``attention_backward_dkdv.launches``
 or ``attention_backward_dq.launches``.
 """
@@ -32,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from diff3d_tpu_torch.ops import build
+from diff3d_tpu_torch.ops import build, library
 
 MAX_D = 512         # head-dim cap, the Pallas kernel's (pallas_attention.py:52)
 
@@ -188,13 +190,21 @@ def _raise(lib, name: str, rc: int) -> None:
 
 
 def _check(q, k, v) -> None:
+    """Raise unless the kernels take these operands (metadata only, so a
+    fake tensor is checked as a real one is; the ops' CUDA
+    implementations check the current device)."""
     if not supports(q, k, v):
         raise ValueError(
             f"flash_attention: the kernel does not take q {tuple(q.shape)} "
             f"k {tuple(k.shape)} v {tuple(v.shape)} {q.dtype} (D <= "
             f"{MAX_D}, unit head-dim stride)")
-    if not (k.is_cuda and v.is_cuda) \
-            or q.get_device() != torch.cuda.current_device():
+    if not (k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention: q/k/v must be on the current "
+                         "CUDA device")
+
+
+def _current(q: torch.Tensor) -> None:
+    if q.get_device() != torch.cuda.current_device():
         raise ValueError("flash_attention: q/k/v must be on the current "
                          "CUDA device")
 
@@ -205,16 +215,91 @@ def _stream(q: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(q.get_device())
 
 
-def _forward(q, k, v, scale: float, save_lse: bool):
-    """The forward kernel (CUDA) or the plain version (CPU)."""
-    if not q.is_cuda:
-        if save_lse:
-            return attention_lse_reference(q, k, v, scale)
-        return attention_reference(q, k, v, scale)
+# ---- the kernels as dispatcher ops (``ops/library.py``) --------------------
+
+
+def _fwd_cuda(q, k, v, scale, save_lse):
+    _current(q)
     out = launch(build.library("attention"), q, k, v, scale=scale,
                  stream=_stream(q), save_lse=save_lse)
     flash_attention.launches += 1
     return out
+
+
+def _rows(q: torch.Tensor) -> torch.Tensor:
+    B, Lq, H, _ = q.shape
+    return q.new_empty((B, H, Lq), dtype=torch.float32)
+
+
+_QKV = "Tensor q, Tensor k, Tensor v"
+_flash_forward = library.define(
+    "flash_forward", f"({_QKV}, float scale) -> Tensor",
+    wrapper="flash_attention",
+    cpu=lambda q, k, v, scale: attention_reference(q, k, v, scale),
+    cuda=lambda q, k, v, scale: _fwd_cuda(q, k, v, scale, False),
+    fake=lambda q, k, v, scale: q.new_empty(q.shape))
+_flash_forward_lse = library.define(
+    "flash_forward_lse", f"({_QKV}, float scale) -> (Tensor, Tensor)",
+    wrapper="flash_attention",
+    cpu=lambda q, k, v, scale: attention_lse_reference(q, k, v, scale),
+    cuda=lambda q, k, v, scale: _fwd_cuda(q, k, v, scale, True),
+    fake=lambda q, k, v, scale: (q.new_empty(q.shape), _rows(q)))
+
+
+def _dkdv_cpu(q, k, v, o, lse, do, glse, scale):
+    delta = attention_delta_reference(o, do, glse)
+    _, dk, dv = _backward_reference(q, k, v, lse, do, delta, scale)
+    return _rounded(q, dk), _rounded(q, dv), delta
+
+
+def _dkdv_cuda(q, k, v, o, lse, do, glse, scale):
+    _current(q)
+    B, Lq, H, D = q.shape
+    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    launch_backward(build.library("attention"), q, k, v, o, do, lse, glse,
+                    scale=scale, stream=_stream(q), part=0, delta=delta,
+                    grads=(None, dk, dv))
+    attention_backward_dkdv.launches += 1
+    return dk, dv, delta
+
+
+def _dq_cuda(q, k, v, o, lse, do, delta, scale):
+    _current(q)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch_backward(build.library("attention"), q, k, v, o, do, lse, None,
+                    scale=scale, stream=_stream(q), part=1, delta=delta,
+                    grads=(dq, None, None))
+    attention_backward_dq.launches += 1
+    return dq
+
+
+_flash_backward_dkdv = library.define(
+    "flash_backward_dkdv",
+    f"({_QKV}, Tensor o, Tensor lse, Tensor do, Tensor? glse, float scale) "
+    "-> (Tensor, Tensor, Tensor)",
+    wrapper="attention_backward_dkdv",
+    cpu=_dkdv_cpu, cuda=_dkdv_cuda,
+    fake=lambda q, k, v, o, lse, do, glse, scale: (
+        k.new_empty(k.shape, dtype=q.dtype),
+        k.new_empty(k.shape, dtype=q.dtype), _rows(q)))
+_flash_backward_dq = library.define(
+    "flash_backward_dq",
+    f"({_QKV}, Tensor o, Tensor lse, Tensor do, Tensor delta, float scale) "
+    "-> Tensor",
+    wrapper="attention_backward_dq",
+    cpu=lambda q, k, v, o, lse, do, delta, scale: _rounded(
+        q, _backward_reference(q, k, v, lse, do, delta, scale)[0]),
+    cuda=_dq_cuda,
+    fake=lambda q, k, v, o, lse, do, delta, scale: q.new_empty(q.shape))
+
+
+def _forward(q, k, v, scale: float, save_lse: bool):
+    """The forward kernel (CUDA) or the plain version (CPU), as an op."""
+    if save_lse:
+        return _flash_forward_lse(q, k, v, scale)
+    return _flash_forward(q, k, v, scale)
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -273,24 +358,14 @@ def attention_backward_dkdv(q: torch.Tensor, k: torch.Tensor,
                             glse: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None):
     """``(dk, dv, delta)``: the delta pre-pass and the dK/dV kernel (row
-    5).  ``delta = rowsum(dO * O) - glse`` is f32 ``[B, H, Lq]``, the input
-    of :func:`attention_backward_dq`.  On a CPU tensor these are the plain
-    versions; on a CUDA tensor the kernels run or the call raises."""
+    5, the op ``flash_backward_dkdv``).  ``delta = rowsum(dO * O) - glse``
+    is f32 ``[B, H, Lq]``, the input of :func:`attention_backward_dq`.  On
+    a CPU tensor these are the plain versions; on a CUDA tensor the
+    kernels run or the call raises."""
     scale = _scale(q, scale)
-    if not q.is_cuda:
-        delta = attention_delta_reference(o, do, glse)
-        _, dk, dv = _backward_reference(q, k, v, lse, do, delta, scale)
-        return _rounded(q, dk), _rounded(q, dv), delta
-    _check_backward(q, k, v, o, do, lse=lse, glse=glse)
-    B, Lq, H, D = q.shape
-    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    launch_backward(build.library("attention"), q, k, v, o, do, lse, glse,
-                    scale=scale, stream=_stream(q), part=0, delta=delta,
-                    grads=(None, dk, dv))
-    attention_backward_dkdv.launches += 1
-    return dk, dv, delta
+    if q.is_cuda:
+        _check_backward(q, k, v, o, do, lse=lse, glse=glse)
+    return _flash_backward_dkdv(q, k, v, o, lse, do, glse, scale)
 
 
 def attention_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -298,20 +373,13 @@ def attention_backward_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           do: torch.Tensor, delta: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """``dq`` from :func:`attention_backward_dkdv`'s ``delta``: the dQ
-    kernel (row 6).  On a CPU tensor this is the plain version; on a CUDA
-    tensor the kernel runs or the call raises."""
+    kernel (row 6, the op ``flash_backward_dq``).  On a CPU tensor this is
+    the plain version; on a CUDA tensor the kernel runs or the call
+    raises."""
     scale = _scale(q, scale)
-    if not q.is_cuda:
-        return _rounded(q, _backward_reference(q, k, v, lse, do, delta,
-                                               scale)[0])
-    _check_backward(q, k, v, o, do, lse=lse, delta=delta)
-    B, Lq, H, D = q.shape
-    dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
-    launch_backward(build.library("attention"), q, k, v, o, do, lse, None,
-                    scale=scale, stream=_stream(q), part=1, delta=delta,
-                    grads=(dq, None, None))
-    attention_backward_dq.launches += 1
-    return dq
+    if q.is_cuda:
+        _check_backward(q, k, v, o, do, lse=lse, delta=delta)
+    return _flash_backward_dq(q, k, v, o, lse, do, delta, scale)
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -332,10 +400,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention over ``[B, L, H, D]`` (Lq != Lk allowed); ``scale``
     defaults to ``1/sqrt(D)``.  On a CPU tensor this is
     :func:`attention_reference`; on a CUDA tensor the kernel runs or the
-    call raises.  When autograd records, the call goes through
-    :class:`_FlashAttentionFn` (the forward saves the lse, the backward is
-    a kernel); under ``no_grad`` / ``inference_mode`` no lse is written, as
-    in the Pallas primal (``pallas_attention.py:360-363``)."""
+    call raises (the op ``flash_forward``).  When autograd records, the
+    call goes through :class:`_FlashAttentionFn` (the forward saves the
+    lse, ``flash_forward_lse``; the backward is a kernel); under
+    ``no_grad`` / ``inference_mode`` no lse is written, as in the Pallas
+    primal (``pallas_attention.py:360-363``)."""
     scale = _scale(q, scale)
     if q.is_cuda:
         _check(q, k, v)
@@ -363,3 +432,4 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 attention_backward_dkdv.launches = 0
 attention_backward_dq.launches = 0
+

@@ -15,9 +15,13 @@ which differ from the JAX package's ``xla`` path in bf16: every
 intermediate stays f32 and each result is rounded once
 (``pallas_film.py:212-220, 359-368``).
 
-The wrappers run the plain versions only for a tensor on the CPU; for a
-CUDA tensor they launch the kernel or raise.  Each launch adds one to
-``fused_groupnorm.launches`` or ``groupnorm_backward.launches``.
+Each kernel entry point is a dispatcher op (:mod:`diff3d_tpu_torch.ops.
+library`: ``gn_forward``, ``gn_forward_stats``, ``gn_backward`` and the
+split statistics' four), so the device key of its operands picks the
+kernel (CUDA) or the plain version (CPU), and a trace on fake tensors
+holds each call as one node.  For a CUDA tensor the wrappers launch the
+kernel or raise.  Each launch adds one to ``fused_groupnorm.launches`` or
+``groupnorm_backward.launches``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from diff3d_tpu_torch.ops import build, dispatch
+from diff3d_tpu_torch.ops import build, dispatch, library
 
 EPS = 1e-5          # torch / Flax-parity GroupNorm epsilon
 MAX_C = 4096        # channel cap (srn128's widest up-path concat is 2048)
@@ -438,9 +442,11 @@ def launch_backward(lib, x: torch.Tensor, g: torch.Tensor,
 
 
 def _check(x, gamma, beta, scale, shift, num_groups):
-    """Raise unless the kernels take these operands, on the current
-    device (integer device checks, as the attention wrappers do: a
-    ``torch.device`` per comparison costs host time on every call)."""
+    """Raise unless the kernels take these operands: shapes, dtypes,
+    strides and devices, metadata only, so a fake tensor is checked as a
+    real one is (integer device checks, as the attention wrappers do: a
+    ``torch.device`` per comparison costs host time on every call).  The
+    ops' CUDA implementations check the current device."""
     if not supports(x, num_groups=num_groups):
         raise ValueError(
             f"fused_groupnorm: the kernel does not take x "
@@ -458,8 +464,11 @@ def _check(x, gamma, beta, scale, shift, num_groups):
                               or t.stride(-1) != 1):
             raise ValueError(f"fused_groupnorm: {name} must share x's "
                              "dtype and device, with unit channel stride")
-    if dev != torch.cuda.current_device():
-        raise ValueError("fused_groupnorm: x is not on the current device")
+
+
+def _current(x: torch.Tensor, name: str) -> None:
+    if x.get_device() != torch.cuda.current_device():
+        raise ValueError(f"{name}: x is not on the current device")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -468,25 +477,242 @@ def _stream(x: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
+# ---- the kernels as dispatcher ops (``ops/library.py``) --------------------
+#
+# Each op's CUDA implementation launches its kernel and counts the launch
+# on its wrapper; its CPU implementation is the plain version; its fake
+# implementation gives the output shapes.  A backward's dgamma / dbeta
+# are the two rows of one [2, C] buffer on the card.
+
+_GN = ("Tensor x, Tensor gamma, Tensor beta, Tensor? scale, Tensor? shift")
+_GN_BWD = ("Tensor x, Tensor g, Tensor gamma, Tensor beta, Tensor? scale, "
+           "Tensor? shift, Tensor stats")
+
+
+def _like(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    return x.new_empty(x.shape, dtype=dtype)
+
+
+def _stats_like(x: torch.Tensor, G: int, dtype=torch.float32):
+    return x.new_empty((2, x.shape[0], G), dtype=dtype)
+
+
+def _fwd_cuda(x, gamma, beta, scale, shift, num_groups, silu):
+    _current(x, "fused_groupnorm")
+    out = launch(build.library("film"), x, gamma, beta, scale, shift,
+                 num_groups=num_groups, silu=silu, stream=_stream(x))
+    fused_groupnorm.launches += 1
+    return out
+
+
+_gn_forward = library.define(
+    "gn_forward", f"({_GN}, int num_groups, bool silu) -> Tensor",
+    wrapper="fused_groupnorm",
+    cpu=lambda x, gamma, beta, scale, shift, num_groups, silu:
+        groupnorm_reference(x, gamma, beta, num_groups=num_groups,
+                            scale=scale, shift=shift, silu=silu),
+    cuda=_fwd_cuda,
+    fake=lambda x, gamma, beta, scale, shift, num_groups, silu: _like(x))
+
+
+def _fwd_stats_cpu(x, gamma, beta, scale, shift, num_groups, silu):
+    stats = groupnorm_stats_reference(x, num_groups)
+    return groupnorm_reference(x, gamma, beta, num_groups=num_groups,
+                               scale=scale, shift=shift, silu=silu,
+                               stats=stats), stats
+
+
+def _fwd_stats_cuda(x, gamma, beta, scale, shift, num_groups, silu):
+    _current(x, "fused_groupnorm")
+    out = launch(build.library("film"), x, gamma, beta, scale, shift,
+                 num_groups=num_groups, silu=silu, stream=_stream(x),
+                 save_stats=True)
+    fused_groupnorm.launches += 1
+    return out
+
+
+_gn_forward_stats = library.define(
+    "gn_forward_stats",
+    f"({_GN}, int num_groups, bool silu) -> (Tensor, Tensor)",
+    wrapper="fused_groupnorm",
+    cpu=_fwd_stats_cpu, cuda=_fwd_stats_cuda,
+    fake=lambda x, gamma, beta, scale, shift, num_groups, silu: (
+        _like(x), _stats_like(x, num_groups)))
+
+
+def _bwd_cpu(x, g, gamma, beta, scale, shift, stats, num_groups, silu):
+    dx, dscale, dshift, dgamma, dbeta = groupnorm_backward_reference(
+        x, g, gamma, beta, scale, shift, stats, num_groups=num_groups,
+        silu=silu)
+    return [dx, dgamma, dbeta] + ([] if scale is None else [dscale, dshift])
+
+
+def _bwd_cuda(x, g, gamma, beta, scale, shift, stats, num_groups, silu):
+    _current(x, "groupnorm_backward")
+    dx, dscale, dshift, dgamma, dbeta = launch_backward(
+        build.library("film"), x, g, gamma, beta, scale, shift, stats,
+        num_groups=num_groups, silu=silu, stream=_stream(x))
+    groupnorm_backward.launches += 1
+    return [dx, dgamma, dbeta] + ([] if scale is None else [dscale, dshift])
+
+
+def _bwd_fake(x, g, gamma, beta, scale, shift, stats, num_groups, silu):
+    C = x.shape[-1]
+    out = [_like(x), x.new_empty((C,), dtype=torch.float32),
+           x.new_empty((C,), dtype=torch.float32)]
+    return out + ([] if scale is None else [_like(x), _like(x)])
+
+
+_gn_backward = library.define(
+    "gn_backward", f"({_GN_BWD}, int num_groups, bool silu) -> Tensor[]",
+    wrapper="groupnorm_backward",
+    cpu=_bwd_cpu, cuda=_bwd_cuda, fake=_bwd_fake)
+
+
+def _sums_cuda(x, num_groups):
+    _current(x, "groupnorm_partial_sums")
+    N, L, C = x.shape
+    sums = torch.empty((2, N, num_groups), dtype=torch.float64,
+                       device=x.device)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_sums")(
+        x.data_ptr(), *_strides(x), sums.data_ptr(), N, L, C, num_groups,
+        _DTYPE_CODE[x.dtype], _stream(x))
+    _raise(lib, "gn_split_sums", rc)
+    groupnorm_partial_sums.launches += 1
+    return sums
+
+
+_gn_split_sums = library.define(
+    "gn_split_sums", "(Tensor x, int num_groups) -> Tensor",
+    wrapper="groupnorm_partial_sums",
+    cpu=lambda x, num_groups: groupnorm_partial_sums_reference(
+        x, num_groups),
+    cuda=_sums_cuda,
+    fake=lambda x, num_groups: _stats_like(x, num_groups, torch.float64))
+
+
+def _apply_cuda(x, gamma, beta, scale, shift, sums, length, num_groups,
+                silu):
+    _current(x, "groupnorm_apply_sums")
+    N, L, C = x.shape
+    out = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
+    stats = torch.empty((2, N, num_groups), dtype=torch.float32,
+                        device=x.device)
+    sc, sh, film = _film_views(x, scale, shift)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_apply")(
+        x.data_ptr(), *_strides(x), gamma.data_ptr(), beta.data_ptr(),
+        sc.data_ptr(), *_strides(sc), sh.data_ptr(), *_strides(sh),
+        sums.data_ptr(), out.data_ptr(), stats.data_ptr(), N, L, int(length),
+        C, num_groups, _DTYPE_CODE[x.dtype], film, int(silu), EPS,
+        _stream(x))
+    _raise(lib, "gn_split_apply", rc)
+    groupnorm_apply_sums.launches += 1
+    return out, stats
+
+
+_gn_split_apply = library.define(
+    "gn_split_apply",
+    f"({_GN}, Tensor sums, int length, int num_groups, bool silu) "
+    "-> (Tensor, Tensor)",
+    wrapper="groupnorm_apply_sums",
+    cpu=lambda x, gamma, beta, scale, shift, sums, length, num_groups, silu:
+        groupnorm_apply_sums_reference(
+            x, gamma, beta, scale, shift, sums, length=length,
+            num_groups=num_groups, silu=silu),
+    cuda=_apply_cuda,
+    fake=lambda x, gamma, beta, scale, shift, sums, length, num_groups,
+    silu: (_like(x), _stats_like(x, num_groups)))
+
+
+def _bwd_sums_cuda(x, g, gamma, beta, scale, shift, stats, num_groups, silu):
+    _current(x, "groupnorm_backward_partial_sums")
+    N, L, C = x.shape
+    sums = torch.empty((2, N, num_groups), dtype=torch.float32,
+                       device=x.device)
+    partial = torch.empty(2 * N * C, dtype=torch.float32, device=x.device)
+    dgb = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    sc, sh, film = _film_views(x, scale, shift)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_backward_sums")(
+        x.data_ptr(), *_strides(x), g.data_ptr(), *_strides(g),
+        gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), *_strides(sc),
+        sh.data_ptr(), *_strides(sh), stats.data_ptr(), sums.data_ptr(),
+        partial.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(), N, L, C,
+        num_groups, _DTYPE_CODE[x.dtype], film, int(silu), _stream(x))
+    _raise(lib, "gn_split_backward_sums", rc)
+    groupnorm_backward_partial_sums.launches += 1
+    return sums, dgb[0], dgb[1]
+
+
+_gn_split_backward_sums = library.define(
+    "gn_split_backward_sums",
+    f"({_GN_BWD}, int num_groups, bool silu) -> (Tensor, Tensor, Tensor)",
+    wrapper="groupnorm_backward_partial_sums",
+    cpu=lambda x, g, gamma, beta, scale, shift, stats, num_groups, silu:
+        groupnorm_backward_partial_sums_reference(
+            x, g, gamma, beta, scale, shift, stats, num_groups=num_groups,
+            silu=silu),
+    cuda=_bwd_sums_cuda,
+    fake=lambda x, g, gamma, beta, scale, shift, stats, num_groups, silu: (
+        _stats_like(x, num_groups),
+        x.new_empty((x.shape[-1],), dtype=torch.float32),
+        x.new_empty((x.shape[-1],), dtype=torch.float32)))
+
+
+def _bwd_apply_cpu(x, g, gamma, beta, scale, shift, stats, sums, length,
+                   num_groups, silu):
+    dx, dscale, dshift = groupnorm_backward_apply_sums_reference(
+        x, g, gamma, beta, scale, shift, stats, sums, length=length,
+        num_groups=num_groups, silu=silu)
+    return [dx] + ([] if scale is None else [dscale, dshift])
+
+
+def _bwd_apply_cuda(x, g, gamma, beta, scale, shift, stats, sums, length,
+                    num_groups, silu):
+    _current(x, "groupnorm_backward_apply_sums")
+    N, L, C = x.shape
+    film = scale is not None
+    dx = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
+    dscale = torch.empty_like(dx) if film else None
+    dshift = torch.empty_like(dx) if film else None
+    sc, sh, _ = _film_views(x, scale, shift)
+    lib = build.library("film")
+    rc = _function(lib, "gn_split_backward_apply")(
+        x.data_ptr(), *_strides(x), g.data_ptr(), *_strides(g),
+        gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), *_strides(sc),
+        sh.data_ptr(), *_strides(sh), stats.data_ptr(), sums.data_ptr(),
+        dx.data_ptr(), dscale.data_ptr() if film else 0,
+        dshift.data_ptr() if film else 0, N, L, int(length), C, num_groups,
+        _DTYPE_CODE[x.dtype], int(film), int(silu), _stream(x))
+    _raise(lib, "gn_split_backward_apply", rc)
+    groupnorm_backward_apply_sums.launches += 1
+    return [dx] + ([dscale, dshift] if film else [])
+
+
+_gn_split_backward_apply = library.define(
+    "gn_split_backward_apply",
+    f"({_GN_BWD}, Tensor sums, int length, int num_groups, bool silu) "
+    "-> Tensor[]",
+    wrapper="groupnorm_backward_apply_sums",
+    cpu=_bwd_apply_cpu, cuda=_bwd_apply_cuda,
+    fake=lambda x, g, gamma, beta, scale, shift, stats, sums, length,
+    num_groups, silu: [_like(x)] + (
+        [] if scale is None else [_like(x), _like(x)]))
+
+
 class _FusedGroupNormFn(torch.autograd.Function):
     """The differentiable fused GroupNorm (``jax.custom_vjp`` of
     ``pallas_film.py:441-473``): the forward saves x, gamma, beta,
     scale, shift and the ``[2, N, G]`` statistics; the backward is
-    :func:`groupnorm_backward`.  On CPU tensors both passes are the plain
-    versions; on CUDA tensors both are the kernels."""
+    :func:`groupnorm_backward`.  Both passes are dispatcher ops: the
+    kernels on CUDA tensors, the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, scale, shift, num_groups, silu):
-        if x.is_cuda:
-            out, stats = launch(build.library("film"), x, gamma, beta, scale,
-                                shift, num_groups=num_groups, silu=silu,
-                                stream=_stream(x), save_stats=True)
-            fused_groupnorm.launches += 1
-        else:
-            stats = groupnorm_stats_reference(x, num_groups)
-            out = groupnorm_reference(x, gamma, beta, num_groups=num_groups,
-                                      scale=scale, shift=shift, silu=silu,
-                                      stats=stats)
+        out, stats = _gn_forward_stats(x, gamma, beta, scale, shift,
+                                       num_groups, silu)
         ctx.save_for_backward(x, gamma, beta, scale, shift, stats)
         ctx.num_groups, ctx.silu = num_groups, silu
         return out
@@ -514,26 +740,26 @@ def groupnorm_backward(x: torch.Tensor, g: torch.Tensor,
     :func:`groupnorm_backward_reference`; on a CUDA tensor the kernel runs
     or the call raises.  Each launch adds one to
     ``groupnorm_backward.launches``."""
-    if not x.is_cuda:
-        return groupnorm_backward_reference(
-            x, g, gamma, beta, scale, shift, stats, num_groups=num_groups,
-            silu=silu)
-    _check(x, gamma, beta, scale, shift, num_groups)
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f"groupnorm_backward: g {tuple(g.shape)} {g.dtype} "
-                         f"must match x {tuple(x.shape)} {x.dtype}")
+    if x.is_cuda:
+        _check(x, gamma, beta, scale, shift, num_groups)
+        if g.shape != x.shape or g.dtype != x.dtype \
+                or g.get_device() != x.get_device():
+            raise ValueError(f"groupnorm_backward: g {tuple(g.shape)} "
+                             f"{g.dtype} must match x {tuple(x.shape)} "
+                             f"{x.dtype}")
+        N = x.shape[0]
+        if stats.shape != (2, N, num_groups) \
+                or stats.dtype != torch.float32 \
+                or not stats.is_contiguous():
+            raise ValueError(f"groupnorm_backward: stats must be a "
+                             f"contiguous float32 [2, {N}, {num_groups}]")
     if g.stride(-1) != 1:
         g = g.contiguous()
-    N, C = x.shape[0], x.shape[-1]
-    if stats.shape != (2, N, num_groups) or stats.dtype != torch.float32 \
-            or not stats.is_contiguous():
-        raise ValueError(f"groupnorm_backward: stats must be a contiguous "
-                         f"float32 [2, {N}, {num_groups}]")
-    out = launch_backward(build.library("film"), x, g, gamma, beta, scale,
-                          shift, stats, num_groups=num_groups, silu=silu,
-                          stream=_stream(x))
-    groupnorm_backward.launches += 1
-    return out
+    outs = _gn_backward(x, g, gamma, beta, scale, shift, stats, num_groups,
+                        silu)
+    dscale, dshift = (outs[3], outs[4]) if scale is not None else (None,
+                                                                   None)
+    return outs[0], dscale, dshift, outs[1], outs[2]
 
 
 # ---- the split-statistics wrappers -----------------------------------------
@@ -572,22 +798,11 @@ def groupnorm_partial_sums(x: torch.Tensor, *,
     ``Σx²`` per group over this rank's rows of ``x [N, l, C]``
     (``gn_split_sums_kernel``; the plain version on a CPU tensor).  Each
     launch adds one to ``groupnorm_partial_sums.launches``."""
-    if not x.is_cuda:
-        return groupnorm_partial_sums_reference(x, num_groups)
-    if not supports(x, num_groups=num_groups, rows=True):
+    if x.is_cuda and not supports(x, num_groups=num_groups, rows=True):
         raise ValueError(f"groupnorm_partial_sums: the kernel does not take "
                          f"x {tuple(x.shape)} {x.dtype} stride {x.stride()} "
                          f"with num_groups={num_groups}")
-    N, L, C = x.shape
-    sums = torch.empty((2, N, num_groups), dtype=torch.float64,
-                       device=x.device)
-    lib = build.library("film")
-    rc = _function(lib, "gn_split_sums")(
-        x.data_ptr(), *_strides(x), sums.data_ptr(), N, L, C, num_groups,
-        _DTYPE_CODE[x.dtype], _stream(x))
-    _raise(lib, "gn_split_sums", rc)
-    groupnorm_partial_sums.launches += 1
-    return sums
+    return _gn_split_sums(x, num_groups)
 
 
 def groupnorm_apply_sums(x, gamma, beta, scale, shift, sums, *,
@@ -599,29 +814,13 @@ def groupnorm_apply_sums(x, gamma, beta, scale, shift, sums, *,
     mean / rstd for the backward (``gn_split_apply_kernel``; the plain
     version on a CPU tensor).  Each launch adds one to
     ``groupnorm_apply_sums.launches``."""
-    if not x.is_cuda:
-        return groupnorm_apply_sums_reference(
-            x, gamma, beta, scale, shift, sums, length=length,
-            num_groups=num_groups, silu=silu)
-    _check_split("groupnorm_apply_sums", x, gamma, beta, scale, shift,
-                 num_groups)
-    N, L, C = x.shape
-    _check_stats("groupnorm_apply_sums: sums", sums, x, num_groups,
-                 torch.float64)
-    out = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
-    stats = torch.empty((2, N, num_groups), dtype=torch.float32,
-                        device=x.device)
-    sc, sh, film = _film_views(x, scale, shift)
-    lib = build.library("film")
-    rc = _function(lib, "gn_split_apply")(
-        x.data_ptr(), *_strides(x), gamma.data_ptr(), beta.data_ptr(),
-        sc.data_ptr(), *_strides(sc), sh.data_ptr(), *_strides(sh),
-        sums.data_ptr(), out.data_ptr(), stats.data_ptr(), N, L, int(length),
-        C, num_groups, _DTYPE_CODE[x.dtype], film, int(silu), EPS,
-        _stream(x))
-    _raise(lib, "gn_split_apply", rc)
-    groupnorm_apply_sums.launches += 1
-    return out, stats
+    if x.is_cuda:
+        _check_split("groupnorm_apply_sums", x, gamma, beta, scale, shift,
+                     num_groups)
+        _check_stats("groupnorm_apply_sums: sums", sums, x, num_groups,
+                     torch.float64)
+    return _gn_split_apply(x, gamma, beta, scale, shift, sums, int(length),
+                           num_groups, silu)
 
 
 def groupnorm_backward_partial_sums(x, g, gamma, beta, scale, shift, stats,
@@ -632,31 +831,14 @@ def groupnorm_backward_partial_sums(x, g, gamma, beta, scale, shift, stats,
     (``gn_split_bwd_sums_kernel``, then ``gn_bwd_param_kernel``'s fold
     over N; the plain version on a CPU tensor).  Each launch adds one to
     ``groupnorm_backward_partial_sums.launches``."""
-    if not x.is_cuda:
-        return groupnorm_backward_partial_sums_reference(
-            x, g, gamma, beta, scale, shift, stats, num_groups=num_groups,
-            silu=silu)
-    _check_split("groupnorm_backward_partial_sums", x, gamma, beta, scale,
-                 shift, num_groups)
-    N, L, C = x.shape
-    _check_grad("groupnorm_backward_partial_sums", x, g)
-    _check_stats("groupnorm_backward_partial_sums: stats", stats, x,
-                 num_groups, torch.float32)
-    sums = torch.empty((2, N, num_groups), dtype=torch.float32,
-                       device=x.device)
-    partial = torch.empty(2 * N * C, dtype=torch.float32, device=x.device)
-    dgb = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    sc, sh, film = _film_views(x, scale, shift)
-    lib = build.library("film")
-    rc = _function(lib, "gn_split_backward_sums")(
-        x.data_ptr(), *_strides(x), g.data_ptr(), *_strides(g),
-        gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), *_strides(sc),
-        sh.data_ptr(), *_strides(sh), stats.data_ptr(), sums.data_ptr(),
-        partial.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(), N, L, C,
-        num_groups, _DTYPE_CODE[x.dtype], film, int(silu), _stream(x))
-    _raise(lib, "gn_split_backward_sums", rc)
-    groupnorm_backward_partial_sums.launches += 1
-    return sums, dgb[0], dgb[1]
+    if x.is_cuda:
+        _check_split("groupnorm_backward_partial_sums", x, gamma, beta,
+                     scale, shift, num_groups)
+        _check_grad("groupnorm_backward_partial_sums", x, g)
+        _check_stats("groupnorm_backward_partial_sums: stats", stats, x,
+                     num_groups, torch.float32)
+    return _gn_split_backward_sums(x, g, gamma, beta, scale, shift, stats,
+                                   num_groups, silu)
 
 
 def groupnorm_backward_apply_sums(x, g, gamma, beta, scale, shift, stats,
@@ -667,38 +849,23 @@ def groupnorm_backward_apply_sums(x, g, gamma, beta, scale, shift, stats,
     (``length`` pixels a sample); dscale / dshift None without FiLM
     (``gn_split_bwd_apply_kernel``; the plain version on a CPU tensor).
     Each launch adds one to ``groupnorm_backward_apply_sums.launches``."""
-    if not x.is_cuda:
-        return groupnorm_backward_apply_sums_reference(
-            x, g, gamma, beta, scale, shift, stats, sums, length=length,
-            num_groups=num_groups, silu=silu)
-    _check_split("groupnorm_backward_apply_sums", x, gamma, beta, scale,
-                 shift, num_groups)
-    N, L, C = x.shape
-    _check_grad("groupnorm_backward_apply_sums", x, g)
-    for name, t in (("stats", stats), ("sums", sums)):
-        _check_stats(f"groupnorm_backward_apply_sums: {name}", t, x,
-                     num_groups, torch.float32)
-    film = scale is not None
-    dx = torch.empty((N, L, C), dtype=x.dtype, device=x.device)
-    dscale = torch.empty_like(dx) if film else None
-    dshift = torch.empty_like(dx) if film else None
-    sc, sh, _ = _film_views(x, scale, shift)
-    lib = build.library("film")
-    rc = _function(lib, "gn_split_backward_apply")(
-        x.data_ptr(), *_strides(x), g.data_ptr(), *_strides(g),
-        gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), *_strides(sc),
-        sh.data_ptr(), *_strides(sh), stats.data_ptr(), sums.data_ptr(),
-        dx.data_ptr(), dscale.data_ptr() if film else 0,
-        dshift.data_ptr() if film else 0, N, L, int(length), C, num_groups,
-        _DTYPE_CODE[x.dtype], int(film), int(silu), _stream(x))
-    _raise(lib, "gn_split_backward_apply", rc)
-    groupnorm_backward_apply_sums.launches += 1
-    return dx, dscale, dshift
+    if x.is_cuda:
+        _check_split("groupnorm_backward_apply_sums", x, gamma, beta, scale,
+                     shift, num_groups)
+        _check_grad("groupnorm_backward_apply_sums", x, g)
+        for name, t in (("stats", stats), ("sums", sums)):
+            _check_stats(f"groupnorm_backward_apply_sums: {name}", t, x,
+                         num_groups, torch.float32)
+    outs = _gn_split_backward_apply(x, g, gamma, beta, scale, shift, stats,
+                                    sums, int(length), num_groups, silu)
+    if scale is None:
+        return outs[0], None, None
+    return outs[0], outs[1], outs[2]
 
 
 def _check_grad(name, x, g):
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
-            or g.stride(-1) != 1:
+    if g.shape != x.shape or g.dtype != x.dtype \
+            or g.get_device() != x.get_device() or g.stride(-1) != 1:
         raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} must match "
                          f"x {tuple(x.shape)} {x.dtype}, unit channel "
                          "stride")
@@ -756,9 +923,10 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
     Dense output's two halves, row stride 2C).  Returns a contiguous
     ``[N, L, C]`` of ``x.dtype``.  On a CPU tensor this is
     :func:`groupnorm_reference`; on a CUDA tensor the kernel runs or the
-    call raises.  When autograd records (an operand requires grad), the
-    call goes through :class:`_FusedGroupNormFn`, whose forward saves the
-    statistics (``save_stats``) and whose backward is
+    call raises (the op ``diff3d_tpu_torch::gn_forward``).  When autograd
+    records (an operand requires grad), the call goes through
+    :class:`_FusedGroupNormFn`, whose forward saves the statistics
+    (``gn_forward_stats``) and whose backward is
     :func:`groupnorm_backward`; under ``no_grad`` / ``inference_mode``
     nothing is saved, as in the Pallas primal (``pallas_film.py:441-448``).
 
@@ -789,13 +957,7 @@ def fused_groupnorm(x: torch.Tensor, gamma: torch.Tensor,
     if grad:
         return _FusedGroupNormFn.apply(x, gamma, beta, scale, shift,
                                        num_groups, silu)
-    if not x.is_cuda:
-        return groupnorm_reference(x, gamma, beta, num_groups=num_groups,
-                                   scale=scale, shift=shift, silu=silu)
-    out = launch(build.library("film"), x, gamma, beta, scale, shift,
-                 num_groups=num_groups, silu=silu, stream=_stream(x))
-    fused_groupnorm.launches += 1
-    return out
+    return _gn_forward(x, gamma, beta, scale, shift, num_groups, silu)
 
 
 fused_groupnorm.launches = 0
@@ -804,6 +966,7 @@ groupnorm_partial_sums.launches = 0
 groupnorm_apply_sums.launches = 0
 groupnorm_backward_partial_sums.launches = 0
 groupnorm_backward_apply_sums.launches = 0
+
 
 dispatch.register("groupnorm", "cuda", fused_groupnorm, supports=supports)
 dispatch.register("groupnorm", "torch", groupnorm_reference)

@@ -6,8 +6,9 @@ Every dispatched op — the fused GroupNorm epilogues
 (:mod:`diff3d_tpu_torch.ops.attention`) — registers two implementations:
 
   * ``"cuda"``  — the hand-written kernel's wrapper.  On a CUDA tensor it
-    launches the kernel; on a CPU tensor it runs the plain version (the
-    tensor's device alone decides).  A CUDA tensor whose shape the
+    launches the kernel; on a CPU tensor it runs the plain version: the
+    wrapper calls a dispatcher op (:mod:`diff3d_tpu_torch.ops.library`)
+    whose device key alone decides.  A CUDA tensor whose shape the
     kernel's ``supports`` rejects raises: there is no fallback.
   * ``"torch"`` — the plain PyTorch version, on any device.  It is what
     the CPU tests hold against the JAX package, and what the card check

@@ -577,7 +577,7 @@ def _is_dtensor(t) -> bool:
 
 def make_mesh(cfg: MeshConfig = MeshConfig(),
               devices: Optional[Sequence[int]] = None,
-              model=None) -> MeshEnv:
+              model=None, device_type: Optional[str] = None) -> MeshEnv:
     """The ``(data, model)`` mesh over the process group's ranks
     (``devices``: the ranks, default all), the JAX package's
     ``make_mesh``: ``data_parallel == -1`` takes every rank the model axis
@@ -585,7 +585,9 @@ def make_mesh(cfg: MeshConfig = MeshConfig(),
     runs only within its mesh here, so a mesh that leaves ranks out is
     refused too.  Without a process group this is the one-process mesh (no
     ``DeviceMesh``).  The mesh's devices are the card on an NCCL group and
-    the CPU on a gloo one.  ``model`` (a ``ModelConfig``): under
+    the CPU on a gloo one (``device_type`` names another: the analysis
+    registry's fake group traces on fake tensors of its ``--device``).
+    ``model`` (a ``ModelConfig``): under
     ``context_parallel``, a model whose rows do not split over the model
     axis at every level is refused here, naming the level."""
     global _CURRENT
@@ -609,7 +611,9 @@ def make_mesh(cfg: MeshConfig = MeshConfig(),
     else:
         from torch.distributed.device_mesh import init_device_mesh
 
-        device_type = "cpu" if dist.get_backend() == "gloo" else "cuda"
+        if device_type is None:
+            device_type = ("cpu" if dist.get_backend() == "gloo"
+                           else "cuda")
         mesh = init_device_mesh(device_type, (dp, mp),
                                 mesh_dim_names=(cfg.data_axis,
                                                 cfg.model_axis))

@@ -54,8 +54,12 @@ Under context parallelism with ``tp`` / ``fsdp+tp`` the single-object
 path runs by rows with each layer's split leaves gathered whole, and the
 batched path runs ``tp``'s column and row modes on the same placed model:
 the mode is set on every call (``MeshEnv.split_rows``).
-``lower_step_many`` (the JAX package's StableHLO hook) waits for ROADMAP
-A11.
+
+:meth:`Sampler.lower_step_many` is the analysis hook (the JAX package's
+``.lower`` on abstract arguments): the same prologue, step body and
+commit that :meth:`Sampler.step_many` runs, traced on fake tensors into
+an :class:`~diff3d_tpu_torch.analysis.ir.Program` (nothing allocated on
+a device, nothing executed).
 """
 
 from __future__ import annotations
@@ -365,10 +369,7 @@ class Sampler:
             rec, record_R[mine], record_T[mine], lens[mine], K[mine],
             draws[mine], None if drafts is None else drafts[mine]))
         full = self._gather_views(out.contiguous(), world)
-        at = torch.arange(world * m, device=record_imgs.device)
-        record_imgs[at, torch.tensor(lens, device=record_imgs.device)] = \
-            full.to(record_imgs.dtype)
-        return full, record_imgs, [s + 1 for s in lens]
+        return self._commit(full, record_imgs, lens)
 
     def _gather_views(self, out: torch.Tensor, world: int) -> torch.Tensor:
         """Every rank's views, rank-major, over :attr:`gather_group` (the
@@ -396,22 +397,26 @@ class Sampler:
         self.gather_stats["seconds"] += time.perf_counter() - t0
         return full
 
+    def _new_loop(self, N: int, capacity: int, H: int, W: int,
+                  dtype: torch.dtype, w: torch.Tensor) -> ReverseLoop:
+        d = self.cfg.diffusion
+        model = self.model
+
+        def denoise(batch, cond_mask):
+            return model(batch, cond_mask)
+
+        return ReverseLoop(
+            denoise, n_objects=N, capacity=capacity,
+            n_steps=self.model_calls_per_view, w=w, H=H, W=W,
+            record_dtype=dtype, logsnr_max=d.logsnr_max, clip_x0=d.clip_x0,
+            deterministic=(self.sampler_kind == "ddim"))
+
     def _loop(self, N: int, capacity: int, H: int, W: int,
               dtype: torch.dtype) -> tuple:
         key = (N, capacity, H, W, dtype)
         if key not in self._loops:
-            d = self.cfg.diffusion
-            model = self.model
-
-            def denoise(batch, cond_mask):
-                return model(batch, cond_mask)
-
-            self._loops[key] = ReverseLoop(
-                denoise, n_objects=N, capacity=capacity,
-                n_steps=self.model_calls_per_view, w=self.w, H=H, W=W,
-                record_dtype=dtype, logsnr_max=d.logsnr_max,
-                clip_x0=d.clip_x0,
-                deterministic=(self.sampler_kind == "ddim"))
+            self._loops[key] = self._new_loop(N, capacity, H, W, dtype,
+                                              self.w)
         return key, self._loops[key]
 
     def _prepare(self, loop: ReverseLoop, record_imgs, record_R, record_T,
@@ -471,11 +476,116 @@ class Sampler:
         per = self.model_calls_per_view // self.scan_chunks
         for _ in range(self.scan_chunks):
             self._segment(key, loop, per)
-        out = loop.img.clone()
-        at = torch.arange(N, device=record_imgs.device)
+        return self._commit(loop.img.clone(), record_imgs, lens)
+
+    @staticmethod
+    def _commit(out, record_imgs, lens: List[int]) -> tuple:
+        """Write each object's new view ``out [N, B, H, W, 3]`` into its
+        record at its depth, in place."""
+        at = torch.arange(len(lens), device=record_imgs.device)
         record_imgs[at, torch.tensor(lens, device=record_imgs.device)] = \
             out.to(record_imgs.dtype)
         return out, record_imgs, [s + 1 for s in lens]
+
+    def lower_step_many(self, lanes: int, capacity: int, *,
+                        H: Optional[int] = None, W: Optional[int] = None):
+        """Trace the :meth:`step_many` program for ``lanes`` objects at
+        record ``capacity`` on fake tensors (nothing staged, nothing
+        executed) -- the analysis hook (``python -m
+        diff3d_tpu_torch.analysis``).
+
+        Returns an :class:`~diff3d_tpu_torch.analysis.ir.Program` of three
+        parts: ``prologue`` (on a mesh this rank's share of the records
+        taken, then every object's draws and the loop's loads; one
+        generator per object), ``step`` (the reverse step that the graph
+        path captures, replayed once per model call) and ``commit`` (the
+        views written into the records in place, after the views' gather
+        on a mesh).  The objects sit at record depth 1, as the serving
+        warm-up's do; the fake tensors are on the sampler's device.  As
+        in the JAX package, ``lanes`` must be a multiple
+        of :attr:`lane_multiple`, and only a ``scan_chunks == 1`` sampler
+        is one program."""
+        from diff3d_tpu_torch.analysis import ir
+
+        if self.scan_chunks != 1:
+            raise ValueError(
+                "lower_step_many: scan_chunks="
+                f"{self.scan_chunks} composes several programs in Python; "
+                "lower a scan_chunks=1 sampler instead")
+        if lanes % self.lane_multiple:
+            raise ValueError(
+                f"lower_step_many: lanes={lanes} is not a multiple of the "
+                f"mesh's data-axis size {self.lane_multiple}")
+        B = int(self.w.shape[0])
+        H = self.cfg.model.H if H is None else int(H)
+        W = self.cfg.model.W if W is None else int(W)
+        tr = ir.Tracer(self.device)
+        params = tr.params(self.model)
+        inputs = {f"params.{n}": t for n, t in params.items()}
+        inputs.update(
+            record_imgs=tr.empty((lanes, capacity, B, H, W, 3)),
+            record_R=tr.empty((lanes, capacity, 3, 3)),
+            record_T=tr.empty((lanes, capacity, 3)),
+            K=tr.empty((lanes, 3, 3)), w=tr.empty((B,)))
+        drafts = None
+        if self.start_t is not None:
+            drafts = inputs["drafts"] = tr.empty((lanes, B, H, W, 3))
+        world = self.lane_multiple
+        m = lanes // world
+        rank = 0 if world == 1 else self.mesh.data_rank
+        mine = slice(rank * m, (rank + 1) * m)
+        lens = [1] * lanes
+        draws = [Draws(torch.Generator(tr.device)) for _ in range(m)]
+        with tr.mode:
+            loop = self._new_loop(m, capacity, H, W, torch.float32,
+                                  inputs["w"])
+        inputs.update({f"loop.{k}": v for k, v in vars(loop).items()
+                       if isinstance(v, torch.Tensor)})
+        rec_i, rec_R, rec_T, K = (inputs[k] for k in (
+            "record_imgs", "record_R", "record_T", "K"))
+        share = {}
+        from torch.nn.utils.stateless import _reparametrize_module
+
+        def traced(fn):
+            def run():
+                with torch.inference_mode(), \
+                        _reparametrize_module(self.model, params):
+                    return fn()
+            return tr.trace(run)
+
+        def prologue():
+            rec = rec_i if world == 1 else rec_i[mine].clone()
+            share["rec"] = rec
+            self._prepare(loop, rec, rec_R[mine], rec_T[mine], lens[mine],
+                          K[mine], draws,
+                          None if drafts is None else drafts[mine])
+            return rec
+
+        def commit():
+            out, _, _ = self._commit(loop.img.clone(), share["rec"],
+                                     lens[mine])
+            if world > 1:
+                full = self._gather_views(out.contiguous(), world)
+                out = self._commit(full, rec_i, lens)[0]
+            return out
+
+        self._split_rows(False)
+        parts = [ir.Part("prologue", traced(prologue)),
+                 ir.Part("step", traced(loop.step),
+                         self.model_calls_per_view),
+                 ir.Part("commit", traced(commit))]
+        return ir.Program(
+            name="step_many", device=str(tr.device), parts=parts,
+            inputs=inputs, donated=("record_imgs",),
+            placement=ir.placement_table(self.model),
+            expected_placement=(
+                ir.placement_table(self.model) if self.mesh is None else
+                ir.policy_table(self.mesh, self.model, shards=False)),
+            config={"lanes": lanes, "capacity": capacity, "H": H, "W": W,
+                    "B": B, "steps": self.model_calls_per_view,
+                    "sampler": self.sampler_kind,
+                    "start_t": self.start_t, "world": world,
+                    "ch": self.cfg.model.ch})
 
     def _record_init(self, imgs0, R, T, n_views):
         """Record buffers on the host: view 0 seeded, all poses

@@ -298,6 +298,18 @@ class ProgramCache:
         out.cpu()
         return time.monotonic() - t0
 
+    def lower(self, bucket, lanes: int):
+        """The ``(bucket, lanes)`` view-step program traced on fake tensors
+        (nothing staged, nothing executed): the analysis hook.  It goes
+        through the same routing as :meth:`step_many` (``_sampler_for``),
+        so the traced program is the one :meth:`warmup` captures;
+        returns :meth:`Sampler.lower_step_many`'s
+        :class:`~diff3d_tpu_torch.analysis.ir.Program`."""
+        sampler = self._sampler_for(bucket)
+        H, W, cap = tuple(bucket)[:3]
+        return sampler.lower_step_many(int(lanes), int(cap), H=int(H),
+                                       W=int(W))
+
     def supported_schedules(self) -> list:
         """Sorted ``"kind:steps"`` strings of the routable samplers."""
         return sorted(f"{k[0]}:{k[1]}" for k in self._samplers)

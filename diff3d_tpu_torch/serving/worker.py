@@ -19,12 +19,16 @@ when admitting a request would push its card past its budget::
 ``resident_record_bytes`` counts the staged records of every request
 still in flight on this worker (:meth:`HbmAdmission.record_bytes`: the
 port's float32 record, poses and intrinsics of one lane);
-``program_peak_bytes`` is the pin of the request's program.  The JAX
-package reads its pins from StableHLO memory manifests; the port has no
-such analysis, so its pins are the bytes each captured program added at
-its peak at first use, which ``ProgramCache`` measures on the card —
-:func:`boot_worker` captures every lane count of every schedule at boot
-(the warm-up) and takes the largest reading per program.  Budget,
+``program_peak_bytes`` is the pin of the request's program: the bytes
+each captured program added at its peak at first use, which
+``ProgramCache`` measures on the card — :func:`boot_worker` captures
+every lane count of every schedule at boot (the warm-up) and takes the
+largest reading per program.  With ``memcheck_dir`` (``worker_cli
+--memcheck_dir``), the pins of the memory manifests there
+(``python -m diff3d_tpu_torch.analysis memcheck``: the traced programs'
+peak by liveness, :func:`memcheck_pins`) take the place of the measured
+ones for their programs, as the JAX package's worker reads its
+StableHLO memory manifests.  Budget,
 resident and headroom surface on the ``state`` RPC, ``health()`` and
 ``GET /stats`` so the router and operators see the same arithmetic that
 rejected the request.
@@ -77,6 +81,36 @@ def program_for_schedule(sampler_kind: Optional[str],
     return f"step_many_{sampler_kind}"
 
 
+def memcheck_pins(manifest_dir: str) -> Tuple[Dict[str, int],
+                                              Dict[str, dict]]:
+    """``(pins, configs)``: each serving program's ``budgets.peak_bytes``
+    from the port's memory manifest in ``manifest_dir``
+    (``<program>.json``), and the config it was traced at.  A missing
+    manifest (or directory) pins nothing; an unreadable one is logged and
+    skipped -- the JAX worker's behaviour."""
+    import json
+    import os
+
+    from diff3d_tpu_torch.analysis import manifests, memcheck
+
+    pins: Dict[str, int] = {}
+    configs: Dict[str, dict] = {}
+    for program in memcheck.SERVING_PROGRAMS:
+        path = manifests.manifest_path(program, manifest_dir)
+        if not os.path.exists(path):
+            continue
+        try:
+            data = manifests.load(path, memcheck.TOOL)
+            pins[program] = int(data["budgets"]["peak_bytes"])
+        except (ValueError, KeyError, TypeError,
+                json.JSONDecodeError) as e:
+            log.warning("hbm admission: unreadable manifest %s: %s", path,
+                        e)
+            continue
+        configs[program] = data.get("observed", {}).get("config", {})
+    return pins, configs
+
+
 def pins_from_stats(stats: dict) -> Dict[str, int]:
     """Per program name, the largest bytes any of its captured graphs
     added at its peak at first use (``ProgramCache.stats(
@@ -98,13 +132,17 @@ class HbmAdmission:
     admission, released when the request resolves) and the per-program
     peak pins (``program_peaks``, by :func:`program_for_schedule` name).
     ``budget_bytes <= 0`` disables the gate.  ``guidance_B`` is the
-    record's guidance-weight axis (8 for w = 0..7).
+    record's guidance-weight axis (8 for w = 0..7).  ``measured_peaks``
+    (the warm-up's readings) and ``pin_sources`` (where each pin came
+    from) are reported beside the pins (:meth:`pin_report`), not used.
     """
 
     def __init__(self, budget_bytes: int = 0,
                  program_peaks: Optional[Dict[str, int]] = None,
                  replica_name: str = "?", retry_after_s: float = 5.0,
-                 guidance_B: int = 8):
+                 guidance_B: int = 8,
+                 measured_peaks: Optional[Dict[str, int]] = None,
+                 pin_sources: Optional[Dict[str, str]] = None):
         self.budget_bytes = int(budget_bytes)
         self.replica_name = replica_name
         self.retry_after_s = float(retry_after_s)
@@ -114,6 +152,8 @@ class HbmAdmission:
         self._rejects = 0  # guarded-by: self._lock
         self._warned_unpinned: set = set()  # guarded-by: self._lock
         self.program_peaks: Dict[str, int] = dict(program_peaks or {})
+        self.measured_peaks: Dict[str, int] = dict(measured_peaks or {})
+        self.pin_sources: Dict[str, str] = dict(pin_sources or {})
 
     def record_bytes(self, req: ViewRequest) -> int:
         """Device footprint of one admitted request's lane: the float32
@@ -185,6 +225,14 @@ class HbmAdmission:
     def release(self, request_id: str) -> None:
         with self._lock:
             self._reserved.pop(request_id, None)
+
+    def pin_report(self) -> dict:
+        """Where the pins came from: the warm-up's readings beside them
+        and each pin's source (the worker's ``snapshot`` RPC,
+        ``hbm_pins``)."""
+        return {"program_peaks": dict(self.program_peaks),
+                "measured_program_peaks": dict(self.measured_peaks),
+                "pin_sources": dict(self.pin_sources)}
 
     def snapshot(self) -> dict:
         """The /stats + state-RPC block: the exact arithmetic admission
@@ -406,6 +454,7 @@ class Worker:
         if op == "snapshot":
             snap = dict(self.replica.snapshot())
             snap["hbm"] = self.admission.snapshot()
+            snap["hbm_pins"] = self.admission.pin_report()
             snap["kernel_launches"] = self._kernel_launches()
             return snap
         if op == "drain":
@@ -618,7 +667,8 @@ def boot_worker(cfg: Config, *, name: str, devices: List[int],
                 params_version: str = "v0",
                 host: str = "127.0.0.1", port: int = 0,
                 hbm_budget_bytes: int = 0, scan_chunks: int = 1,
-                rank_devices: Optional[List[str]] = None
+                rank_devices: Optional[List[str]] = None,
+                memcheck_dir: Optional[str] = None
                 ) -> Optional[Worker]:
     """Build a worker (not started): model + samplers on its card or
     slice, replica, warm-up, admission gate, socket server.
@@ -634,9 +684,10 @@ def boot_worker(cfg: Config, *, name: str, devices: List[int],
     seeded random initialisation (rank 0's, on every rank).  The warm-up
     captures every lane count up to ``max_batch`` of every schedule at
     the ``max_views`` record capacity; on the card their first-use bytes
-    become the admission pins.  Rank 0 returns the worker once every rank
-    warmed up; every other rank follows rank 0's engine until it stops
-    and returns None."""
+    become the admission pins, except where ``memcheck_dir``'s memory
+    manifests pin a program (:func:`memcheck_pins`).  Rank 0 returns the
+    worker once every rank warmed up; every other rank follows rank 0's
+    engine until it stops and returns None."""
     import torch
     import torch.distributed as dist
 
@@ -712,10 +763,27 @@ def boot_worker(cfg: Config, *, name: str, devices: List[int],
             log.info("worker %s: warmed %s:%d at %d lanes in %.1fs", name,
                      s.sampler_kind, s.steps, lanes, secs)
     rank_stats = eng.rank_program_stats()
+    measured = rank_pins(rank_stats)
+    pins = dict(measured)
+    sources = {program: "warm-up" for program in measured}
+    if memcheck_dir is not None:
+        from diff3d_tpu_torch.analysis.manifests import manifest_path
+
+        loaded, configs = memcheck_pins(memcheck_dir)
+        for program, peak in sorted(loaded.items()):
+            log.info("worker %s: admission pin of %s from %s: %d bytes "
+                     "(warm-up: %s), traced at %s (this worker: H %d, ch "
+                     "%d, max_batch %d, max_views %d)", name, program,
+                     memcheck_dir, peak, measured.get(program),
+                     configs.get(program), cfg.model.H, cfg.model.ch,
+                     eng.max_batch, cfg.serving.max_views)
+            sources[program] = manifest_path(program, memcheck_dir)
+        pins.update(loaded)
     admission = HbmAdmission(
-        hbm_budget_bytes, program_peaks=rank_pins(rank_stats),
+        hbm_budget_bytes, program_peaks=pins,
         replica_name=name, retry_after_s=cfg.serving.retry_after_s,
-        guidance_B=eng.guidance_B)
+        guidance_B=eng.guidance_B, measured_peaks=measured,
+        pin_sources=sources)
     worker = Worker(replica, cfg, host=host, port=port, admission=admission,
                     default_sampler_kind=sampler_kind)
     worker.rank_programs = [st["num_programs"] for st in rank_stats]

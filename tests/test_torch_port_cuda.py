@@ -1411,3 +1411,111 @@ def test_split_groupnorm_refuses_wide_groups(cuda):
     x = torch.zeros(1, 4, 1024, device=cuda)
     with pytest.raises(ValueError):
         cuda_film.groupnorm_partial_sums(x, num_groups=2)
+
+
+def _op_cases(cuda, dtype):
+    """Every dispatcher op (``ops/library.py``) with operands on the card,
+    its plain version's outputs on the same operands, and the wrapper
+    whose launch count it adds to."""
+    f, a = cuda_film, cuda_attention
+    N, L, C, G = 4, 300, 256, 32
+    x, g, gamma, beta, sc, sh = _split_inputs(cuda, N, L, C, dtype)
+    stats = f.groupnorm_stats_reference(x, G)
+    sums = f.groupnorm_partial_sums_reference(x, G)
+    bsums = f.groupnorm_backward_partial_sums_reference(
+        x, g, gamma, beta, sc, sh, stats, num_groups=G, silu=True)[0]
+    kw = dict(num_groups=G, silu=True)
+    B, Lq, Lk, H, D = 2, 96, 80, 4, 64
+    gen = torch.Generator(cuda).manual_seed(12)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device=cuda).to(dtype)
+
+    q, k, v, do = r(B, Lq, H, D), r(B, Lk, H, D), r(B, Lk, H, D), \
+        r(B, Lq, H, D)
+    s = 0.125
+    o, lse = a.attention_lse_reference(q, k, v, s)
+    glse = torch.randn((B, H, Lq), generator=gen, device=cuda)
+    # The ops take the wrappers' checked operands: [B, H, Lq] rows
+    # contiguous.
+    delta = a.attention_delta_reference(o, do, glse).contiguous()
+    dq, dk, dv = a._backward_reference(q, k, v, lse, do, delta, s)
+    gb = f.groupnorm_backward_reference(x, g, gamma, beta, sc, sh, stats,
+                                        **kw)
+    return {
+        "gn_forward": ((x, gamma, beta, sc, sh, G, True),
+                       f.groupnorm_reference(x, gamma, beta, scale=sc,
+                                             shift=sh, **kw),
+                       "fused_groupnorm"),
+        "gn_forward_stats": ((x, gamma, beta, None, None, G, False),
+                             (f.groupnorm_reference(
+                                 x, gamma, beta, num_groups=G, stats=stats),
+                              stats), "fused_groupnorm"),
+        "gn_backward": ((x, g, gamma, beta, sc, sh, stats, G, True),
+                        [gb[0], gb[3], gb[4], gb[1], gb[2]],
+                        "groupnorm_backward"),
+        "gn_split_sums": ((x, G), sums, "groupnorm_partial_sums"),
+        "gn_split_apply": ((x, gamma, beta, sc, sh, sums, L, G, True),
+                           f.groupnorm_apply_sums_reference(
+                               x, gamma, beta, sc, sh, sums, length=L, **kw),
+                           "groupnorm_apply_sums"),
+        "gn_split_backward_sums": (
+            (x, g, gamma, beta, sc, sh, stats, G, True),
+            f.groupnorm_backward_partial_sums_reference(
+                x, g, gamma, beta, sc, sh, stats, **kw),
+            "groupnorm_backward_partial_sums"),
+        "gn_split_backward_apply": (
+            (x, g, gamma, beta, sc, sh, stats, bsums, L, G, True),
+            f.groupnorm_backward_apply_sums_reference(
+                x, g, gamma, beta, sc, sh, stats, bsums, length=L, **kw),
+            "groupnorm_backward_apply_sums"),
+        "flash_forward": ((q, k, v, s), a.attention_reference(q, k, v, s),
+                          "flash_attention"),
+        "flash_forward_lse": ((q, k, v, s), (o, lse), "flash_attention"),
+        "flash_backward_dkdv": ((q, k, v, o, lse, do, glse, s),
+                                (a._rounded(q, dk), a._rounded(q, dv),
+                                 delta), "attention_backward_dkdv"),
+        "flash_backward_dq": ((q, k, v, o, lse, do, delta, s),
+                              a._rounded(q, dq), "attention_backward_dq"),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["gn_forward", "gn_forward_stats",
+                                "gn_backward", "gn_split_sums",
+                                "gn_split_apply", "gn_split_backward_sums",
+                                "gn_split_backward_apply", "flash_forward",
+                                "flash_forward_lse", "flash_backward_dkdv",
+                                "flash_backward_dq"])
+def test_each_op_launches_its_kernel_and_matches_plain(cuda, op, dtype):
+    """Each op called through the dispatcher on card tensors: its CUDA
+    implementation (the kernel, one launch on its wrapper's count)
+    against the plain version (f32 1e-5, bf16 one ulp; sums 1e-4), and
+    one node in a trace on fake CUDA tensors."""
+    from diff3d_tpu_torch.analysis import ir
+    from diff3d_tpu_torch.ops import KERNEL_WRAPPERS, library
+
+    args, want, wrapper = _op_cases(cuda, dtype)[op]
+    before = KERNEL_WRAPPERS[wrapper].launches
+    got = library.OPS[op](*args)
+    assert KERNEL_WRAPPERS[wrapper].launches == before + 1
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    assert len(got) == len(want)
+    sums = ("flash_backward_dkdv", "flash_backward_dq",
+            "gn_split_backward_sums")
+    for u, w in zip(got, want):
+        assert u.is_cuda and u.shape == w.shape and u.dtype == w.dtype
+        if u.dtype == torch.float64:
+            torch.testing.assert_close(u, w, rtol=1e-12, atol=1e-9)
+        else:
+            _close(u, w, u.dtype,
+                   SUM_TOL if u.dim() <= 1 or op in sums else TOL)
+    tr = ir.Tracer(cuda)
+    fake = [tr.mode.from_tensor(t) if torch.is_tensor(t) else t
+            for t in args]
+    gm = tr.trace(lambda: library.OPS[op](*fake))
+    nodes = [n for n in gm.graph.nodes
+             if library.op_name(n.target) == op]
+    assert len(nodes) == 1
+    assert KERNEL_WRAPPERS[wrapper].launches == before + 1

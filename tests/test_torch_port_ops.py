@@ -471,6 +471,7 @@ def test_port_imports_no_jax_and_no_reference_package():
               REPO / "tests" / "_torch_port_distill_worker.py",
               REPO / "tests" / "_torch_port_serving_mesh_worker.py",
               REPO / "tests" / "_torch_port_serving_mesh_fleet_worker.py",
+              REPO / "tests" / "_torch_port_analysis_worker.py",
               REPO / "tools" / "serve_nan_witness.py",
               REPO / "tools" / "chip_smoke_parallel_phases.py"]
     assert len(files) > 15

@@ -437,7 +437,7 @@ def test_worker_cli_without_device_and_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--compile_cache", "/tmp/c"], ["--host_device_count", "8"],
-    ["--memcheck_dir", "runs/memcheck"], ["--devices", ""]])
+    ["--devices", "0,0"], ["--devices", ""]])
 def test_worker_cli_refuses_flags_without_a_counterpart(argv):
     base = ["--device", "cpu", "--config", "test", "--init", "random"]
     if "--devices" not in argv:
